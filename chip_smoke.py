@@ -38,12 +38,41 @@ on the first phase that fails. Phases:
    for shape and score order, with its p50 and p95 latency. The FM kernel
    must have run.
 
+6. DIN training at full width (``bench.py:38-64`` with ``bench.py:230-266``'s
+   dense trainer: the phase 4 schema and widths, bf16 dense compute, fp32
+   params, ``loss='bce'``, Adam lr 1e-3 eps 1e-7, a B=8192 batch made as
+   ``bench.py:75-87`` with seed 1), through ``Trainer(cfg, info)`` →
+   ``init_state`` → ``device_batch`` → ``train_step``:
+   - the DIN backward kernel against ``din_attention_bwd_plain`` at the
+     training shape (with and without PReLU slopes) and at ragged shapes,
+     each output's error in units of its limit (``bwd_reading``); a backward
+     that ignores the mask or drops the slopes must read above the limit;
+     its device time, bound and the plain version's time;
+   - one fp32 train step from the same weights and batch with the kernels
+     against one with the plain attention forward and backward: the loss,
+     every gradient and every parameter after Adam (``STEP_*``); a backward
+     that ignores the mask must miss the gradient limit;
+   - three fp32 steps on the card against the port on the CPU on the first
+     256 rows: the loss of each step (``CPU_LOSS_TOL``);
+   - 30 steps on the fixed batch: every loss finite, the last below the
+     first, each kernel launched once a step; step p50 (host clock,
+     synchronised, steps 10-29) and examples/s; a CUDA-event breakdown of
+     a step (host→device copy, forward, backward, optimizer, metrics);
+   - ``run`` over small batches with a checkpoint directory, ``restore``
+     (identical state), ``export`` → ``load_servable`` → ``predict``, which
+     must equal ``Trainer.infer`` (fp32 compute, since the export, as the
+     JAX package's, drops the compute dtype).
+
+TF32 is off for the whole run (``allow_tf32 = False`` for matmul and
+cuDNN), so every fp32 comparison is fp32 on both sides.
+
 The second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -52,6 +81,7 @@ import sys
 import tempfile
 import time
 import urllib.request
+import warnings
 from unittest import mock
 
 import numpy as np
@@ -67,6 +97,24 @@ DIN_ATT_TOL = dict(atol=1e-6, rtol=1e-4)
 DIN_POOLED_TOL = dict(atol=1e-6, rtol=2.0**-7)
 DIN_LOGIT_TOL = 1e-3
 DIN_LOGIT_TOL_CPU = 1e-3
+# DIN training (phase 6). The backward's parameter gradients are sums over
+# B·L terms taken in another order: held at 1e-4 of their largest value.
+DIN_BWD_PARAM_RTOL = 1e-4
+# One fp32 train step, kernels against the plain attention: the loss, each
+# gradient against 1e-3 of its largest value, each parameter after Adam
+# (its first step moves a weight by about lr = 1e-3).
+STEP_LOSS_TOL = 1e-5
+STEP_GRAD_RTOL = 1e-3
+STEP_PARAM_TOL = 1e-5
+# the loss of each of three fp32 steps, card against CPU (one Adam step
+# moves the loss by ~1e-3)
+CPU_LOSS_TOL = 2e-5
+TRAIN_BATCH = 8192
+TRAIN_STEPS = 30
+DIN_FEATURES = dict(
+    user_features=["user_tag"], item_features=["item_id", "item_tag"],
+    sequence_features=["history"],
+)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -108,6 +156,21 @@ def max_err(torch, got, want) -> float:
     return max(float((g - w).abs().max()) for g, w in zip(got, want))
 
 
+def din_inputs(torch, gen, b, l, d, h):
+    """DIN attention inputs: query, keys, a mask of lengths L/4..L, w1, b1,
+    w2 and PReLU slopes, drawn from ``gen``."""
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device="cuda", generator=gen)
+
+    lengths = torch.randint(l // 4, l + 1, (b,), device="cuda", generator=gen)
+    mask = (torch.arange(l, device="cuda")[None, :] < lengths[:, None]).float()
+    return [
+        randn(b, d), randn(b, l, d), mask, randn(4 * d, h, scale=0.2), randn(h, scale=0.1),
+        randn(h, scale=0.2), torch.rand(h, device="cuda", generator=gen),
+    ]
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 def check_kernels(torch, kernels):
@@ -119,19 +182,17 @@ def check_kernels(torch, kernels):
     records = {}
     # DIN attention at the serving shape
     b, l, d, h = 8192, 64, 32, 36
-    lengths = torch.randint(l // 4, l + 1, (b,), device="cuda", generator=gen)
-    mask = (torch.arange(l, device="cuda")[None, :] < lengths[:, None]).float()
-    args = (
-        randn(b, d), randn(b, l, d), mask, randn(4 * d, h, scale=0.2), randn(h, scale=0.1),
-        randn(h, scale=0.2), torch.rand(h, device="cuda", generator=gen),
-    )
+    args = din_inputs(torch, gen, b, l, d, h)
     err = max_err(torch, kernels.din_attention_fused(*args), kernels.din_attention_plain(*args))
-    nbytes = 4 * (b * d + b * l * d + b * l + 4 * d * h + 3 * h + b * d + b * l)
-    ops = b * l * (2 * d * h + 6 * h + 1) + b * (6 * d * h + h) + 2 * b * l * d
+    # what this run's mask needs: keys are read and scored at live steps
+    # only (a masked step's score is 0 and adds nothing to pooled)
+    live = int(args[2].sum())
+    nbytes = 4 * (b * d + live * d + b * l + 4 * d * h + 3 * h + b * d + b * l)
+    ops = live * (2 * d * h + 6 * h + 1) + b * (6 * d * h + h) + 2 * live * d
     bound_ms, bound_by = bound(nbytes, ops)
     records["din_attention"] = dict(
         name="din_attention", route="cuda", source="tpurec_torch/csrc/din_attention.cu",
-        replaces="tpurec/ops/pallas/kernels.py:350", shape=[b, l, d, h], max_abs_err=err,
+        replaces="tpurec/ops/pallas/kernels.py:350", shape=[b, l, d, h], live_steps=live, max_abs_err=err,
         ms=device_ms(torch, lambda: kernels.din_attention_fused(*args)),
         plain_ms=device_ms(torch, lambda: kernels.din_attention_plain(*args)),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
@@ -174,27 +235,29 @@ def din_batch(info, batch_size, seq_len, seed=0):
         lengths = rng.integers(seq_len // 4, seq_len + 1, size=(batch_size,))
         mask = np.arange(seq_len)[None, :] < lengths[:, None]
         batch[sname] = np.where(mask, seq, 0)
+    batch["label"] = rng.integers(0, 2, size=(batch_size,)).astype(np.float32)
     return batch
+
+
+def din_info():
+    from tpurec_torch.data.schema import DataInfo
+
+    return DataInfo.from_dims(
+        ["user_tag", "item_id", "item_tag"], [1000, 20000, 500],
+        sequence_names=["history"], max_seq_length=64, padding_index=0,
+    )
 
 
 def run_din_servable(torch, kernels, workdir, card):
     from tpurec_torch.config import EmbeddingConfig, ModelConfig
-    from tpurec_torch.data.schema import DataInfo
     from tpurec_torch.models import build_model
     from tpurec_torch.serving.export import load_servable
     from tpurec_torch.train.checkpoint import export_params
 
     seq_len, batch_size = 64, 8192
-    info = DataInfo.from_dims(
-        ["user_tag", "item_id", "item_tag"], [1000, 20000, 500],
-        sequence_names=["history"], max_seq_length=seq_len, padding_index=0,
-    )
+    info = din_info()
     config = ModelConfig(
-        name="din",
-        params={
-            "user_features": ["user_tag"], "item_features": ["item_id", "item_tag"],
-            "sequence_features": ["history"], "dtype": "bfloat16",
-        },
+        name="din", params=dict(DIN_FEATURES, dtype="bfloat16"),
         embedding=EmbeddingConfig(dim=32),
     )
     model = build_model(config, info, device="cuda", seed=0)
@@ -397,6 +460,309 @@ def run_http(torch, kernels, workdir, card, n_requests=200):
     return launches, result
 
 
+# ---------------------------------------------------------------------------
+# phase 6: DIN training at full width
+BWD_NAMES = ("dq", "dkeys", "dw1", "db1", "dw2", "dalpha")
+
+
+def tol_ratio(got, want, atol, rtol) -> float:
+    """max |got − want| / (atol + rtol·|want|): at most 1 passes (the
+    elementwise test of ``torch.testing.assert_close``)."""
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def scaled_ratio(got, want, rtol) -> float:
+    """max |got − want| / (rtol · max |want|): at most 1 passes."""
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    return err / (rtol * scale) if scale > 0 else (0.0 if err == 0 else float("inf"))
+
+
+def bwd_reading(got, want) -> dict:
+    """Each backward output's error in units of its limit (at most 1
+    passes): dq and dkeys elementwise at ``KERNEL_TOL``, the parameter
+    gradients at ``DIN_BWD_PARAM_RTOL`` of their largest value."""
+    return {
+        name: tol_ratio(g, w, **KERNEL_TOL) if name in ("dq", "dkeys")
+        else scaled_ratio(g, w, DIN_BWD_PARAM_RTOL)
+        for name, g, w in zip(BWD_NAMES, got, want)
+    }
+
+
+def check_din_backward(torch, kernels):
+    """The DIN backward kernel against its plain version (phase 6)."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def case(b, l, d, h):
+        args = din_inputs(torch, gen, b, l, d, h)
+        cot = [torch.randn(b, d, device="cuda", generator=gen),
+               torch.randn(b, l, device="cuda", generator=gen)]
+        return args, cot
+
+    b, l, d, h = TRAIN_BATCH, 64, 32, 36
+    args, cot = case(b, l, d, h)
+    relu = args[:6] + [torch.zeros_like(args[6])]
+    no_mask = args[:2] + [torch.ones_like(args[2])] + args[3:]
+    readings, err = {}, 0.0
+    for name, a in (("prelu", args), ("relu", relu)):
+        got = kernels.din_attention_bwd_fused(*a, *cot)
+        want = kernels.din_attention_bwd_plain(*a, *cot)
+        readings[name] = bwd_reading(got, want)
+        err = max(err, max(float((g - w).abs().max()) for g, w in zip(got, want)))
+    # what a backward that ignores the mask or drops the slopes would read
+    want = kernels.din_attention_bwd_plain(*args, *cot)
+    readings["broken_mask_ignored"] = bwd_reading(kernels.din_attention_bwd_plain(*no_mask, *cot), want)
+    readings["broken_alpha_dropped"] = bwd_reading(kernels.din_attention_bwd_plain(*relu, *cot), want)
+    # ragged: B that is no multiple of the grid, L = 1, D = 8/16/64, H that
+    # is no multiple of 4
+    for shape in ((1003, 64, 32, 36), (37, 1, 32, 36), (300, 64, 8, 36), (300, 64, 16, 36),
+                  (300, 48, 64, 36), (257, 33, 16, 7)):
+        a, c = case(*shape)
+        readings["x".join(map(str, shape))] = bwd_reading(
+            kernels.din_attention_bwd_fused(*a, *c), kernels.din_attention_bwd_plain(*a, *c)
+        )
+    print("din backward readings (error / limit):", json.dumps(readings), flush=True)
+    for name, r in readings.items():
+        worst = max(r.values())
+        if name.startswith("broken"):
+            check(worst > 1.0, f"the backward check cannot tell a {name} backward from a sound one")
+        else:
+            check(worst <= 1.0, f"din backward kernel vs plain at {name}: {r}")
+
+    # What this run's mask needs: a masked step has s = 0 and dlin = 0, so its
+    # dkeys row is 0 and it adds nothing to the sums. Bytes: q, mask, w1, b1,
+    # w2, alpha, gp read, keys and gs read at live steps, dq, all of dkeys,
+    # dw1, db1, dw2, dalpha written. Operations of the fold algorithm: per row
+    # the fold (2 D·H FMAs), dq and the running sums (4 D·H); per live step
+    # lin, dkeys and M (3 D·H) and gp·k (D), ~8 per column for the activation.
+    live = int(args[2].sum())
+    nbytes = 4 * (3 * b * d + live * d + b * l * d + b * l + live + 2 * (4 * d * h + 3 * h))
+    ops = 2 * (3 * live * d * h + 6 * b * d * h + live * d) + 8 * live * h
+    bound_ms, bound_by = bound(nbytes, ops)
+    rec = dict(
+        name="din_attention_bwd", route="cuda", source="tpurec_torch/csrc/din_attention_bwd.cu",
+        replaces="tpurec/ops/pallas/kernels.py:484", shape=[b, l, d, h], live_steps=live, max_abs_err=err,
+        ms=device_ms(torch, lambda: kernels.din_attention_bwd_fused(*args, *cot)),
+        plain_ms=device_ms(torch, lambda: kernels.din_attention_bwd_plain(*args, *cot)),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+    )
+    print("kernel check:", json.dumps(rec), flush=True)
+    return rec
+
+
+def din_train_config(dtype, **train):
+    from tpurec_torch.config import (
+        EmbeddingConfig, ExperimentConfig, ModelConfig, OptimizerConfig, TrainConfig,
+    )
+
+    return ExperimentConfig(
+        model=ModelConfig(name="din", params=dict(DIN_FEATURES), embedding=EmbeddingConfig(dim=32)),
+        train=TrainConfig(
+            batch_size=TRAIN_BATCH, loss="bce", log_every_steps=0, compute_dtype=dtype,
+            optimizer=OptimizerConfig(learning_rate=1e-3), **train,
+        ),
+    )
+
+
+def one_train_step(torch, kernels, trainer, batch, attention=None):
+    """One train step from the trainer's seeded weights: (loss, gradients,
+    parameters after the update). ``attention`` = (forward, backward) takes
+    the kernels' place."""
+    with contextlib.ExitStack() as stack:
+        if attention is not None:
+            stack.enter_context(mock.patch.object(kernels, "din_attention_fused", attention[0]))
+            stack.enter_context(mock.patch.object(kernels, "din_attention_bwd_fused", attention[1]))
+        state = trainer.init_state(batch)
+        state, _, logs = trainer.train_step(state, trainer.device_batch(batch), trainer.metrics.init())
+    named = list(state.model.named_parameters())
+    grads = {n: torch.zeros_like(p) if p.grad is None else p.grad.detach().clone() for n, p in named}
+    return float(logs["loss"]), grads, {n: p.detach().clone() for n, p in named}
+
+
+def step_reading(got, want) -> dict:
+    (loss, grads, params), (want_loss, want_grads, want_params) = got, want
+    grad = {n: scaled_ratio(grads[n], want_grads[n], 1.0) for n in want_grads}
+    param = {n: float((params[n] - want_params[n]).abs().max()) for n in want_params}
+    worst_grad, worst_param = max(grad, key=grad.get), max(param, key=param.get)
+    return dict(
+        loss=abs(loss - want_loss), grad_rel=grad[worst_grad], grad_worst=worst_grad,
+        param=param[worst_param], param_worst=worst_param,
+    )
+
+
+def count_syncs(torch, fn) -> list:
+    """The host-device synchronisations ``fn()`` makes, as PyTorch's sync
+    debug mode reports them (a prototype that may miss some)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return [str(w.message)[:200] for w in caught if "synchronizing" in str(w.message)]
+
+
+def profile_steps(torch, step, steps=5):
+    """``torch.profiler`` over ``steps`` calls of ``step()``: the device's
+    busy time per step (the sum of its kernels, copies and fills) and the
+    eight operators whose kernels take most of it, in ms per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in averages if e.device_type == DeviceType.CUDA)
+    ops = sorted(
+        (e for e in averages if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
+        key=lambda e: -e.self_device_time_total,
+    )
+    return busy / steps / 1e3, {e.key: e.self_device_time_total / steps / 1e3 for e in ops[:8]}
+
+
+def run_din_training(torch, kernels, workdir, card):
+    from tpurec_torch.serving.export import load_servable
+    from tpurec_torch.train.trainer import Trainer
+
+    info = din_info()
+    batch = din_batch(info, TRAIN_BATCH, 64, seed=1)
+    plain = (kernels.din_attention_plain, kernels.din_attention_bwd_plain)
+
+    # one fp32 step: kernels against the plain attention, and a backward
+    # that ignores the mask (the check has to be able to fail)
+    fp32 = Trainer(din_train_config("float32"), info)
+    sound = one_train_step(torch, kernels, fp32, batch)
+    want = one_train_step(torch, kernels, fp32, batch, plain)
+
+    def bwd_no_mask(q, k, m, *rest):
+        return kernels.din_attention_bwd_plain(q, k, torch.ones_like(m), *rest)
+
+    broken = one_train_step(torch, kernels, fp32, batch, (plain[0], bwd_no_mask))
+    step = dict(kernels=step_reading(sound, want), broken_bwd_mask_ignored=step_reading(broken, want))
+
+    # three fp32 steps on the card and on the CPU, first 256 rows
+    rows = {k: v[:256] for k, v in batch.items()}
+    on_cpu = Trainer(din_train_config("float32"), info, device="cpu")
+    card_state, cpu_state = fp32.init_state(rows), on_cpu.init_state(rows)
+    cpu_state.model.load_state_dict({k: v.cpu() for k, v in card_state.model.state_dict().items()})
+    cpu_losses = []
+    for _ in range(3):
+        card_state, _, a = fp32.train_step(card_state, fp32.device_batch(rows), fp32.metrics.init())
+        cpu_state, _, b = on_cpu.train_step(cpu_state, on_cpu.device_batch(rows), on_cpu.metrics.init())
+        cpu_losses.append((float(a["loss"]), float(b["loss"])))
+    step["cpu_256_rows_loss"] = max(abs(a - b) for a, b in cpu_losses)
+    print("din train step checks:", json.dumps(dict(
+        step, limits=dict(loss=STEP_LOSS_TOL, grad_rel=STEP_GRAD_RTOL, param=STEP_PARAM_TOL,
+                          cpu_loss=CPU_LOSS_TOL), cpu_losses=cpu_losses,
+    )), flush=True)
+    sound, broken = step["kernels"], step["broken_bwd_mask_ignored"]
+    check(sound["loss"] <= STEP_LOSS_TOL, f"train step loss, kernels vs plain: {sound}")
+    check(sound["grad_rel"] <= STEP_GRAD_RTOL, f"train step gradients, kernels vs plain: {sound}")
+    check(sound["param"] <= STEP_PARAM_TOL, f"train step parameters, kernels vs plain: {sound}")
+    check(broken["grad_rel"] > STEP_GRAD_RTOL,
+          "the train step check cannot tell a backward that ignores the mask from a sound one")
+    check(step["cpu_256_rows_loss"] <= CPU_LOSS_TOL, f"train losses, card vs CPU: {cpu_losses}")
+
+    # the main path: 30 bf16 steps on the fixed batch, as bench.py times them
+    trainer = Trainer(din_train_config("bfloat16"), info)
+    state = trainer.init_state(batch)
+    dbatch = trainer.device_batch(batch)
+    metric_state = trainer.metrics.init()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metric_state, logs = trainer.train_step(state, dbatch, metric_state)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(logs["loss"])
+    launches = (kernels.din_attention_fused.launches, kernels.din_attention_bwd_fused.launches)
+    losses = [float(x) for x in losses]
+    step_ms = statistics.median(times[10:])
+
+    # a CUDA-event breakdown of ten more steps, each copying its batch
+    names = ("copy", "forward", "backward", "optimizer", "metrics", "end")
+    spans = {n: [] for n in names[:-1]}
+    events = {}
+
+    def mark(name):
+        events[name] = torch.cuda.Event(enable_timing=True)
+        events[name].record()
+
+    trainer.step_marks = mark
+    for _ in range(10):
+        mark("copy")
+        state, metric_state, _ = trainer.train_step(state, trainer.device_batch(batch), metric_state)
+        torch.cuda.synchronize()
+        for a, b in zip(names, names[1:]):
+            spans[a].append(events[a].elapsed_time(events[b]))
+    trainer.step_marks = None
+    breakdown = {n: statistics.median(v) for n, v in spans.items()}
+
+    # no host sync inside a step; the device's busy time per step
+    def step():
+        nonlocal state, metric_state
+        state, metric_state, _ = trainer.train_step(state, dbatch, metric_state)
+
+    syncs = count_syncs(torch, step)
+    check(count_syncs(torch, lambda: torch.ones(1, device="cuda").item()),
+          "the sync check does not see the sync of .item()")
+    busy_ms, top_ops = profile_steps(torch, step)
+
+    result = dict(
+        card=card, batch=TRAIN_BATCH, steps=TRAIN_STEPS, step_p50_ms=step_ms,
+        step_ms_min=min(times[10:]), step_ms_max=max(times[10:]),
+        examples_per_s=TRAIN_BATCH / (step_ms / 1e3), first_step_ms=times[0],
+        breakdown_ms=breakdown, device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / step_ms,
+        top_ops_ms=top_ops, host_syncs=len(syncs), din_launches=launches[0], din_bwd_launches=launches[1],
+        loss_first=losses[0], loss_last=losses[-1],
+        train_auc=float(trainer.metrics.result(metric_state)["auc"]),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+    )
+    print("din training:", json.dumps(result), flush=True)
+    print("din training losses:", json.dumps(losses), flush=True)
+    check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall in {TRAIN_STEPS} steps: {losses}")
+    check(not syncs, f"train_step synchronised with the device: {syncs}")
+    check(launches == (TRAIN_STEPS, TRAIN_STEPS),
+          f"DIN forward/backward kernel launches {launches} in {TRAIN_STEPS} steps")
+
+    # the entry points end to end (fp32: the export drops the compute dtype)
+    ckpt_dir, export_dir = os.path.join(workdir, "ckpt"), os.path.join(workdir, "din_trained")
+    cfg = din_train_config("float32", epochs=2, checkpoint_dir=ckpt_dir, max_to_keep=2)
+    trainer = Trainer(cfg, info)
+    train = [din_batch(info, 1024, 64, seed=10 + i) for i in range(4)]
+    evals = [din_batch(info, 1024, 64, seed=20 + i) for i in range(2)]
+    state, report = trainer.run(lambda: iter(train), lambda: iter(evals))
+    saved = trainer.ckpt.all_steps()
+    check(state.step == 2 * len(train) and 1 <= len(saved) <= 2 and saved[-1] <= state.step,
+          f"checkpoints {saved} at step {state.step}")
+    trainer.save(state)
+    restored = trainer.restore(trainer.init_state(seed=123))
+    want_sd = state.model.state_dict()
+    check(restored.step == state.step and all(
+        torch.equal(v, want_sd[k]) for k, v in restored.model.state_dict().items()
+    ), "restore did not give back the saved parameters")
+    trainer.export(state, export_dir)
+    servable = load_servable(export_dir, info, device="cuda")
+    rows = {k: v[:512] for k, v in evals[0].items() if k != "label"}
+    served = servable.predict(rows)["output"].cpu().numpy()
+    inferred = trainer.infer(state, rows)["output"]
+    serve_err = float(np.abs(served - inferred).max())
+    print("din train entry points:", json.dumps(dict(
+        best_epoch=report["best_epoch"], eval=report["best_eval"], checkpoints=saved,
+        served_vs_infer=serve_err,
+    )), flush=True)
+    check(serve_err <= 1e-6, f"served prediction vs Trainer.infer: {serve_err}")
+    return launches, result
+
+
 def main() -> int:
     import torch
 
@@ -412,7 +778,8 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    print("torch", torch.__version__, "cuda", torch.version.cuda, flush=True)
+    print("torch", torch.__version__, "cuda", torch.version.cuda, "tf32",
+          torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32, flush=True)
 
     t0 = time.perf_counter()
     paths = kernels.build()
@@ -422,11 +789,19 @@ def main() -> int:
         print("\n".join(line for line in log.splitlines() if "Used" in line or "spill" in line))
 
     records = check_kernels(torch, kernels)
+    records["din_attention_bwd"] = check_din_backward(torch, kernels)
     with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR.parent) as workdir:
-        records["din_attention"]["launches"], _ = run_din_servable(torch, kernels, workdir, smi)
+        serve_launches, _ = run_din_servable(torch, kernels, workdir, smi)
         records["fm_second_order"]["launches"], _ = run_http(torch, kernels, workdir, smi)
+        (train_launches, bwd_launches), _ = run_din_training(torch, kernels, workdir, smi)
+    # the forward kernel runs on two paths: its launches are their sum
+    records["din_attention"]["launches"] = serve_launches + train_launches
+    records["din_attention"]["launches_by_path"] = dict(
+        din_serving=serve_launches, din_training=train_launches
+    )
+    records["din_attention_bwd"]["launches"] = bwd_launches
 
-    print(json.dumps({"kernels": list(records.values())}), flush=True)
+    print(json.dumps({"card": smi, "kernels": list(records.values())}), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

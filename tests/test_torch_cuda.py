@@ -90,6 +90,115 @@ def test_din_attention_kernel_rejects_what_it_does_not_take(card):
 
 
 @pytest.mark.cuda
+def test_din_attention_bwd_kernel_rejects_what_it_does_not_take(card):
+    from tpurec_torch.ops import kernels
+
+    def cotangents(b, l, d):
+        return [torch.randn(b, d, device=card), torch.randn(b, l, device=card)]
+
+    args = _din_args(card, 4, 8, 12, 5, True)  # D=12 is not built
+    with pytest.raises(ValueError, match="key width"):
+        kernels.din_attention_bwd_fused(*args, *cotangents(4, 8, 12))
+    args = _din_args(card, 4, 8, 8, 5, True)
+    grads = cotangents(4, 8, 8)
+    with pytest.raises(TypeError):
+        kernels.din_attention_bwd_fused(*args, grads[0].double(), grads[1])
+    with pytest.raises(ValueError, match="shapes"):
+        kernels.din_attention_bwd_fused(*args, grads[0], grads[1][:, :4])
+    with pytest.raises(ValueError, match="shared"):
+        kernels.din_attention_bwd_fused(
+            *_din_args(card, 2, 4096, 8, 5, True), *cotangents(2, 4096, 8)
+        )
+    shifted = torch.empty(args[1].numel() + 1, device=card)[1:].view(args[1].shape)
+    shifted.copy_(args[1])
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.din_attention_bwd_fused(args[0], shifted, *args[2:], *grads)
+
+
+def _assert_close_scaled(got, want, rtol=1e-4, what=""):
+    """|got - want| within rtol of the largest |want| (at least 1): the
+    parameter gradients are sums over B·L terms taken in another order."""
+    got, want = got.detach(), want.detach()
+    scale = max(1.0, float(want.abs().max()))
+    err = float((got - want).abs().max())
+    assert err <= rtol * scale, f"{what}: max abs err {err} at scale {scale}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,l,d,h,with_alpha",
+    [(1024, 64, 32, 36, True), (1024, 64, 32, 36, False), (1003, 64, 32, 36, True),
+     (37, 200, 16, 7, True), (9, 1, 8, 80, True), (64, 33, 64, 36, False), (3, 5, 8, 1, True)],
+)
+def test_din_attention_bwd_kernel_matches_plain(card, b, l, d, h, with_alpha):
+    from tpurec_torch.ops import kernels
+
+    args = _din_args(card, b, l, d, h, True)
+    if not with_alpha:
+        args[-1] = torch.zeros_like(args[-1])
+    gen = torch.Generator(card).manual_seed(3)
+    grads = [torch.randn(b, d, device=card, generator=gen), torch.randn(b, l, device=card, generator=gen)]
+    before = kernels.din_attention_bwd_fused.launches
+    got = kernels.din_attention_bwd_fused(*args, *grads)
+    again = kernels.din_attention_bwd_fused(*args, *grads)
+    torch.cuda.synchronize()
+    assert kernels.din_attention_bwd_fused.launches == before + 2
+    want = kernels.din_attention_bwd_plain(*args, *grads)
+    names = ("dq", "dkeys", "dw1", "db1", "dw2", "dalpha")
+    for name, g, w in zip(names[:2], got[:2], want[:2]):
+        torch.testing.assert_close(g, w, **TOL, msg=name)
+    for name, g, w in zip(names[2:], got[2:], want[2:]):
+        _assert_close_scaled(g, w, what=name)
+    # partials are added in a fixed order: the same bits on every run
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_din_attention_autograd_on_card_matches_cpu(card):
+    """``DinAttention`` on the card (both kernels) against the same inputs on
+    the CPU (the plain versions)."""
+    from tpurec_torch.ops import kernels
+
+    args = _din_args(card, 300, 64, 32, 36, True)
+    gen = torch.Generator(card).manual_seed(4)
+    gp, gs = torch.randn(300, 32, device=card, generator=gen), torch.randn(300, 64, device=card, generator=gen)
+
+    def grads(tensors, gp, gs):
+        leaves = [t.clone().requires_grad_(i != 2) for i, t in enumerate(tensors)]
+        pooled, scores = kernels.DinAttention.apply(*leaves)
+        torch.autograd.backward([pooled, scores], [gp, gs])
+        return [pooled, scores] + [t.grad for i, t in enumerate(leaves) if i != 2]
+
+    before = (kernels.din_attention_fused.launches, kernels.din_attention_bwd_fused.launches)
+    on_card = grads(args, gp, gs)
+    torch.cuda.synchronize()
+    assert (kernels.din_attention_fused.launches, kernels.din_attention_bwd_fused.launches) == (
+        before[0] + 1, before[1] + 1
+    )
+    on_cpu = grads([t.cpu() for t in args], gp.cpu(), gs.cpu())
+    for i, (g, w) in enumerate(zip(on_card, on_cpu)):
+        _assert_close_scaled(g.cpu(), w, what=f"output {i}")
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_grad(card):
+    """The bare wrappers record no backward: under grad mode they raise on an
+    input that requires grad, and run under ``torch.no_grad()``."""
+    from tpurec_torch.ops import kernels
+
+    args = _din_args(card, 4, 8, 8, 5, True)
+    w1 = args[3].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="requires grad"):
+        kernels.din_attention_fused(*args[:3], w1, *args[4:])
+    emb = torch.randn(4, 3, 8, device=card, requires_grad=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        kernels.fm_second_order_fused(emb)
+    with torch.no_grad():
+        kernels.din_attention_fused(*args[:3], w1, *args[4:])
+        kernels.fm_second_order_fused(emb)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8192, 26, 32), (32, 26, 32), (7, 5, 3), (100, 1, 128)])
 def test_fm_kernel_matches_plain(card, shape):
     from tpurec_torch.ops import kernels
@@ -113,17 +222,7 @@ def test_model_on_card_matches_cpu(card, name):
 
     rng = np.random.default_rng(1)
     if name == "din":
-        info = DataInfo.from_dims(
-            ["user_tag", "item_id", "item_tag"], [10, 200, 5], sequence_names=["history"],
-            max_seq_length=16, user_features=["user_tag"], item_features=["item_id", "item_tag"],
-        )
-        batch = {
-            n: rng.integers(o, o + d, size=(64,))
-            for n, o, d in zip(info.feature_names, info.feature_offsets, info.feature_dims)
-        }
-        batch["history"] = np.where(
-            rng.random((64, 16)) < 0.7, rng.integers(1, 215, size=(64, 16)), 0
-        )
+        info, batch = _small_din(rng)
     else:
         info = DataInfo.from_dims([f"f{i}" for i in range(8)], [50] * 8)
         batch = {f"f{i}": rng.integers(50 * i, 50 * i + 50, size=(64,)) for i in range(8)}
@@ -135,3 +234,64 @@ def test_model_on_card_matches_cpu(card, name):
         got = on_card({k: torch.as_tensor(v, device=card) for k, v in batch.items()})["output"]
         want = on_cpu({k: torch.as_tensor(v) for k, v in batch.items()})["output"]
     torch.testing.assert_close(got.cpu(), want, **TOL)
+
+
+def _small_din(rng):
+    """A small DIN schema (D=32 from the config, L=16) and a 64-row batch."""
+    from tpurec_torch.data.schema import DataInfo
+
+    info = DataInfo.from_dims(
+        ["user_tag", "item_id", "item_tag"], [10, 200, 5], sequence_names=["history"],
+        max_seq_length=16, user_features=["user_tag"], item_features=["item_id", "item_tag"],
+    )
+    batch = {
+        n: rng.integers(o, o + d, size=(64,))
+        for n, o, d in zip(info.feature_names, info.feature_offsets, info.feature_dims)
+    }
+    batch["history"] = np.where(
+        rng.random((64, 16)) < 0.7, rng.integers(1, 215, size=(64, 16)), 0
+    )
+    return info, batch
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_plain_attention(card):
+    """One fp32 ``Trainer.train_step`` of a small DIN on the card, through
+    both DIN kernels, against the same step with the plain attention forward
+    and backward: the loss (1e-5), every gradient (1e-3 of its largest
+    value: sums over the batch in another order) and every parameter after
+    Adam (1e-5; its first step moves a weight by about lr = 1e-3)."""
+    from unittest import mock
+
+    from tpurec_torch.config import ExperimentConfig
+    from tpurec_torch.ops import kernels
+    from tpurec_torch.train.trainer import Trainer
+
+    rng = np.random.default_rng(2)
+    info, batch = _small_din(rng)
+    batch["label"] = rng.integers(0, 2, size=(64,)).astype(np.float32)
+    config = ExperimentConfig.from_dict(dict(
+        model=dict(name="din", embedding=dict(dim=32)),
+        train=dict(compute_dtype="float32", log_every_steps=0),
+    ))
+    trainer = Trainer(config, info, device=card)
+
+    def step():
+        state = trainer.init_state(batch)
+        state, _, logs = trainer.train_step(state, trainer.device_batch(batch), trainer.metrics.init())
+        return float(logs["loss"]), {n: (p.grad, p.detach()) for n, p in state.model.named_parameters()}
+
+    before = (kernels.din_attention_fused.launches, kernels.din_attention_bwd_fused.launches)
+    loss, got = step()
+    assert (kernels.din_attention_fused.launches, kernels.din_attention_bwd_fused.launches) == (
+        before[0] + 1, before[1] + 1
+    )
+    with mock.patch.object(kernels, "din_attention_fused", kernels.din_attention_plain), \
+            mock.patch.object(kernels, "din_attention_bwd_fused", kernels.din_attention_bwd_plain):
+        want_loss, want = step()
+    assert abs(loss - want_loss) <= 1e-5
+    for name, (want_grad, want_param) in want.items():
+        grad, param = got[name]
+        err = float((grad - want_grad).abs().max())
+        assert err <= 1e-3 * float(want_grad.abs().max()), f"{name}: grad err {err}"
+        torch.testing.assert_close(param, want_param, atol=1e-5, rtol=0, msg=name)

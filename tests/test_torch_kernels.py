@@ -103,3 +103,99 @@ def test_fm_second_order_op_matches_jax(dtype, shape):
     np.testing.assert_allclose(
         got.float().numpy(), np.asarray(want.astype(jnp.float32)), **tol
     )
+
+
+# --------------------------------------------------------------------------
+# DIN attention backward
+def _cotangents(seed, b, l, d):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(b, d)).astype(np.float32), rng.normal(size=(b, l)).astype(np.float32)]
+
+
+@pytest.mark.parametrize("with_alpha", [True, False], ids=["prelu", "relu"])
+def test_din_attention_bwd_plain_matches_interpret_and_grad(with_alpha):
+    """``din_attention_bwd_plain`` against the Pallas backward in interpret
+    mode and against ``jax.grad`` of the reference, with both cotangents
+    non-zero and B=70 (three 32-row tiles, the last padded), at
+    ``tests/test_pallas.py``'s rtol 2e-3 / atol 2e-5."""
+    import jax
+
+    b, l, d, h = 70, 16, 8, 36
+    args = _din_inputs(6, b=b, l=l, d=d, h=h, with_alpha=with_alpha)
+    alpha = args[6] if with_alpha else np.zeros(h, np.float32)
+    gp, gs = _cotangents(7, b, l, d)
+    full = args[:6] + [alpha, gp, gs]
+    got = tk.din_attention_bwd_plain(*_torch(full))
+    tol = dict(rtol=2e-3, atol=2e-5)
+    ker = jk.din_attention_bwd_fused(*_jax(full), interpret=True)
+    for name, g, w in zip(("dq", "dk", "dw1", "db1", "dw2", "dalpha"), got, ker):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name, **tol)
+
+    q, k, m, w1, b1, w2 = _jax(args[:6])
+
+    def objective(q, k, w1, b1, w2, a):
+        p, s = jk.din_attention_reference(q, k, m, w1, b1, w2, a if with_alpha else None)
+        return jnp.sum(p * gp) + jnp.sum(s * gs)
+
+    want = jax.grad(objective, argnums=range(6))(q, k, w1, b1, w2, jnp.asarray(alpha))
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i < 5 or with_alpha:
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), **tol)
+
+
+def test_din_attention_autograd_gradcheck():
+    """``DinAttention`` (plain forward, hand-written plain backward on the
+    CPU) against finite differences in float64; the relu form gives alpha
+    no gradient, the mask never gets one."""
+    rng = np.random.default_rng(8)
+    b, l, d, h = 3, 5, 4, 6
+    mask = torch.from_numpy((rng.random((b, l)) < 0.7).astype(np.float64))
+    tensors = [
+        torch.from_numpy(rng.normal(size=s)).requires_grad_()
+        for s in ((b, d), (b, l, d), (4 * d, h), (h,), (h,), (h,))
+    ]
+    q, k, w1, b1, w2, alpha = tensors
+    alpha.data.uniform_(0.1, 0.5)
+
+    def fn(q, k, w1, b1, w2, alpha):
+        return tk.DinAttention.apply(q, k, mask, w1, b1, w2, alpha)
+
+    assert torch.autograd.gradcheck(fn, tuple(tensors), eps=1e-6, atol=1e-6)
+    assert torch.autograd.gradcheck(
+        lambda q, k, w1, b1, w2: tk.DinAttention.apply(q, k, mask, w1, b1, w2, None),
+        (q, k, w1, b1, w2), eps=1e-6, atol=1e-6,
+    )
+    m = mask.clone().requires_grad_()
+    pooled, scores = tk.DinAttention.apply(q, k, m, w1, b1, w2, None)
+    (pooled.sum() + scores.sum()).backward()
+    assert m.grad is None
+
+
+def test_wrappers_refuse_grad_off_the_cpu():
+    """On any tensor that is not on the CPU the bare wrappers raise under
+    grad mode when an input requires grad (here on the ``meta`` device, so
+    the check runs without a card); without grad they reach the device
+    check, which refuses a device that is neither CPU nor CUDA."""
+    args = [None if a is None else torch.from_numpy(a).to("meta") for a in _din_inputs(9, b=2, l=3)]
+    w1 = args[3].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="requires grad"):
+        tk.din_attention_fused(*args[:3], w1, *args[4:])
+    emb = torch.empty(2, 3, 8, device="meta", requires_grad=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        tk.fm_second_order_fused(emb)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        tk.din_attention_bwd_fused(*args[:3], w1, *args[4:], args[0], args[2])
+    with torch.no_grad(), pytest.raises(ValueError, match="neither CPU nor CUDA"):
+        tk.din_attention_fused(*args[:3], w1, *args[4:])
+
+
+def test_bwd_wrapper_takes_plain_on_cpu():
+    args = _torch(_din_inputs(10, b=5, l=7, d=16, h=9))
+    gp, gs = _torch(_cotangents(11, 5, 7, 16))
+    before = tk.din_attention_bwd_fused.launches
+    got = tk.din_attention_bwd_fused(*args, gp, gs)
+    want = tk.din_attention_bwd_plain(*args, gp, gs)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert tk.din_attention_bwd_fused.launches == before
+    tk.reset_launch_counts()
+    assert tk.din_attention_bwd_fused.launches == tk.din_attention_fused.launches == 0

@@ -237,7 +237,9 @@ def test_entry_points_refuse_missing_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA; the refusal is checked where it has none")
     from tpurec_torch.serving import OfflineIndexer
+    from tpurec_torch.config import ExperimentConfig
     from tpurec_torch.serving.server import RecommendService
+    from tpurec_torch.train.trainer import Trainer
 
     _, info, _ = _tabular()
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -246,6 +248,8 @@ def test_entry_points_refuse_missing_cuda(tmp_path):
         RecommendService()
     with pytest.raises(RuntimeError, match="CUDA"):
         OfflineIndexer(None, None, {}, {}, [], [])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(ExperimentConfig(model=ModelConfig(name="fm")), info)
     with pytest.raises(NotImplementedError):
         RecommendService(item_categories=[0, 1], device="cpu")
 
@@ -262,7 +266,7 @@ def test_port_never_imports_jax_or_tpurec():
             assert not _FORBIDDEN.search(f.read()), path
     code = (
         "import sys, tpurec_torch.serving.server, tpurec_torch.serving.export, "
-        "tpurec_torch.bridge, tpurec_torch.models.builders; "
+        "tpurec_torch.bridge, tpurec_torch.models.builders, tpurec_torch.train.trainer; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'tpurec')]; "
         "assert not bad, bad"
     )

@@ -15,11 +15,16 @@ It raises ``KeyError`` on a collection other than those two or a leaf name
 it does not know, and the strict ``load_state_dict`` raises
 ``RuntimeError`` on any key of either side left unmatched and on any shape
 that differs.
+
+``opt_state_from_jax(optimizer, module, opt_state)`` carries an optax Adam
+state (the ``ScaleByAdamState`` found anywhere in the chain's state:
+``count``, ``mu``, ``nu``) into the port's ``ChainOptimizer`` over the same
+module, so a test can continue a JAX run step for step.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,3 +72,52 @@ def params_from_jax(module: nn.Module, variables: Mapping) -> nn.Module:
             state[".".join(path[:-1] + (name,))] = torch.from_numpy(np.ascontiguousarray(arr))
     module.load_state_dict(state)
     return module
+
+
+def _find_adam_state(tree: Any) -> Optional[Any]:
+    """The first node of an optax state with ``count``, ``mu`` and ``nu``."""
+    if all(hasattr(tree, k) for k in ("count", "mu", "nu")):
+        return tree
+    if isinstance(tree, Mapping):
+        children = tree.values()
+    elif isinstance(tree, (tuple, list)):
+        children = tree
+    else:
+        return None
+    for child in children:
+        found = _find_adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def _moments(tree: Mapping) -> Dict[str, np.ndarray]:
+    """torch key → array for every array leaf of a params-shaped tree (the
+    placeholders of masked-out leaves have no shape and are skipped)."""
+    out = {}
+    for path, value in _flatten(tree):
+        if not hasattr(value, "shape"):
+            continue
+        name, arr = _torch_leaf("params", path, value)
+        out[".".join(path[:-1] + (name,))] = arr
+    return out
+
+
+def opt_state_from_jax(optimizer, module: nn.Module, opt_state: Any):
+    """Load optax's Adam ``count``, ``mu`` and ``nu`` into ``optimizer`` (a
+    ``tpurec_torch.train.trainer.ChainOptimizer`` over ``module``'s
+    parameters) and return it. Every parameter the optimizer holds must have
+    both moments in ``opt_state``; ``KeyError`` otherwise."""
+    adam = _find_adam_state(opt_state)
+    if adam is None:
+        raise KeyError("no Adam state (count, mu, nu) in the optax state")
+    mu, nu = _moments(adam.mu), _moments(adam.nu)
+    count = int(np.asarray(adam.count))
+    for group in optimizer.param_groups:
+        name, (p,) = group["name"], group["params"]
+        if name not in mu or name not in nu:
+            raise KeyError(f"no Adam moments for {name}")
+        optimizer.state[p]["mu"] = torch.from_numpy(np.ascontiguousarray(mu[name])).to(p.device)
+        optimizer.state[p]["nu"] = torch.from_numpy(np.ascontiguousarray(nu[name])).to(p.device)
+        group["count"] = count
+    return optimizer

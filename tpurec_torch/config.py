@@ -1,15 +1,17 @@
-"""Typed model configuration (counterpart of ``tpurec/config.py``).
+"""Typed configuration (counterpart of ``tpurec/config.py``).
 
-Only the dataclasses that ``build_model`` and the export meta read are here:
-``EmbeddingConfig`` and ``ModelConfig``. ``EmbeddingConfig`` keeps every field
-of the JAX one, so an export meta written by either package loads here.
+Every dataclass of the JAX module, with every field and default, so a JSON
+config or an export meta written by either package loads here. Fields that
+select engines or devices the port does not have yet are carried and
+refused where they are read (``tpurec_torch.train.trainer``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Any, Mapping, Optional
+from typing import Any, Mapping, Optional, Sequence
 
 _NESTED: dict = {}
 
@@ -37,20 +39,41 @@ def _coerce(cls, value):
 
 
 class _Base:
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2, sort_keys=True)
 
     @classmethod
     def from_dict(cls, data: Mapping[str, Any]):
         return _coerce(cls, data)
 
+    @classmethod
+    def from_json(cls, text: str):
+        return cls.from_dict(json.loads(text))
+
+
+@dataclass(frozen=True)
+class MeshConfig(_Base):
+    """Device-mesh layout: ('data', 'model') axes. The port trains on one
+    device; a mesh of more than one device is refused (ROADMAP slice 7)."""
+
+    data: int = -1  # -1: fill with remaining devices
+    model: int = 1
+    axis_data: str = "data"
+    axis_model: str = "model"
+
 
 @dataclass(frozen=True)
 class EmbeddingConfig(_Base):
     """Shared offset-encoded embedding id-space. ``dim`` is injected into the
-    model params as ``embed_dim``; the other fields are carried so that export
-    metas round-trip (the port's single-device dense lookup reads none of
-    them)."""
+    model params as ``embed_dim``; ``used_id_l2`` is the coefficient of the
+    used-id L2 term the trainer adds to the loss. The other fields are
+    carried so that configs and export metas round-trip."""
 
     vocab_size: int = 0
     dim: int = 8
@@ -62,6 +85,88 @@ class EmbeddingConfig(_Base):
 
 
 @dataclass(frozen=True)
+class OptimizerConfig(_Base):
+    """The optimizer chain of ``Trainer._make_optimizer``: global-norm clip,
+    coupled embedding L2, adam | adamw | sgd, an optional cosine schedule."""
+
+    name: str = "adam"
+    learning_rate: float = 1e-3
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-7  # keras Adam default epsilon (torch's default is 1e-8)
+    weight_decay: float = 0.0
+    grad_clip_norm: float = 0.0  # 0 = off
+    # '' = constant; 'cosine' decays to learning_rate*schedule_alpha over
+    # schedule_steps optimizer steps
+    lr_schedule: str = ""
+    schedule_steps: int = 0
+    schedule_alpha: float = 0.0
+    # coupled L2 on 'embedding*' tables: grad += embedding_l2 * w
+    embedding_l2: float = 0.0
+    # separate coupled L2 for order-1 ('w') tables; < 0 = use embedding_l2
+    embedding_l2_order1: float = -1.0
+    # per-feature coefficient on that feature's rows of second-order tables
+    embedding_l2_overrides: Mapping[str, float] = field(default_factory=dict)
+    # sparse-engine table optimizer: 'adam' | 'rowwise_adagrad' |
+    # 'rowwise_adam' | 'fused_adam' | 'host_adam' | 'auto' ('auto' resolves
+    # to the dense engine); the port has the dense engine only
+    embedding_optimizer: str = "adam"
+    fused_backward: str = "permute"
+    fused_forward: str = "packed"
+    fused_sort: str = "auto"
+
+
+@dataclass(frozen=True)
+class EarlyStopConfig(_Base):
+    """EarlyStopper 'best'/'better' criteria."""
+
+    num_trials: int = 3
+    criterion: str = "best"  # 'best' | 'better'
+    mode: str = "max"
+
+
+@dataclass(frozen=True)
+class TrainConfig(_Base):
+    batch_size: int = 512
+    epochs: int = 10
+    eval_every_steps: int = 0  # 0 = eval at epoch end only
+    log_every_steps: int = 100
+    shuffle_buffer: int = 100_000
+    seed: int = 0
+    # 'bce' | 'multi_task' | 'in_batch_softmax' | 'gsu_esu' | 'model_loss'
+    loss: str = "bce"
+    loss_weights: Sequence[float] = (1.0,)
+    # override the default metric set for the loss
+    metrics: Sequence[str] = ()
+    # dense compute dtype; parameters and optimizer state stay fp32
+    compute_dtype: str = "bfloat16"
+    # the lazy-sparse engine (ROADMAP slice 3; refused by the port's Trainer)
+    sparse_embedding: bool = False
+    # slash-joined param-path prefixes that receive no update
+    freeze_prefixes: Sequence[str] = ()
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    early_stop: EarlyStopConfig = field(default_factory=EarlyStopConfig)
+    checkpoint_dir: str = ""
+    max_to_keep: int = 3
+    tensorboard_dir: str = ""
+    # a torch.profiler trace of steps [profile_start_step,
+    # profile_start_step + profile_num_steps) of the first epoch
+    profile_dir: str = ""
+    profile_start_step: int = 10
+    profile_num_steps: int = 5
+
+
+@dataclass(frozen=True)
+class DataConfig(_Base):
+    path: str = ""
+    train_pattern: str = "train_*.tfrecord"
+    test_pattern: str = "test_*.tfrecord"
+    meta_file: str = "data_info.json"
+    max_seq_length: int = 0  # >0: padded behavior sequences
+    padding_index: int = 0
+
+
+@dataclass(frozen=True)
 class ModelConfig(_Base):
     """One model instance = registry name + params dict + embedding config."""
 
@@ -70,4 +175,17 @@ class ModelConfig(_Base):
     embedding: EmbeddingConfig = field(default_factory=EmbeddingConfig)
 
 
+@dataclass(frozen=True)
+class ExperimentConfig(_Base):
+    model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+
+
+_NESTED[(TrainConfig, "optimizer")] = OptimizerConfig
+_NESTED[(TrainConfig, "early_stop")] = EarlyStopConfig
 _NESTED[(ModelConfig, "embedding")] = EmbeddingConfig
+for _name, _cls in (("model", ModelConfig), ("train", TrainConfig), ("data", DataConfig),
+                    ("mesh", MeshConfig)):
+    _NESTED[(ExperimentConfig, _name)] = _cls

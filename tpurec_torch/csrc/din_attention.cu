@@ -17,16 +17,19 @@
 //   lin_l  = c + k_l . W_eff
 // which halves the per-step work to one D x H product per sequence step.
 //
-// What bounds it on an H100 at the serving shape (B=8192, L=64, D=32, H=36):
-// the keys are 67 MB of the ~73 MB the function must move (~22 us at
-// 3.35 TB/s); the folded arithmetic is ~1.3 GFLOP of fp32 FMA (~20 us at
+// What bounds it on an H100 at the serving shape (B=8192, L=64, D=32, H=36,
+// lengths uniform in L/4..L, so ~62.5 % of the steps are live; a masked
+// step's score is 0 and adds nothing to pooled): the keys of the live steps
+// are ~42 MB of the ~48 MB the function must move (~14 us at 3.35 TB/s); the
+// folded arithmetic at live steps is ~0.9 GFLOP of fp32 FMA (~13.5 us at
 // 67 TFLOP/s without tensor cores). The two are close, so the design keeps
 // both lean: keys are read from device memory exactly once (coalesced 16-byte
 // loads into shared memory), the (B, L, 4D) and (B, L, H) intermediates never
 // leave registers, and the inner loop is register-blocked (each thread holds
 // its step's key row in registers and reads W_eff as broadcast float4 from
-// shared memory: one 16-byte shared load per four FMAs). Moving the D x H
-// products onto the tensor cores is left for a later change.
+// shared memory: one 16-byte shared load per four FMAs). It reads and scores
+// every step, masked or not. Skipping the masked steps and moving the D x H
+// products onto the tensor cores are left for a later change.
 //
 // Layout: one thread block per batch row, one thread per sequence step (a
 // loop over steps when L exceeds the block). Shared memory holds the row's

@@ -43,7 +43,7 @@ class FM(nn.Module):
     def forward(self, inputs: Inputs) -> Outputs:
         ids = stack_ids(inputs, self.feature_names)
         emb = self.v(ids)
-        logit = self.bias + self.w(ids).sum(dim=1) + fm_second_order(emb)
+        logit = self.bias + self.w(ids).sum(dim=1) + fm_second_order(emb, self.training)
         return binary_output(logit) | {"embeddings": emb}
 
 
@@ -143,6 +143,6 @@ class DeepFM(nn.Module):
     def forward(self, inputs: Inputs) -> Outputs:
         ids = stack_ids(inputs, self.feature_names)
         emb = self.v(ids)
-        fm_logit = self.bias + self.w(ids).sum(dim=1) + fm_second_order(emb)
+        fm_logit = self.bias + self.w(ids).sum(dim=1) + fm_second_order(emb, self.training)
         deep_logit = self.deep_head(self.deep(emb.reshape(emb.shape[0], -1)))
         return binary_output(fm_logit + deep_logit.reshape(-1))

@@ -22,11 +22,12 @@ class DinTargetAttention(nn.Module):
 
     Kernel form (one relu/prelu hidden layer, no outer product): explicit
     ``w1`` (4D, H), ``b1`` (H,), ``w2`` (H, 1) and ``alpha`` (H,) params, the
-    same as the JAX package's. Query and keys go to
-    ``kernels.din_attention_fused`` in fp32 (the CUDA kernel on the card, the
-    plain version on the CPU); pooled comes back in the keys' dtype, scores
-    stay fp32. Any other configuration runs the generic MLP form
-    (``act_mlp``).
+    same as the JAX package's. Query and keys go to the attention in fp32
+    through ``kernels.DinAttention`` (forward and backward kernels on the
+    card, their plain versions on the CPU; without grad only its forward
+    runs). Pooled comes back in the keys' dtype,
+    scores stay fp32 (``tpurec/ops/attention.py:159-162``). Any other
+    configuration runs the generic MLP form (``act_mlp``).
     """
 
     def __init__(
@@ -78,10 +79,11 @@ class DinTargetAttention(nn.Module):
         b, l, d = keys.shape
         if self.kernel_form:
             m = mask if mask is not None else keys.new_ones((b, l), dtype=torch.float32)
-            pooled, scores = kernels.din_attention_fused(
+            args = (
                 query.to(torch.float32), keys.to(torch.float32), m,
                 self.w1, self.b1, self.w2[:, 0], self.alpha,
             )
+            pooled, scores = kernels.DinAttention.apply(*args)
             return pooled.to(keys.dtype), scores
         q = query[:, None, :].expand(b, l, d)
         feats = [q, q - keys, keys, q * keys]

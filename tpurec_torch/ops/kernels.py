@@ -10,12 +10,21 @@ Each kernel has:
   fallback;
 - a launch count, ``<wrapper>.launches``, raised by one at each launch.
 
+A wrapper records no backward. On CUDA tensors it raises when grad mode is
+on and an input requires grad, so a gradient is never dropped silently:
+training goes through an ``autograd.Function`` (``DinAttention``) or through
+the plain math (the FM cross term of a module in training mode).
+
 Kernels of this module:
 
 - ``din_attention_fused``: CUDA C++ for ``sm_90a``
   (``tpurec_torch/csrc/din_attention.cu``), built with ``nvcc`` into a shared
   library with a C interface and loaded with ``ctypes``. Replaces
   ``tpurec/ops/pallas/kernels.py:din_attention_fused``.
+- ``din_attention_bwd_fused``: CUDA C++ for ``sm_90a``
+  (``tpurec_torch/csrc/din_attention_bwd.cu``), the same route. Replaces
+  ``tpurec/ops/pallas/kernels.py:din_attention_bwd_fused``. ``DinAttention``
+  pairs it with the forward.
 - ``fm_second_order_fused``: Triton. Replaces
   ``tpurec/ops/pallas/kernels.py:fm_second_order_fused``.
 
@@ -44,7 +53,7 @@ CSRC_DIR = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parent / "build" / "kernels"
 TRITON_CACHE_DIR = _PACKAGE.parent / "build" / "triton"
 # one shared library per CUDA source
-CUDA_SOURCES = {"din_attention": "din_attention.cu"}
+CUDA_SOURCES = {"din_attention": "din_attention.cu", "din_attention_bwd": "din_attention_bwd.cu"}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -120,6 +129,15 @@ def _library(name: str) -> ctypes.CDLL:
                     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
                 )
                 lib.din_attention_forward.restype = ctypes.c_int
+            elif name == "din_attention_bwd":
+                lib.din_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
+                lib.din_attention_bwd_smem_bytes.restype = ctypes.c_size_t
+                lib.din_attention_bwd_blocks.argtypes = [ctypes.c_int] * 4
+                lib.din_attention_bwd_blocks.restype = ctypes.c_int
+                lib.din_attention_backward.argtypes = (
+                    [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                )
+                lib.din_attention_backward.restype = ctypes.c_int
             _LIBS[name] = lib
         return lib
 
@@ -141,6 +159,16 @@ def _require_cuda_f32(what: str, device: torch.device, **tensors: torch.Tensor) 
             raise ValueError(f"{what}: {name} is on {t.device}, expected {device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
+
+
+def _refuse_grad(what: str, *tensors: Optional[torch.Tensor]) -> None:
+    """A kernel records no backward: refuse inputs that want a gradient."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the kernel records no backward and an input requires grad; "
+            "train through the op's autograd path (DinAttention, or the plain math "
+            "of a module in training mode), or call it under torch.no_grad()"
+        )
 
 
 # --------------------------------------------------------------------------
@@ -187,9 +215,12 @@ def din_attention_fused(
     features; it takes fp32 inputs on one device, D in
     ``DIN_ATTENTION_DIMS``, keys that start on a 16-byte boundary and shapes
     whose shared memory fits one block, and raises on anything else.
-    ``alpha=None`` means relu (zero slopes)."""
+    ``alpha=None`` means relu (zero slopes). It records no backward: on CUDA
+    it raises under grad mode when an input requires grad (``DinAttention``
+    is the differentiable form)."""
     if keys.device.type == "cpu":
         return din_attention_plain(query, keys, mask, w1, b1, w2, alpha)
+    _refuse_grad("din_attention", query, keys, w1, b1, w2, alpha)
     _require_cuda("din_attention", keys)
     b, l, d = keys.shape
     h = w1.shape[1]
@@ -246,6 +277,167 @@ def din_attention_fused(
 din_attention_fused.launches = 0
 
 
+def din_attention_bwd_plain(
+    query: torch.Tensor,  # (B, D)
+    keys: torch.Tensor,  # (B, L, D)
+    mask: torch.Tensor,  # (B, L) float
+    w1: torch.Tensor,  # (4D, H)
+    b1: torch.Tensor,  # (H,)
+    w2: torch.Tensor,  # (H,)
+    alpha: torch.Tensor,  # (H,) PReLU slopes; zeros = relu
+    gp: torch.Tensor,  # (B, D) cotangent of pooled
+    gs: torch.Tensor,  # (B, L) cotangent of scores
+) -> Tuple[torch.Tensor, ...]:
+    """The DIN attention backward written out as ``_din_bwd_kernel``
+    (``tpurec/ops/pallas/kernels.py:391-481``) computes it: recompute the
+    activation unit, then ``(dq, dkeys, dw1, db1, dw2, dalpha)`` with the
+    parameter gradients summed over the batch. The mask gets no gradient and
+    scales the scores (``s·mask``), as in that kernel; for 0/1 masks this is
+    the forward's ``where``."""
+    b, l, d = keys.shape
+    h = w1.shape[1]
+    w_q = w1[0:d] + w1[d : 2 * d]
+    w_k = w1[2 * d : 3 * d] - w1[d : 2 * d]
+    w_p = w1[3 * d : 4 * d]
+    qk = query[:, None, :] * keys  # (B, L, D)
+    lin = keys @ w_k + qk @ w_p + (query @ w_q)[:, None, :] + b1  # (B, L, H)
+    neg = lin.clamp_max(0.0)
+    hval = lin.clamp_min(0.0) + alpha * neg
+    s = (hval @ w2) * mask  # (B, L)
+    gs_tot = (gs + (gp[:, None, :] * keys).sum(dim=-1)) * mask
+    dh = gs_tot[:, :, None] * w2  # (B, L, H)
+    dlin = dh * ((lin > 0).to(lin.dtype) + alpha * (lin < 0).to(lin.dtype))
+    dw2 = (gs_tot[:, :, None] * hval).reshape(-1, h).sum(dim=0)
+    dalpha = (dh * neg).reshape(-1, h).sum(dim=0)
+    db1 = dlin.reshape(-1, h).sum(dim=0)
+    dlin_b = dlin.sum(dim=1)  # (B, H)
+    a_c = query.T @ dlin_b  # (D, H)
+    k_c = keys.reshape(-1, d).T @ dlin.reshape(-1, h)
+    p_c = qk.reshape(-1, d).T @ dlin.reshape(-1, h)
+    dqp = dlin @ w_p.T  # (B, L, D)
+    dq = dlin_b @ w_q.T + (dqp * keys).sum(dim=1)
+    dk = dlin @ w_k.T + dqp * query[:, None, :] + s[:, :, None] * gp[:, None, :]
+    dw1 = torch.cat([a_c, a_c - k_c, k_c, p_c], dim=0)
+    return dq, dk, dw1, db1, dw2, dalpha
+
+
+def din_attention_bwd_fused(
+    query: torch.Tensor,
+    keys: torch.Tensor,
+    mask: torch.Tensor,
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    w2: torch.Tensor,
+    alpha: torch.Tensor,
+    gp: torch.Tensor,
+    gs: torch.Tensor,
+) -> Tuple[torch.Tensor, ...]:
+    """DIN attention backward: ``(dq (B, D), dkeys (B, L, D), dw1 (4D, H),
+    db1 (H,), dw2 (H,), dalpha (H,))``, fp32.
+
+    CPU tensors take ``din_attention_bwd_plain``. CUDA tensors launch the
+    kernel of ``csrc/din_attention_bwd.cu``: one pass over the rows writes dq,
+    dkeys and one partial of the parameter gradients per block into a
+    ``torch.empty`` scratch, and a second pass adds the partials in a fixed
+    order, so the gradients are the same bits from run to run. It takes what
+    the forward kernel takes (fp32 on one device, D in ``DIN_ATTENTION_DIMS``,
+    keys on a 16-byte boundary, shared memory that fits one block) and raises
+    on anything else. ``alpha`` is required: zeros mean relu."""
+    if keys.device.type == "cpu":
+        return din_attention_bwd_plain(query, keys, mask, w1, b1, w2, alpha, gp, gs)
+    _refuse_grad("din_attention_bwd", query, keys, w1, b1, w2, alpha, gp, gs)
+    _require_cuda("din_attention_bwd", keys)
+    b, l, d = keys.shape
+    h = w1.shape[1]
+    dev = keys.device
+    mask = mask.to(torch.float32)
+    _require_cuda_f32(
+        "din_attention_bwd", dev, query=query, keys=keys, mask=mask, w1=w1, b1=b1, w2=w2,
+        alpha=alpha, gp=gp, gs=gs,
+    )
+    if (
+        query.shape != (b, d) or mask.shape != (b, l) or w1.shape != (4 * d, h)
+        or b1.shape != (h,) or w2.shape != (h,) or alpha.shape != (h,)
+        or gp.shape != (b, d) or gs.shape != (b, l)
+    ):
+        raise ValueError(
+            "din_attention_bwd: shapes do not agree: query "
+            f"{tuple(query.shape)}, keys {tuple(keys.shape)}, mask {tuple(mask.shape)}, "
+            f"w1 {tuple(w1.shape)}, b1 {tuple(b1.shape)}, w2 {tuple(w2.shape)}, "
+            f"alpha {tuple(alpha.shape)}, gp {tuple(gp.shape)}, gs {tuple(gs.shape)}"
+        )
+    if d not in DIN_ATTENTION_DIMS:
+        raise ValueError(f"din_attention_bwd: key width {d} not in {DIN_ATTENTION_DIMS}")
+    lib = _library("din_attention_bwd")
+    smem = lib.din_attention_bwd_smem_bytes(l, d, h)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"din_attention_bwd: L={l}, D={d}, H={h} needs {smem} bytes of shared "
+            f"memory per block, more than {MAX_SMEM_BYTES}"
+        )
+    f32 = dict(device=dev, dtype=torch.float32)
+    dq = torch.empty(b, d, **f32)
+    dk = torch.empty(b, l, d, **f32)
+    dw1 = torch.empty(4 * d, h, **f32)
+    db1, dw2, dalpha = (torch.empty(h, **f32) for _ in range(3))
+    if b == 0 or l == 0:
+        return dq.zero_(), dk, dw1.zero_(), db1.zero_(), dw2.zero_(), dalpha.zero_()
+    args = [t.contiguous() for t in (query, keys, mask, w1, b1, w2, alpha, gp, gs)]
+    if args[1].data_ptr() % 16:
+        raise ValueError(
+            f"din_attention_bwd: keys must start on a 16-byte boundary (storage offset "
+            f"{keys.storage_offset()} floats); pass keys.clone()"
+        )
+    with torch.cuda.device(dev):
+        blocks = lib.din_attention_bwd_blocks(b, l, d, h)
+        if blocks < 1:
+            _check_launch(lib, -blocks, "din_attention_bwd (occupancy query)")
+            raise RuntimeError(f"din_attention_bwd: occupancy query gave {blocks} blocks")
+        # one partial of (dw1's three D x H blocks, db1, dw2, dalpha) per block
+        partials = torch.empty(blocks * (3 * d * h + 3 * h), **f32)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.din_attention_backward(
+            *[t.data_ptr() for t in args],
+            dq.data_ptr(), dk.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
+            dalpha.data_ptr(), partials.data_ptr(),
+            b, l, d, h, blocks, stream,
+        )
+    _check_launch(lib, err, "din_attention_bwd")
+    din_attention_bwd_fused.launches += 1
+    return dq, dk, dw1, db1, dw2, dalpha
+
+
+din_attention_bwd_fused.launches = 0
+
+
+class DinAttention(torch.autograd.Function):
+    """DIN target attention with a backward: ``din_attention_fused`` forward,
+    ``din_attention_bwd_fused`` backward (the kernels on the card, the plain
+    versions on the CPU), as ``jax.custom_vjp`` pairs them in the JAX package
+    (``_din_fwd``/``_din_bwd``, ``tpurec/ops/pallas/kernels.py:545-573``).
+    Inputs are fp32; ``alpha=None`` means relu and then gets no gradient;
+    the mask gets none."""
+
+    @staticmethod
+    def forward(ctx, query, keys, mask, w1, b1, w2, alpha=None):
+        pooled, scores = din_attention_fused(query, keys, mask, w1, b1, w2, alpha)
+        ctx.had_alpha = alpha is not None
+        ctx.save_for_backward(query, keys, mask, w1, b1, w2, alpha)
+        return pooled, scores
+
+    @staticmethod
+    def backward(ctx, gp, gs):
+        query, keys, mask, w1, b1, w2, alpha = ctx.saved_tensors
+        if alpha is None:
+            alpha = w1.new_zeros(w1.shape[1])
+        mask = mask.to(query.dtype)
+        gp, gs = (g.to(query.dtype).contiguous() for g in (gp, gs))
+        dq, dk, dw1, db1, dw2, dalpha = din_attention_bwd_fused(
+            query, keys, mask, w1, b1, w2, alpha, gp, gs
+        )
+        return dq, dk, None, dw1, db1, dw2, (dalpha if ctx.had_alpha else None)
+
+
 # --------------------------------------------------------------------------
 # FM second-order cross term
 def fm_second_order_plain(emb: torch.Tensor) -> torch.Tensor:
@@ -299,9 +491,12 @@ def fm_second_order_fused(emb: torch.Tensor) -> torch.Tensor:
 
     CPU tensors take ``fm_second_order_plain``; CUDA tensors launch the Triton
     kernel, and anything it does not take (not fp32, not 3-D, padded F·D
-    above ``FM_MAX_TILE``) raises."""
+    above ``FM_MAX_TILE``) raises. It records no backward: on CUDA it raises
+    under grad mode when ``emb`` requires grad (training takes the plain
+    math, ``ops.interactions.fm_second_order``)."""
     if emb.device.type == "cpu":
         return fm_second_order_plain(emb)
+    _refuse_grad("fm_second_order", emb)
     _require_cuda("fm_second_order", emb)
     if emb.dim() != 3:
         raise ValueError(f"fm_second_order: expected (B, F, D), got {tuple(emb.shape)}")
@@ -337,4 +532,5 @@ def _next_pow2(x: int) -> int:
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
     din_attention_fused.launches = 0
+    din_attention_bwd_fused.launches = 0
     fm_second_order_fused.launches = 0

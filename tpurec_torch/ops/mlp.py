@@ -57,13 +57,18 @@ class Dense(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm(use_scale=False, use_bias=False, epsilon=1e-9)``
-    over every axis but the last, as ``Dice`` uses it. flax's
-    ``momentum=0.99`` is torch's ``momentum=0.01``; ``running_mean``/
-    ``running_var`` are flax's ``batch_stats`` ``mean``/``var``. Statistics
-    are computed in fp32."""
+    """flax ``nn.BatchNorm(use_scale=False, use_bias=False, epsilon=1e-9,
+    momentum=0.99)`` over every axis but the last, as ``Dice`` uses it;
+    ``running_mean``/``running_var`` are flax's ``batch_stats`` ``mean``/
+    ``var``. Statistics are computed in fp32.
 
-    momentum = 0.01
+    In training mode it normalises with the batch's mean and its *biased*
+    variance (flax's E[x²] − E[x]², clipped at 0) and updates the running
+    statistics itself, ``r = 0.99·r + 0.01·batch``, with that same biased
+    variance (``F.batch_norm`` would update ``running_var`` with the unbiased
+    one). In eval mode it normalises with the running statistics."""
+
+    momentum = 0.99  # flax convention: the weight of the running value
     epsilon = 1e-9
 
     def __init__(self, num_features: int):
@@ -73,10 +78,19 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         flat = x.reshape(-1, x.shape[-1]).float()
-        y = F.batch_norm(
-            flat, self.running_mean, self.running_var,
-            training=self.training, momentum=self.momentum, eps=self.epsilon,
-        )
+        if self.training:
+            mean = flat.mean(dim=0)
+            var = (torch.square(flat).mean(dim=0) - torch.square(mean)).clamp_min(0.0)
+            with torch.no_grad():
+                self.running_mean.copy_(
+                    self.momentum * self.running_mean + (1.0 - self.momentum) * mean
+                )
+                self.running_var.copy_(
+                    self.momentum * self.running_var + (1.0 - self.momentum) * var
+                )
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (flat - mean) * torch.rsqrt(var + self.epsilon)
         return y.reshape(x.shape).to(x.dtype)
 
 

@@ -4,8 +4,8 @@
 The export (``tpurec_torch.train.checkpoint.export_params``) is params.pt +
 export_meta.json. ``load_servable`` rebuilds the model from the registry on
 its device and returns callables for ranking and, when the model has towers,
-retrieval. Every call runs under ``torch.inference_mode()``. Kernels dispatch
-by the tensors' device, so no phase flag is needed.
+retrieval. Every call runs under ``torch.inference_mode()`` on a model in
+eval mode, so the kernels run wherever the tensors are on the card.
 """
 
 from __future__ import annotations
