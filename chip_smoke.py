@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -63,6 +63,30 @@ on the first phase that fails. Phases:
      must equal ``Trainer.infer`` (fp32 compute, since the export, as the
      JAX package's, drops the compute dtype).
 
+7. the embedding engines at full width (the ``bench.py:230-351`` trainers):
+   - kernel #9 (``fused_scatter_add``) against ``scatter_add_plain`` at the
+     FM v- and w-table shapes (bench.py's B=8192 batch: N=212,992 ids over
+     2,080,128 rows, D=32 and D=1), at DIN's (phase 6's batch: N=548,864
+     over 21,504 rows, its id-0 share printed) and at ragged shapes (N=1003,
+     V=300, D=8/64/160; every id equal; N=0): each row's error in units of
+     its limit (``SUM_RTOL``), two calls the same bits, and versions that
+     drop what runs carry across slices or keep only first occurrences
+     reading above the limit; device time, bound, plain and ``index_add_``
+     times. Kernel #10 (``gather_rows_sorted``) exactly equal to
+     ``index_select`` at the FM shape and ragged shapes, with its times;
+   - FM (bf16 compute, fp32 params) in the dense, ``fused_adam`` and
+     ``rowwise_adam`` engines: 30 steps each (losses finite and falling,
+     #9 twice a fused step, no host sync, step p50 and examples/s, peak
+     memory, a profiler summary); one fp32 fused step against one fp32
+     dense step (``ENGINE_*``), which a #9 that drops carried runs must
+     fail; three fp32 steps card against CPU (``fused_adam``,
+     ``rowwise_adam``); ``host_adam`` against lazy ``adam`` after 3 steps,
+     with both peak memories; ``run`` → ``restore`` (tables and
+     ``table_opt`` equal) → ``export`` → ``load_servable`` → ``predict``
+     (equal to ``Trainer.infer``) on a fused-trained FM;
+   - DIN on the fused engine: the fp32 fused-against-dense step, then 30
+     bf16 steps with #4, #5 and #9 each launched once a step.
+
 TF32 is off for the whole run (``allow_tf32 = False`` for matmul and
 cuDNN), so every fp32 comparison is fp32 on both sides.
 
@@ -73,6 +97,7 @@ The second-to-last line is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import statistics
@@ -223,7 +248,7 @@ def check_kernels(torch, kernels):
 
 # ---------------------------------------------------------------------------
 # phase 4: DIN Servable at full width
-def din_batch(info, batch_size, seq_len, seed=0):
+def bench_batch(info, batch_size, seq_len, seed=0):
     """A batch made the way ``bench.py``'s ``_make_batch`` makes it."""
     rng = np.random.default_rng(seed)
     batch = {
@@ -268,7 +293,7 @@ def run_din_servable(torch, kernels, workdir, card):
               "embedding": config.embedding.to_dict()},
     )
     servable = load_servable(export_dir, info, device="cuda")
-    batch = din_batch(info, batch_size, seq_len)
+    batch = bench_batch(info, batch_size, seq_len)
 
     att = servable.model.att
     seen = {}
@@ -549,16 +574,22 @@ def check_din_backward(torch, kernels):
     return rec
 
 
-def din_train_config(dtype, **train):
+def din_train_config(dtype, engine="dense", **train):
+    """bench.py's DIN trainer; ``engine`` 'dense' or 'fused' (``fused_adam``)."""
     from tpurec_torch.config import (
         EmbeddingConfig, ExperimentConfig, ModelConfig, OptimizerConfig, TrainConfig,
     )
 
+    fused = engine == "fused"
     return ExperimentConfig(
         model=ModelConfig(name="din", params=dict(DIN_FEATURES), embedding=EmbeddingConfig(dim=32)),
         train=TrainConfig(
             batch_size=TRAIN_BATCH, loss="bce", log_every_steps=0, compute_dtype=dtype,
-            optimizer=OptimizerConfig(learning_rate=1e-3), **train,
+            sparse_embedding=fused,
+            optimizer=OptimizerConfig(
+                learning_rate=1e-3, embedding_optimizer="fused_adam" if fused else "adam"
+            ),
+            **train,
         ),
     )
 
@@ -630,7 +661,7 @@ def run_din_training(torch, kernels, workdir, card):
     from tpurec_torch.train.trainer import Trainer
 
     info = din_info()
-    batch = din_batch(info, TRAIN_BATCH, 64, seed=1)
+    batch = bench_batch(info, TRAIN_BATCH, 64, seed=1)
     plain = (kernels.din_attention_plain, kernels.din_attention_bwd_plain)
 
     # one fp32 step: kernels against the plain attention, and a backward
@@ -737,8 +768,8 @@ def run_din_training(torch, kernels, workdir, card):
     ckpt_dir, export_dir = os.path.join(workdir, "ckpt"), os.path.join(workdir, "din_trained")
     cfg = din_train_config("float32", epochs=2, checkpoint_dir=ckpt_dir, max_to_keep=2)
     trainer = Trainer(cfg, info)
-    train = [din_batch(info, 1024, 64, seed=10 + i) for i in range(4)]
-    evals = [din_batch(info, 1024, 64, seed=20 + i) for i in range(2)]
+    train = [bench_batch(info, 1024, 64, seed=10 + i) for i in range(4)]
+    evals = [bench_batch(info, 1024, 64, seed=20 + i) for i in range(2)]
     state, report = trainer.run(lambda: iter(train), lambda: iter(evals))
     saved = trainer.ckpt.all_steps()
     check(state.step == 2 * len(train) and 1 <= len(saved) <= 2 and saved[-1] <= state.step,
@@ -761,6 +792,440 @@ def run_din_training(torch, kernels, workdir, card):
     )), flush=True)
     check(serve_err <= 1e-6, f"served prediction vs Trainer.infer: {serve_err}")
     return launches, result
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the embedding engines at full width
+# Kernel #9 against scatter_add_plain, row by row: within SUM_RTOL (2^-20,
+# 16 fp32 ulps) of the sum of the row's |g| plus SUM_ATOL. Both are fp32
+# sums of the same terms in other orders (index_add_ on the card adds with
+# atomics, in no fixed order); DIN's padding run of ~2e5 rows sums to ~4e2.
+SUM_RTOL, SUM_ATOL = 2.0**-20, 1e-7
+# One fp32 fused step against one fp32 dense step from the same weights and
+# batch: the loss; every parameter and table after Adam (whose first step
+# moves a weight by about lr = 1e-3 in the direction of g); each table's
+# first moment (0.1·G, G summed in another order) against 1e-4 of its
+# largest value.
+ENGINE_LOSS_TOL = 1e-5
+ENGINE_PARAM_TOL = 1e-5
+ENGINE_MOMENT_RTOL = 1e-4
+FM_TABLES = ("v.embedding", "w.w.embedding")
+
+
+def fm_info():
+    """``bench.py:_fm_info()``: 26 fields of 80,000 ids (2,080,128 padded rows)."""
+    from tpurec_torch.data.schema import DataInfo
+
+    return DataInfo.from_dims([f"f{i}" for i in range(26)], [80_000] * 26)
+
+
+def fm_train_config(mode, dtype="bfloat16", **train):
+    """``bench.py:_mk_trainer("fm", _fm_info(), 8192, mode)``: D=32, bce,
+    Adam lr 1e-3 eps 1e-7. ``mode``: 'dense', 'fused' (fused_adam), 'sparse'
+    (rowwise_adam), 'host' (host_adam) or 'lazy' (lazy Adam)."""
+    from tpurec_torch.config import (
+        EmbeddingConfig, ExperimentConfig, ModelConfig, OptimizerConfig, TrainConfig,
+    )
+
+    emb_opt = dict(dense="adam", fused="fused_adam", sparse="rowwise_adam", host="host_adam",
+                   lazy="adam")[mode]
+    return ExperimentConfig(
+        model=ModelConfig(name="fm", embedding=EmbeddingConfig(dim=32)),
+        train=TrainConfig(
+            batch_size=TRAIN_BATCH, loss="bce", log_every_steps=0, compute_dtype=dtype,
+            sparse_embedding=mode != "dense",
+            optimizer=OptimizerConfig(learning_rate=1e-3, embedding_optimizer=emb_opt), **train,
+        ),
+    )
+
+
+def flat_ids(info, batch):
+    """The step's ids as the fused engine concatenates them: features in
+    order, then each (B, L) sequence column-major."""
+    cols = [batch[n] for n in info.feature_names]
+    cols += [batch[n].T for n in info.sequence_names]
+    return np.concatenate([c.reshape(-1) for c in cols])
+
+
+def sum_reading(torch, eu, got, plan, grads) -> float:
+    """max over rows of |got − plain| / (SUM_ATOL + SUM_RTOL · Σ|g| of the row)."""
+    want = eu.scatter_add_plain(plan.num_rows, plan.sids, grads)
+    scale = eu.scatter_add_plain(plan.num_rows, plan.sids, grads.abs())
+    return float(((got - want).abs() / (SUM_ATOL + SUM_RTOL * scale)).max())
+
+
+def broken_scatters(torch, eu):
+    """Kernel #9 as two broken versions would compute it (plain math): one
+    that loses what a run carries past the slice it begins in, one that keeps
+    only each id's first occurrence. Each reading must exceed its limit."""
+    slice_rows = eu.scatter_slice_rows()
+
+    def drop_carried(table_rows, d, plan, grads_sorted):
+        g = grads_sorted.reshape(plan.n, d)
+        start = torch.searchsorted(plan.sids, plan.sids)  # where each run begins
+        keep = torch.arange(plan.n, device=g.device) // slice_rows == start // slice_rows
+        return eu.scatter_add_plain(table_rows, plan.sids[keep], g[keep])
+
+    def first_only(table_rows, d, plan, grads_sorted):
+        g = grads_sorted.reshape(plan.n, d)
+        keep = torch.ones(plan.n, dtype=torch.bool, device=g.device)
+        keep[1:] = plan.sids[1:] != plan.sids[:-1]
+        return eu.scatter_add_plain(table_rows, plan.sids[keep], g[keep])
+
+    return dict(broken_drop_carried=drop_carried, broken_first_only=first_only), slice_rows
+
+
+def check_embedding_kernels(torch, eu):
+    """Kernels #9 and #10 against their plain versions (phase 7a, 7b)."""
+    from tpurec_torch.embedding.ops import pad_vocab
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    broken, slice_rows = broken_scatters(torch, eu)
+    finfo, dinfo = fm_info(), din_info()
+    fm_ids = flat_ids(finfo, bench_batch(finfo, TRAIN_BATCH, 0, seed=1))
+    din_ids = flat_ids(dinfo, bench_batch(dinfo, TRAIN_BATCH, 64, seed=1))
+    v_fm, v_din = pad_vocab(finfo.total_dims), pad_vocab(dinfo.total_dims)
+    ragged = torch.randint(0, 300, (1003,), device="cuda", generator=gen)
+    cases = {
+        "fm_v": (fm_ids, v_fm, 32), "fm_w": (fm_ids, v_fm, 1), "din": (din_ids, v_din, 32),
+        "ragged_d8": (ragged, 300, 8), "ragged_d64": (ragged, 300, 64),
+        "ragged_d160": (ragged, 300, 160), "all_equal": (np.full(5000, 150), 300, 4),
+        "empty": (np.zeros(0, np.int64), 300, 8),
+    }
+    readings, records = {}, {}
+    for name, (ids, v, d) in cases.items():
+        plan = eu.make_scatter_plan(torch.as_tensor(ids, device="cuda"), v)
+        grads = torch.randn(plan.n, d, device="cuda", generator=gen)
+        got = eu.fused_scatter_add(v, d, plan, grads)
+        again = eu.fused_scatter_add(v, d, plan, grads)
+        r = dict(n=plan.n, rows=v, d=d, same_bits=bool(torch.equal(got, again)))
+        r["kernel"] = sum_reading(torch, eu, got, plan, grads) if plan.n else float(got.abs().max())
+        if plan.n:
+            s = plan.sids
+            start = torch.searchsorted(s, s)
+            pos = torch.arange(plan.n, device="cuda")
+            r["crossing_rows"] = int((pos // slice_rows != start // slice_rows).sum())
+            r["repeated_rows"] = int((s[1:] == s[:-1]).sum())
+            for bname, fn in broken.items():
+                r[bname] = sum_reading(torch, eu, fn(v, d, plan, grads), plan, grads)
+        readings[name] = r
+        if name in ("fm_v", "fm_w", "din"):
+            # bytes: grads and ids read once, all of G written once; one add
+            # a gradient element
+            bound_ms, bound_by = bound(4 * (plan.n * d + plan.n + v * d), plan.n * d)
+            plain = lambda: eu.scatter_add_plain(v, plan.sids, grads)  # noqa: E731
+            rec = dict(
+                name="fused_scatter_add", route="cuda", source="tpurec_torch/csrc/embedding_update.cu",
+                replaces="tpurec/ops/pallas/embedding_update.py:231", shape=[plan.n, v, d],
+                max_abs_err=float((got - plain()).abs().max()),
+                ms=device_ms(torch, lambda: eu.fused_scatter_add(v, d, plan, grads)),
+                plain_ms=device_ms(torch, plain),
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=device_ms(torch, lambda: torch.zeros(v, d, device="cuda").index_add_(
+                    0, plan.sids, grads)),
+            )
+            if name == "din":
+                rec["id0_share"] = float((din_ids == 0).mean())
+                # the dense engine's table gradient on the same stream, with
+                # the padding run and with id 0 replaced by random ids: does
+                # the one long segment set its time?
+                ids = torch.as_tensor(din_ids, device="cuda")
+                spread = torch.where(ids == 0, torch.randint(1, v, ids.shape, device="cuda",
+                                                             generator=gen), ids)
+                dense_bwd = torch.ops.aten.embedding_dense_backward
+                rec["embedding_dense_backward_ms"] = device_ms(
+                    torch, lambda: dense_bwd(grads, ids, v, -1, False))
+                rec["embedding_dense_backward_no_id0_run_ms"] = device_ms(
+                    torch, lambda: dense_bwd(grads, spread, v, -1, False))
+            records[name] = rec
+            print("kernel check:", json.dumps(rec), flush=True)
+    print(f"fused_scatter_add readings (error / limit; limit = {SUM_ATOL} + {SUM_RTOL} · Σ|g| "
+          f"of the row, fp32 sums in another order; slices of {slice_rows} rows):",
+          json.dumps(readings), flush=True)
+    for name, r in readings.items():
+        check(r["same_bits"], f"fused_scatter_add at {name}: two calls gave different bits")
+        check(r["kernel"] <= 1.0, f"fused_scatter_add vs plain at {name}: {r}")
+        if r.get("crossing_rows"):
+            check(r["broken_drop_carried"] > 1.0,
+                  f"the check cannot tell a #9 that drops carried runs at {name}: {r}")
+        if r.get("repeated_rows"):
+            check(r["broken_first_only"] > 1.0,
+                  f"the check cannot tell a #9 that keeps first occurrences at {name}: {r}")
+    check(all(readings[n].get("crossing_rows") for n in ("fm_v", "din", "all_equal")),
+          "no run crossed a slice at the FM, DIN or all-equal shape")
+
+    # kernel #10: copies, so exact; a gather of the neighbouring rows must differ
+    gather = {}
+    for name, (ids, v, d) in dict(
+        fm=(fm_ids, v_fm, 32), ragged_d5=(ragged, 300, 5), ragged_d64=(ragged, 300, 64),
+        ragged_d160=(ragged, 300, 160), empty=(np.zeros(0, np.int64), 300, 8),
+    ).items():
+        plan = eu.make_scatter_plan(torch.as_tensor(ids, device="cuda"), v)
+        table = torch.randn(v, d, device="cuda", generator=gen)
+        rows = eu.gather_rows_sorted(table, plan)
+        want = eu.gather_rows_plain(table, plan.sids)
+        neighbour = table.index_select(0, (plan.sids ^ 1).clamp_max(v - 1))
+        gather[name] = dict(exact=bool(torch.equal(rows, want)), n=plan.n, d=d,
+                            broken_neighbour_rows_differ=bool(plan.n == 0 or not torch.equal(
+                                neighbour, want)))
+        if name == "fm":
+            bound_ms, bound_by = bound(4 * (plan.n + 2 * plan.n * d), 0)
+            records["gather"] = dict(
+                name="gather_rows_sorted", route="cuda", source="tpurec_torch/csrc/embedding_update.cu",
+                replaces="tpurec/ops/pallas/embedding_update.py:419", shape=[plan.n, v, d],
+                max_abs_err=float((rows - want).abs().max()),
+                ms=device_ms(torch, lambda: eu.gather_rows_sorted(table, plan)),
+                plain_ms=device_ms(torch, lambda: eu.gather_rows_plain(table, plan.sids)),
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=device_ms(torch, lambda: table.index_select(0, plan.sids)),
+            )
+            print("kernel check:", json.dumps(records["gather"]), flush=True)
+    print("gather_rows_sorted readings (exact copies):", json.dumps(gather), flush=True)
+    for name, r in gather.items():
+        check(r["exact"] and r["broken_neighbour_rows_differ"], f"gather_rows_sorted at {name}: {r}")
+    return records
+
+
+def drive_steps(torch, trainer, state, dbatch, steps=TRAIN_STEPS):
+    """``steps`` train steps on one batch, each synchronised: (state, metric
+    state, losses, host times in ms)."""
+    metric_state = trainer.metrics.init()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metric_state, logs = trainer.train_step(state, dbatch, metric_state)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(logs["loss"])
+    return state, metric_state, [float(x) for x in losses], times
+
+
+def step_breakdown(torch, trainer, step, steps=10) -> dict:
+    """Median CUDA-event span, over ``steps`` calls of ``step()``, from each
+    of the trainer's step marks to the next (forward, backward, optimizer
+    with the table update, metrics); a span holds device idle time too."""
+    names = ("forward", "backward", "optimizer", "metrics", "end")
+    spans = {n: [] for n in names[:-1]}
+    events = {}
+
+    def mark(name):
+        events[name] = torch.cuda.Event(enable_timing=True)
+        events[name].record()
+
+    trainer.step_marks = mark
+    try:
+        for _ in range(steps):
+            step()
+            torch.cuda.synchronize()
+            for a, b in zip(names, names[1:]):
+                spans[a].append(events[a].elapsed_time(events[b]))
+    finally:
+        trainer.step_marks = None
+    return {n: statistics.median(v) for n, v in spans.items()}
+
+
+def engine_run(torch, kernels, eu, name, trainer, batch, card):
+    """The main path of one engine: 30 steps on the fixed batch with the
+    launch counts set to 0 before and read after, then the sync check and a
+    profiler summary. Returns (counts, result)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.init_state(batch)
+    dbatch = trainer.device_batch(batch)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    state, metric_state, losses, times = drive_steps(torch, trainer, state, dbatch)
+    counts = dict(din_attention=kernels.din_attention_fused.launches,
+                  din_attention_bwd=kernels.din_attention_bwd_fused.launches,
+                  fused_scatter_add=eu.fused_scatter_add.launches,
+                  gather_rows_sorted=eu.gather_rows_sorted.launches)
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    def step():
+        nonlocal state, metric_state
+        state, metric_state, _ = trainer.train_step(state, dbatch, metric_state)
+
+    breakdown = step_breakdown(torch, trainer, step)
+    syncs = count_syncs(torch, step)
+    busy_ms, top_ops = profile_steps(torch, step)
+    step_ms = statistics.median(times[10:])
+    result = dict(
+        card=card, engine=name, batch=TRAIN_BATCH, steps=TRAIN_STEPS, step_p50_ms=step_ms,
+        step_ms_min=min(times[10:]), step_ms_max=max(times[10:]),
+        examples_per_s=TRAIN_BATCH / (step_ms / 1e3), first_step_ms=times[0],
+        breakdown_ms=breakdown, device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / step_ms,
+        top_ops_ms=top_ops, host_syncs=len(syncs), launches=counts, loss_first=losses[0], loss_last=losses[-1],
+        peak_mem_gb=peak_gb,
+    )
+    print(f"{name} training:", json.dumps(result), flush=True)
+    check(all(np.isfinite(losses)), f"{name}: non-finite training loss: {losses}")
+    check(losses[-1] < losses[0], f"{name}: the loss did not fall in {TRAIN_STEPS} steps: {losses}")
+    check(not syncs, f"{name}: train_step synchronised with the device: {syncs}")
+    return counts, result
+
+
+def one_step_state(torch, trainer, batch, tables):
+    """One step from the trainer's seeded weights: (loss, parameters, first
+    moment of each table)."""
+    state = trainer.init_state(batch)
+    state, _, logs = trainer.train_step(state, trainer.device_batch(batch), trainer.metrics.init())
+    named = dict(state.model.named_parameters())
+    if state.table_opt is not None:
+        moments = {n: state.table_opt[n].m.clone() for n in tables}
+    else:
+        moments = {n: state.optimizer.state[named[n]]["mu"].clone() for n in tables}
+    return float(logs["loss"]), {n: p.detach().clone() for n, p in named.items()}, moments
+
+
+def engine_reading(got, want) -> dict:
+    (loss, params, moments), (want_loss, want_params, want_moments) = got, want
+    param = {n: float((params[n] - want_params[n]).abs().max()) for n in want_params}
+    moment = {n: scaled_ratio(moments[n], want_moments[n], ENGINE_MOMENT_RTOL) for n in want_moments}
+    worst = max(param, key=param.get)
+    return dict(loss=abs(loss - want_loss), param=param[worst], param_worst=worst,
+                moment_ratio=max(moment.values()), moments=moment)
+
+
+def fused_vs_dense(torch, eu, config_fn, info, batch, tables, label):
+    """One fp32 fused step against one fp32 dense step from the same weights
+    and batch, and a fused step built on a #9 that drops carried runs."""
+    from tpurec_torch.train.trainer import Trainer
+
+    want = one_step_state(torch, Trainer(config_fn("dense"), info), batch, tables)
+    fused = Trainer(config_fn("fused"), info)
+    reading = dict(fused=engine_reading(one_step_state(torch, fused, batch, tables), want))
+    with mock.patch.object(eu, "fused_scatter_add", broken_scatters(torch, eu)[0]["broken_drop_carried"]):
+        reading["broken_drop_carried"] = engine_reading(
+            one_step_state(torch, fused, batch, tables), want
+        )
+    print(f"{label} fp32 fused step vs dense step:", json.dumps(dict(
+        reading, limits=dict(loss=ENGINE_LOSS_TOL, param=ENGINE_PARAM_TOL,
+                             moment_rtol=ENGINE_MOMENT_RTOL),
+    )), flush=True)
+    r = reading["fused"]
+    check(r["loss"] <= ENGINE_LOSS_TOL and r["param"] <= ENGINE_PARAM_TOL and r["moment_ratio"] <= 1.0,
+          f"{label}: fused step vs dense step: {r}")
+    check(reading["broken_drop_carried"]["moment_ratio"] > 1.0,
+          f"{label}: the step check cannot tell a #9 that drops carried runs")
+    return reading
+
+
+def run_fm_engines(torch, kernels, eu, workdir, card):
+    """FM at bench.py's width in the dense, fused and rowwise_adam engines,
+    then their checks (phase 7c, 7e, 7f)."""
+    from tpurec_torch.serving.export import load_servable
+    from tpurec_torch.train.trainer import Trainer
+
+    info = fm_info()
+    batch = bench_batch(info, TRAIN_BATCH, 0, seed=1)
+    results, counts = {}, {}
+    for mode, name in (("dense", "fm_dense"), ("fused", "fm_fused_adam"),
+                       ("sparse", "fm_rowwise_adam")):
+        counts[name], results[name] = engine_run(
+            torch, kernels, eu, name, Trainer(fm_train_config(mode), info), batch, card
+        )
+    check(counts["fm_fused_adam"]["fused_scatter_add"] == 2 * TRAIN_STEPS,
+          f"the fused FM step did not launch #9 twice a step: {counts['fm_fused_adam']}")
+    check(counts["fm_dense"]["fused_scatter_add"] == counts["fm_rowwise_adam"]["fused_scatter_add"] == 0,
+          "a dense or lazy step launched #9")
+
+    # the fused engine is dense Adam: one fp32 step each from the same weights
+    fused_vs_dense(torch, eu, lambda m: fm_train_config(m, "float32"), info, batch, FM_TABLES, "fm")
+
+    # three fp32 steps on 256 rows, card against the port on the CPU
+    rows = {k: v[:256] for k, v in batch.items()}
+    cpu_losses = {}
+    for mode in ("fused", "sparse"):
+        card_t = Trainer(fm_train_config(mode, "float32"), info)
+        cpu_t = Trainer(fm_train_config(mode, "float32"), info, device="cpu")
+        card_s, cpu_s = card_t.init_state(rows), cpu_t.init_state(rows)
+        cpu_s.model.load_state_dict({k: v.cpu() for k, v in card_s.model.state_dict().items()})
+        pairs = []
+        for _ in range(3):
+            card_s, _, a = card_t.train_step(card_s, card_t.device_batch(rows), card_t.metrics.init())
+            cpu_s, _, b = cpu_t.train_step(cpu_s, cpu_t.device_batch(rows), cpu_t.metrics.init())
+            pairs.append((float(a["loss"]), float(b["loss"])))
+        cpu_losses[mode] = pairs
+        del card_s, cpu_s
+    print("fm card vs cpu losses (256 rows):", json.dumps(dict(losses=cpu_losses, limit=CPU_LOSS_TOL)),
+          flush=True)
+    for mode, pairs in cpu_losses.items():
+        check(max(abs(a - b) for a, b in pairs) <= CPU_LOSS_TOL, f"fm {mode}: card vs CPU {pairs}")
+
+    # host_adam: the lazy Adam math with moments on the host (fp32 compute:
+    # in bf16 a 1e-8 difference in a table can flip a rounding of the loss
+    # and its gradient by 2^-8, which is not what this compares)
+    host = {}
+    for mode in ("lazy", "host"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(fm_train_config(mode, "float32"), info)
+        state = trainer.init_state(batch)
+        dbatch = trainer.device_batch(batch)
+        state, _, losses, times = drive_steps(torch, trainer, state, dbatch, steps=3)
+        host[mode] = dict(
+            tables={n: state.model.get_parameter(n).detach()[:-1].clone() for n in FM_TABLES},
+            peak_mem_gb=(torch.cuda.max_memory_allocated() - base) / 2**30, step_ms=times,
+            losses=losses,
+            host_moment_gb=None if state.host_store is None else state.host_store.nbytes() / 2**30,
+        )
+        del trainer, state
+    host_err = max(float((host["host"]["tables"][n] - host["lazy"]["tables"][n]).abs().max())
+                   for n in FM_TABLES)
+    print("fm host_adam vs lazy adam:", json.dumps(dict(
+        card=card, table_err=host_err, limit=ENGINE_PARAM_TOL,
+        **{m: {k: v for k, v in r.items() if k != "tables"} for m, r in host.items()},
+    )), flush=True)
+    check(host_err <= ENGINE_PARAM_TOL, f"host_adam vs lazy adam tables: {host_err}")
+
+    # run -> restore -> export -> load_servable -> predict on a fused-trained FM
+    ckpt_dir, export_dir = os.path.join(workdir, "fm_ckpt"), os.path.join(workdir, "fm_export")
+    cfg = fm_train_config("fused", "float32", epochs=1, checkpoint_dir=ckpt_dir, max_to_keep=1)
+    trainer = Trainer(cfg, info)
+    train = [bench_batch(info, 1024, 0, seed=30 + i) for i in range(4)]
+    evals = [bench_batch(info, 1024, 0, seed=40)]
+    state, report = trainer.run(lambda: iter(train), lambda: iter(evals))
+    trainer.save(state)
+    restored = trainer.restore(trainer.init_state(seed=123))
+    same_opt = all(
+        torch.equal(getattr(restored.table_opt[n], f), getattr(state.table_opt[n], f))
+        for n in FM_TABLES for f in ("m", "v")
+    )
+    want_sd = state.model.state_dict()
+    same_params = all(torch.equal(v, want_sd[k]) for k, v in restored.model.state_dict().items())
+    trainer.export(state, export_dir)
+    servable = load_servable(export_dir, info, device="cuda")
+    rows = {k: v[:512] for k, v in evals[0].items() if k != "label"}
+    serve_err = float(np.abs(servable.predict(rows)["output"].cpu().numpy()
+                             - trainer.infer(state, rows)["output"]).max())
+    print("fm fused entry points:", json.dumps(dict(
+        steps=state.step, eval=report["best_eval"], restored_table_opt_equal=same_opt,
+        restored_params_equal=same_params, served_vs_infer=serve_err,
+    )), flush=True)
+    check(state.step == len(train) and restored.step == state.step, "fm fused run/restore steps")
+    check(same_opt and same_params, "restore did not give back the saved tables and table_opt")
+    check(serve_err <= 1e-6, f"fm served prediction vs Trainer.infer: {serve_err}")
+    return counts["fm_fused_adam"]["fused_scatter_add"], results
+
+
+def run_din_fused(torch, kernels, eu, card):
+    """DIN at phase 6's width on the fused engine (phase 7d)."""
+    from tpurec_torch.train.trainer import Trainer
+
+    info = din_info()
+    batch = bench_batch(info, TRAIN_BATCH, 64, seed=1)
+    fused_vs_dense(torch, eu, lambda m: din_train_config("float32", m), info, batch,
+                   ("emb.embedding",), "din")
+    counts, result = engine_run(torch, kernels, eu, "din_fused_adam",
+                                Trainer(din_train_config("bfloat16", "fused"), info), batch, card)
+    want = dict(din_attention=TRAIN_STEPS, din_attention_bwd=TRAIN_STEPS,
+                fused_scatter_add=TRAIN_STEPS, gather_rows_sorted=0)
+    check(counts == want, f"DIN fused launches {counts}, expected {want}")
+    return counts, result
 
 
 def main() -> int:
@@ -788,18 +1253,46 @@ def main() -> int:
         log = open(f"{path}.log").read()
         print("\n".join(line for line in log.splitlines() if "Used" in line or "spill" in line))
 
-    records = check_kernels(torch, kernels)
-    records["din_attention_bwd"] = check_din_backward(torch, kernels)
+    from tpurec_torch.ops import embedding_update as eu
+
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    records = timed("3_kernels", check_kernels, torch, kernels)
+    records["din_attention_bwd"] = timed("6_din_backward", check_din_backward, torch, kernels)
+    embedding = timed("7ab_embedding_kernels", check_embedding_kernels, torch, eu)
     with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR.parent) as workdir:
-        serve_launches, _ = run_din_servable(torch, kernels, workdir, smi)
-        records["fm_second_order"]["launches"], _ = run_http(torch, kernels, workdir, smi)
-        (train_launches, bwd_launches), _ = run_din_training(torch, kernels, workdir, smi)
-    # the forward kernel runs on two paths: its launches are their sum
-    records["din_attention"]["launches"] = serve_launches + train_launches
-    records["din_attention"]["launches_by_path"] = dict(
-        din_serving=serve_launches, din_training=train_launches
-    )
-    records["din_attention_bwd"]["launches"] = bwd_launches
+        serve_launches, _ = timed("4_din_servable", run_din_servable, torch, kernels, workdir, smi)
+        records["fm_second_order"]["launches"], _ = timed(
+            "5_http", run_http, torch, kernels, workdir, smi
+        )
+        (train_launches, bwd_launches), _ = timed(
+            "6_din_training", run_din_training, torch, kernels, workdir, smi
+        )
+        fm_scatter_launches, _ = timed(
+            "7cef_fm_engines", run_fm_engines, torch, kernels, eu, workdir, smi
+        )
+        din_fused, _ = timed("7d_din_fused", run_din_fused, torch, kernels, eu, smi)
+    print("phase seconds:", json.dumps(seconds), flush=True)
+    # a kernel on several paths: its launches are their sum
+    forward_paths = dict(din_serving=serve_launches, din_training=train_launches,
+                         din_fused_training=din_fused["din_attention"])
+    records["din_attention"]["launches"] = sum(forward_paths.values())
+    records["din_attention"]["launches_by_path"] = forward_paths
+    bwd_paths = dict(din_training=bwd_launches, din_fused_training=din_fused["din_attention_bwd"])
+    records["din_attention_bwd"]["launches"] = sum(bwd_paths.values())
+    records["din_attention_bwd"]["launches_by_path"] = bwd_paths
+    scatter_paths = dict(fm_fused_training=fm_scatter_launches,
+                         din_fused_training=din_fused["fused_scatter_add"])
+    records["fused_scatter_add"] = dict(embedding["fm_v"], launches=sum(scatter_paths.values()),
+                                        launches_by_path=scatter_paths)
+    # #10 is on no training path, in either package: checked and timed alone
+    records["gather_rows_sorted"] = dict(embedding["gather"], launches=0, launches_by_path={})
 
     print(json.dumps({"card": smi, "kernels": list(records.values())}), flush=True)
     print(json.dumps({

@@ -6,7 +6,10 @@ The file imports no JAX, so on a machine without it run it as
 
 Tolerances: fp32 on both sides with TF32 off; the kernels sum in another
 order than the plain versions, so values of O(1)-O(10) agree to ~1e-5
-relative: atol/rtol 1e-4.
+relative: atol/rtol 1e-4. The aggregated embedding gradient (kernel #9) is
+held row by row to 2^-20 (16 fp32 ulps) of the sum of its rows' magnitudes
+plus 1e-7: a run of ~10^5 rows sums to 10^2-10^3 in either order. Gathered
+rows (kernel #10) are copies: exact.
 """
 
 import numpy as np
@@ -295,3 +298,139 @@ def test_train_step_on_card_matches_plain_attention(card):
         err = float((grad - want_grad).abs().max())
         assert err <= 1e-3 * float(want_grad.abs().max()), f"{name}: grad err {err}"
         torch.testing.assert_close(param, want_param, atol=1e-5, rtol=0, msg=name)
+
+
+# --------------------------------------------------------------------------
+# the sorted-stream embedding kernels (#9, #10)
+SUM_RTOL, SUM_ATOL = 2.0**-20, 1e-7
+
+
+def _sorted_stream(card, n, v, d, skew=0.0, seed=0):
+    """A plan over n ids in [0, v) (a share ``skew`` of them id 0) and fp32
+    gradients in id order."""
+    from tpurec_torch.ops import embedding_update as eu
+
+    gen = torch.Generator(card).manual_seed(seed)
+    ids = torch.randint(0, v, (n,), device=card, generator=gen)
+    ids = torch.where(torch.rand(n, device=card, generator=gen) < skew, 0, ids)
+    plan = eu.make_scatter_plan(ids, v)
+    return plan, torch.randn(n, d, device=card, generator=gen)
+
+
+def _sum_reading(got, plan, grads):
+    from tpurec_torch.ops import embedding_update as eu
+
+    want = eu.scatter_add_plain(plan.num_rows, plan.sids, grads)
+    scale = eu.scatter_add_plain(plan.num_rows, plan.sids, grads.abs())
+    return float(((got - want).abs() / (SUM_ATOL + SUM_RTOL * scale)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n,v,d,skew",
+    [(50_000, 400_000, 32, 0.0), (50_000, 400_000, 1, 0.0), (60_000, 2_000, 32, 0.36),
+     (1003, 300, 8, 0.0), (1003, 300, 64, 0.0), (1003, 300, 160, 0.0), (5000, 300, 4, 1.0),
+     (1, 10, 3, 0.0), (0, 10, 8, 0.0)],
+)
+def test_fused_scatter_add_kernel_matches_plain(card, n, v, d, skew):
+    """Every row within its limit of ``scatter_add_plain``; rows no id
+    touches exactly 0; two calls the same bits (no float atomics); a version
+    that drops what runs carry across slices, or keeps only each id's first
+    occurrence, reads above the limit."""
+    from tpurec_torch.ops import embedding_update as eu
+
+    plan, grads = _sorted_stream(card, n, v, d, skew)
+    before = eu.fused_scatter_add.launches
+    got = eu.fused_scatter_add(v, d, plan, grads)
+    again = eu.fused_scatter_add(v, d, plan, grads)
+    torch.cuda.synchronize()
+    assert eu.fused_scatter_add.launches == before + 2
+    assert got.shape == (v, d) and torch.equal(got, again)
+    if n == 0:
+        assert not got.any()
+        return
+    assert _sum_reading(got, plan, grads) <= 1.0
+    touched = torch.zeros(v, dtype=torch.bool, device=card)
+    touched[plan.sids.long()] = True
+    assert not got[~touched].any()
+    if plan.sids.unique().numel() < n:
+        first = torch.ones(n, dtype=torch.bool, device=card)
+        first[1:] = plan.sids[1:] != plan.sids[:-1]
+        keep_first = eu.scatter_add_plain(v, plan.sids[first], grads[first])
+        assert _sum_reading(keep_first, plan, grads) > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,v,d", [(50_000, 400_000, 32), (1003, 300, 5), (1003, 300, 160),
+                                   (3000, 50, 1), (0, 10, 4)])
+def test_gather_rows_kernel_matches_plain(card, n, v, d):
+    from tpurec_torch.ops import embedding_update as eu
+
+    plan, _ = _sorted_stream(card, n, v, 1, skew=0.3)
+    table = torch.randn(v, d, device=card)
+    before = eu.gather_rows_sorted.launches
+    rows = eu.gather_rows_sorted(table, plan)
+    torch.cuda.synchronize()
+    assert eu.gather_rows_sorted.launches == before + 1
+    assert torch.equal(rows, eu.gather_rows_plain(table, plan.sids))
+    assert torch.equal(eu.unpermute_rows(rows, plan), table[plan.sids[torch.sort(plan.order).indices].long()])
+
+
+@pytest.mark.cuda
+def test_embedding_update_wrappers_refuse_what_the_kernels_do_not_take(card):
+    from tpurec_torch.ops import embedding_update as eu
+
+    plan, grads = _sorted_stream(card, 100, 50, 8)
+    with pytest.raises(TypeError, match="int32"):
+        eu.fused_scatter_add(50, 8, plan._replace(sids=plan.sids.long()), grads)
+    with pytest.raises(TypeError, match="float32"):
+        eu.fused_scatter_add(50, 8, plan, grads.double())
+    with pytest.raises(ValueError, match="sids are on"):
+        eu.gather_rows_sorted(torch.randn(50, 8, device=card), plan._replace(sids=plan.sids.cpu()))
+    with pytest.raises(RuntimeError, match="requires grad"):
+        eu.fused_scatter_add(50, 8, plan, grads.clone().requires_grad_())
+    with torch.no_grad():
+        eu.fused_scatter_add(50, 8, plan, grads.clone().requires_grad_())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", ["fused_adam", "rowwise_adam", "host_adam"])
+def test_sparse_engine_on_card_matches_cpu(card, opt):
+    """Three fp32 steps of a small FM in a sparse engine on the card (kernel
+    #9 in the fused engine, twice a step) against the same steps on the CPU:
+    the loss of each step (1e-5) and the tables after them (2e-6: Adam
+    steps of lr = 1e-3 from gradients summed in another order)."""
+    from tpurec_torch.config import ExperimentConfig
+    from tpurec_torch.data.schema import DataInfo
+    from tpurec_torch.ops import embedding_update as eu
+    from tpurec_torch.train.trainer import Trainer
+
+    info = DataInfo.from_dims([f"f{i}" for i in range(8)], [50] * 8)
+
+    def batch(seed):
+        r = np.random.default_rng(seed)
+        out = {f"f{i}": r.integers(50 * i, 50 * i + 50, size=(256,)) for i in range(8)}
+        out["label"] = r.integers(0, 2, size=(256,)).astype(np.float32)
+        return out
+
+    config = ExperimentConfig.from_dict(dict(
+        model=dict(name="fm", embedding=dict(dim=8)),
+        train=dict(compute_dtype="float32", log_every_steps=0, sparse_embedding=True,
+                   optimizer=dict(embedding_optimizer=opt)),
+    ))
+    trainers = [Trainer(config, info, device=card), Trainer(config, info, device="cpu")]
+    states = [t.init_state(batch(0)) for t in trainers]
+    states[1].model.load_state_dict({k: v.cpu() for k, v in states[0].model.state_dict().items()})
+    before = eu.fused_scatter_add.launches
+    for i in range(3):
+        losses = []
+        for j, (t, s) in enumerate(zip(trainers, states)):
+            states[j], _, logs = t.train_step(s, t.device_batch(batch(10 + i)), t.metrics.init())
+            losses.append(float(logs["loss"]))
+        assert abs(losses[0] - losses[1]) <= 1e-5, losses
+    torch.cuda.synchronize()
+    assert eu.fused_scatter_add.launches - before == (6 if opt == "fused_adam" else 0)
+    for name in ("v.embedding", "w.w.embedding"):
+        got = states[0].model.get_parameter(name).detach().cpu()[:-1]
+        want = states[1].model.get_parameter(name).detach()[:-1]
+        torch.testing.assert_close(got, want, atol=2e-6, rtol=0, msg=name)

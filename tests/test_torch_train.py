@@ -527,17 +527,24 @@ def test_load_from_export_and_init_subtree(tmp_path):
 
 
 def test_trainer_refuses_unported_engines():
-    jinfo, info, _ = _din_data()
-    for train in (dict(sparse_embedding=True), dict(optimizer=dict(embedding_optimizer="fused_adam")),
-                  dict(optimizer=dict(embedding_optimizer="rowwise_adam"))):
-        cfg = ExperimentConfig.from_dict(dict(model=dict(name="din"), train=train))
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            Trainer(cfg, info, device="cpu")
+    """Meshes of more than one device are refused; ``'auto'`` resolves to the
+    dense engine; with ``sparse_embedding=False`` a sparse
+    ``embedding_optimizer`` is ignored and the step is dense, as in the JAX
+    package (``trainer.py:1359-1368``): the tables stay in the optimizer and
+    the step equals the JAX dense step."""
+    jinfo, info, data = _din_data()
     cfg = ExperimentConfig.from_dict(dict(mesh=dict(data=2)))
     with pytest.raises(NotImplementedError, match="slice 7"):
         Trainer(cfg, info, device="cpu")
     auto = ExperimentConfig.from_dict(dict(train=dict(optimizer=dict(embedding_optimizer="auto"))))
-    assert Trainer(auto, info, device="cpu").config.train.optimizer.embedding_optimizer == "adam"
+    resolved = Trainer(auto, info, device="cpu").config.train
+    assert resolved.optimizer.embedding_optimizer == "adam" and not resolved.sparse_embedding
+    for opt in ("fused_adam", "rowwise_adam", "host_adam"):
+        jcfg, cfg = _configs("din", optimizer=dict(embedding_optimizer=opt))
+        jt, js, pt, ps = _pair(jcfg, cfg, jinfo, info, data)
+        assert ps.table_opt is None and ps.host_store is None
+        assert "emb.embedding" in [g["name"] for g in ps.optimizer.param_groups]
+        _step_both(jt, js, pt, ps, data, FP32, grads=False)
 
 
 def test_config_summary_and_early_stop_copies_match_jax(tmp_path):

@@ -20,6 +20,15 @@ that differs.
 state (the ``ScaleByAdamState`` found anywhere in the chain's state:
 ``count``, ``mu``, ``nu``) into the port's ``ChainOptimizer`` over the same
 module, so a test can continue a JAX run step for step.
+
+A JAX sparse-mode state keeps its tables in ``state.tables`` (outside the
+params) and their optimizer state in ``state.table_opt``. ``params_from_jax``
+takes the tables as a third collection, ``'tables'``, into the modules'
+``embedding`` parameters; ``table_opt_from_jax(table_opt, jax_table_opt,
+host_store, jax_host_store)`` copies ``SparseAdamState`` m/v,
+``SparseRowAdamState`` (bf16 m, (V,) v), ``SparseAdagradState`` acc, or the
+moments a JAX ``HostAdamStore`` holds for a ``HostAdamState`` slot, into the
+port's ``TrainState.table_opt`` (and ``TrainState.host_store``).
 """
 
 from __future__ import annotations
@@ -62,13 +71,14 @@ def _torch_leaf(collection: str, path: Tuple[str, ...], value) -> Tuple[str, np.
 def params_from_jax(module: nn.Module, variables: Mapping) -> nn.Module:
     """Load the flax ``variables`` into ``module`` (strict; copied to the
     module's device) and return it."""
-    extra = set(variables) - {"params", "batch_stats"}
+    extra = set(variables) - {"params", "batch_stats", "tables"}
     if extra:
         raise KeyError(f"unmatched collections {sorted(extra)}")
     state: Dict[str, torch.Tensor] = {}
-    for collection in ("params", "batch_stats"):
-        for path, value in _flatten(variables.get(collection, {})):
-            name, arr = _torch_leaf(collection, path, value)
+    for collection in ("params", "tables", "batch_stats"):
+        for path, value in _flatten(variables.get(collection) or {}):
+            name, arr = _torch_leaf("batch_stats" if collection == "batch_stats" else "params",
+                                    path, value)
             state[".".join(path[:-1] + (name,))] = torch.from_numpy(np.ascontiguousarray(arr))
     module.load_state_dict(state)
     return module
@@ -121,3 +131,30 @@ def opt_state_from_jax(optimizer, module: nn.Module, opt_state: Any):
         optimizer.state[p]["nu"] = torch.from_numpy(np.ascontiguousarray(nu[name])).to(p.device)
         group["count"] = count
     return optimizer
+
+
+def table_opt_from_jax(table_opt: Dict[str, Any], jax_table_opt: Mapping,
+                       host_store=None, jax_host_store=None) -> Dict[str, Any]:
+    """Copy a JAX ``state.table_opt`` into the port's ``table_opt`` (keyed by
+    table parameter name, the flax path joined with dots) in place, and
+    return it. Each table's state must be of the same kind on both sides;
+    a ``HostAdamState`` takes the moments of its JAX slot from
+    ``jax_host_store`` into its slot of ``host_store``."""
+    # each table's state is a NamedTuple, a leaf to ``_flatten``
+    leaves = {".".join(path): value for path, value in _flatten(jax_table_opt)}
+    if set(leaves) != set(table_opt):
+        raise KeyError(f"JAX tables {sorted(leaves)} != port tables {sorted(table_opt)}")
+    with torch.no_grad():
+        for name, st in table_opt.items():
+            src = leaves[name]
+            if type(src).__name__ != type(st).__name__:
+                raise TypeError(f"{name}: JAX {type(src).__name__}, port {type(st).__name__}")
+            if type(st).__name__ == "HostAdamState":
+                jslot = int(np.asarray(src.slot))
+                host_store._m[st.slot].copy_(torch.from_numpy(np.array(jax_host_store._m[jslot])))
+                host_store._v[st.slot].copy_(torch.from_numpy(np.array(jax_host_store._v[jslot])))
+                continue
+            for field, dst in st._asdict().items():
+                arr = np.array(getattr(src, field), dtype=np.float32)
+                dst.copy_(torch.from_numpy(arr).to(dst.dtype))
+    return table_opt

@@ -2,8 +2,8 @@
 
 Every dataclass of the JAX module, with every field and default, so a JSON
 config or an export meta written by either package loads here. Fields that
-select engines or devices the port does not have yet are carried and
-refused where they are read (``tpurec_torch.train.trainer``).
+select devices the port does not have yet (meshes of more than one device)
+are carried and refused where they are read (``tpurec_torch.train.trainer``).
 """
 
 from __future__ import annotations
@@ -109,9 +109,13 @@ class OptimizerConfig(_Base):
     embedding_l2_overrides: Mapping[str, float] = field(default_factory=dict)
     # sparse-engine table optimizer: 'adam' | 'rowwise_adagrad' |
     # 'rowwise_adam' | 'fused_adam' | 'host_adam' | 'auto' ('auto' resolves
-    # to the dense engine); the port has the dense engine only
+    # to the dense engine); read only when TrainConfig.sparse_embedding
     embedding_optimizer: str = "adam"
+    # the fused engine's gradient build: 'permute' | 'sort_payload' |
+    # 'xla_packed' (equal numbers; see Trainer._fused_step)
     fused_backward: str = "permute"
+    # TPU gather and sort strategies of the fused engine, accepted for
+    # configs of either package; the port has one of each
     fused_forward: str = "packed"
     fused_sort: str = "auto"
 
@@ -140,7 +144,9 @@ class TrainConfig(_Base):
     metrics: Sequence[str] = ()
     # dense compute dtype; parameters and optimizer state stay fp32
     compute_dtype: str = "bfloat16"
-    # the lazy-sparse engine (ROADMAP slice 3; refused by the port's Trainer)
+    # the sparse embedding engines (lazy-sparse, or fused with
+    # embedding_optimizer='fused_adam'); False = dense whatever
+    # embedding_optimizer says
     sparse_embedding: bool = False
     # slash-joined param-path prefixes that receive no update
     freeze_prefixes: Sequence[str] = ()

@@ -28,6 +28,11 @@ Kernels of this module:
 - ``fm_second_order_fused``: Triton. Replaces
   ``tpurec/ops/pallas/kernels.py:fm_second_order_fused``.
 
+The sorted-stream embedding kernels (``fused_scatter_add``,
+``gather_rows_sorted``, CUDA C++ in ``tpurec_torch/csrc/embedding_update.cu``)
+have their wrappers in ``tpurec_torch.ops.embedding_update`` and are built and
+loaded here, the same route.
+
 CUDA sources build on first use (or through ``build()``) into ``build/kernels``
 at the repository root, named by a hash of the source, so a checkout builds
 everything it runs from its own files. Triton compiles at first launch into
@@ -53,7 +58,11 @@ CSRC_DIR = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parent / "build" / "kernels"
 TRITON_CACHE_DIR = _PACKAGE.parent / "build" / "triton"
 # one shared library per CUDA source
-CUDA_SOURCES = {"din_attention": "din_attention.cu", "din_attention_bwd": "din_attention_bwd.cu"}
+CUDA_SOURCES = {
+    "din_attention": "din_attention.cu",
+    "din_attention_bwd": "din_attention_bwd.cu",
+    "embedding_update": "embedding_update.cu",
+}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -138,6 +147,17 @@ def _library(name: str) -> ctypes.CDLL:
                     [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
                 )
                 lib.din_attention_backward.restype = ctypes.c_int
+            elif name == "embedding_update":
+                lib.embedding_scatter_slice_rows.argtypes = []
+                lib.embedding_scatter_slice_rows.restype = ctypes.c_int
+                lib.embedding_fused_scatter_add.argtypes = [ctypes.c_void_p] * 5 + [
+                    ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
+                ]
+                lib.embedding_fused_scatter_add.restype = ctypes.c_int
+                lib.embedding_gather_rows.argtypes = [ctypes.c_void_p] * 3 + [
+                    ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
+                ]
+                lib.embedding_gather_rows.restype = ctypes.c_int
             _LIBS[name] = lib
         return lib
 
@@ -530,7 +550,12 @@ def _next_pow2(x: int) -> int:
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count to 0 (those of
+    ``tpurec_torch.ops.embedding_update`` too)."""
+    from tpurec_torch.ops import embedding_update
+
     din_attention_fused.launches = 0
     din_attention_bwd_fused.launches = 0
     fm_second_order_fused.launches = 0
+    embedding_update.fused_scatter_add.launches = 0
+    embedding_update.gather_rows_sorted.launches = 0

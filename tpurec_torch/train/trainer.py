@@ -1,5 +1,5 @@
-"""Training runtime (counterpart of ``tpurec/train/trainer.py``): the dense
-embedding engine on one device.
+"""Training runtime (counterpart of ``tpurec/train/trainer.py``): the dense,
+lazy-sparse and fused embedding engines on one device.
 
 One ``Trainer`` builds a registry model, trains it (forward, backward, the
 optimizer chain, the streaming metric update), evaluates, keeps checkpoints,
@@ -9,7 +9,8 @@ selected by config. The JAX package's names and call shapes are kept:
 
 - PyTorch runs eagerly: a step is a sequence of launches on the current
   stream, and nothing in it waits for the device (the loss and metrics stay
-  on the device until a caller reads them).
+  on the device until a caller reads them); ``host_adam`` is the exception,
+  its moments live on the host.
 - The model and the optimizer are updated in place; the ``TrainState`` a step
   returns holds the same objects with the step count advanced.
 - Dense compute runs in ``TrainConfig.compute_dtype`` (bf16 by default);
@@ -18,17 +19,30 @@ selected by config. The JAX package's names and call shapes are kept:
   eval mode; ops whose kernel the JAX package launches at inference only
   (the FM cross term) read that mode where the JAX package reads its
   training-phase flag (``trainer.py:1271``).
-- The lazy-sparse and fused embedding engines and meshes of more than one
-  device are not ported yet (ROADMAP slices 3 and 7); asking for them raises.
+- Engines (``train_step`` dispatches as the JAX property does,
+  ``trainer.py:1359-1368``): ``sparse_embedding=False`` is the dense engine
+  whatever ``embedding_optimizer`` says. With ``sparse_embedding=True`` the
+  tables stay the modules' ``embedding`` parameters but leave the optimizer
+  chain; ``TrainState.table_opt`` holds their optimizer state and the step
+  updates them in place. ``embedding_optimizer='fused_adam'`` is the fused
+  engine (``_fused_step``: one id sort, identity positions, the aggregated
+  gradient from kernel #9, Adam on every row as dense Adam does); ``'adam'``,
+  ``'rowwise_adam'``, ``'rowwise_adagrad'`` and ``'host_adam'`` are the
+  lazy-sparse engine (``_sparse_step``: unique ids, row-sparse updates).
+  Meshes of more than one device are not ported yet (ROADMAP slice 7);
+  asking for one raises.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import glob
 import math
 import os
+import re
 import time
+import warnings
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -41,13 +55,28 @@ from tpurec_torch.core.metrics import AUC, Mean, MetricBundle
 from tpurec_torch.core.summary import NullSummaryWriter, SummaryWriter
 from tpurec_torch.data.schema import DataInfo
 from tpurec_torch.device import DeviceLike, resolve_device
-from tpurec_torch.embedding.modules import record_used_id_l2
+from tpurec_torch.embedding import sparse as sparse_ops
+from tpurec_torch.embedding.host_offload import HostAdamState, HostAdamStore
+from tpurec_torch.embedding.modules import (
+    SharedEmbedding,
+    embedding_tables,
+    record_used_id_l2,
+    sparse_rows,
+)
 from tpurec_torch.models import build_model
+from tpurec_torch.ops import embedding_update as eu
 from tpurec_torch.train import checkpoint as ckpt_lib
 from tpurec_torch.train.losses import add_auxiliary, get_loss
 
-# table optimizers of the lazy-sparse and fused engines (ROADMAP slice 3)
-_SPARSE_ENGINES = ("fused_adam", "rowwise_adagrad", "rowwise_adam", "host_adam")
+# table optimizers of the sparse engines, with their state's init
+_TABLE_OPT_INIT = {
+    "adam": sparse_ops.init_sparse_adam,
+    "fused_adam": sparse_ops.init_sparse_adam,  # dense-parity moments
+    "rowwise_adagrad": sparse_ops.init_sparse_adagrad,
+    "rowwise_adam": sparse_ops.init_sparse_row_adam,
+    "host_adam": None,  # moments in a HostAdamStore
+}
+_FUSED_BACKWARDS = ("permute", "sort_payload", "xla_packed")
 
 
 @dataclasses.dataclass
@@ -56,12 +85,18 @@ class TrainState:
     model: nn.Module
     optimizer: "ChainOptimizer"
     generator: torch.Generator  # for stochastic layers (dropout, sampling)
+    # sparse engines: the table optimizer state by table parameter name
+    # (``sparse.SparseAdamState`` | ``SparseAdagradState`` |
+    # ``SparseRowAdamState`` | ``HostAdamState``), and for host_adam the
+    # store holding the moments
+    table_opt: Optional[Dict[str, Any]] = None
+    host_store: Optional[HostAdamStore] = None
 
 
 def resolve_embedding_engine(config: ExperimentConfig, info: DataInfo) -> ExperimentConfig:
     """``embedding_optimizer='auto'`` resolves to the dense engine, as in the
     JAX package (``trainer.py:105-123``, a rule from TPU measurements; its
-    H100 form is ROADMAP slice 3)."""
+    H100 form is ROADMAP Queue 1 item 11)."""
     oc = config.train.optimizer
     if oc.embedding_optimizer != "auto":
         return config
@@ -71,18 +106,53 @@ def resolve_embedding_engine(config: ExperimentConfig, info: DataInfo) -> Experi
     return config.replace(train=train)
 
 
-def _refuse_unported(config: ExperimentConfig) -> None:
-    train = config.train
-    if train.sparse_embedding or train.optimizer.embedding_optimizer in _SPARSE_ENGINES:
-        raise NotImplementedError(
-            "the port trains with the dense embedding engine only: sparse_embedding="
-            f"{train.sparse_embedding}, embedding_optimizer="
-            f"{train.optimizer.embedding_optimizer!r} are ROADMAP slice 3"
-        )
+def _check_engine(config: ExperimentConfig, info: DataInfo) -> None:
+    """Refuse what the configured engine cannot train, as the JAX package
+    does (``trainer.py:633-643``), and meshes the port does not have."""
     if config.mesh.model != 1 or config.mesh.data not in (-1, 1):
         raise NotImplementedError(
             f"the port trains on one device; mesh {config.mesh} is ROADMAP slice 7"
         )
+    train = config.train
+    if not train.sparse_embedding:
+        return
+    oc = train.optimizer
+    if oc.embedding_optimizer not in _TABLE_OPT_INIT:
+        raise KeyError(
+            f"unknown embedding_optimizer {oc.embedding_optimizer!r}; known: "
+            f"{sorted(_TABLE_OPT_INIT)}"
+        )
+    if oc.embedding_optimizer != "fused_adam":
+        return
+    if oc.fused_backward not in _FUSED_BACKWARDS:
+        raise ValueError(f"unknown fused_backward {oc.fused_backward!r}; known: {_FUSED_BACKWARDS}")
+    if info.sequence_names and info.padding_index != 0:
+        raise ValueError(
+            "embedding_optimizer='fused_adam' sequence support assumes "
+            "padding_index == 0 (mask overrides are keyed off id 0)"
+        )
+    if train.loss == "in_batch_softmax":
+        raise ValueError(
+            "embedding_optimizer='fused_adam' cannot train in_batch_softmax losses "
+            "(raw-id equality checks don't survive the position rewrite); use "
+            "'adam'/'rowwise_adam'"
+        )
+
+
+def _table_names(model: nn.Module) -> List[str]:
+    """The parameter name of each table of ``embedding_tables(model)``."""
+    return [
+        f"{name}.embedding" if name else "embedding"
+        for name, m in model.named_modules()
+        if isinstance(m, SharedEmbedding)
+    ]
+
+
+def _flat_ids(x: torch.Tensor) -> torch.Tensor:
+    """A batch id column, flattened: (B, L) sequences column-major, so that
+    after the fused step's transposed position rewrite every column of a
+    lookup's ids is a contiguous run (``contiguous_take``'s contract)."""
+    return (x.T if x.dim() == 2 else x).reshape(-1)
 
 
 class ChainOptimizer(torch.optim.Optimizer):
@@ -188,7 +258,7 @@ class Trainer:
         self.device = resolve_device(device)
         self.info = info
         config = resolve_embedding_engine(config, info)
-        _refuse_unported(config)
+        _check_engine(config, info)
         self.config = config
         self.loss_fn = get_loss(config.train.loss)
         self.metrics = self._make_metrics()
@@ -212,7 +282,11 @@ class Trainer:
             path = name.replace(".", "/")
             return any(path == p or path.startswith(p + "/") for p in prefixes)
 
-        named = [(n, p) for n, p in model.named_parameters() if not frozen(n)]
+        # the sparse engines update the tables themselves
+        tables = set(_table_names(model)) if self.config.train.sparse_embedding else set()
+        named = [
+            (n, p) for n, p in model.named_parameters() if not frozen(n) and n not in tables
+        ]
         decay: Dict[str, float] = {}
         row_decay: Dict[str, torch.Tensor] = {}
         if oc.embedding_l2 > 0 or oc.embedding_l2_order1 > 0:
@@ -308,11 +382,25 @@ class Trainer:
         params = dict(mc.params)
         params.setdefault("dtype", self.config.train.compute_dtype)
         model = build_model(mc.replace(params=params), self.info, self.device, seed)
+        table_opt = store = None
+        if self.config.train.sparse_embedding:
+            opt_name = self.config.train.optimizer.embedding_optimizer
+            tables = [t.embedding.detach() for t in embedding_tables(model)]
+            if opt_name == "fused_adam" and len({t.shape[0] for t in tables}) > 1:
+                raise ValueError("embedding_optimizer='fused_adam' expects one shared id space")
+            if opt_name == "host_adam":
+                store = HostAdamStore(pin_memory=self.device.type == "cuda")
+                states = [HostAdamState(store.register(tuple(t.shape))) for t in tables]
+            else:
+                states = [_TABLE_OPT_INIT[opt_name](t) for t in tables]
+            table_opt = dict(zip(_table_names(model), states))
         return TrainState(
             step=0,
             model=model,
             optimizer=self._make_optimizer(model),
             generator=torch.Generator(device=self.device).manual_seed(seed),
+            table_opt=table_opt,
+            host_store=store,
         )
 
     def device_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -333,26 +421,38 @@ class Trainer:
         if self.step_marks is not None:
             self.step_marks(name)
 
+    @property
+    def _id_features(self) -> List[str]:
+        """Every id-valued batch column the sparse engines rewrite, the
+        sampled negative series (``neg_<series>``) included."""
+        seqs = list(self.info.sequence_names)
+        return list(self.info.feature_names) + seqs + [f"neg_{s}" for s in seqs]
+
     def train_step(
         self, state: TrainState, batch: Dict[str, torch.Tensor], metric_state
     ) -> Tuple[TrainState, Any, Dict[str, torch.Tensor]]:
-        model = state.model.train()
-        l2_coeff = self.config.model.embedding.used_id_l2
-        self._mark("forward")
-        with record_used_id_l2(model) if l2_coeff > 0 else contextlib.nullcontext() as reg:
-            outputs = model(batch)
+        """One step of the configured engine (dense, lazy-sparse or fused)."""
+        train = self.config.train
+        if not train.sparse_embedding:
+            return self._dense_step(state, batch, metric_state)
+        if train.optimizer.embedding_optimizer == "fused_adam":
+            return self._fused_step(state, batch, metric_state)
+        return self._sparse_step(state, batch, metric_state)
+
+    def _loss(self, outputs, batch):
         loss, logs = self.loss_fn(outputs, batch)
         loss, aux_logs = add_auxiliary(loss, outputs)
         logs.update(aux_logs)
-        if reg:
-            penalty = torch.stack(reg).sum()
-            loss = loss + l2_coeff * penalty
-            logs["used_id_l2"] = penalty
+        return loss, logs
+
+    def _update_params(self, state: TrainState, loss: torch.Tensor) -> None:
         self._mark("backward")
-        model.zero_grad(set_to_none=True)
+        state.model.zero_grad(set_to_none=True)
         loss.backward()
         self._mark("optimizer")
         state.optimizer.step()
+
+    def _finish(self, state, metric_state, loss, logs, outputs, batch):
         self._mark("metrics")
         loss = loss.detach()
         outputs = {k: v.detach() for k, v in outputs.items()}
@@ -362,6 +462,167 @@ class Trainer:
         self._mark("end")
         logs = {k: v.detach() for k, v in logs.items()}
         return dataclasses.replace(state, step=state.step + 1), metric_state, logs | {"loss": loss}
+
+    def _dense_step(self, state, batch, metric_state):
+        model = state.model.train()
+        l2_coeff = self.config.model.embedding.used_id_l2
+        self._mark("forward")
+        with record_used_id_l2(model) if l2_coeff > 0 else contextlib.nullcontext() as reg:
+            outputs = model(batch)
+        loss, logs = self._loss(outputs, batch)
+        if reg:
+            penalty = torch.stack(reg).sum()
+            loss = loss + l2_coeff * penalty
+            logs["used_id_l2"] = penalty
+        self._update_params(state, loss)
+        return self._finish(state, metric_state, loss, logs, outputs, batch)
+
+    def _sparse_step(self, state, batch, metric_state):
+        """The lazy-sparse engine (``trainer.py:471-602``): the step's unique
+        ids (``unique_with_positions``; slot 0 is id 0, repeats go to the
+        sacrificial last row), their rows gathered outside autograd, the
+        batch's ids rewritten into slots, and a row-sparse update of each
+        table with its (U, D) gradient."""
+        model = state.model.train()
+        tables = embedding_tables(model)
+        oc = self.config.train.optimizer
+        l2_coeff = self.config.model.embedding.used_id_l2
+        self._mark("forward")
+        present = [n for n in self._id_features if n in batch]
+        ids_all = torch.cat([batch[n].reshape(-1) for n in present])
+        pad_id = tables[0].embedding.shape[0] - 1  # the spare row of pad_vocab
+        uniq, positions = sparse_ops.unique_with_positions(ids_all, pad_id)
+        rows = [t.embedding.detach().index_select(0, uniq).requires_grad_() for t in tables]
+        batch = dict(batch)
+        offset = 0
+        for name in present:
+            size = batch[name].numel()
+            batch[name] = positions[offset : offset + size].reshape(batch[name].shape)
+            offset += size
+        with sparse_rows(model, rows, "unique"), (
+            record_used_id_l2(model) if l2_coeff > 0 else contextlib.nullcontext()
+        ) as reg:
+            outputs = model(batch)
+        loss, logs = self._loss(outputs, batch)
+        if reg:
+            penalty = torch.stack(reg).sum()
+            loss = loss + l2_coeff * penalty
+            logs["used_id_l2"] = penalty
+        self._update_params(state, loss)
+        step = state.step + 1
+        hp = (oc.b1, oc.b2, oc.eps)
+        for name, table, r in zip(_table_names(model), tables, rows):
+            g = r.grad if r.grad is not None else torch.zeros_like(r)
+            opt = state.table_opt[name]
+            t = table.embedding
+            if isinstance(opt, HostAdamState):
+                state.host_store.update(t, opt, uniq, g, step, oc.learning_rate, *hp)
+            elif isinstance(opt, sparse_ops.SparseAdagradState):
+                sparse_ops.sparse_rowwise_adagrad(t, opt, uniq, g, oc.learning_rate)
+            elif isinstance(opt, sparse_ops.SparseRowAdamState):
+                sparse_ops.sparse_rowwise_adam(t, opt, uniq, g, step, oc.learning_rate, *hp)
+            else:
+                sparse_ops.sparse_adam(t, opt, uniq, g, step, oc.learning_rate, *hp)
+        return self._finish(state, metric_state, loss, logs, outputs, batch)
+
+    def _fused_step(self, state, batch, metric_state):
+        """The fused engine (``trainer.py:604-980``, one device): numerically
+        dense Adam on every table without a table-shaped gradient in
+        autograd.
+
+        The step's ids (sequences column-major) are sorted once
+        (``make_scatter_plan``); each occurrence gets its own row
+        (``rows = table[ids]``) and the batch's id columns are rewritten to
+        identity positions (transposed for (B, L) sequences, whose validity
+        masks ship as ``__mask__<name>``), so every lookup is a
+        ``contiguous_take``. After ``backward()`` each table's per-occurrence
+        gradient is permuted into id order and summed into the dense (V, D)
+        gradient by kernel #9 (``fused_scatter_add``), and Adam updates every
+        row. ``fused_backward``: ``'permute'`` (the default) counts the
+        used-id L2 in row space with a first-occurrence mask;
+        ``'sort_payload'`` moves it to table space (``G += l2·table`` on
+        touched rows, an occurrence count from the kernel); ``'xla_packed'``
+        builds G with an unsorted ``index_add_``, no sort. All three give the
+        same numbers. ``fused_forward`` and ``fused_sort`` choose TPU gather
+        and sort strategies of equal results: the port has one of each (an
+        ``index_select`` per table, one stable sort)."""
+        model = state.model.train()
+        tables = embedding_tables(model)
+        names = _table_names(model)
+        oc = self.config.train.optimizer
+        l2_coeff = self.config.model.embedding.used_id_l2
+        seq_cols = set(self._id_features) - set(self.info.feature_names)
+        self._mark("forward")
+        present = [n for n in self._id_features if n in batch]
+        ids_all = torch.cat([_flat_ids(batch[n]) for n in present]).to(torch.int32)
+        n_ids = ids_all.shape[0]
+        v_rows = tables[0].embedding.shape[0]
+        plan = eu.make_scatter_plan(ids_all, v_rows) if oc.fused_backward == "permute" else None
+        rows = [t.embedding.detach().index_select(0, ids_all).requires_grad_() for t in tables]
+        first_orig = None
+        if l2_coeff > 0 and plan is not None:
+            # used-id L2 counts each id once: its first occurrence in the
+            # sorted stream, mapped back to the original order
+            first = torch.ones(n_ids, 1, device=ids_all.device)
+            first[1:, 0] = (plan.sids[1:] != plan.sids[:-1]).to(torch.float32)
+            first_orig = eu.unpermute_rows(first, plan)[:, 0]
+        batch = dict(batch)
+        offset = 0
+        for name in present:
+            x = batch[name]
+            pos = torch.arange(offset, offset + x.numel(), device=x.device)
+            if name in seq_cols and x.dim() == 2:
+                batch[f"__mask__{name}"] = (x != self.info.padding_index).to(torch.float32)
+                pos = pos.reshape(x.shape[1], x.shape[0]).T
+            else:
+                pos = pos.reshape(x.shape)
+            batch[name] = pos
+            offset += x.numel()
+        with sparse_rows(model, rows, "direct"):
+            outputs = model(batch)
+        loss, logs = self._loss(outputs, batch)
+        if first_orig is not None:
+            reg = sum(
+                0.5 * (first_orig * r.reshape(n_ids, -1).to(torch.float32).square().sum(-1)).sum()
+                for r in rows
+            )
+            loss = loss + l2_coeff * reg
+            logs["used_id_l2"] = reg
+        self._update_params(state, loss)
+        step = state.step + 1
+        lr, hp = oc.learning_rate, (oc.b1, oc.b2, oc.eps)
+        grads = [(r.grad if r.grad is not None else torch.zeros_like(r)).reshape(n_ids, -1)
+                 for r in rows]
+        t2 = [t.embedding.detach().reshape(v_rows, -1) for t in tables]
+        ms = [state.table_opt[n].m.reshape(v_rows, -1) for n in names]
+        vs = [state.table_opt[n].v.reshape(v_rows, -1) for n in names]
+        table_l2 = l2_coeff > 0 and oc.fused_backward != "permute"
+        with torch.no_grad():
+            if oc.fused_backward == "xla_packed":
+                gds = [eu.packed_scatter_add(v_rows, ids_all, g) for g in grads]
+                count = eu.packed_count_rows(v_rows, ids_all) if table_l2 else None
+            else:
+                if plan is None:  # sort_payload sorts after the backward
+                    plan = eu.make_scatter_plan(ids_all, v_rows)
+                gs = [g.index_select(0, plan.order) for g in grads]
+                if not table_l2:
+                    eu.scatter_adam_grouped(t2, ms, vs, plan, gs, step, lr, *hp)
+                    gds = []
+                else:
+                    ones = torch.ones(n_ids, 1, device=ids_all.device)
+                    count = eu.fused_scatter_add(v_rows, 1, plan, ones)
+                    gds = [eu.fused_scatter_add(v_rows, g.shape[1], plan, g) for g in gs]
+            if table_l2:
+                # the rows-space term's exact gradient, each touched id once,
+                # and its value, from the tables before their update
+                touched = (count > 0).to(torch.float32)
+                reg = sum(0.5 * (touched[:, 0] * t.square().sum(-1)).sum() for t in t2)
+                gds = [gd + l2_coeff * touched * t for gd, t in zip(gds, t2)]
+                loss = loss.detach() + l2_coeff * reg
+                logs["used_id_l2"] = reg
+            for t, m, v, gd in zip(t2, ms, vs, gds):
+                eu.adam_update_(t, m, v, gd, step, lr, *hp)
+        return self._finish(state, metric_state, loss, logs, outputs, batch)
 
     def eval_step(self, state: TrainState, batch: Dict[str, torch.Tensor], metric_state):
         model = state.model.eval()
@@ -519,24 +780,71 @@ class Trainer:
     # ------------------------------------------------------------- ckpt/infer
     @staticmethod
     def _state_tree(state: TrainState) -> Dict[str, Any]:
-        return {
+        tree = {
             "step": state.step,
             "model": state.model.state_dict(),
             "optimizer": state.optimizer.state_dict(),
             "generator": state.generator.get_state(),
         }
+        if state.table_opt is not None:
+            tree["table_opt"] = {n: st._asdict() for n, st in state.table_opt.items()}
+        return tree
+
+    def _sidecar(self, step: int) -> str:
+        return os.path.join(self.ckpt.directory, f"host_moments_{step}.npz")
 
     def save(self, state: TrainState) -> None:
+        """Checkpoint ``state``. With ``host_adam`` the host moments go to a
+        ``host_moments_<step>.npz`` sidecar beside the checkpoint; sidecars
+        of steps the manager no longer keeps are removed (each is twice the
+        size of the fp32 tables)."""
         self.ckpt.save(state.step, self._state_tree(state))
+        if state.host_store is None:
+            return
+        state.host_store.save(self._sidecar(state.step))
+        kept = set(self.ckpt.all_steps())
+        for path in glob.glob(os.path.join(self.ckpt.directory, "host_moments_*.npz")):
+            m = re.match(r"host_moments_(\d+)\.npz$", os.path.basename(path))
+            if m and int(m.group(1)) not in kept:
+                os.remove(path)
 
     def restore(self, state_like: TrainState, step: Optional[int] = None) -> TrainState:
         """Load a checkpoint (the latest when ``step`` is None) into
-        ``state_like``'s model, optimizer and generator, in place."""
+        ``state_like``'s model, optimizer, table optimizer state and
+        generator, in place; with ``host_adam`` the host moments come from
+        the step's sidecar (a warning, and zero moments, when it is
+        missing)."""
         tree = self.ckpt.restore(step, map_location="cpu")
         state_like.model.load_state_dict(tree["model"])
         state_like.optimizer.load_state_dict(tree["optimizer"])
         state_like.generator.set_state(tree["generator"])
-        return dataclasses.replace(state_like, step=int(tree["step"]))
+        restored_step = int(tree["step"])
+        if state_like.table_opt is not None:
+            saved = tree["table_opt"]
+            if set(saved) != set(state_like.table_opt):
+                raise KeyError(
+                    f"checkpoint tables {sorted(saved)} != {sorted(state_like.table_opt)}"
+                )
+            with torch.no_grad():
+                for name, st in state_like.table_opt.items():
+                    for field, value in st._asdict().items():
+                        if isinstance(value, torch.Tensor):
+                            value.copy_(saved[name][field])
+                        elif value != saved[name][field]:
+                            raise ValueError(f"{name}.{field}: {saved[name][field]} != {value}")
+        if state_like.host_store is not None:
+            sidecar = self._sidecar(restored_step)
+            if os.path.exists(sidecar):
+                state_like.host_store.load(sidecar)
+            else:
+                # zero moments at a large step inflate the first steps'
+                # effective learning rate: never silently
+                warnings.warn(
+                    f"host_adam sidecar missing for step {restored_step} ({sidecar}); "
+                    "resuming with zero moments",
+                    stacklevel=2,
+                )
+        return dataclasses.replace(state_like, step=restored_step)
 
     def load_from_export(self, state: TrainState, directory: str) -> TrainState:
         """Incremental retraining: the model's weights (and running
