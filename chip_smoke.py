@@ -87,6 +87,33 @@ on the first phase that fails. Phases:
    - DIN on the fused engine: the fp32 fused-against-dense step, then 30
      bf16 steps with #4, #5 and #9 each launched once a step.
 
+8. the DCN family over the phase 5/7 FM schema (2.08M rows), B=8192, bf16
+   dense compute, fp32 params, random seeded weights: ``dcn`` (D=16, three
+   vector cross layers: #2 at (8192, 416, L=3)), ``xdeepfm`` (D=32, CIN
+   (128, 128): #3) and ``fibinet`` (D=32, 'all' mode, reduction 3: #6),
+   each with an MLP (64, 32):
+   - 8a: #2, #3 and #6 against their plain versions at those shapes, #3
+     also at ``benchmarks/kernel_bench.py``'s B=4096, and at ragged shapes
+     (#2 at D=429 with L=2 and 6; #3 at F=7, D=8, sizes (5, 9, 3); #6 at
+     F=5 and F=2, D=24); #2 and #6 at ``KERNEL_TOL``, #3 at
+     ``CIN_COL_RTOL`` of each output column's largest |value|; a cross
+     that dots x0, a CIN that pairs maps with maps and a SENet-bilinear
+     with (j, i) pairs must read above the limit; device time, bound and
+     the plain version's time;
+   - 8b: ``export_params`` → ``load_servable`` → ``Servable.predict``:
+     finite probabilities, the model's kernel launched once a call and the
+     other two not at all; the kernel's call inside the servable against
+     the plain version on its own inputs, which the broken version must
+     miss; the fp32 logit against the same servable run through the plain
+     version and against the port on the CPU over the first 256 rows
+     (``DCN_LOGIT_RTOL`` of the largest |logit|); predict p50 of 10 after 2
+     warm-ups and a profiler summary of 5 calls;
+   - 8c: ``DCN_STEPS`` bf16 ``Trainer.train_step``s on a fixed seed-1
+     batch: losses finite and falling, no launch of #2/#3/#6 (training
+     takes the plain math, as the JAX package); ``evaluate`` on two batches
+     launches the model's kernel once a batch; step p50 (steps 5-19), peak
+     memory and a profiler summary of 5 more steps.
+
 TF32 is off for the whole run (``allow_tf32 = False`` for matmul and
 cuDNN), so every fp32 comparison is fp32 on both sides.
 
@@ -1228,6 +1255,325 @@ def run_din_fused(torch, kernels, eu, card):
     return counts, result
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the DCN family (DCN, xDeepFM, FiBiNET)
+# CIN against its plain version: each output column's error against 1e-4 of
+# the column's largest |value| (a level sums H·F products an element, 3,328
+# at the slice's level 2, in another order than the plain einsum).
+CIN_COL_RTOL = 1e-4
+# The fp32 logit of a bf16 servable, kernel against plain twin and card
+# against CPU, against 2^-5 of the batch's largest |logit| (at the seeded
+# init FiBiNET's logits are ~1e-3, so an absolute limit says nothing): an
+# fp32 difference in a kernel's output, or another summation order on the
+# CPU, can flip bf16 roundings (2^-8..2^-7 each) of intermediates as large
+# as the logit, as in tests/test_torch_dcn.py. At the seeded init the interaction
+# terms are too small a share of the logit for a broken kernel to show
+# there; the servable's own kernel call, held against the plain version on
+# its inputs (#2, #6 at KERNEL_TOL's rtol of the largest |value|, #3 at
+# CIN_COL_RTOL), is where a broken version must read above the limit.
+DCN_LOGIT_RTOL = 2.0**-5
+DCN_STEPS = 20
+DCN_KERNELS = ("cross_network", "cin", "senet_bilinear")
+# model: (registry name, params, embedding dim, kernel it runs at inference).
+# The JAX builders' defaults at the widths of benchmarks/kernel_bench.py.
+DCN_MODELS = {
+    "dcn": ("dcn", dict(cross_type="vector", num_cross_layers=3), 16, "cross_network"),
+    "xdeepfm": ("xdeepfm", dict(cin_layer_sizes=[128, 128]), 32, "cin"),
+    "fibinet": ("fibinet", dict(bilinear_mode="all", reduction=3), 32, "senet_bilinear"),
+}
+
+
+def cross_dots_x0(x0, weights, biases):
+    """A broken cross stack: dots x0 where it should dot x_l."""
+    x = x0
+    for w, b in zip(weights, biases):
+        x = x0 * (x0 @ w)[:, None] + b + x
+    return x
+
+
+def cin_fields_from_maps(torch, emb, weights):
+    """A broken CIN: pairs each level's maps with the previous level's maps
+    (taken cyclically up to F) where it should use the raw fields."""
+    b, f, d = emb.shape
+    x, outs = emb, []
+    for w in weights:
+        h = x.shape[1]
+        fields = x[:, torch.arange(f, device=x.device) % h]
+        z = torch.einsum("bhd,bfd->bhfd", x, fields).reshape(b, h * f, d)
+        x = torch.einsum("bpd,ps->bsd", z, w)
+        outs.append(x.sum(dim=-1))
+    return torch.cat(outs, dim=-1)
+
+
+def senet_pairs_swapped(torch, emb, w1, w2, wb, b1, b2):
+    """A broken SENet-bilinear: pairs taken as (j, i)."""
+    a = torch.relu(torch.relu(emb.mean(dim=-1) @ w1 + b1) @ w2 + b2)
+    v = emb * a[..., None]
+    iu, ju = torch.triu_indices(emb.shape[1], emb.shape[1], offset=1, device=emb.device)
+    return (v @ wb)[:, ju] * v[:, iu]
+
+
+def cin_reading(got, want) -> float:
+    """max |got − want| / (CIN_COL_RTOL · the column's max |want|): at most 1
+    passes."""
+    scale = want.abs().amax(dim=0).clamp_min(1e-30)
+    return float(((got - want).abs() / scale).max()) / CIN_COL_RTOL
+
+
+def check_dcn_kernels(torch, kernels):
+    """Kernels #2, #3 and #6 against their plain versions at the slice's
+    shapes and ragged ones, each with a broken version that must read above
+    the limit (phase 8a)."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device="cuda", generator=gen)
+
+    def record(name, route, source, replaces, shape, fused, plain, nbytes, ops):
+        bound_ms, bound_by = bound(nbytes, ops)
+        return dict(
+            name=name, route=route, source=source, replaces=replaces, shape=shape,
+            max_abs_err=float((fused() - plain()).abs().max()),
+            ms=device_ms(torch, fused), plain_ms=device_ms(torch, plain),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        )
+
+    readings, records = {}, {}
+    # #2: x0 and x written once; the dot and the update, 5 flops an element a layer
+    for b, d, layers in ((8192, 416, 3), (1003, 429, 2), (1003, 429, 6)):
+        args = [randn(b, d), randn(layers, d, scale=0.5 / d**0.5), randn(layers, d)]
+        want = kernels.cross_network_plain(*args)
+        readings[f"cross_network {b}x{d} L={layers}"] = dict(
+            kernel=tol_ratio(kernels.cross_network_fused(*args), want, **KERNEL_TOL),
+            broken_dots_x0=tol_ratio(cross_dots_x0(*args), want, **KERNEL_TOL),
+        )
+        if b == 8192:
+            records["cross_network"] = record(
+                "cross_network", "triton", "tpurec_torch/ops/kernels.py",
+                "tpurec/ops/pallas/kernels.py:160", [b, d, layers],
+                lambda: kernels.cross_network_fused(*args), lambda: kernels.cross_network_plain(*args),
+                4 * (2 * b * d + 2 * layers * d), 5 * b * d * layers,
+            )
+    # #3: emb, the weights and the (B, ΣS) output once; per level a
+    # multiply-add for each (h, f) product and column, the products, the sums
+    for b, f, d, sizes in ((8192, 26, 32, (128, 128)), (4096, 26, 32, (128, 128)),
+                           (1003, 7, 8, (5, 9, 3))):
+        weights, h = [], f
+        for s in sizes:
+            weights.append(randn(h * f, s, scale=(h * f) ** -0.5))
+            h = s
+        emb = randn(b, f, d)
+        want = kernels.cin_plain(emb, weights)
+        readings[f"cin {b}x{f}x{d} {list(sizes)}"] = dict(
+            kernel=cin_reading(kernels.cin_fused(emb, weights), want),
+            broken_fields_from_maps=cin_reading(cin_fields_from_maps(torch, emb, weights), want),
+        )
+        if b in (8192, 4096):
+            hs = [f, *sizes[:-1]]
+            rec = record(
+                "cin", "cuda", "tpurec_torch/csrc/cin.cu", "tpurec/ops/pallas/kernels.py:248",
+                [b, f, d, list(sizes)], lambda: kernels.cin_fused(emb, weights),
+                lambda: kernels.cin_plain(emb, weights),
+                4 * (b * f * d + sum(hl * f * s for hl, s in zip(hs, sizes)) + b * sum(sizes)),
+                sum(b * d * (2 * hl * f * s + hl * f + s) for hl, s in zip(hs, sizes)),
+            )
+            if b == 8192:
+                records["cin"] = rec
+            else:
+                print("cin at kernel_bench's B=4096:", json.dumps(rec), flush=True)
+    # #6: emb, the weights and the (B, P, D) output once; the squeeze, the
+    # two small layers, v, v·Wb and the pair products
+    for b, f, d in ((8192, 26, 32), (1003, 5, 24), (1003, 2, 24)):
+        r, p = max(1, f // 3), f * (f - 1) // 2
+        # a positive excitation (W2, b2) keeps every field open: at F=2 a
+        # closed one zeroes the only pair of every row, and a broken version
+        # would read 0
+        args = [randn(b, f, d), randn(f, r, scale=0.5), randn(r, f, scale=0.5).abs(), randn(d, d, scale=0.3),
+                randn(r, scale=0.3), randn(f, scale=0.3).abs()]
+        want = kernels.senet_bilinear_plain(*args)
+        readings[f"senet_bilinear {b}x{f}x{d}"] = dict(
+            kernel=tol_ratio(kernels.senet_bilinear_fused(*args), want, **KERNEL_TOL),
+            broken_pairs_swapped=tol_ratio(senet_pairs_swapped(torch, *args), want, **KERNEL_TOL),
+        )
+        if b == 8192:
+            records["senet_bilinear"] = record(
+                "senet_bilinear", "cuda", "tpurec_torch/csrc/senet_bilinear.cu",
+                "tpurec/ops/pallas/kernels.py:642", [b, f, d],
+                lambda: kernels.senet_bilinear_fused(*args), lambda: kernels.senet_bilinear_plain(*args),
+                4 * (b * f * d + 2 * f * r + r + f + d * d + b * p * d),
+                b * (2 * f * d + 4 * f * r + 2 * f * d * d + p * d),
+            )
+    print(f"dcn kernel readings (error / limit; #2 and #6 at {KERNEL_TOL}, #3 at {CIN_COL_RTOL} "
+          "of each column's largest |value|):", json.dumps(readings), flush=True)
+    for shape, r in readings.items():
+        check(r["kernel"] <= 1.0, f"{shape}: kernel vs plain {r}")
+        for name, value in r.items():
+            if name.startswith("broken"):
+                check(value > 1.0, f"{shape}: the check cannot tell a {name} version: {r}")
+    for rec in records.values():
+        print("kernel check:", json.dumps(rec), flush=True)
+    return records
+
+
+def dcn_counts(kernels) -> dict:
+    return {k: getattr(kernels, f"{k}_fused").launches for k in DCN_KERNELS}
+
+
+def dcn_model_config(name, **params):
+    from tpurec_torch.config import EmbeddingConfig, ModelConfig
+
+    registry_name, defaults, dim, _ = DCN_MODELS[name]
+    return ModelConfig(name=registry_name, params=dict(defaults, hidden_dims=[64, 32], **params),
+                       embedding=EmbeddingConfig(dim=dim))
+
+
+def run_dcn_servable(torch, kernels, workdir, card, name, seed):
+    """One DCN-family model over the FM schema: export → load_servable →
+    predict at B=8192, bf16 compute (phase 8b)."""
+    from tpurec_torch.models import build_model
+    from tpurec_torch.serving.export import load_servable
+    from tpurec_torch.train.checkpoint import export_params
+
+    kernel = DCN_MODELS[name][3]
+    info = fm_info()
+    config = dcn_model_config(name, dtype="bfloat16")
+    export_dir = os.path.join(workdir, f"{name}_export")
+    export_params(
+        export_dir, build_model(config, info, device="cuda", seed=seed).state_dict(),
+        meta={"model": config.name, "model_params": dict(config.params),
+              "embedding": config.embedding.to_dict()},
+    )
+    servable = load_servable(export_dir, info, device="cuda")
+    batch = {k: v for k, v in bench_batch(info, TRAIN_BATCH, 0, seed=0).items() if k != "label"}
+    fused, plain = getattr(kernels, f"{kernel}_fused"), getattr(kernels, f"{kernel}_plain")
+    seen = {}
+
+    def recorded(*args):
+        seen["args"], seen["out"] = args, fused(*args)
+        return seen["out"]
+
+    # the wrapper adds its launch to the count of the name it is bound to in
+    # the module, here the recorder's
+    recorded.launches = 0
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with mock.patch.object(kernels, f"{kernel}_fused", recorded):
+        outputs = servable.predict(batch)
+        torch.cuda.synchronize()
+        counts = dcn_counts(kernels)
+    out, logit = outputs["output"], outputs["logit"]
+
+    # the kernel's own call in the servable against the plain and a broken
+    # version on its inputs; the whole servable's logit with the plain
+    # version and on the CPU
+    broken = dict(cross_network=cross_dots_x0, cin=lambda *a: cin_fields_from_maps(torch, *a),
+                  senet_bilinear=lambda *a: senet_pairs_swapped(torch, *a))[kernel]
+
+    def kernel_reading(got, want):
+        return cin_reading(got, want) if kernel == "cin" else scaled_ratio(got, want, KERNEL_TOL["rtol"])
+
+    with torch.inference_mode():
+        want = plain(*seen["args"])
+        readings = dict(kernel=kernel_reading(seen["out"], want),
+                        kernel_broken=kernel_reading(broken(*seen["args"]), want))
+    scale = DCN_LOGIT_RTOL * float(logit.abs().max())
+    with mock.patch.object(kernels, f"{kernel}_fused", plain):
+        readings["logit_plain"] = float((logit - servable.predict(batch)["logit"]).abs().max()) / scale
+    cpu_logit = load_servable(export_dir, info, device="cpu").predict(
+        {k: v[:256] for k, v in batch.items()})["logit"]
+    readings["logit_cpu_256_rows"] = float((logit[:256].cpu() - cpu_logit).abs().max()) / scale
+
+    times = []
+    for _ in range(12):
+        t0 = time.perf_counter()
+        servable.predict(batch)["output"].cpu()
+        times.append((time.perf_counter() - t0) * 1e3)
+    p50 = statistics.median(times[2:])
+    busy_ms, top_ops = profile_steps(torch, lambda: servable.predict(batch))
+    result = dict(card=card, model=name, batch=TRAIN_BATCH, launches=counts, readings=readings,
+                  logit_limit=scale, logit_max_abs=float(logit.abs().max()),
+                  logit_std=float(logit.std()), mean_prob=float(out.mean()),
+                  predict_p50_ms=p50, examples_per_s=TRAIN_BATCH / (p50 / 1e3),
+                  device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / p50, top_ops_ms=top_ops)
+    print(f"{name} servable (readings: error / limit):", json.dumps(result), flush=True)
+    check(counts == {k: int(k == kernel) for k in DCN_KERNELS}, f"{name} predict launches {counts}")
+    check(out.shape == (TRAIN_BATCH,) and out.dtype == torch.float32, f"{name}: bad output {out.shape}")
+    check(bool(torch.isfinite(out).all()) and bool(((out >= 0) & (out <= 1)).all()),
+          f"{name}: outputs are not finite probabilities")
+    for key, value in readings.items():
+        if key == "kernel_broken":
+            check(value > 1.0, f"{name}: the check cannot tell a broken {kernel}: {readings}")
+        else:
+            check(value <= 1.0, f"{name}: {key} {readings}")
+    return counts[kernel]
+
+
+def run_dcn_training(torch, kernels, card, name):
+    """DCN_STEPS bf16 dense-engine steps on a fixed batch (the plain math, no
+    kernel), then ``evaluate`` on two batches (the kernel once a batch)
+    (phase 8c)."""
+    from tpurec_torch.config import ExperimentConfig, OptimizerConfig, TrainConfig
+    from tpurec_torch.train.trainer import Trainer
+
+    kernel = DCN_MODELS[name][3]
+    info = fm_info()
+    cfg = ExperimentConfig(
+        model=dcn_model_config(name),
+        train=TrainConfig(batch_size=TRAIN_BATCH, loss="bce", log_every_steps=0, compute_dtype="bfloat16",
+                          optimizer=OptimizerConfig(learning_rate=1e-3)),
+    )
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, info)
+    batch = bench_batch(info, TRAIN_BATCH, 0, seed=1)
+    state = trainer.init_state(batch)
+    dbatch = trainer.device_batch(batch)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    state, metric_state, losses, times = drive_steps(torch, trainer, state, dbatch, steps=DCN_STEPS)
+    train_counts = dcn_counts(kernels)
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    def step():
+        nonlocal state, metric_state
+        state, metric_state, _ = trainer.train_step(state, dbatch, metric_state)
+
+    busy_ms, top_ops = profile_steps(torch, step)
+    kernels.reset_launch_counts()
+    report = trainer.evaluate(state, [bench_batch(info, 1024, 0, seed=20 + i) for i in range(2)])
+    torch.cuda.synchronize()
+    eval_counts = dcn_counts(kernels)
+    step_ms = statistics.median(times[5:])
+    result = dict(
+        card=card, model=name, batch=TRAIN_BATCH, steps=DCN_STEPS, step_p50_ms=step_ms,
+        step_ms_min=min(times[5:]), step_ms_max=max(times[5:]), examples_per_s=TRAIN_BATCH / (step_ms / 1e3),
+        first_step_ms=times[0], device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / step_ms,
+        top_ops_ms=top_ops, peak_mem_gb=peak_gb, loss_first=losses[0], loss_last=losses[-1],
+        train_launches=train_counts, eval_launches=eval_counts, eval=report,
+    )
+    print(f"{name} training:", json.dumps(result), flush=True)
+    check(all(np.isfinite(losses)), f"{name}: non-finite training loss: {losses}")
+    check(losses[-1] < losses[0], f"{name}: the loss did not fall in {DCN_STEPS} steps: {losses}")
+    check(not any(train_counts.values()), f"{name}: train steps launched {train_counts}")
+    check(eval_counts == {k: 2 * int(k == kernel) for k in DCN_KERNELS},
+          f"{name}: evaluate on 2 batches launched {eval_counts}")
+    return train_counts[kernel], eval_counts[kernel]
+
+
+def run_dcn_family(torch, kernels, workdir, card):
+    """Phase 8b and 8c for each model; returns each kernel's launches by path."""
+    launches = {}
+    for seed, name in enumerate(DCN_MODELS):
+        kernel = DCN_MODELS[name][3]
+        predict = run_dcn_servable(torch, kernels, workdir, card, name, seed)
+        train, evaluate = run_dcn_training(torch, kernels, card, name)
+        launches[kernel] = {f"{name}_predict": predict, f"{name}_train_steps": train,
+                            f"{name}_evaluate": evaluate}
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1278,6 +1624,8 @@ def main() -> int:
             "7cef_fm_engines", run_fm_engines, torch, kernels, eu, workdir, smi
         )
         din_fused, _ = timed("7d_din_fused", run_din_fused, torch, kernels, eu, smi)
+        dcn_records = timed("8a_dcn_kernels", check_dcn_kernels, torch, kernels)
+        dcn_launches = timed("8bc_dcn_family", run_dcn_family, torch, kernels, workdir, smi)
     print("phase seconds:", json.dumps(seconds), flush=True)
     # a kernel on several paths: its launches are their sum
     forward_paths = dict(din_serving=serve_launches, din_training=train_launches,
@@ -1293,6 +1641,9 @@ def main() -> int:
                                         launches_by_path=scatter_paths)
     # #10 is on no training path, in either package: checked and timed alone
     records["gather_rows_sorted"] = dict(embedding["gather"], launches=0, launches_by_path={})
+    for name, rec in dcn_records.items():
+        records[name] = dict(rec, launches=sum(dcn_launches[name].values()),
+                             launches_by_path=dcn_launches[name])
 
     print(json.dumps({"card": smi, "kernels": list(records.values())}), flush=True)
     print(json.dumps({

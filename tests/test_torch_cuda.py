@@ -434,3 +434,170 @@ def test_sparse_engine_on_card_matches_cpu(card, opt):
         got = states[0].model.get_parameter(name).detach().cpu()[:-1]
         want = states[1].model.get_parameter(name).detach()[:-1]
         torch.testing.assert_close(got, want, atol=2e-6, rtol=0, msg=name)
+
+
+# --------------------------------------------------------------------------
+# the DCN-family kernels (#2 cross network, #3 CIN, #6 SENet-bilinear)
+def _cin_args(card, b, f, d, sizes, seed=0):
+    gen = torch.Generator(card).manual_seed(seed)
+    weights, h = [], f
+    for s in sizes:
+        weights.append(torch.randn(h * f, s, device=card, generator=gen) / (h * f) ** 0.5)
+        h = s
+    return torch.randn(b, f, d, device=card, generator=gen), weights
+
+
+def _senet_args(card, b, f, d, with_bias=True, seed=0):
+    gen = torch.Generator(card).manual_seed(seed)
+    r = max(1, f // 3)
+
+    def rn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device=card, generator=gen)
+
+    return [rn(b, f, d), rn(f, r, scale=0.5), rn(r, f, scale=0.5), rn(d, d, scale=0.3),
+            rn(r, scale=0.3) if with_bias else None, rn(f, scale=0.3) if with_bias else None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,layers", [(8192, 416, 3), (1003, 429, 2), (1003, 429, 6), (7, 1, 1),
+                                        (3, 3000, 2), (0, 8, 2)])
+def test_cross_network_kernel_matches_plain(card, b, d, layers):
+    from tpurec_torch.ops import kernels
+
+    gen = torch.Generator(card).manual_seed(0)
+    x0 = torch.randn(b, d, device=card, generator=gen)
+    w = torch.randn(layers, d, device=card, generator=gen) * 0.5 / d**0.5
+    bias = torch.randn(layers, d, device=card, generator=gen)
+    before = kernels.cross_network_fused.launches
+    got = kernels.cross_network_fused(x0, w, bias)
+    torch.cuda.synchronize()
+    assert got.shape == (b, d)
+    assert kernels.cross_network_fused.launches == before + (1 if b else 0)
+    torch.testing.assert_close(got, kernels.cross_network_plain(x0, w, bias), **TOL)
+
+
+def _cin_reading(got, want):
+    """|got − want| over 1e-4 of each output column's largest |value|: at
+    most 1 passes (sums of H·F products a level, in another order)."""
+    scale = want.abs().amax(dim=0).clamp_min(1e-30)
+    return float(((got - want).abs() / scale).max()) / 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,f,d,sizes", [(1003, 7, 8, (5, 9, 3)), (256, 26, 32, (128, 128)),
+                                         (37, 26, 32, (64, 64)), (5, 3, 200, (4,)), (9, 2, 5, (1, 1)),
+                                         (0, 4, 8, (3, 2))])
+def test_cin_kernel_matches_plain(card, b, f, d, sizes):
+    """Any F, D and level sizes (not only multiples of 128), D above the
+    128-row block tile, one-column levels, B = 0 (no launch)."""
+    from tpurec_torch.ops import kernels
+
+    emb, weights = _cin_args(card, b, f, d, sizes)
+    before = kernels.cin_fused.launches
+    got = kernels.cin_fused(emb, weights)
+    torch.cuda.synchronize()
+    assert got.shape == (b, sum(sizes))
+    assert kernels.cin_fused.launches == before + (1 if b else 0)
+    if b == 0:
+        return
+    assert _cin_reading(got, kernels.cin_plain(emb, weights)) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,f,d,with_bias", [(1003, 5, 24, True), (1003, 2, 24, True), (256, 26, 32, True),
+                                             (37, 6, 7, False), (3, 1, 4, True), (0, 4, 8, True)])
+def test_senet_bilinear_kernel_matches_plain(card, b, f, d, with_bias):
+    from tpurec_torch.ops import kernels
+
+    args = _senet_args(card, b, f, d, with_bias)
+    before = kernels.senet_bilinear_fused.launches
+    got = kernels.senet_bilinear_fused(*args)
+    torch.cuda.synchronize()
+    p = f * (f - 1) // 2
+    assert got.shape == (b, p, d)
+    assert kernels.senet_bilinear_fused.launches == before + (1 if b and p else 0)
+    torch.testing.assert_close(got, kernels.senet_bilinear_plain(*args), **TOL)
+
+
+@pytest.mark.cuda
+def test_dcn_kernels_refuse_what_they_do_not_take(card):
+    from tpurec_torch.ops import kernels
+
+    x0, w = torch.randn(4, 8, device=card), torch.randn(2, 8, device=card)
+    with pytest.raises(TypeError):
+        kernels.cross_network_fused(x0.double(), w.double(), w.double())
+    with pytest.raises(ValueError, match="is on"):
+        kernels.cross_network_fused(x0, w.cpu(), w)
+    with pytest.raises(ValueError, match="shapes"):
+        kernels.cross_network_fused(x0, w[:, :4], w[:, :4])
+    with pytest.raises(ValueError, match="pads to"):
+        kernels.cross_network_fused(torch.randn(2, 9000, device=card), torch.randn(1, 9000, device=card),
+                                    torch.randn(1, 9000, device=card))
+    with pytest.raises(RuntimeError, match="requires grad"):
+        kernels.cross_network_fused(x0, w.clone().requires_grad_(), w)
+    emb, weights = _cin_args(card, 4, 3, 8, (4, 2))
+    with pytest.raises(TypeError):
+        kernels.cin_fused(emb.half(), weights)
+    with pytest.raises(ValueError, match="is on"):
+        kernels.cin_fused(emb, [weights[0].cpu(), weights[1]])
+    with pytest.raises(ValueError, match="level 1"):
+        kernels.cin_fused(emb, [weights[0], weights[0]])
+    with pytest.raises(ValueError, match="levels"):
+        kernels.cin_fused(emb, [torch.randn(9, 3, device=card)] + [torch.randn(9, 3, device=card)] * 8)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.cin_fused(emb, [torch.randn(9, 1000, device=card)])
+    with pytest.raises(RuntimeError, match="requires grad"):
+        kernels.cin_fused(emb.clone().requires_grad_(), weights)
+    args = _senet_args(card, 4, 5, 8)
+    with pytest.raises(TypeError):
+        kernels.senet_bilinear_fused(args[0].bfloat16(), *args[1:])
+    with pytest.raises(ValueError, match="is on"):
+        kernels.senet_bilinear_fused(*args[:3], args[3].cpu(), *args[4:])
+    with pytest.raises(ValueError, match="shapes"):
+        kernels.senet_bilinear_fused(args[0], args[2], args[1], *args[3:])
+    with pytest.raises(RuntimeError, match="requires grad"):
+        kernels.senet_bilinear_fused(*args[:3], args[3].clone().requires_grad_(), *args[4:])
+    with torch.no_grad():
+        kernels.cross_network_fused(x0, w.clone().requires_grad_(), w)
+        kernels.cin_fused(emb.clone().requires_grad_(), weights)
+        kernels.senet_bilinear_fused(*args[:3], args[3].clone().requires_grad_(), *args[4:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,params,kernel", [
+    ("dcn", {}, "cross_network"), ("dcn", {"cross_type": "matrix"}, None),
+    ("xdeepfm", {"cin_layer_sizes": (5, 9, 3)}, "cin"), ("fibinet", {}, "senet_bilinear"),
+    ("fibinet", {"bilinear_mode": "each"}, None),
+])
+def test_dcn_family_on_card_matches_cpu(card, name, params, kernel):
+    """A DCN-family model (fp32 compute, continuous features) through its
+    kernel on the card against the same weights on the CPU; in training mode
+    the kernel is not launched."""
+    from tpurec_torch.config import EmbeddingConfig, ModelConfig
+    from tpurec_torch.data.schema import DataInfo
+    from tpurec_torch.models import build_model
+    from tpurec_torch.ops import kernels
+
+    names, dims = ["uid", "iid", "utag", "itag"], [50, 80, 10, 12]
+    info = DataInfo.from_dims(names, dims, continuous_names=["c1", "c2"])
+    rng = np.random.default_rng(5)
+    batch = {n: rng.integers(o, o + d, size=(300,)) for n, o, d in zip(names, info.feature_offsets, dims)}
+    batch.update(c1=rng.normal(size=(300,)).astype(np.float32), c2=rng.normal(size=(300,)).astype(np.float32))
+    config = ModelConfig(name=name, params=params, embedding=EmbeddingConfig(dim=16))
+    on_card = build_model(config, info, device=card).eval()
+    on_cpu = build_model(config, info, device="cpu").eval()
+    on_cpu.load_state_dict({k: v.cpu() for k, v in on_card.state_dict().items()})
+    counts = lambda: tuple(getattr(kernels, f"{n}_fused").launches  # noqa: E731
+                           for n in ("cross_network", "cin", "senet_bilinear"))
+    before = counts()
+    with torch.inference_mode():
+        got = on_card({k: torch.as_tensor(v, device=card) for k, v in batch.items()})["logit"]
+        want = on_cpu({k: torch.as_tensor(v) for k, v in batch.items()})["logit"]
+    torch.cuda.synchronize()
+    launched = [a - b for a, b in zip(counts(), before)]
+    assert launched == [int(kernel == n) for n in ("cross_network", "cin", "senet_bilinear")]
+    torch.testing.assert_close(got.cpu(), want, **TOL)
+    before = counts()
+    out = on_card.train()({k: torch.as_tensor(v, device=card) for k, v in batch.items()})["logit"]
+    out.sum().backward()
+    assert counts() == before

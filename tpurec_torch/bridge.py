@@ -8,8 +8,12 @@ flax path maps to a torch key by joining with dots, with these renames:
 
 - a Dense ``kernel`` (in, out) becomes ``weight`` (out, in), transposed;
 - ``batch_stats`` ``mean``/``var`` become ``running_mean``/``running_var``;
-- tables and the DIN attention params (``w1``, ``b1``, ``w2``, ``alpha``)
-  keep their names and shapes.
+- tables and the raw parameters keep their names and shapes: the DIN
+  attention's ``w1``, ``b1``, ``w2``, ``alpha``; the DCN cross's ``w_{i}``
+  (D, 1) and ``b_{i}``; CIN's ``compress_{i}``; the bilinear ``w``; and
+  SENet-bilinear's ``squeeze_kernel``/``excite_kernel`` (used as
+  ``z @ kernel``, so not transposed) and ``squeeze_bias``/``excite_bias``.
+  Only a leaf named exactly ``kernel`` is a Dense kernel.
 
 It raises ``KeyError`` on a collection other than those two or a leaf name
 it does not know, and the strict ``load_state_dict`` raises
@@ -33,13 +37,18 @@ port's ``TrainState.table_opt`` (and ``TrainState.host_store``).
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-_PARAM_KEEP = {"bias", "w1", "b1", "w2", "alpha", "logit_scale", "logit_bias"}
+_PARAM_KEEP = {
+    "bias", "w1", "b1", "w2", "alpha", "logit_scale", "logit_bias", "w",
+    "squeeze_kernel", "squeeze_bias", "excite_kernel", "excite_bias",
+}
+_INDEXED_KEEP = re.compile(r"(w|b|compress)_\d+")
 _STAT_RENAMES = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -63,7 +72,7 @@ def _torch_leaf(collection: str, path: Tuple[str, ...], value) -> Tuple[str, np.
         if arr.ndim != 2:
             raise ValueError(f"{'/'.join(path)}: expected a 2-D Dense kernel, got {arr.shape}")
         return "weight", arr.T
-    if leaf in _PARAM_KEEP or leaf.startswith("embedding"):
+    if leaf in _PARAM_KEEP or _INDEXED_KEEP.fullmatch(leaf) or leaf.startswith("embedding"):
         return leaf, arr
     raise KeyError(f"unmatched param leaf {'/'.join(path)}")
 

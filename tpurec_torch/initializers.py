@@ -21,10 +21,12 @@ def uniform_(t: torch.Tensor, scale: float, generator: torch.Generator) -> None:
 
 
 def glorot_uniform_(t: torch.Tensor, generator: torch.Generator) -> None:
-    """flax ``glorot_uniform`` on a 2-D tensor (symmetric in the two fans, so
-    (in, out) and ``nn.Linear``'s (out, in) layouts get the same limit)."""
-    fan_a, fan_b = t.shape
-    uniform_(t, math.sqrt(6.0 / (fan_a + fan_b)), generator)
+    """flax ``glorot_uniform``: U(±sqrt(6 / (fan_in + fan_out))) with the
+    fans of the last two axes times the leading axes' size (symmetric in the
+    two, so (in, out) and ``nn.Linear``'s (out, in) layouts get the same
+    limit)."""
+    receptive = t.numel() // (t.shape[-1] * t.shape[-2])
+    uniform_(t, math.sqrt(6.0 / (receptive * (t.shape[-1] + t.shape[-2]))), generator)
 
 
 def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:

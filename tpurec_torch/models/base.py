@@ -4,12 +4,13 @@ Every model is an ``nn.Module`` whose ``forward(inputs: dict[str, Tensor])``
 returns named outputs — ``'output'`` (probability) at minimum; retrieval
 models add tower embeddings. Inputs are per-feature tensors keyed by feature
 name: categorical (B,) ids already offset-encoded into the shared id space,
-behavior sequences (B, L) padded with ``padding_index``.
+continuous (B,) floats, behavior sequences (B, L) padded with
+``padding_index``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -20,6 +21,14 @@ Outputs = Dict[str, torch.Tensor]
 def stack_ids(inputs: Inputs, names: Sequence[str]) -> torch.Tensor:
     """(B, F) int tensor from scalar categorical features."""
     return torch.stack([inputs[n].reshape(-1) for n in names], dim=1)
+
+
+def stack_continuous(inputs: Inputs, names: Sequence[str]) -> Optional[torch.Tensor]:
+    """(B, C) fp32 tensor from scalar continuous features; None without
+    names."""
+    if not names:
+        return None
+    return torch.stack([inputs[n].reshape(-1).to(torch.float32) for n in names], dim=1)
 
 
 def binary_output(logit: torch.Tensor) -> Outputs:

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from tpurec_torch.data.schema import DataInfo
+from tpurec_torch.models import dcn as dcn_models
 from tpurec_torch.models import din as din_models
 from tpurec_torch.models import fm as fm_models
 from tpurec_torch.models.registry import register_model
@@ -32,6 +33,12 @@ def _common(params: dict, info: DataInfo) -> dict:
     return out
 
 
+def _with_continuous(params: dict, info: DataInfo) -> dict:
+    out = _common(params, info)
+    out.setdefault("continuous_names", list(info.continuous_names))
+    return out
+
+
 @register_model("fm")
 def _fm(params: dict, info: DataInfo):
     return fm_models.FM(**_common(params, info))
@@ -49,6 +56,21 @@ def _dssm_double(params: dict, info: DataInfo):
 @register_model("deepfm")
 def _deepfm(params: dict, info: DataInfo):
     return fm_models.DeepFM(**_common(params, info))
+
+
+@register_model("dcn")
+def _dcn(params: dict, info: DataInfo):
+    return dcn_models.DCN(**_with_continuous(params, info))
+
+
+@register_model("xdeepfm")
+def _xdeepfm(params: dict, info: DataInfo):
+    return dcn_models.XDeepFM(**_with_continuous(params, info))
+
+
+@register_model("fibinet")
+def _fibinet(params: dict, info: DataInfo):
+    return dcn_models.FiBiNet(**_with_continuous(params, info))
 
 
 def _seq_params(params: dict, info: DataInfo) -> dict:

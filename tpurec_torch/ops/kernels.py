@@ -27,6 +27,19 @@ Kernels of this module:
   pairs it with the forward.
 - ``fm_second_order_fused``: Triton. Replaces
   ``tpurec/ops/pallas/kernels.py:fm_second_order_fused``.
+- ``cross_network_fused``: Triton. Replaces
+  ``tpurec/ops/pallas/kernels.py:cross_network_stack`` (every DCN vector
+  cross layer in one pass).
+- ``cin_fused``: CUDA C++ for ``sm_90a`` (``tpurec_torch/csrc/cin.cu``), the
+  ``ctypes`` route. Replaces ``tpurec/ops/pallas/kernels.py:cin_fused``
+  (every xDeepFM CIN level in one launch).
+- ``senet_bilinear_fused``: CUDA C++ for ``sm_90a``
+  (``tpurec_torch/csrc/senet_bilinear.cu``), the ``ctypes`` route. Replaces
+  ``tpurec/ops/pallas/kernels.py:senet_bilinear_fused`` (FiBiNET's SENet
+  and 'all'-mode bilinear pairs).
+
+These three run at inference only, as in the JAX package: a module in
+training mode takes the plain version (``tpurec_torch.ops.interactions``).
 
 The sorted-stream embedding kernels (``fused_scatter_add``,
 ``gather_rows_sorted``, CUDA C++ in ``tpurec_torch/csrc/embedding_update.cu``)
@@ -49,7 +62,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 
@@ -62,6 +75,8 @@ CUDA_SOURCES = {
     "din_attention": "din_attention.cu",
     "din_attention_bwd": "din_attention_bwd.cu",
     "embedding_update": "embedding_update.cu",
+    "cin": "cin.cu",
+    "senet_bilinear": "senet_bilinear.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -158,6 +173,21 @@ def _library(name: str) -> ctypes.CDLL:
                     ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
                 ]
                 lib.embedding_gather_rows.restype = ctypes.c_int
+            elif name == "cin":
+                lib.cin_smem_bytes.argtypes = [ctypes.c_int] * 3
+                lib.cin_smem_bytes.restype = ctypes.c_size_t
+                lib.cin_forward.argtypes = [ctypes.c_void_p] * 3 + [
+                    ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p,
+                ]
+                lib.cin_forward.restype = ctypes.c_int
+            elif name == "senet_bilinear":
+                lib.senet_bilinear_smem_bytes.argtypes = [ctypes.c_int] * 3
+                lib.senet_bilinear_smem_bytes.restype = ctypes.c_size_t
+                lib.senet_bilinear_forward.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+                    ctypes.c_void_p
+                ]
+                lib.senet_bilinear_forward.restype = ctypes.c_int
             _LIBS[name] = lib
         return lib
 
@@ -549,6 +579,271 @@ def _next_pow2(x: int) -> int:
     return 1 << max(0, x - 1).bit_length()
 
 
+# --------------------------------------------------------------------------
+# DCN vector-cross stack
+def cross_network_plain(
+    x0: torch.Tensor,  # (B, D)
+    weights: torch.Tensor,  # (L, D)
+    biases: torch.Tensor,  # (L, D)
+) -> torch.Tensor:
+    """x_{l+1} = x0·(x_l·w_l) + b_l + x_l over the L layers, as
+    ``cross_network_reference``: each layer a round trip of (B, D)."""
+    x = x0
+    for w, b in zip(weights, biases):
+        x = x0 * (x @ w)[:, None] + b + x
+    return x
+
+
+@functools.cache
+def _cross_triton_kernel():
+    """The Triton DCN cross kernel, defined at first use (``triton`` is
+    imported here, never at module import).
+
+    Replaces tpurec/ops/pallas/kernels.py:cross_network_stack (_cross_kernel).
+    Bound: bytes — x0 read once and x written once, B·D·4 bytes each (27 MB
+    at B=8192, D=416: ~8 us at 3.35 TB/s), against ~4 flops an element a
+    layer. Design: one program per BLOCK_B rows holds the whole rows of x0
+    and x (D padded to a power of two, masked) in registers through all L
+    layers: a layer is one row reduction (x·w_l) and one elementwise update,
+    with w_l and b_l read from L2. Nothing but x0 and the output touches
+    device memory."""
+    os.environ.setdefault("TRITON_CACHE_DIR", str(TRITON_CACHE_DIR))
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def cross_kernel(
+        x0_ptr, w_ptr, b_ptr, out_ptr, B, D, L,
+        BLOCK_B: tl.constexpr, BLOCK_D: tl.constexpr,
+    ):
+        rows = tl.program_id(0) * BLOCK_B + tl.arange(0, BLOCK_B)
+        cols = tl.arange(0, BLOCK_D)
+        r2 = rows.to(tl.int64)[:, None]
+        c2 = cols[None, :]
+        valid = (r2 < B) & (c2 < D)
+        x0 = tl.load(x0_ptr + r2 * D + c2, mask=valid, other=0.0)
+        x = x0
+        for layer in range(L):
+            w = tl.load(w_ptr + layer * D + cols, mask=cols < D, other=0.0)
+            bias = tl.load(b_ptr + layer * D + cols, mask=cols < D, other=0.0)
+            xw = tl.sum(x * w[None, :], axis=1)
+            x = x0 * xw[:, None] + bias[None, :] + x
+        tl.store(out_ptr + r2 * D + c2, x, mask=valid)
+
+    return triton, cross_kernel
+
+
+CROSS_MAX_D = 8192  # largest padded D one program holds
+
+
+def cross_network_fused(
+    x0: torch.Tensor, weights: torch.Tensor, biases: torch.Tensor
+) -> torch.Tensor:
+    """Every DCN vector-cross layer at once: x0 (B, D), weights and biases
+    (L, D), fp32 → (B, D) fp32.
+
+    CPU tensors take ``cross_network_plain``; CUDA tensors launch the Triton
+    kernel, and anything it does not take (not fp32, shapes that disagree,
+    padded D above ``CROSS_MAX_D``) raises. It records no backward: on CUDA it
+    raises under grad mode when an input requires grad (training takes the
+    plain math, ``ops.interactions.CrossNetwork``)."""
+    if x0.device.type == "cpu":
+        return cross_network_plain(x0, weights, biases)
+    _refuse_grad("cross_network", x0, weights, biases)
+    _require_cuda("cross_network", x0)
+    _require_cuda_f32("cross_network", x0.device, x0=x0, weights=weights, biases=biases)
+    if x0.dim() != 2 or weights.dim() != 2 or weights.shape[1] != x0.shape[1] or (
+        biases.shape != weights.shape
+    ):
+        raise ValueError(
+            f"cross_network: shapes do not agree: x0 {tuple(x0.shape)}, weights "
+            f"{tuple(weights.shape)}, biases {tuple(biases.shape)}"
+        )
+    b, d = x0.shape
+    block_d = _next_pow2(d)
+    if block_d > CROSS_MAX_D:
+        raise ValueError(f"cross_network: D={d} pads to {block_d}, above {CROSS_MAX_D}")
+    out = torch.empty(b, d, device=x0.device, dtype=torch.float32)
+    if b == 0:
+        return out
+    block_b = max(1, min(16, 4096 // block_d))
+    triton, kernel = _cross_triton_kernel()
+    with torch.cuda.device(x0.device):
+        kernel[(triton.cdiv(b, block_b),)](
+            x0.contiguous(), weights.contiguous(), biases.contiguous(), out, b, d,
+            weights.shape[0], BLOCK_B=block_b, BLOCK_D=block_d,
+            num_warps=4 if block_b * block_d <= 4096 else 8,
+        )
+    cross_network_fused.launches += 1
+    return out
+
+
+cross_network_fused.launches = 0
+
+
+# --------------------------------------------------------------------------
+# CIN (xDeepFM compressed interaction network)
+def cin_plain(emb: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Every CIN level, as ``cin_reference``: z = outer(x_l, e) over fields,
+    materialised as (B, H·F, D), compressed by W_l (H·F, S_l); returns the
+    concatenated sums over d, (B, ΣS_l)."""
+    b, f, d = emb.shape
+    x = emb
+    outs = []
+    for w in weights:
+        h = x.shape[1]
+        z = torch.einsum("bhd,bfd->bhfd", x, emb).reshape(b, h * f, d)
+        x = torch.einsum("bpd,ps->bsd", z, w)
+        outs.append(x.sum(dim=-1))
+    return torch.cat(outs, dim=-1)
+
+
+CIN_MAX_LEVELS = 8  # levels the CUDA kernel takes in one launch
+
+
+def cin_fused(emb: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Every CIN level at once: emb (B, F, D) and one W_l (H_l·F, S_l) a
+    level (H_0 = F, H_{l+1} = S_l), fp32 → (B, ΣS_l) fp32.
+
+    CPU tensors take ``cin_plain``; CUDA tensors launch the kernel of
+    ``csrc/cin.cu``, which never materialises the (B, H·F, D) products. It
+    takes any F, D and level sizes (not only multiples of 128), fp32 on one
+    device, at most ``CIN_MAX_LEVELS`` levels and shapes whose shared memory
+    fits one block, and raises on anything else. It records no backward: on
+    CUDA it raises under grad mode when an input requires grad."""
+    weights = list(weights)
+    if emb.device.type == "cpu":
+        return cin_plain(emb, weights)
+    _refuse_grad("cin", emb, *weights)
+    _require_cuda("cin", emb)
+    _require_cuda_f32("cin", emb.device, emb=emb, **{f"w{i}": w for i, w in enumerate(weights)})
+    if emb.dim() != 3:
+        raise ValueError(f"cin: expected emb (B, F, D), got {tuple(emb.shape)}")
+    b, f, d = emb.shape
+    if not 1 <= len(weights) <= CIN_MAX_LEVELS:
+        raise ValueError(f"cin: {len(weights)} levels, the kernel takes 1 to {CIN_MAX_LEVELS}")
+    h = f
+    for i, w in enumerate(weights):
+        if w.dim() != 2 or w.shape[0] != h * f or w.shape[1] < 1:
+            raise ValueError(f"cin: level {i} weight {tuple(w.shape)}, expected ({h * f}, S)")
+        h = w.shape[1]
+    sizes = [int(w.shape[1]) for w in weights]
+    lib = _library("cin")
+    smem = lib.cin_smem_bytes(f, d, max(sizes))
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"cin: F={f}, D={d}, level sizes {sizes} need {smem} bytes of shared memory "
+            f"per block, more than {MAX_SMEM_BYTES}"
+        )
+    out = torch.empty(b, sum(sizes), device=emb.device, dtype=torch.float32)
+    if b == 0 or f == 0 or d == 0:
+        return out.zero_()
+    emb = emb.contiguous()
+    flat = torch.cat([w.reshape(-1) for w in weights])
+    c_sizes = (ctypes.c_int * len(sizes))(*sizes)
+    with torch.cuda.device(emb.device):
+        stream = torch.cuda.current_stream(emb.device).cuda_stream
+        err = lib.cin_forward(
+            emb.data_ptr(), flat.data_ptr(), c_sizes, len(sizes), out.data_ptr(), b, f, d, stream
+        )
+    _check_launch(lib, err, "cin")
+    cin_fused.launches += 1
+    return out
+
+
+cin_fused.launches = 0
+
+
+# --------------------------------------------------------------------------
+# SENet reweighting + 'all'-mode bilinear pairs (FiBiNET)
+def senet_bilinear_plain(
+    emb: torch.Tensor,  # (B, F, D)
+    w1: torch.Tensor,  # (F, R) squeeze
+    w2: torch.Tensor,  # (R, F) excite
+    wb: torch.Tensor,  # (D, D) shared bilinear map
+    b1: Optional[torch.Tensor] = None,  # (R,)
+    b2: Optional[torch.Tensor] = None,  # (F,)
+) -> torch.Tensor:
+    """SENet reweighting (mean → relu(·W1+b1) → relu(·W2+b2)) then
+    p_ij = (v_i·Wb)∘v_j for i<j, as ``senet_bilinear_reference``: (B, P, D),
+    pairs in ``np.triu_indices`` order."""
+    a = emb.mean(dim=-1) @ w1
+    if b1 is not None:
+        a = a + b1
+    a = a.clamp_min(0.0) @ w2
+    if b2 is not None:
+        a = a + b2
+    v = emb * a.clamp_min(0.0)[..., None]
+    left = torch.einsum("bfd,de->bfe", v, wb)
+    iu, ju = torch.triu_indices(emb.shape[1], emb.shape[1], offset=1, device=emb.device)
+    return left[:, iu, :] * v[:, ju, :]
+
+
+def senet_bilinear_fused(
+    emb: torch.Tensor,
+    w1: torch.Tensor,
+    w2: torch.Tensor,
+    wb: torch.Tensor,
+    b1: Optional[torch.Tensor] = None,
+    b2: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """SENet → 'all'-mode bilinear pairs: emb (B, F, D), w1 (F, R), w2
+    (R, F), wb (D, D), b1 (R,), b2 (F,), fp32 → (B, F(F−1)/2, D) fp32.
+
+    CPU tensors take ``senet_bilinear_plain``; CUDA tensors launch the kernel
+    of ``csrc/senet_bilinear.cu``, which keeps v and v·Wb in shared memory and
+    writes each output element once. A missing b1 or b2 means zeros. It takes
+    fp32 on one device and shapes whose shared memory fits one block, and
+    raises on anything else. It records no backward: on CUDA it raises under
+    grad mode when an input requires grad."""
+    if emb.device.type == "cpu":
+        return senet_bilinear_plain(emb, w1, w2, wb, b1, b2)
+    _refuse_grad("senet_bilinear", emb, w1, w2, wb, b1, b2)
+    _require_cuda("senet_bilinear", emb)
+    if emb.dim() != 3:
+        raise ValueError(f"senet_bilinear: expected emb (B, F, D), got {tuple(emb.shape)}")
+    b, f, d = emb.shape
+    r = w1.shape[-1]
+    dev = emb.device
+    if b1 is None:
+        b1 = torch.zeros(r, device=dev, dtype=torch.float32)
+    if b2 is None:
+        b2 = torch.zeros(f, device=dev, dtype=torch.float32)
+    _require_cuda_f32("senet_bilinear", dev, emb=emb, w1=w1, w2=w2, wb=wb, b1=b1, b2=b2)
+    if (
+        w1.shape != (f, r) or w2.shape != (r, f) or wb.shape != (d, d)
+        or b1.shape != (r,) or b2.shape != (f,)
+    ):
+        raise ValueError(
+            f"senet_bilinear: shapes do not agree: emb {tuple(emb.shape)}, w1 "
+            f"{tuple(w1.shape)}, w2 {tuple(w2.shape)}, wb {tuple(wb.shape)}, b1 "
+            f"{tuple(b1.shape)}, b2 {tuple(b2.shape)}"
+        )
+    p = f * (f - 1) // 2
+    lib = _library("senet_bilinear")
+    smem = lib.senet_bilinear_smem_bytes(f, d, r)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"senet_bilinear: F={f}, D={d}, R={r} need {smem} bytes of shared memory per "
+            f"block, more than {MAX_SMEM_BYTES}"
+        )
+    out = torch.empty(b, p, d, device=dev, dtype=torch.float32)
+    if out.numel() == 0:
+        return out
+    args = [t.contiguous() for t in (emb, w1, b1, w2, b2, wb)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.senet_bilinear_forward(
+            *[t.data_ptr() for t in args], out.data_ptr(), b, f, d, r, stream
+        )
+    _check_launch(lib, err, "senet_bilinear")
+    senet_bilinear_fused.launches += 1
+    return out
+
+
+senet_bilinear_fused.launches = 0
+
+
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0 (those of
     ``tpurec_torch.ops.embedding_update`` too)."""
@@ -557,5 +852,8 @@ def reset_launch_counts() -> None:
     din_attention_fused.launches = 0
     din_attention_bwd_fused.launches = 0
     fm_second_order_fused.launches = 0
+    cross_network_fused.launches = 0
+    cin_fused.launches = 0
+    senet_bilinear_fused.launches = 0
     embedding_update.fused_scatter_add.launches = 0
     embedding_update.gather_rows_sorted.launches = 0
