@@ -114,6 +114,36 @@ on the first phase that fails. Phases:
      launches the model's kernel once a batch; step p50 (steps 5-19), peak
      memory and a profiler summary of 5 more steps.
 
+9. MIND over the phase 4 id space with two aligned series (``history``,
+   ``history_tags``), D=32 (so capsules of 64), K=4, three routing
+   iterations, capsule MLP (64,), ``normalize_logits``, bf16 compute, fp32
+   params, random seeded weights:
+   - 9a: #7 and #8 against their plain versions at (8192, 64, 64, 64, K=4),
+     ``benchmarks/kernel_bench.py``'s B=4096 and ragged shapes (1 and 2
+     iterations, a row whose mask is all zero), each output's error in
+     units of its limit; a forward that ignores the mask or runs one
+     iteration fewer, and a backward that differentiates through the
+     stop-gradient iterations or gives dlogits0 only the last iteration,
+     must read above it; device times, bounds and plain times; #7 also at
+     the serving paths' B=1 and B=1024;
+   - 9b: ``export_params`` → ``load_servable`` → ``predict`` at B=8192 (#7
+     once a call; its call held against the plain and broken versions on
+     its inputs; the user embedding and capsules card against CPU on 256
+     rows; p50 of 10); ``OfflineIndexer`` over 5,000 users and 20,000
+     items with the capsule tower, plain and with each item's tag as its
+     category and ``diversity_weight`` 10 (20 distinct tags a slate, the
+     plain top-1 first); ``serve_background`` and 200 requests each of
+     retrieve/kv, retrieve/online and retrieve/online with
+     ``diversity_weight``, p50 and p95;
+   - 9c: 20 bf16 dense steps (``in_batch_softmax``, Adam lr 2e-3): losses
+     finite and falling, neither kernel launched (the module's math, as
+     the JAX package); ``evaluate`` on two batches (#7 once a batch); the
+     routing's forward and backward through the kernel pair against the
+     module's training math; ``run`` → ``restore`` → ``export`` →
+     ``load_servable``, whose predict must equal ``Trainer.infer``;
+   - 9d: ``comirec`` ('sa', 'dr') and ``sine`` over the same schema: one
+     predict and 5 train steps each (no kernel).
+
 TF32 is off for the whole run (``allow_tf32 = False`` for matmul and
 cuDNN), so every fp32 comparison is fp32 on both sides.
 
@@ -1574,6 +1604,597 @@ def run_dcn_family(torch, kernels, workdir, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: MIND multi-interest retrieval (kernels #7 and #8)
+# MIND's servable in bf16: its fp32 user embedding and capsules (unit
+# vectors times the softplus logit scale) card against CPU at 2^-5 of their
+# largest |value| (bf16 roundings of the capsule MLP taken in another
+# order, as DCN_LOGIT_RTOL). The routing call inside the servable against
+# the plain version on its inputs at KERNEL_TOL's rtol of the largest
+# |value|: at the seeded init the capsules are ~1e-2 and an iteration moves
+# them by ~1e-5, below KERNEL_TOL's atol.
+MIND_EMB_RTOL = 2.0**-5
+MIND_STEPS = 20
+MIND_PARAMS = dict(num_interests=4, hidden_dims=[64], normalize_logits=True)
+# the other multi-interest models over the same schema (no kernel)
+RETRIEVAL_MODELS = {
+    "comirec_sa": ("comirec", dict(variant="sa")),
+    "comirec_dr": ("comirec", dict(variant="dr")),
+    "sine": ("sine", dict(normalize_logits=True)),
+}
+MIND_USERS, MIND_ITEMS, MIND_REQUESTS = 5000, 20000, 200
+
+
+def mind_info():
+    """The phase 4 DIN id space with two aligned series (item ids and their
+    tags): 21,500 ids, padded to 21,504 rows."""
+    from tpurec_torch.data.schema import DataInfo
+
+    return DataInfo.from_dims(
+        ["user_tag", "item_id", "item_tag"], [1000, 20000, 500],
+        sequence_names=["history", "history_tags"], sequence_query_features=["item_id", "item_tag"],
+        user_features=["user_tag"], item_features=["item_id", "item_tag"],
+        max_seq_length=64, padding_index=0,
+    )
+
+
+def mind_batch(info, batch_size, seed=0, seq_len=64):
+    """``bench.py:75-87``'s batch over the MIND schema: each feature from its
+    own range, the history from item_id's and its tags from item_tag's, one
+    tail-padded length L/4..L for both series."""
+    rng = np.random.default_rng(seed)
+    span = dict(zip(info.feature_names, zip(info.feature_offsets, info.feature_dims)))
+    batch = {n: rng.integers(o, o + d, size=(batch_size,)) for n, (o, d) in span.items()}
+    lengths = rng.integers(seq_len // 4, seq_len + 1, size=(batch_size,))
+    live = np.arange(seq_len)[None, :] < lengths[:, None]
+    for sname, query in zip(info.sequence_names, info.sequence_query_features):
+        o, d = span[query]
+        batch[sname] = np.where(live, rng.integers(o, o + d, size=(batch_size, seq_len)), 0)
+    return batch
+
+
+def mind_train_config(dtype, name="mind", params=None, **train):
+    """``benchmarks/parity.py``'s MIND recipe at D=32: in-batch softmax, Adam
+    lr 2e-3 eps 1e-7, the dense engine."""
+    from tpurec_torch.config import (
+        EmbeddingConfig, ExperimentConfig, ModelConfig, OptimizerConfig, TrainConfig,
+    )
+
+    return ExperimentConfig(
+        model=ModelConfig(name=name, params=dict(MIND_PARAMS if params is None else params),
+                          embedding=EmbeddingConfig(dim=32)),
+        train=TrainConfig(batch_size=TRAIN_BATCH, loss="in_batch_softmax", log_every_steps=0,
+                          compute_dtype=dtype, optimizer=OptimizerConfig(learning_rate=2e-3), **train),
+    )
+
+
+def routing_inputs(torch, gen, b, l, d, e, k, broadcast=True, empty_row=True):
+    """behavior, a mask of lengths L/4..L (row b // 2 all zero unless
+    ``empty_row`` is False), S at the scale of its glorot init and logits0,
+    broadcast from one (K, L) slice as the model passes it, or one slice a
+    row."""
+    lengths = torch.randint(l // 4, l + 1, (b,), device="cuda", generator=gen)
+    if empty_row:
+        lengths[b // 2] = 0
+    mask = (torch.arange(l, device="cuda")[None, :] < lengths[:, None]).float()
+    beh = torch.randn(b, l, d, device="cuda", generator=gen)
+    s = torch.randn(d, e, device="cuda", generator=gen) * (2.0 / (d + e)) ** 0.5
+    l0 = torch.randn(1 if broadcast else b, k, l, device="cuda", generator=gen).expand(b, k, l)
+    return [beh, mask, s, l0]
+
+
+def routing_variant(torch, beh, mask, s, l0, iters, stop_grad=True, chain=True):
+    """The plain routing with two switches that break its gradient on
+    purpose: ``stop_grad=False`` differentiates through every iteration's u,
+    ``chain=False`` lets only the last iteration's softmax reach logits0."""
+    from tpurec_torch.ops.capsule import squash
+
+    u = torch.einsum("bld,de->ble", beh, s)
+    live = mask.bool()[:, None, :]
+    logits = l0
+    for it in range(iters):
+        last = it == iters - 1
+        lg = logits if (chain or last) else logits.detach()
+        w = torch.softmax(torch.where(live, lg, -1e9), dim=1) * mask[:, None, :]
+        src = u if (last or not stop_grad) else u.detach()
+        caps = squash(torch.einsum("bkl,ble->bke", w, src))
+        if not last:
+            logits = logits + torch.einsum("bke,ble->bkl", caps, src)
+    return caps
+
+
+def routing_grads(torch, fn, args, g):
+    """(dbehavior, dS, dlogits0) of ``fn(behavior, mask, S, logits0)`` at g."""
+    leaves = [t.detach().clone().requires_grad_() for t in (args[0], args[2], args[3])]
+    with torch.enable_grad():
+        return torch.autograd.grad(fn(leaves[0], args[1], leaves[1], leaves[2]), leaves, g)
+
+
+def routing_bwd_reading(got, want) -> dict:
+    """Each backward output's error in units of its limit: dbehavior and
+    dlogits0 elementwise at KERNEL_TOL, dS (a sum over B·L rows) at
+    DIN_BWD_PARAM_RTOL of its largest value."""
+    return dict(dbehavior=tol_ratio(got[0], want[0], **KERNEL_TOL),
+                dS=scaled_ratio(got[1], want[1], DIN_BWD_PARAM_RTOL),
+                dlogits0=tol_ratio(got[2], want[2], **KERNEL_TOL))
+
+
+def routing_work(b, live, l, d, e, k, iters):
+    """(forward bytes, forward operations, backward bytes, backward
+    operations) this run's mask needs. A masked step has w = 0: it adds
+    nothing to z, and its du, dbehavior row and dS terms are 0, so u, z,
+    the logit update and the backward's products count live steps only.
+    Bytes: behavior read at live steps, the mask, S, one (K, L) logits0
+    slice, the capsules written; the backward reads g as well and writes
+    all of dbehavior, dS and dlogits0."""
+    route = 2 * k * live * e  # one (K, L)·(L, E) or (K, E)·(E, L) product
+    fwd_ops = 2 * live * d * e + iters * route + (iters - 1) * route + iters * b * k * (6 * l + 4 * e)
+    bwd_ops = fwd_ops + 2 * route + 2 * (iters - 1) * route + 2 * 2 * live * d * e
+    fwd_bytes = 4 * (live * d + b * l + d * e + k * l + b * k * e)
+    bwd_bytes = fwd_bytes + 4 * (b * l * d + d * e + b * k * l)
+    return fwd_bytes, fwd_ops, bwd_bytes, bwd_ops
+
+
+def check_capsule_kernels(torch, kernels):
+    """Kernels #7 and #8 against their plain versions at the slice's shape,
+    kernel_bench's B=4096 and ragged shapes; broken versions must read above
+    the limit (phase 9a)."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    # (B, L, D, E, K, iterations, broadcast logits0)
+    shapes = [(TRAIN_BATCH, 64, 64, 64, 4, 3, True), (4096, 64, 64, 64, 4, 3, False),
+              (9, 12, 8, 8, 4, 3, True), (33, 50, 48, 40, 3, 3, False), (9, 12, 8, 8, 4, 1, True),
+              (33, 50, 48, 40, 3, 2, True)]
+    readings, records = {}, {}
+    for b, l, d, e, k, iters, broadcast in shapes:
+        args = routing_inputs(torch, gen, b, l, d, e, k, broadcast)
+        g = torch.randn(b, k, e, device="cuda", generator=gen)
+        want = kernels.capsule_routing_plain(*args, iters)
+        r = dict(kernel=tol_ratio(kernels.capsule_routing_fused(*args, iters), want, **KERNEL_TOL),
+                 broken_mask_ignored=tol_ratio(kernels.capsule_routing_plain(
+                     args[0], torch.ones_like(args[1]), *args[2:], iters), want, **KERNEL_TOL))
+        if iters > 1:
+            r["broken_one_iteration_fewer"] = tol_ratio(
+                kernels.capsule_routing_plain(*args, iters - 1), want, **KERNEL_TOL)
+        want_bwd = kernels.capsule_routing_bwd_plain(*args, g, iters)
+        got_bwd = kernels.capsule_routing_bwd_fused(*args, g, iters)
+        again = kernels.capsule_routing_bwd_fused(*args, g, iters)
+        r["bwd_same_bits"] = all(torch.equal(x, y) for x, y in zip(got_bwd, again))
+        r["bwd"] = routing_bwd_reading(got_bwd, want_bwd)
+        if iters > 1:
+            for name, kw in (("broken_bwd_through_stop_gradient", dict(stop_grad=False)),
+                             ("broken_bwd_dlogits0_last_iteration", dict(chain=False))):
+                fn = lambda x, m, s, l0, kw=kw: routing_variant(torch, x, m, s, l0, iters, **kw)  # noqa: E731
+                r[name] = routing_bwd_reading(routing_grads(torch, fn, args, g), want_bwd)
+        shape = f"{b}x{l}x{d}x{e} K={k} iters={iters}" + ("" if broadcast else " dense logits0")
+        readings[shape] = r
+        if b in (TRAIN_BATCH, 4096):
+            live = int(args[1].sum())
+            fwd_bytes, fwd_ops, bwd_bytes, bwd_ops = routing_work(b, live, l, d, e, k, iters)
+            base = dict(route="cuda", source="tpurec_torch/csrc/capsule_routing.cu",
+                        shape=[b, l, d, e, k, iters], live_steps=live, library_ms=None)
+            fwd_bound, fwd_by = bound(fwd_bytes, fwd_ops)
+            bwd_bound, bwd_by = bound(bwd_bytes, bwd_ops)
+            recs = dict(
+                capsule_routing=dict(
+                    base, name="capsule_routing", replaces="tpurec/ops/pallas/kernels.py:779",
+                    max_abs_err=float((kernels.capsule_routing_fused(*args, iters) - want).abs().max()),
+                    ms=device_ms(torch, lambda: kernels.capsule_routing_fused(*args, iters)),
+                    plain_ms=device_ms(torch, lambda: kernels.capsule_routing_plain(*args, iters)),
+                    bound_ms=fwd_bound, bound_by=fwd_by),
+                capsule_routing_bwd=dict(
+                    base, name="capsule_routing_bwd", replaces="tpurec/ops/pallas/kernels.py:907",
+                    max_abs_err=max(float((x - y).abs().max()) for x, y in zip(got_bwd, want_bwd)),
+                    ms=device_ms(torch, lambda: kernels.capsule_routing_bwd_fused(*args, g, iters)),
+                    plain_ms=device_ms(torch, lambda: kernels.capsule_routing_bwd_plain(*args, g, iters)),
+                    bound_ms=bwd_bound, bound_by=bwd_by),
+            )
+            for name, rec in recs.items():
+                if b == TRAIN_BATCH:
+                    records[name] = rec
+                else:
+                    print(f"{name} at kernel_bench's B=4096:", json.dumps(rec), flush=True)
+    # #7 at the serving paths' shapes: the HTTP user tower's B=1 and the
+    # offline index's B=1024
+    for b in (1, 1024):
+        args = routing_inputs(torch, gen, b, 64, 64, 64, 4, empty_row=False)
+        want = kernels.capsule_routing_plain(*args, 3)
+        readings[f"{b}x64x64x64 K=4 iters=3 (serving)"] = dict(
+            kernel=tol_ratio(kernels.capsule_routing_fused(*args, 3), want, **KERNEL_TOL))
+        fwd_bytes, fwd_ops, _, _ = routing_work(b, int(args[1].sum()), 64, 64, 64, 4, 3)
+        bound_ms, bound_by = bound(fwd_bytes, fwd_ops)
+        print("capsule_routing at a serving shape:", json.dumps(dict(
+            shape=[b, 64, 64, 64, 4, 3], live_steps=int(args[1].sum()),
+            ms=device_ms(torch, lambda: kernels.capsule_routing_fused(*args, 3)),
+            plain_ms=device_ms(torch, lambda: kernels.capsule_routing_plain(*args, 3)),
+            bound_ms=bound_ms, bound_by=bound_by)), flush=True)
+    print(f"capsule routing readings (error / limit; {KERNEL_TOL}, dS at {DIN_BWD_PARAM_RTOL} of "
+          "its largest value):", json.dumps(readings), flush=True)
+    for shape, r in readings.items():
+        check(r["kernel"] <= 1.0, f"capsule_routing vs plain at {shape}: {r}")
+        if "bwd" in r:
+            check(max(r["bwd"].values()) <= 1.0, f"capsule_routing_bwd vs plain at {shape}: {r}")
+            check(r["bwd_same_bits"], f"capsule_routing_bwd at {shape}: two calls gave different bits")
+        for name, value in r.items():
+            if name.startswith("broken"):
+                worst = max(value.values()) if isinstance(value, dict) else value
+                check(worst > 1.0, f"{shape}: the check cannot tell a {name} version: {r}")
+    for rec in records.values():
+        print("kernel check:", json.dumps(rec), flush=True)
+    return records
+
+
+def routing_pair_ab(torch, kernels, card):
+    """The measurement to make before the kernels go into training: one
+    forward and backward of MIND's routing at the training shape (B=8192,
+    bf16 behavior), through the kernel pair (``CapsuleRouting`` in fp32,
+    as outside training) against autograd through the module's training
+    math. Both orders, in turns; the dispatch stays as it is."""
+    from tpurec_torch.ops.capsule import CapsuleRouting
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    b, l, d, k = TRAIN_BATCH, 64, 64, 4
+    beh, mask, s, _ = routing_inputs(torch, gen, b, l, d, d, k)
+    module = CapsuleRouting(d, k, d, dtype=torch.bfloat16).cuda()
+    with torch.no_grad():
+        module.S.copy_(s)
+    beh = (0.05 * beh).to(torch.bfloat16).requires_grad_()
+    g = torch.randn(b, k, d, device="cuda", generator=gen).to(torch.bfloat16)
+
+    def pair():
+        module.S.grad, beh.grad = None, None
+        caps = kernels.CapsuleRouting.apply(beh.float(), mask, module.S, module.routing_init(l).expand(b, k, l),
+                                            module.num_iterations)
+        caps.to(torch.bfloat16).backward(g)
+
+    def math():
+        module.S.grad, beh.grad = None, None
+        module.train()(beh, mask)[0].backward(g)
+
+    kernels.reset_launch_counts()
+    pair()
+    launched = (kernels.capsule_routing_fused.launches, kernels.capsule_routing_bwd_fused.launches)
+    ds_pair = module.S.grad.clone()
+    math()
+    ds_math = module.S.grad.clone()
+    times = dict(math=[], pair=[])
+    for name in ("math", "pair", "pair", "math"):
+        times[name].append(device_ms(torch, dict(pair=pair, math=math)[name], iters=10))
+    result = dict(card=card, shape=[b, l, d, d, k, 3], kernel_pair_ms=min(times["pair"]),
+                  module_math_ms=min(times["math"]), runs_ms=times, launches_in_one_pair=launched,
+                  dS_rel_diff=float((ds_pair - ds_math).abs().max() / ds_math.abs().max()))
+    print("routing forward+backward, kernel pair vs module math (training shape, bf16):",
+          json.dumps(result), flush=True)
+    check(launched == (1, 1), f"the kernel pair launched {launched}")
+    return result
+
+
+def run_mind_serving(torch, kernels, workdir, card):
+    """MIND in bf16 through export → load_servable → predict, the offline
+    index with and without diversity, and the HTTP server (phase 9b).
+    Returns #7's launches on each path."""
+    from tpurec_torch.config import EmbeddingConfig, ModelConfig
+    from tpurec_torch.models import build_model
+    from tpurec_torch.serving import DictKVStore, OfflineIndexer
+    from tpurec_torch.serving.export import load_servable
+    from tpurec_torch.serving.server import RecommendService, serve_background
+    from tpurec_torch.train.checkpoint import export_params
+
+    info = mind_info()
+    config = ModelConfig(name="mind", params=dict(MIND_PARAMS, dtype="bfloat16"),
+                         embedding=EmbeddingConfig(dim=32))
+    export_dir = os.path.join(workdir, "mind_export")
+    export_params(
+        export_dir, build_model(config, info, device="cuda", seed=0).state_dict(),
+        meta={"model": "mind", "model_params": dict(config.params),
+              "embedding": config.embedding.to_dict()},
+    )
+    servable = load_servable(export_dir, info, device="cuda")
+    check(servable.model.emb.embedding.shape == (21_504, 32), "unexpected MIND table rows")
+    batch = mind_batch(info, TRAIN_BATCH, seed=0)
+    fused = kernels.capsule_routing_fused
+    seen = {}
+
+    def recorded(*args):
+        seen["args"], seen["out"] = args, fused(*args)
+        return seen["out"]
+
+    # the wrapper adds its launch to the count of the name it is bound to in
+    # the module, here the recorder's
+    recorded.launches = 0
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with mock.patch.object(kernels, "capsule_routing_fused", recorded):
+        outputs = servable.predict(batch)
+        torch.cuda.synchronize()
+        predict_launches = (recorded.launches, kernels.capsule_routing_bwd_fused.launches)
+    user, caps = outputs["user_embedding"], outputs["interest_capsules"]
+
+    # the routing the servable ran against the plain and broken versions on
+    # its inputs; the user tower on the card against the port on the CPU
+    beh, mask, s, l0, iters = seen["args"]
+    with torch.inference_mode():
+        want = kernels.capsule_routing_plain(beh, mask, s, l0, iters)
+        rtol = KERNEL_TOL["rtol"]
+        readings = dict(
+            kernel=scaled_ratio(seen["out"], want, rtol),
+            broken_mask_ignored=scaled_ratio(
+                kernels.capsule_routing_plain(beh, torch.ones_like(mask), s, l0, iters), want, rtol),
+            broken_one_iteration_fewer=scaled_ratio(
+                kernels.capsule_routing_plain(beh, mask, s, l0, iters - 1), want, rtol),
+        )
+    cpu_out = load_servable(export_dir, info, device="cpu").predict(
+        {k: v[:256] for k, v in batch.items()})
+    for key in ("user_embedding", "interest_capsules"):
+        readings[f"{key}_cpu_256_rows"] = scaled_ratio(outputs[key][:256].cpu(), cpu_out[key], MIND_EMB_RTOL)
+
+    times = []
+    for _ in range(12):
+        t0 = time.perf_counter()
+        servable.predict(batch)["user_embedding"].cpu()
+        times.append((time.perf_counter() - t0) * 1e3)
+    p50 = statistics.median(times[2:])
+    busy_ms, top_ops = profile_steps(torch, lambda: servable.predict(batch))
+    result = dict(card=card, batch=TRAIN_BATCH, launches=predict_launches, readings=readings,
+                  live_steps=int(mask.sum()), capsule_max_abs=float(want.abs().max()),
+                  predict_p50_ms=p50, examples_per_s=TRAIN_BATCH / (p50 / 1e3),
+                  device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / p50, top_ops_ms=top_ops)
+    print("mind servable (readings: error / limit):", json.dumps(result), flush=True)
+    check(predict_launches == (1, 0), f"MIND predict launched (#7, #8) {predict_launches}")
+    check(user.shape == (TRAIN_BATCH, 64) and caps.shape == (TRAIN_BATCH, 4, 64),
+          f"bad MIND outputs {user.shape} {caps.shape}")
+    check(all(bool(torch.isfinite(outputs[k]).all()) for k in ("user_embedding", "interest_capsules", "output")),
+          "non-finite MIND outputs")
+    for key, value in readings.items():
+        if key.startswith("broken"):
+            check(value > 1.0, f"the routing check cannot tell a {key} version: {readings}")
+        else:
+            check(value <= 1.0, f"MIND servable: {key} {readings}")
+
+    # the offline index over 5,000 seeded users and every item, plain and
+    # with ComiRec's diversity slate (categories: each item's tag)
+    rng = np.random.default_rng(1)
+    ub = mind_batch(info, MIND_USERS, seed=5)
+    user_names, item_names = ["user_tag", "history", "history_tags"], ["item_id", "item_tag"]
+    user_profile = {f"u{j}": [int(ub["user_tag"][j]), ub["history"][j].tolist(),
+                              ub["history_tags"][j].tolist()] for j in range(MIND_USERS)}
+    item_off, tag_off = info.offset_of("item_id"), info.offset_of("item_tag")
+    item_tags = rng.integers(0, 500, size=MIND_ITEMS)
+    item_profile = {f"i{j}": [item_off + j, tag_off + int(item_tags[j])] for j in range(MIND_ITEMS)}
+
+    def filled(batch, extra):
+        b = next(iter(batch.values())).shape[0]
+        out = dict(batch)
+        for name, (value, width) in extra.items():
+            out[name] = torch.full((b, width) if width else (b,), value, device="cuda")
+        return out
+
+    # MIND has no user_embedding method: its user tower is predict's
+    # capsules with a dummy target (tests/test_serving.py:301-309), its item
+    # tower predict's item embedding with a dummy history
+    def user_tower(batch):
+        return servable.predict(filled(batch, dict(item_id=(item_off, 0), item_tag=(tag_off, 0))))[
+            "interest_capsules"]
+
+    def item_tower(batch):
+        return servable.predict(filled(batch, dict(user_tag=(0, 0), history=(item_off, 64),
+                                                   history_tags=(tag_off, 64))))["item_embedding"]
+
+    indexer = OfflineIndexer(user_tower, item_tower, user_profile, item_profile, user_names, item_names,
+                             batch_size=1024, device="cuda")
+    kernels.reset_launch_counts()
+    index, kvs, index_s = {}, {}, {}
+    for label, extra in (("plain", {}), ("diverse", dict(item_categories=item_tags, diversity_weight=10.0))):
+        kvs[label] = DictKVStore()
+        t0 = time.perf_counter()
+        index[label] = indexer.run(os.path.join(workdir, f"mind_index_{label}"), kv_store=kvs[label],
+                                   topk=20, key_prefix="MIND", **extra)
+        index_s[label] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    index_launches = kernels.capsule_routing_fused.launches
+    tag_of = {f"i{j}": int(t) for j, t in enumerate(item_tags)}
+    # the first pick maximises score + 10: scores within an fp32 ulp of 10
+    # (2^-20) of the top tie there, and the first of them wins
+    distinct, same_top1, ties = [], 0, 0
+    for uid in user_profile:
+        plain, diverse = (kvs[label].get(f"MIND_{uid}").split("\t") for label in ("plain", "diverse"))
+        items = diverse[0].split(",")
+        distinct.append(len({tag_of[i] for i in items}))
+        same = plain[0].split(",")[0] == items[0]
+        tie = abs(float(plain[1].split(",")[0]) - float(diverse[1].split(",")[0])) <= 2.0**-20
+        same_top1 += same or tie
+        ties += tie and not same
+    index_result = dict(seconds=index_s, launches=index_launches, users=len(kvs["plain"]),
+                        min_distinct_tags=min(distinct), same_top1=same_top1, top1_ties=ties,
+                        user_embeddings=list(index["plain"]["user_embeddings"].shape))
+    print("mind offline index:", json.dumps(index_result), flush=True)
+    check(len(kvs["plain"]) == len(kvs["diverse"]) == MIND_USERS, "MIND index: KV store size")
+    check(index_result["user_embeddings"] == [MIND_USERS, 4, 64], f"MIND index: {index_result}")
+    check(min(distinct) == 20 and same_top1 == MIND_USERS, f"MIND diversity slates: {index_result}")
+
+    # HTTP: retrieve/kv, retrieve/online and retrieve/online with diversity
+    service = RecommendService(
+        user_tower=user_tower, user_profile=user_profile, user_feature_names=user_names,
+        kv_store=kvs["plain"], item_ids=index["plain"]["item_ids"],
+        item_embeddings=index["plain"]["item_embeddings"], item_categories=item_tags,
+        key_prefix="MIND", device="cuda",
+    )
+    server = serve_background(service, port=0)
+    url = f"http://127.0.0.1:{server.server_address[1]}/predict"
+
+    def post(payload):
+        req = urllib.request.Request(
+            url, data=json.dumps(payload).encode(), headers={"Content-Type": "application/json"}
+        )
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            body = json.loads(resp.read())
+        return body, (time.perf_counter() - t) * 1e3
+
+    def descending(result):
+        scores = list(result.values())
+        return len(result) == 20 and scores == sorted(scores, reverse=True)
+
+    # the index's user tower ran at B=1024, the server's at B=1: bf16
+    # products of other shapes, so the top-1 cosine agrees to 2^-6
+    top1_gap = []
+
+    def online_check(uid, r):
+        check(descending(r["result"]), "retrieve/online shape")
+        top1_gap.append(abs(max(r["result"].values()) - max(service.retrieve_kv(uid).values())))
+
+    def diverse_check(uid, r):
+        items = list(r["result"])
+        check(len(items) == 20 and len({tag_of[i] for i in items}) == 20,
+              f"retrieve/online diverse slate of {uid}: {items}")
+        plain = service.retrieve_online(uid, 20)
+        first = next(iter(plain))
+        check(items[0] == first or abs(r["result"][items[0]] - plain[first]) <= 2.0**-20,
+              "the diverse slate's first pick is not the plain top-1")
+
+    paths = {
+        "retrieve_kv": (dict(source="kv"), lambda uid, r: check(descending(r["result"]), "retrieve/kv shape")),
+        "retrieve_online_top20": (dict(topk=20), online_check),
+        "retrieve_online_diverse": (dict(topk=20, diversity_weight=10.0), diverse_check),
+    }
+    uids = rng.choice(list(user_profile), size=MIND_REQUESTS, replace=False).tolist()
+    latency = {}
+    kernels.reset_launch_counts()
+    try:
+        for name, (extra, verify) in paths.items():
+            for uid in uids[:5]:
+                post(dict(user_id=uid, type="retrieve", **extra))
+            times = []
+            for uid in uids:
+                body, ms = post(dict(user_id=uid, type="retrieve", **extra))
+                check("error" not in body, f"{name}: {body}")
+                verify(uid, body)
+                times.append(ms)
+            latency[name] = dict(p50_ms=statistics.median(times), p95_ms=float(np.percentile(times, 95)))
+    finally:
+        server.shutdown()
+        server.server_close()
+    torch.cuda.synchronize()
+    http_launches = kernels.capsule_routing_fused.launches
+    http = dict(card=card, launches=http_launches, requests_per_path=MIND_REQUESTS, latency=latency,
+                online_top1_vs_kv_max_gap=max(top1_gap))
+    print("mind http serving:", json.dumps(http), flush=True)
+    check(max(top1_gap) <= 2.0**-6, f"online top-1 disagrees with the offline index: {max(top1_gap)}")
+    check(http_launches > 0, "the HTTP path did not launch #7")
+    return dict(mind_predict=predict_launches[0], mind_index=index_launches, mind_http=http_launches)
+
+
+def run_mind_training(torch, kernels, workdir, card):
+    """MIND_STEPS bf16 dense steps (the module's math: neither kernel),
+    ``evaluate`` (#7 once a batch), the kernel-pair A/B, and run → restore
+    → export → load_servable (phase 9c). Returns #7's launches by path."""
+    from tpurec_torch.serving.export import load_servable
+    from tpurec_torch.train.trainer import Trainer
+
+    info = mind_info()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(mind_train_config("bfloat16"), info)
+    batch = mind_batch(info, TRAIN_BATCH, seed=1)
+    state = trainer.init_state(batch)
+    dbatch = trainer.device_batch(batch)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    state, metric_state, losses, times = drive_steps(torch, trainer, state, dbatch, steps=MIND_STEPS)
+    train_counts = (kernels.capsule_routing_fused.launches, kernels.capsule_routing_bwd_fused.launches)
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    def step():
+        nonlocal state, metric_state
+        state, metric_state, _ = trainer.train_step(state, dbatch, metric_state)
+
+    busy_ms, top_ops = profile_steps(torch, step)
+    kernels.reset_launch_counts()
+    report = trainer.evaluate(state, [mind_batch(info, 1024, seed=20 + i) for i in range(2)])
+    torch.cuda.synchronize()
+    eval_counts = (kernels.capsule_routing_fused.launches, kernels.capsule_routing_bwd_fused.launches)
+    step_ms = statistics.median(times[5:])
+    result = dict(
+        card=card, model="mind", batch=TRAIN_BATCH, steps=MIND_STEPS, step_p50_ms=step_ms,
+        step_ms_min=min(times[5:]), step_ms_max=max(times[5:]), examples_per_s=TRAIN_BATCH / (step_ms / 1e3),
+        first_step_ms=times[0], device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / step_ms,
+        top_ops_ms=top_ops, peak_mem_gb=peak_gb, losses=losses,
+        train_accuracy=float(trainer.metrics.result(metric_state)["accuracy"]),
+        train_launches=train_counts, eval_launches=eval_counts, eval=report,
+    )
+    print("mind training:", json.dumps(result), flush=True)
+    check(all(np.isfinite(losses)), f"mind: non-finite training loss: {losses}")
+    check(losses[-1] < losses[0], f"mind: the loss did not fall in {MIND_STEPS} steps: {losses}")
+    check(train_counts == (0, 0), f"mind train steps launched (#7, #8) {train_counts}")
+    check(eval_counts == (2, 0), f"mind evaluate on 2 batches launched (#7, #8) {eval_counts}")
+    del trainer, state, dbatch, metric_state
+
+    ab = routing_pair_ab(torch, kernels, card)
+
+    # the entry points end to end (fp32: the export drops the compute dtype)
+    ckpt_dir, export_dir = os.path.join(workdir, "mind_ckpt"), os.path.join(workdir, "mind_trained")
+    trainer = Trainer(mind_train_config("float32", epochs=2, checkpoint_dir=ckpt_dir, max_to_keep=2), info)
+    train = [mind_batch(info, 1024, seed=30 + i) for i in range(4)]
+    evals = [mind_batch(info, 1024, seed=40)]
+    state, run_report = trainer.run(lambda: iter(train), lambda: iter(evals))
+    trainer.save(state)
+    restored = trainer.restore(trainer.init_state(seed=123))
+    want_sd = state.model.state_dict()
+    same = restored.step == state.step and all(
+        torch.equal(v, want_sd[k]) for k, v in restored.model.state_dict().items())
+    trainer.export(state, export_dir)
+    rows = {k: v[:512] for k, v in evals[0].items()}
+    served = load_servable(export_dir, info, device="cuda").predict(rows)
+    inferred = trainer.infer(state, rows)
+    serve_err = max(float(np.abs(served[k].cpu().numpy() - inferred[k]).max())
+                    for k in ("user_embedding", "interest_capsules", "output"))
+    print("mind train entry points:", json.dumps(dict(
+        steps=state.step, eval=run_report["best_eval"], restored_equal=same, served_vs_infer=serve_err,
+    )), flush=True)
+    check(state.step == 2 * len(train) and same, "mind run/restore did not give back the saved state")
+    check(serve_err <= 1e-6, f"mind served prediction vs Trainer.infer: {serve_err}")
+    return dict(mind_evaluate=eval_counts[0], mind_train_steps=train_counts[0]), ab
+
+
+def run_retrieval_family(torch, kernels, card):
+    """ComiRec (sa, dr) and SINE over the MIND schema: one bf16 predict at
+    B=8192 and 5 bf16 train steps each (phase 9d). No kernel: they show the
+    modules run on the card."""
+    from tpurec_torch.serving.export import Servable
+    from tpurec_torch.train.trainer import Trainer
+
+    info = mind_info()
+    batch = mind_batch(info, TRAIN_BATCH, seed=1)
+    results = {}
+    for label, (name, params) in RETRIEVAL_MODELS.items():
+        trainer = Trainer(mind_train_config("bfloat16", name, params), info)
+        state = trainer.init_state(batch)
+        kernels.reset_launch_counts()
+        with torch.inference_mode():
+            out = Servable(state.model).predict(batch)
+        finite = all(bool(torch.isfinite(v.float()).all()) for v in out.values())
+        state, _, losses, times = drive_steps(torch, trainer, state, trainer.device_batch(batch), steps=5)
+        launches = (kernels.capsule_routing_fused.launches, kernels.capsule_routing_bwd_fused.launches)
+        results[label] = dict(user_embedding=list(out["user_embedding"].shape), finite=finite,
+                              losses=losses, step_ms=statistics.median(times[1:]), launches=launches)
+        check(finite and out["user_embedding"].shape == (TRAIN_BATCH, 64), f"{label} predict: {results[label]}")
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"{label} training: {losses}")
+        check(launches == (0, 0), f"{label} launched (#7, #8) {launches}")
+        del trainer, state
+    print("multi-interest family:", json.dumps(dict(card=card, batch=TRAIN_BATCH, models=results)), flush=True)
+    return results
+
+
+def run_mind(torch, kernels, workdir, card):
+    """Phase 9b-9d; returns #7's launches by path and the kernel-pair A/B."""
+    launches = run_mind_serving(torch, kernels, workdir, card)
+    train_launches, ab = run_mind_training(torch, kernels, workdir, card)
+    launches.update(train_launches)
+    run_retrieval_family(torch, kernels, card)
+    return launches, ab
+
+
 def main() -> int:
     import torch
 
@@ -1626,6 +2247,8 @@ def main() -> int:
         din_fused, _ = timed("7d_din_fused", run_din_fused, torch, kernels, eu, smi)
         dcn_records = timed("8a_dcn_kernels", check_dcn_kernels, torch, kernels)
         dcn_launches = timed("8bc_dcn_family", run_dcn_family, torch, kernels, workdir, smi)
+        capsule_records = timed("9a_capsule_kernels", check_capsule_kernels, torch, kernels)
+        mind_launches, _ = timed("9bcd_mind", run_mind, torch, kernels, workdir, smi)
     print("phase seconds:", json.dumps(seconds), flush=True)
     # a kernel on several paths: its launches are their sum
     forward_paths = dict(din_serving=serve_launches, din_training=train_launches,
@@ -1644,6 +2267,13 @@ def main() -> int:
     for name, rec in dcn_records.items():
         records[name] = dict(rec, launches=sum(dcn_launches[name].values()),
                              launches_by_path=dcn_launches[name])
+    records["capsule_routing"] = dict(capsule_records["capsule_routing"],
+                                      launches=sum(mind_launches.values()), launches_by_path=mind_launches)
+    # #8 is the backward of #7's autograd.Function; MIND trains on the
+    # module's math, as in the JAX package, so no main path launches it:
+    # checked, timed and measured in the A/B alone
+    records["capsule_routing_bwd"] = dict(capsule_records["capsule_routing_bwd"], launches=0,
+                                          launches_by_path=dict(mind_train_steps=0))
 
     print(json.dumps({"card": smi, "kernels": list(records.values())}), flush=True)
     print(json.dumps({

@@ -601,3 +601,215 @@ def test_dcn_family_on_card_matches_cpu(card, name, params, kernel):
     out = on_card.train()({k: torch.as_tensor(v, device=card) for k, v in batch.items()})["logit"]
     out.sum().backward()
     assert counts() == before
+
+
+# --------------------------------------------------------------------------
+# capsule dynamic routing (#7 forward, #8 backward)
+def _routing_args(card, b, l, d, e, k, seed=0):
+    """behavior, a mask of lengths 0..L (row b // 2 all zero), S at the
+    scale of its glorot init, and a broadcast (1, K, L) logits0 as the
+    model passes it."""
+    gen = torch.Generator(card).manual_seed(seed)
+    lengths = torch.randint(0, l + 1, (b,), device=card, generator=gen)
+    lengths[b // 2] = 0
+    mask = (torch.arange(l, device=card)[None, :] < lengths[:, None]).float()
+    beh = torch.randn(b, l, d, device=card, generator=gen)
+    s = torch.randn(d, e, device=card, generator=gen) * (2.0 / (d + e)) ** 0.5
+    l0 = torch.randn(1, k, l, device=card, generator=gen).expand(b, k, l)
+    return [beh, mask, s, l0]
+
+
+def _routing_variant(beh, mask, s, l0, iters, stop_grad=True, chain=True):
+    """The plain routing with two switches that break it on purpose:
+    ``stop_grad=False`` differentiates through every iteration's u,
+    ``chain=False`` lets only the last iteration's softmax reach logits0."""
+    from tpurec_torch.ops.capsule import squash
+
+    u = torch.einsum("bld,de->ble", beh, s)
+    live = mask.bool()[:, None, :]
+    logits = l0
+    for it in range(iters):
+        last = it == iters - 1
+        lg = logits if (chain or last) else logits.detach()
+        w = torch.softmax(torch.where(live, lg, -1e9), dim=1) * mask[:, None, :]
+        src = u if (last or not stop_grad) else u.detach()
+        caps = squash(torch.einsum("bkl,ble->bke", w, src))
+        if not last:
+            logits = logits + torch.einsum("bke,ble->bkl", caps, src)
+    return caps
+
+
+def _routing_grads(fn, args, g):
+    leaves = [t.detach().clone().requires_grad_() for t in (args[0], args[2], args[3])]
+    with torch.enable_grad():
+        out = fn(leaves[0], args[1], leaves[1], leaves[2])
+        return torch.autograd.grad(out, leaves, g)
+
+
+def _routing_reading(got, want):
+    """dbehavior and dlogits0 elementwise at TOL; dS (a sum over B·L rows)
+    at 1e-4 of its largest value: at most 1 passes."""
+    out = []
+    for i, (x, y) in enumerate(zip(got, want)):
+        if i == 1:
+            out.append(float((x - y).abs().max()) / (1e-4 * max(float(y.abs().max()), 1e-30)))
+        else:
+            out.append(float(((x - y).abs() / (TOL["atol"] + TOL["rtol"] * y.abs())).max()))
+    return max(out)
+
+
+ROUTING_SHAPES = [(1024, 64, 64, 64, 4, 3), (9, 12, 8, 8, 4, 3), (33, 50, 48, 40, 3, 3),
+                  (9, 12, 8, 8, 4, 1), (33, 50, 48, 40, 3, 2), (5, 1, 3, 2, 1, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,d,e,k,iters", ROUTING_SHAPES)
+def test_capsule_routing_kernel_matches_plain(card, b, l, d, e, k, iters):
+    """#7 against its plain version, with a broadcast and a materialised
+    logits0; a forward that ignores the mask, or runs one iteration fewer,
+    misses the tolerance."""
+    from tpurec_torch.ops import kernels
+
+    args = _routing_args(card, b, l, d, e, k)
+    before = kernels.capsule_routing_fused.launches
+    got = kernels.capsule_routing_fused(*args, iters)
+    dense = kernels.capsule_routing_fused(*args[:3], args[3].contiguous(), iters)
+    torch.cuda.synchronize()
+    assert kernels.capsule_routing_fused.launches == before + 2
+    assert got.shape == (b, k, e) and not got[b // 2].any()
+    want = kernels.capsule_routing_plain(*args, iters)
+    torch.testing.assert_close(got, want, **TOL)
+    torch.testing.assert_close(dense, want, **TOL)
+    if l > 1:
+        no_mask = kernels.capsule_routing_plain(args[0], torch.ones_like(args[1]), *args[2:], iters)
+        assert not torch.allclose(no_mask, want, **TOL)
+    if iters > 1 and k > 1:  # with one capsule every iteration routes the same
+        assert not torch.allclose(kernels.capsule_routing_plain(*args, iters - 1), want, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,d,e,k,iters", ROUTING_SHAPES)
+def test_capsule_routing_bwd_kernel_matches_plain(card, b, l, d, e, k, iters):
+    """#8 against autograd of the plain version: dbehavior, dlogits0 at TOL,
+    dS at 1e-4 of its largest value; two calls the same bits; a backward
+    through the stop-gradient iterations, or one that gives logits0 only
+    the last iteration, reads above the limit."""
+    from tpurec_torch.ops import kernels
+
+    args = _routing_args(card, b, l, d, e, k, seed=1)
+    g = torch.randn(b, k, e, device=card, generator=torch.Generator(card).manual_seed(2))
+    before = kernels.capsule_routing_bwd_fused.launches
+    got = kernels.capsule_routing_bwd_fused(*args, g, iters)
+    again = kernels.capsule_routing_bwd_fused(*args, g, iters)
+    torch.cuda.synchronize()
+    assert kernels.capsule_routing_bwd_fused.launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    assert [t.shape for t in got] == [(b, l, d), (d, e), (b, k, l)]
+    want = kernels.capsule_routing_bwd_plain(*args, g, iters)
+    assert _routing_reading(got, want) <= 1.0
+    if iters > 1 and k > 1:
+        for broken in (dict(stop_grad=False), dict(chain=False)):
+            fn = lambda x, m, s, l0: _routing_variant(x, m, s, l0, iters, **broken)  # noqa: E731
+            assert _routing_reading(_routing_grads(fn, args, g), want) > 1.0, broken
+
+
+@pytest.mark.cuda
+def test_capsule_routing_function_on_card_matches_cpu(card):
+    """``CapsuleRouting`` on the card (both kernels, once each) against the
+    same inputs on the CPU (the plain versions); no gradient for the mask."""
+    from tpurec_torch.ops import kernels
+
+    args = _routing_args(card, 300, 64, 64, 64, 4, seed=3)
+    g = torch.randn(300, 4, 64, device=card, generator=torch.Generator(card).manual_seed(4))
+
+    def run(tensors, g):
+        leaves = [t.detach().clone().requires_grad_(i != 1) for i, t in enumerate(tensors)]
+        out = kernels.CapsuleRouting.apply(*leaves, 3)
+        out.backward(g)
+        assert leaves[1].grad is None
+        return [out.detach(), leaves[0].grad, leaves[2].grad, leaves[3].grad]
+
+    before = (kernels.capsule_routing_fused.launches, kernels.capsule_routing_bwd_fused.launches)
+    on_card = run(args, g)
+    torch.cuda.synchronize()
+    assert (kernels.capsule_routing_fused.launches, kernels.capsule_routing_bwd_fused.launches) == (
+        before[0] + 1, before[1] + 1
+    )
+    on_cpu = run([t.cpu() for t in args], g.cpu())
+    for i, (x, y) in enumerate(zip(on_card, on_cpu)):
+        _assert_close_scaled(x.cpu(), y, what=f"output {i}")
+
+
+@pytest.mark.cuda
+def test_capsule_routing_kernels_refuse_what_they_do_not_take(card):
+    from tpurec_torch.ops import kernels
+
+    beh, mask, s, l0 = _routing_args(card, 4, 8, 6, 5, 3)
+    g = torch.randn(4, 3, 5, device=card)
+    with pytest.raises(TypeError):
+        kernels.capsule_routing_fused(beh.double(), mask, s, l0)
+    with pytest.raises(ValueError, match="is on"):
+        kernels.capsule_routing_fused(beh, mask, s.cpu(), l0)
+    with pytest.raises(ValueError, match="agree"):
+        kernels.capsule_routing_fused(beh, mask[:, :4], s, l0)
+    with pytest.raises(ValueError, match="num_iters"):
+        kernels.capsule_routing_fused(beh, mask, s, l0, 0)
+    big = _routing_args(card, 2, 2000, 64, 64, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.capsule_routing_fused(*big)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.capsule_routing_bwd_fused(*big, torch.zeros(2, 4, 64, device=card))
+    with pytest.raises(ValueError, match="g "):
+        kernels.capsule_routing_bwd_fused(beh, mask, s, l0, g[:, :2])
+    with pytest.raises(RuntimeError, match="requires grad"):
+        kernels.capsule_routing_fused(beh, mask, s.clone().requires_grad_(), l0)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        kernels.capsule_routing_bwd_fused(beh, mask, s, l0, g.clone().requires_grad_())
+    with torch.no_grad():
+        kernels.capsule_routing_fused(beh, mask, s.clone().requires_grad_(), l0)
+    assert kernels.capsule_routing_fused(beh[:0], mask[:0], s, l0[:0]).shape == (0, 3, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,params", [("mind", {}), ("mind", {"normalize_logits": True}),
+                                         ("comirec", {"variant": "dr"}), ("sine", {})])
+def test_retrieval_model_on_card_matches_cpu(card, name, params):
+    """A multi-interest model (fp32) on the card against the same weights on
+    the CPU: MIND launches #7 once outside training and neither kernel in a
+    training forward and backward (the module's math, as in the JAX
+    package)."""
+    from tpurec_torch.config import EmbeddingConfig, ModelConfig
+    from tpurec_torch.data.schema import DataInfo
+    from tpurec_torch.models import build_model
+    from tpurec_torch.ops import kernels
+
+    rng = np.random.default_rng(6)
+    info = DataInfo.from_dims(
+        ["user_tag", "item_id", "item_tag"], [10, 200, 5], sequence_names=["history", "history_tags"],
+        sequence_query_features=["item_id", "item_tag"], max_seq_length=16,
+        user_features=["user_tag"], item_features=["item_id", "item_tag"],
+    )
+    batch = {n: rng.integers(o, o + d, size=(64,))
+             for n, o, d in zip(info.feature_names, info.feature_offsets, info.feature_dims)}
+    live = rng.random((64, 16)) < 0.7
+    batch["history"] = np.where(live, rng.integers(11, 211, size=(64, 16)), 0)
+    batch["history_tags"] = np.where(live, rng.integers(211, 216, size=(64, 16)), 0)
+    config = ModelConfig(name=name, params=params, embedding=EmbeddingConfig(dim=16))
+    on_card = build_model(config, info, device=card).eval()
+    on_cpu = build_model(config, info, device="cpu").eval()
+    on_cpu.load_state_dict({k: v.cpu() for k, v in on_card.state_dict().items()})
+    counts = lambda: (kernels.capsule_routing_fused.launches,  # noqa: E731
+                      kernels.capsule_routing_bwd_fused.launches)
+    before = counts()
+    with torch.inference_mode():
+        got = on_card({k: torch.as_tensor(v, device=card) for k, v in batch.items()})
+        want = on_cpu({k: torch.as_tensor(v) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + int(name == "mind"), before[1])
+    for key in ("user_embedding", "interest_capsules", "output"):
+        torch.testing.assert_close(got[key].cpu(), want[key], **TOL, msg=key)
+    before = counts()
+    out = on_card.train()({k: torch.as_tensor(v, device=card) for k, v in batch.items()})
+    out["output"].sum().backward()
+    torch.cuda.synchronize()
+    assert counts() == before

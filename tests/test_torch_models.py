@@ -250,8 +250,8 @@ def test_entry_points_refuse_missing_cuda(tmp_path):
         OfflineIndexer(None, None, {}, {}, [], [])
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(ExperimentConfig(model=ModelConfig(name="fm")), info)
-    with pytest.raises(NotImplementedError):
-        RecommendService(item_categories=[0, 1], device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RecommendService(item_categories=[0, 1])
 
 
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|tpurec)(\.|\s|$)", re.M)

@@ -12,7 +12,9 @@ flax path maps to a torch key by joining with dots, with these renames:
   attention's ``w1``, ``b1``, ``w2``, ``alpha``; the DCN cross's ``w_{i}``
   (D, 1) and ``b_{i}``; CIN's ``compress_{i}``; the bilinear ``w``; and
   SENet-bilinear's ``squeeze_kernel``/``excite_kernel`` (used as
-  ``z @ kernel``, so not transposed) and ``squeeze_bias``/``excite_bias``.
+  ``z @ kernel``, so not transposed) and ``squeeze_bias``/``excite_bias``;
+  the capsule routing's ``S`` (D, E) and ``W`` (K, L, D, E); SINE's
+  ``interest_pool``; the retrieval models' ``logit_scale``.
   Only a leaf named exactly ``kernel`` is a Dense kernel.
 
 It raises ``KeyError`` on a collection other than those two or a leaf name
@@ -47,6 +49,7 @@ from torch import nn
 _PARAM_KEEP = {
     "bias", "w1", "b1", "w2", "alpha", "logit_scale", "logit_bias", "w",
     "squeeze_kernel", "squeeze_bias", "excite_kernel", "excite_bias",
+    "S", "W", "interest_pool",
 }
 _INDEXED_KEEP = re.compile(r"(w|b|compress)_\d+")
 _STAT_RENAMES = {"mean": "running_mean", "var": "running_var"}

@@ -12,6 +12,7 @@ from tpurec_torch.data.schema import DataInfo
 from tpurec_torch.models import dcn as dcn_models
 from tpurec_torch.models import din as din_models
 from tpurec_torch.models import fm as fm_models
+from tpurec_torch.models import mind as mind_models
 from tpurec_torch.models.registry import register_model
 
 
@@ -88,3 +89,44 @@ def _seq_params(params: dict, info: DataInfo) -> dict:
 @register_model("din")
 def _din(params: dict, info: DataInfo):
     return din_models.DIN(**_seq_params(params, info))
+
+
+def _retrieval_params(params: dict, info: DataInfo) -> dict:
+    """The multi-interest models' common params, and each query feature's
+    [offset, offset + dim) range in the shared id space for the sampled
+    negatives (``tpurec/models/builders.py:218-241``)."""
+    out = _with_dtype(params)
+    out.setdefault("user_features", list(info.user_features))
+    out.setdefault("sequence_features", list(info.sequence_names))
+    if info.sequence_query_features:
+        out.setdefault("query_features", list(info.sequence_query_features))
+    out.setdefault("vocab_size", info.total_dims)
+    out.setdefault("padding_index", info.padding_index)
+    if "query_feature_ranges" not in out:
+        span = dict(zip(info.feature_names, zip(info.feature_offsets, info.feature_dims)))
+        ranges = []
+        for q in out.get("query_features", ("item_id",)):
+            if q in span:
+                off, dim = span[q]
+                ranges.append((int(off), int(off) + int(dim)))
+            else:
+                ranges.append((1, info.total_dims))
+        out["query_feature_ranges"] = tuple(ranges)
+    return out
+
+
+@register_model("mind")
+def _mind(params: dict, info: DataInfo):
+    return mind_models.MIND(**_retrieval_params(params, info))
+
+
+@register_model("comirec")
+def _comirec(params: dict, info: DataInfo):
+    p = _retrieval_params(params, info)
+    p.setdefault("max_seq_length", info.max_seq_length)
+    return mind_models.ComiRec(**p)
+
+
+@register_model("sine")
+def _sine(params: dict, info: DataInfo):
+    return mind_models.SINE(**_retrieval_params(params, info))

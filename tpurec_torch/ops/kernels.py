@@ -41,6 +41,14 @@ Kernels of this module:
 These three run at inference only, as in the JAX package: a module in
 training mode takes the plain version (``tpurec_torch.ops.interactions``).
 
+- ``capsule_routing_fused`` and ``capsule_routing_bwd_fused``: CUDA C++ for
+  ``sm_90a`` (``tpurec_torch/csrc/capsule_routing.cu``), the ``ctypes``
+  route. Replace ``tpurec/ops/pallas/kernels.py:capsule_routing_fused`` and
+  ``capsule_routing_bwd_fused`` (MIND's dynamic routing, every iteration in
+  one launch, and its backward); ``CapsuleRouting`` pairs them. MIND's
+  routing module takes them outside training mode, its own math in
+  training (``tpurec_torch.ops.capsule``), as the JAX package does.
+
 The sorted-stream embedding kernels (``fused_scatter_add``,
 ``gather_rows_sorted``, CUDA C++ in ``tpurec_torch/csrc/embedding_update.cu``)
 have their wrappers in ``tpurec_torch.ops.embedding_update`` and are built and
@@ -77,6 +85,7 @@ CUDA_SOURCES = {
     "embedding_update": "embedding_update.cu",
     "cin": "cin.cu",
     "senet_bilinear": "senet_bilinear.cu",
+    "capsule_routing": "capsule_routing.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -188,6 +197,18 @@ def _library(name: str) -> ctypes.CDLL:
                     ctypes.c_void_p
                 ]
                 lib.senet_bilinear_forward.restype = ctypes.c_int
+            elif name == "capsule_routing":
+                for fn in (lib.capsule_routing_smem_bytes, lib.capsule_routing_bwd_smem_bytes):
+                    fn.argtypes = [ctypes.c_int] * 5
+                    fn.restype = ctypes.c_size_t
+                lib.capsule_routing_bwd_blocks.argtypes = [ctypes.c_int] * 6
+                lib.capsule_routing_bwd_blocks.restype = ctypes.c_int
+                lib.capsule_routing_forward.argtypes = [ctypes.c_void_p] * 4 + [
+                    ctypes.c_long, ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+                lib.capsule_routing_forward.restype = ctypes.c_int
+                lib.capsule_routing_backward.argtypes = [ctypes.c_void_p] * 4 + [
+                    ctypes.c_long] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+                lib.capsule_routing_backward.restype = ctypes.c_int
             _LIBS[name] = lib
         return lib
 
@@ -844,6 +865,215 @@ def senet_bilinear_fused(
 senet_bilinear_fused.launches = 0
 
 
+# --------------------------------------------------------------------------
+# capsule dynamic routing ('shared' bilinear map, MIND)
+def capsule_routing_plain(
+    behavior: torch.Tensor,  # (B, L, D)
+    mask: torch.Tensor,  # (B, L)
+    s: torch.Tensor,  # (D, E)
+    logits0: torch.Tensor,  # (B, K, L)
+    num_iters: int = 3,
+) -> torch.Tensor:
+    """Every routing iteration, as ``capsule_routing_reference`` (fp32 in,
+    fp32 out): masked softmax over capsules, z = w·u with u = behavior·S,
+    squash, logits += caps·uᵀ. Every iteration but the last runs on a
+    detached u, so autograd gives the gradients the JAX package's custom
+    VJP gives. Returns (B, K, E)."""
+    from tpurec_torch.ops.capsule import squash
+
+    u_hat = torch.einsum("bld,de->ble", behavior, s)
+    u_sg = u_hat.detach()
+    live = mask.bool()[:, None, :]
+    logits = logits0
+    capsules = None
+    for it in range(num_iters):
+        w = torch.softmax(torch.where(live, logits, -1e9), dim=1) * mask[:, None, :]
+        src = u_hat if it == num_iters - 1 else u_sg
+        capsules = squash(torch.einsum("bkl,ble->bke", w, src))
+        if it < num_iters - 1:
+            logits = logits + torch.einsum("bke,ble->bkl", capsules, u_sg)
+    return capsules
+
+
+def capsule_routing_bwd_plain(
+    behavior: torch.Tensor,
+    mask: torch.Tensor,
+    s: torch.Tensor,
+    logits0: torch.Tensor,
+    g: torch.Tensor,  # (B, K, E) cotangent of the capsules
+    num_iters: int = 3,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dbehavior (B, L, D), dS (D, E), dlogits0 (B, K, L))``: autograd of
+    ``capsule_routing_plain`` at ``g``."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (behavior, s, logits0)]
+        caps = capsule_routing_plain(leaves[0], mask, leaves[1], leaves[2], num_iters)
+        db, ds, dl0 = torch.autograd.grad(caps, leaves, g)
+    return db, ds, dl0
+
+
+def _capsule_args(what: str, behavior, mask, s, logits0, num_iters: int):
+    """Checks the shared shapes and types; returns (B, L, D, E, K, the
+    contiguous fp32 mask, logits0 as a contiguous (K, L) slice per row and
+    its batch stride in floats)."""
+    _require_cuda(what, behavior)
+    if behavior.dim() != 3 or s.dim() != 2 or logits0.dim() != 3:
+        raise ValueError(
+            f"{what}: expected behavior (B, L, D), S (D, E), logits0 (B, K, L); got "
+            f"{tuple(behavior.shape)}, {tuple(s.shape)}, {tuple(logits0.shape)}"
+        )
+    b, l, d = behavior.shape
+    e, k = s.shape[1], logits0.shape[1]
+    mask = mask.to(torch.float32)
+    _require_cuda_f32(what, behavior.device, behavior=behavior, mask=mask, s=s, logits0=logits0)
+    if mask.shape != (b, l) or s.shape[0] != d or logits0.shape != (b, k, l):
+        raise ValueError(
+            f"{what}: shapes do not agree: behavior {tuple(behavior.shape)}, mask "
+            f"{tuple(mask.shape)}, S {tuple(s.shape)}, logits0 {tuple(logits0.shape)}"
+        )
+    if num_iters < 1:
+        raise ValueError(f"{what}: num_iters must be at least 1, got {num_iters}")
+    if b > 0 and logits0.stride(0) == 0 and logits0[0].is_contiguous():
+        stride = 0  # one (K, L) slice for every row, never materialised
+    else:
+        logits0 = logits0.contiguous()
+        stride = k * l
+    return b, l, d, e, k, mask.contiguous(), logits0, stride
+
+
+def capsule_routing_fused(
+    behavior: torch.Tensor,
+    mask: torch.Tensor,
+    s: torch.Tensor,
+    logits0: torch.Tensor,
+    num_iters: int = 3,
+) -> torch.Tensor:
+    """Dynamic routing, every iteration in one pass: behavior (B, L, D),
+    mask (B, L), S (D, E), logits0 (B, K, L), fp32 → capsules (B, K, E) fp32.
+
+    CPU tensors take ``capsule_routing_plain``. CUDA tensors launch the
+    kernel of ``csrc/capsule_routing.cu``, which keeps u = behavior·S in
+    shared memory through every iteration. logits0 may be a broadcast view
+    (batch stride 0) of one (K, L) slice. It takes any B, L, D, E, K and
+    ``num_iters`` ≥ 1 whose shared memory fits one block, fp32 on one
+    device, and raises on anything else. It records no backward: on CUDA it
+    raises under grad mode when an input requires grad (``CapsuleRouting``
+    is the differentiable form)."""
+    if behavior.device.type == "cpu":
+        return capsule_routing_plain(behavior, mask, s, logits0, num_iters)
+    _refuse_grad("capsule_routing", behavior, s, logits0)
+    b, l, d, e, k, mask, logits0, stride = _capsule_args(
+        "capsule_routing", behavior, mask, s, logits0, num_iters
+    )
+    lib = _library("capsule_routing")
+    smem = lib.capsule_routing_smem_bytes(l, d, e, k, num_iters)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"capsule_routing: L={l}, D={d}, E={e}, K={k} need {smem} bytes of shared memory "
+            f"per block, more than {MAX_SMEM_BYTES}"
+        )
+    out = torch.empty(b, k, e, device=behavior.device, dtype=torch.float32)
+    if b == 0:
+        return out
+    behavior, s = behavior.contiguous(), s.contiguous()
+    with torch.cuda.device(behavior.device):
+        stream = torch.cuda.current_stream(behavior.device).cuda_stream
+        err = lib.capsule_routing_forward(
+            behavior.data_ptr(), mask.data_ptr(), s.data_ptr(), logits0.data_ptr(), stride,
+            out.data_ptr(), b, l, d, e, k, num_iters, stream,
+        )
+    _check_launch(lib, err, "capsule_routing")
+    capsule_routing_fused.launches += 1
+    return out
+
+
+capsule_routing_fused.launches = 0
+
+
+def capsule_routing_bwd_fused(
+    behavior: torch.Tensor,
+    mask: torch.Tensor,
+    s: torch.Tensor,
+    logits0: torch.Tensor,
+    g: torch.Tensor,
+    num_iters: int = 3,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Routing backward: ``(dbehavior (B, L, D), dS (D, E), dlogits0
+    (B, K, L))``, fp32, for the forward's inputs and g (B, K, E).
+
+    CPU tensors take ``capsule_routing_bwd_plain``. CUDA tensors launch the
+    kernel of ``csrc/capsule_routing.cu``: it recomputes the forward, keeps
+    each iteration's softmax, weights and z, and makes one reverse sweep;
+    each block writes one partial of dS into a ``torch.empty`` scratch and a
+    second pass adds the partials in a fixed order, so dS is the same bits
+    from run to run. It takes what the forward takes and raises on anything
+    else."""
+    if behavior.device.type == "cpu":
+        return capsule_routing_bwd_plain(behavior, mask, s, logits0, g, num_iters)
+    _refuse_grad("capsule_routing_bwd", behavior, s, logits0, g)
+    b, l, d, e, k, mask, logits0, stride = _capsule_args(
+        "capsule_routing_bwd", behavior, mask, s, logits0, num_iters
+    )
+    _require_cuda_f32("capsule_routing_bwd", behavior.device, g=g)
+    if g.shape != (b, k, e):
+        raise ValueError(f"capsule_routing_bwd: g {tuple(g.shape)}, expected {(b, k, e)}")
+    lib = _library("capsule_routing")
+    smem = lib.capsule_routing_bwd_smem_bytes(l, d, e, k, num_iters)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"capsule_routing_bwd: L={l}, D={d}, E={e}, K={k}, {num_iters} iterations need "
+            f"{smem} bytes of shared memory per block, more than {MAX_SMEM_BYTES}"
+        )
+    f32 = dict(device=behavior.device, dtype=torch.float32)
+    db = torch.empty(b, l, d, **f32)
+    ds = torch.empty(d, e, **f32)
+    dl0 = torch.empty(b, k, l, **f32)
+    if b == 0:
+        return db, ds.zero_(), dl0
+    behavior, s, g = behavior.contiguous(), s.contiguous(), g.contiguous()
+    with torch.cuda.device(behavior.device):
+        blocks = lib.capsule_routing_bwd_blocks(b, l, d, e, k, num_iters)
+        if blocks < 1:
+            _check_launch(lib, -blocks, "capsule_routing_bwd (occupancy query)")
+            raise RuntimeError(f"capsule_routing_bwd: occupancy query gave {blocks} blocks")
+        partials = torch.empty(blocks * d * e, **f32)
+        stream = torch.cuda.current_stream(behavior.device).cuda_stream
+        err = lib.capsule_routing_backward(
+            behavior.data_ptr(), mask.data_ptr(), s.data_ptr(), logits0.data_ptr(), stride,
+            g.data_ptr(), db.data_ptr(), ds.data_ptr(), dl0.data_ptr(), partials.data_ptr(),
+            b, l, d, e, k, num_iters, blocks, stream,
+        )
+    _check_launch(lib, err, "capsule_routing_bwd")
+    capsule_routing_bwd_fused.launches += 1
+    return db, ds, dl0
+
+
+capsule_routing_bwd_fused.launches = 0
+
+
+class CapsuleRouting(torch.autograd.Function):
+    """Dynamic routing with a backward: ``capsule_routing_fused`` forward,
+    ``capsule_routing_bwd_fused`` backward (the kernels on the card, the
+    plain versions on the CPU), as ``capsule_routing_fused.defvjp`` pairs
+    them in the JAX package (``tpurec/ops/pallas/kernels.py:947-965``).
+    Inputs are fp32; gradients go to behavior, S and logits0, none to the
+    mask."""
+
+    @staticmethod
+    def forward(ctx, behavior, mask, s, logits0, num_iters=3):
+        ctx.num_iters = num_iters
+        ctx.save_for_backward(behavior, mask, s, logits0)
+        return capsule_routing_fused(behavior, mask, s, logits0, num_iters)
+
+    @staticmethod
+    def backward(ctx, g):
+        behavior, mask, s, logits0 = ctx.saved_tensors
+        db, ds, dl0 = capsule_routing_bwd_fused(
+            behavior, mask, s, logits0, g.to(torch.float32).contiguous(), ctx.num_iters
+        )
+        return db, None, ds, dl0, None
+
+
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0 (those of
     ``tpurec_torch.ops.embedding_update`` too)."""
@@ -855,5 +1085,7 @@ def reset_launch_counts() -> None:
     cross_network_fused.launches = 0
     cin_fused.launches = 0
     senet_bilinear_fused.launches = 0
+    capsule_routing_fused.launches = 0
+    capsule_routing_bwd_fused.launches = 0
     embedding_update.fused_scatter_add.launches = 0
     embedding_update.gather_rows_sorted.launches = 0

@@ -26,8 +26,8 @@ def _compute_dtype(x: torch.Tensor, param: torch.Tensor, dtype: Optional[torch.d
 
 class Dense(nn.Module):
     """flax ``nn.Dense``: ``weight`` is (out, in) like ``nn.Linear`` (the flax
-    kernel transposed), bias zeros; inputs, weight and bias are cast to the
-    compute dtype before the product."""
+    kernel transposed), bias zeros (none with ``use_bias=False``); inputs,
+    weight and bias are cast to the compute dtype before the product."""
 
     def __init__(
         self,
@@ -35,12 +35,13 @@ class Dense(nn.Module):
         out_features: int,
         dtype: Optional[torch.dtype] = None,
         kernel_init: str = "lecun_normal",
+        use_bias: bool = True,
     ):
         super().__init__()
         if kernel_init not in ("lecun_normal", "glorot_uniform"):
             raise ValueError(f"unknown kernel_init {kernel_init!r}")
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
-        self.bias = nn.Parameter(torch.empty(out_features))
+        self.bias = nn.Parameter(torch.empty(out_features)) if use_bias else None
         self.dtype = dtype
         self.kernel_init = kernel_init
 
@@ -49,11 +50,13 @@ class Dense(nn.Module):
             glorot_uniform_(self.weight, generator)
         else:
             lecun_normal_(self.weight, generator)
-        nn.init.zeros_(self.bias)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(x, self.weight, self.dtype)
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class BatchNorm(nn.Module):

@@ -69,9 +69,10 @@ def recall_at_k(
 
 class OfflineIndexer:
     """Dump tower embeddings for every profile entry, build the top-k lists,
-    persist the artifacts. Towers are callables: dict of (B,) id tensors on
-    ``device`` → (B, D) embeddings. Multi-interest (B, K, D) towers and the
-    diversity-greedy slates come with a later slice."""
+    persist the artifacts. Towers are callables: dict of id tensors on
+    ``device`` ((B,) ids, or (B, L) for a feature that is a sequence, such as
+    a stored behavior history) → (B, D) embeddings, or (B, K, D) interest
+    capsules for a multi-interest user tower."""
 
     def __init__(
         self,
@@ -106,12 +107,7 @@ class OfflineIndexer:
                 name: cols[j][start : start + self.batch_size]
                 for j, name in enumerate(feature_names)
             }
-            emb = tower(batch)
-            if emb.dim() != 2:
-                raise NotImplementedError(
-                    "multi-interest (B, K, D) towers are not ported yet"
-                )
-            out.append(emb.to(torch.float32).cpu().numpy())
+            out.append(tower(batch).to(torch.float32).cpu().numpy())
         return ids, np.concatenate(out)
 
     def run(
@@ -120,7 +116,14 @@ class OfflineIndexer:
         kv_store: Optional[DictKVStore] = None,
         topk: int = 20,
         key_prefix: str = "DSSM",
+        item_categories: Optional[Sequence[int]] = None,
+        diversity_weight: float = 0.0,
     ) -> Dict[str, object]:
+        """``diversity_weight > 0`` (with per-item ``item_categories``)
+        stores ComiRec's diversity-greedy slates instead of the plain top-k;
+        a multi-interest user tower's (B, K, D) capsules score each item by
+        their best capsule either way (``tpurec/serving/indexer.py:
+        136-175``)."""
         user_ids, user_emb = self._embed_all(
             self.user_tower, self.user_profile, self.user_feature_names
         )
@@ -134,7 +137,16 @@ class OfflineIndexer:
         with open(os.path.join(ebd_dir, "item_embedding.json"), "w") as f:
             json.dump({i: e.tolist() for i, e in zip(item_ids, item_emb)}, f)
         k = min(topk, len(item_ids))
-        idx, scores = exact_topk(user_emb, item_emb, k, device=self.device)
+        if user_emb.ndim == 3 or diversity_weight > 0.0:
+            from tpurec_torch.serving.diversity import diverse_topk
+
+            cats = (np.asarray(item_categories) if item_categories is not None
+                    else np.zeros(len(item_ids), np.int32))
+            idx, scores = diverse_topk(
+                user_emb, item_emb, k, cats, diversity_weight, device=self.device
+            )
+        else:
+            idx, scores = exact_topk(user_emb, item_emb, k, device=self.device)
         kv = kv_store if kv_store is not None else DictKVStore()
         for row, uid in enumerate(user_ids):
             items = ",".join(item_ids[j] for j in idx[row])

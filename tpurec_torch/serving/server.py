@@ -7,9 +7,11 @@ of ``tpurec/serving/server.py``, same request and response JSON):
     POST /predict {"user_id": ..., "type": "rank", "from_retrieval": true}
 
 Online retrieval is an exact top-k over a pre-normalised corpus that stays on
-the device; ranking is one batched forward over the candidate × feature
-matrix, padded to a power-of-two bucket. The ComiRec diversity path
-(``item_categories``) comes with a later slice.
+the device; a multi-interest tower's (K, D) capsules score each item by their
+best capsule. With ``item_categories`` configured, the request knob
+``"diversity_weight"`` (> 0) switches retrieval to ComiRec's diversity-greedy
+slate. Ranking is one batched forward over the candidate × feature matrix,
+padded to a power-of-two bucket.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from tpurec_torch.device import DeviceLike, resolve_device
+from tpurec_torch.serving.diversity import greedy_slates
 from tpurec_torch.serving.indexer import l2_normalize
 from tpurec_torch.serving.kvstore import DictKVStore
 
@@ -47,10 +50,6 @@ class RecommendService:
         key_prefix: str = "DSSM",
         device: DeviceLike = "cuda",
     ):
-        if item_categories is not None:
-            raise NotImplementedError(
-                "the ComiRec diversity path (item_categories) is not ported yet"
-            )
         self.device = resolve_device(device)
         self.user_tower = user_tower
         self.ranker = ranker
@@ -61,6 +60,10 @@ class RecommendService:
         self.kv = kv_store or DictKVStore()
         self.item_ids = list(item_ids or [])
         self.key_prefix = key_prefix
+        self._cats = (
+            None if item_categories is None
+            else torch.as_tensor(np.asarray(item_categories), device=self.device)
+        )
         # the corpus is normalised once and stays on the device
         self._corpus = None
         if item_embeddings is not None:
@@ -70,11 +73,10 @@ class RecommendService:
                 )
             )
 
-    def _online_topk(self, q: torch.Tensor, k: int):
-        """q: (K, D) capsules (K=1 for single-vector towers); every item is
-        scored by its best capsule."""
-        scores = l2_normalize(q.to(torch.float32)) @ self._corpus.T  # (K, N)
-        return torch.topk(scores.max(dim=0).values, k)
+    def _capsule_scores(self, q: torch.Tensor) -> torch.Tensor:
+        """q: (K, D) capsules (K=1 for single-vector towers) → (K, N) cosine
+        scores."""
+        return l2_normalize(q.to(torch.float32)) @ self._corpus.T
 
     # -- retrieval -----------------------------------------------------------
     def retrieve_kv(self, user_id: str) -> Dict[str, float]:
@@ -85,8 +87,13 @@ class RecommendService:
         items, scores = raw.split("\t")
         return {i: float(s) for i, s in zip(items.split(","), scores.split(","))}
 
-    def retrieve_online(self, user_id: str, topk: int = 20) -> Dict[str, float]:
-        """User tower + exact top-k over the corpus."""
+    def retrieve_online(
+        self, user_id: str, topk: int = 20, diversity_weight: float = 0.0
+    ) -> Dict[str, float]:
+        """User tower + exact top-k over the corpus, every item scored by the
+        best capsule. ``diversity_weight > 0`` (with ``item_categories``)
+        returns the diversity-greedy slate instead; its scores stay the plain
+        cosine relevance of the chosen items."""
         feats = self.user_profile.get(str(user_id))
         if feats is None or self._corpus is None:
             return {}
@@ -96,7 +103,12 @@ class RecommendService:
         }
         with torch.inference_mode():
             emb = self.user_tower(batch)
-            vals, idx = self._online_topk(emb.reshape(-1, emb.shape[-1]), topk)
+            scores = self._capsule_scores(emb.reshape(-1, emb.shape[-1]))
+            if diversity_weight > 0.0 and self._cats is not None:
+                idx, vals = greedy_slates(scores[None], self._cats, topk, diversity_weight)
+                idx, vals = idx[0], vals[0]
+            else:
+                vals, idx = torch.topk(scores.max(dim=0).values, topk)
         idx, vals = idx.cpu().numpy(), vals.cpu().numpy()
         return {self.item_ids[j]: float(s) for j, s in zip(idx, vals)}
 
@@ -137,7 +149,10 @@ class RecommendService:
             if request.get("source") == "kv":
                 result = self.retrieve_kv(user_id)
             else:
-                result = self.retrieve_online(user_id, int(request.get("topk", 20)))
+                result = self.retrieve_online(
+                    user_id, int(request.get("topk", 20)),
+                    float(request.get("diversity_weight", 0.0)),
+                )
             return {"user_id": user_id, "type": "retrieve", "result": result}
         if rtype == "rank":
             items = request.get("item_ids")

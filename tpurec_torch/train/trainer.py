@@ -64,6 +64,7 @@ from tpurec_torch.embedding.modules import (
     sparse_rows,
 )
 from tpurec_torch.models import build_model
+from tpurec_torch.models.mind import sampling_generator
 from tpurec_torch.ops import embedding_update as eu
 from tpurec_torch.train import checkpoint as ckpt_lib
 from tpurec_torch.train.losses import add_auxiliary, get_loss
@@ -467,7 +468,9 @@ class Trainer:
         model = state.model.train()
         l2_coeff = self.config.model.embedding.used_id_l2
         self._mark("forward")
-        with record_used_id_l2(model) if l2_coeff > 0 else contextlib.nullcontext() as reg:
+        with sampling_generator(model, state.generator), (
+            record_used_id_l2(model) if l2_coeff > 0 else contextlib.nullcontext()
+        ) as reg:
             outputs = model(batch)
         loss, logs = self._loss(outputs, batch)
         if reg:
@@ -499,7 +502,7 @@ class Trainer:
             size = batch[name].numel()
             batch[name] = positions[offset : offset + size].reshape(batch[name].shape)
             offset += size
-        with sparse_rows(model, rows, "unique"), (
+        with sparse_rows(model, rows, "unique"), sampling_generator(model, state.generator), (
             record_used_id_l2(model) if l2_coeff > 0 else contextlib.nullcontext()
         ) as reg:
             outputs = model(batch)
@@ -578,7 +581,7 @@ class Trainer:
                 pos = pos.reshape(x.shape)
             batch[name] = pos
             offset += x.numel()
-        with sparse_rows(model, rows, "direct"):
+        with sparse_rows(model, rows, "direct"), sampling_generator(model, state.generator):
             outputs = model(batch)
         loss, logs = self._loss(outputs, batch)
         if first_orig is not None:
