@@ -2,6 +2,7 @@
 """Drive the PyTorch port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --scatter   # kernel #9's D sweep alone (phase 7a's)
 
 Needs one CUDA card, ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``) and ``triton``;
 it builds every kernel from the sources in this checkout and exits non-zero
@@ -68,12 +69,18 @@ on the first phase that fails. Phases:
      FM v- and w-table shapes (bench.py's B=8192 batch: N=212,992 ids over
      2,080,128 rows, D=32 and D=1), at DIN's (phase 6's batch: N=548,864
      over 21,504 rows, its id-0 share printed) and at ragged shapes (N=1003,
-     V=300, D=8/64/160; every id equal; N=0): each row's error in units of
-     its limit (``SUM_RTOL``), two calls the same bits, and versions that
-     drop what runs carry across slices or keep only first occurrences
-     reading above the limit; device time, bound, plain and ``index_add_``
-     times. Kernel #10 (``gather_rows_sorted``) exactly equal to
-     ``index_select`` at the FM shape and ragged shapes, with its times;
+     V=300, D=3/8/33/64/160; every id equal; N=0): each row's error in
+     units of its limit (``SUM_RTOL``), two calls the same bits, and
+     versions that drop what runs carry past the kernel's tile or slice
+     (``scatter_tile_rows``, ``scatter_slice_rows``: some run must cross a
+     slice at FM v, DIN and all-equal, and a tile at DIN and all-equal) or
+     keep only first occurrences reading above the limit; device time,
+     bound, plain and ``index_add_`` times, and the device time of each
+     kernel or memset it launches (``torch.profiler``). Then
+     its D sweep: FM's stream at D = 1, 4, 8, 16, 32, 64 and DIN's at D=32,
+     each checked and timed the same way. Kernel #10
+     (``gather_rows_sorted``) exactly equal to ``index_select`` at the FM
+     shape and ragged shapes, with its times;
    - FM (bf16 compute, fp32 params) in the dense, ``fused_adam`` and
      ``rowwise_adam`` engines: 30 steps each (losses finite and falling,
      #9 twice a fused step, no host sync, step p50 and examples/s, peak
@@ -912,16 +919,22 @@ def sum_reading(torch, eu, got, plan, grads) -> float:
 
 
 def broken_scatters(torch, eu):
-    """Kernel #9 as two broken versions would compute it (plain math): one
-    that loses what a run carries past the slice it begins in, one that keeps
-    only each id's first occurrence. Each reading must exceed its limit."""
-    slice_rows = eu.scatter_slice_rows()
+    """Kernel #9 as three broken versions would compute it (plain math): two
+    that lose what a run carries past the tile (launch 2's part) or the
+    slice (the tile fold's part too) it begins in, at the kernel's units for
+    the width (``scatter_tile_rows``, ``scatter_slice_rows``), and one that
+    keeps only each id's first occurrence. Each reading must exceed its
+    limit."""
 
-    def drop_carried(table_rows, d, plan, grads_sorted):
-        g = grads_sorted.reshape(plan.n, d)
-        start = torch.searchsorted(plan.sids, plan.sids)  # where each run begins
-        keep = torch.arange(plan.n, device=g.device) // slice_rows == start // slice_rows
-        return eu.scatter_add_plain(table_rows, plan.sids[keep], g[keep])
+    def dropping(unit):
+        def drop(table_rows, d, plan, grads_sorted):
+            g = grads_sorted.reshape(plan.n, d)
+            rows = unit(d)
+            start = torch.searchsorted(plan.sids, plan.sids)  # where each run begins
+            keep = torch.arange(plan.n, device=g.device) // rows == start // rows
+            return eu.scatter_add_plain(table_rows, plan.sids[keep], g[keep])
+
+        return drop
 
     def first_only(table_rows, d, plan, grads_sorted):
         g = grads_sorted.reshape(plan.n, d)
@@ -929,7 +942,81 @@ def broken_scatters(torch, eu):
         keep[1:] = plan.sids[1:] != plan.sids[:-1]
         return eu.scatter_add_plain(table_rows, plan.sids[keep], g[keep])
 
-    return dict(broken_drop_carried=drop_carried, broken_first_only=first_only), slice_rows
+    return dict(broken_drop_carried=dropping(eu.scatter_tile_rows),
+                broken_drop_slice_carried=dropping(eu.scatter_slice_rows),
+                broken_first_only=first_only)
+
+
+def kernel_split(torch, fn, calls=10) -> dict:
+    """Device ms per call of each kernel (and memset) that ``fn()`` launches,
+    from ``torch.profiler`` over ``calls`` calls, the L2 cache flushed before
+    each (the flush's own fill kernel is left out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    return {
+        e.key[:60]: e.self_device_time_total / calls / 1e3 for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+        and "FillFunctor" not in e.key
+    }
+
+
+def scatter_case(torch, eu, gen, plan, v, d, timing=True):
+    """Kernel #9 on one stream: its reading against the plain version, two
+    calls the same bits and, with ``timing``, its device time beside
+    ``index_add_``'s (torch.zeros + index_add_, the same function in one
+    PyTorch call each), the bound and the per-launch split. Returns (reading,
+    grads, G)."""
+    grads = torch.randn(plan.n, d, device="cuda", generator=gen)
+    got = eu.fused_scatter_add(v, d, plan, grads)
+    again = eu.fused_scatter_add(v, d, plan, grads)
+    r = dict(n=plan.n, rows=v, d=d, same_bits=bool(torch.equal(got, again)))
+    r["kernel"] = sum_reading(torch, eu, got, plan, grads) if plan.n else float(got.abs().max())
+    if timing:
+        # bytes: grads and ids read once, all of G written once; one add a
+        # gradient element
+        r["bound_ms"], r["bound_by"] = bound(4 * (plan.n * d + plan.n + v * d), plan.n * d)
+        r["ms"] = device_ms(torch, lambda: eu.fused_scatter_add(v, d, plan, grads))
+        r["library_ms"] = device_ms(torch, lambda: torch.zeros(v, d, device="cuda").index_add_(
+            0, plan.sids, grads))
+        r["split_ms"] = kernel_split(torch, lambda: eu.fused_scatter_add(v, d, plan, grads))
+    return r, grads, got
+
+
+SCATTER_SWEEP_D = (1, 4, 8, 16, 32, 64)
+
+
+def scatter_sweep(torch, eu, gen) -> dict:
+    """Kernel #9 over the FM stream (bench.py's B=8192 batch: N=212,992 ids
+    over 2,080,128 rows) at each D of ``SCATTER_SWEEP_D``, and at DIN's
+    stream (phase 6's batch) at D=32: correct and the same bits at each,
+    with its time beside ``index_add_`` and the bound."""
+    from tpurec_torch.embedding.ops import pad_vocab
+
+    finfo, dinfo = fm_info(), din_info()
+    fm_plan = eu.make_scatter_plan(torch.as_tensor(
+        flat_ids(finfo, bench_batch(finfo, TRAIN_BATCH, 0, seed=1)), device="cuda"),
+        pad_vocab(finfo.total_dims))
+    din_plan = eu.make_scatter_plan(torch.as_tensor(
+        flat_ids(dinfo, bench_batch(dinfo, TRAIN_BATCH, 64, seed=1)), device="cuda"),
+        pad_vocab(dinfo.total_dims))
+    rows = {f"fm_d{d}": scatter_case(torch, eu, gen, fm_plan, fm_plan.num_rows, d)[0]
+            for d in SCATTER_SWEEP_D}
+    rows["din_d32"] = scatter_case(torch, eu, gen, din_plan, din_plan.num_rows, 32)[0]
+    for name, r in rows.items():
+        print(f"fused_scatter_add sweep {name}:", json.dumps(r), flush=True)
+    for name, r in rows.items():
+        check(r["same_bits"], f"fused_scatter_add sweep {name}: two calls gave different bits")
+        check(r["kernel"] <= 1.0, f"fused_scatter_add sweep {name} vs plain: {r}")
+    return rows
 
 
 def check_embedding_kernels(torch, eu):
@@ -937,7 +1024,7 @@ def check_embedding_kernels(torch, eu):
     from tpurec_torch.embedding.ops import pad_vocab
 
     gen = torch.Generator(device="cuda").manual_seed(7)
-    broken, slice_rows = broken_scatters(torch, eu)
+    broken = broken_scatters(torch, eu)
     finfo, dinfo = fm_info(), din_info()
     fm_ids = flat_ids(finfo, bench_batch(finfo, TRAIN_BATCH, 0, seed=1))
     din_ids = flat_ids(dinfo, bench_batch(dinfo, TRAIN_BATCH, 64, seed=1))
@@ -945,41 +1032,35 @@ def check_embedding_kernels(torch, eu):
     ragged = torch.randint(0, 300, (1003,), device="cuda", generator=gen)
     cases = {
         "fm_v": (fm_ids, v_fm, 32), "fm_w": (fm_ids, v_fm, 1), "din": (din_ids, v_din, 32),
-        "ragged_d8": (ragged, 300, 8), "ragged_d64": (ragged, 300, 64),
+        "ragged_d3": (ragged, 300, 3), "ragged_d8": (ragged, 300, 8),
+        "ragged_d33": (ragged, 300, 33), "ragged_d64": (ragged, 300, 64),
         "ragged_d160": (ragged, 300, 160), "all_equal": (np.full(5000, 150), 300, 4),
         "empty": (np.zeros(0, np.int64), 300, 8),
     }
     readings, records = {}, {}
     for name, (ids, v, d) in cases.items():
         plan = eu.make_scatter_plan(torch.as_tensor(ids, device="cuda"), v)
-        grads = torch.randn(plan.n, d, device="cuda", generator=gen)
-        got = eu.fused_scatter_add(v, d, plan, grads)
-        again = eu.fused_scatter_add(v, d, plan, grads)
-        r = dict(n=plan.n, rows=v, d=d, same_bits=bool(torch.equal(got, again)))
-        r["kernel"] = sum_reading(torch, eu, got, plan, grads) if plan.n else float(got.abs().max())
+        timing = name in ("fm_v", "fm_w", "din")
+        r, grads, got = scatter_case(torch, eu, gen, plan, v, d, timing=timing)
         if plan.n:
             s = plan.sids
             start = torch.searchsorted(s, s)
             pos = torch.arange(plan.n, device="cuda")
-            r["crossing_rows"] = int((pos // slice_rows != start // slice_rows).sum())
+            for unit, rows in (("tile", eu.scatter_tile_rows(d)), ("slice", eu.scatter_slice_rows(d))):
+                r[f"{unit}_rows"] = rows
+                r[f"{unit}_crossing_rows"] = int((pos // rows != start // rows).sum())
             r["repeated_rows"] = int((s[1:] == s[:-1]).sum())
             for bname, fn in broken.items():
                 r[bname] = sum_reading(torch, eu, fn(v, d, plan, grads), plan, grads)
         readings[name] = r
-        if name in ("fm_v", "fm_w", "din"):
-            # bytes: grads and ids read once, all of G written once; one add
-            # a gradient element
-            bound_ms, bound_by = bound(4 * (plan.n * d + plan.n + v * d), plan.n * d)
+        if timing:
             plain = lambda: eu.scatter_add_plain(v, plan.sids, grads)  # noqa: E731
             rec = dict(
                 name="fused_scatter_add", route="cuda", source="tpurec_torch/csrc/embedding_update.cu",
                 replaces="tpurec/ops/pallas/embedding_update.py:231", shape=[plan.n, v, d],
-                max_abs_err=float((got - plain()).abs().max()),
-                ms=device_ms(torch, lambda: eu.fused_scatter_add(v, d, plan, grads)),
-                plain_ms=device_ms(torch, plain),
-                bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=device_ms(torch, lambda: torch.zeros(v, d, device="cuda").index_add_(
-                    0, plan.sids, grads)),
+                max_abs_err=float((got - plain()).abs().max()), ms=r["ms"],
+                plain_ms=device_ms(torch, plain), bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                library_ms=r["library_ms"], split_ms=r["split_ms"],
             )
             if name == "din":
                 rec["id0_share"] = float((din_ids == 0).mean())
@@ -997,19 +1078,21 @@ def check_embedding_kernels(torch, eu):
             records[name] = rec
             print("kernel check:", json.dumps(rec), flush=True)
     print(f"fused_scatter_add readings (error / limit; limit = {SUM_ATOL} + {SUM_RTOL} · Σ|g| "
-          f"of the row, fp32 sums in another order; slices of {slice_rows} rows):",
-          json.dumps(readings), flush=True)
+          "of the row, fp32 sums in another order):", json.dumps(readings), flush=True)
     for name, r in readings.items():
         check(r["same_bits"], f"fused_scatter_add at {name}: two calls gave different bits")
         check(r["kernel"] <= 1.0, f"fused_scatter_add vs plain at {name}: {r}")
-        if r.get("crossing_rows"):
-            check(r["broken_drop_carried"] > 1.0,
-                  f"the check cannot tell a #9 that drops carried runs at {name}: {r}")
+        for unit, bname in (("tile", "broken_drop_carried"), ("slice", "broken_drop_slice_carried")):
+            if r.get(f"{unit}_crossing_rows"):
+                check(r[bname] > 1.0,
+                      f"the check cannot tell a #9 that drops runs carried past a {unit} at {name}: {r}")
         if r.get("repeated_rows"):
             check(r["broken_first_only"] > 1.0,
                   f"the check cannot tell a #9 that keeps first occurrences at {name}: {r}")
-    check(all(readings[n].get("crossing_rows") for n in ("fm_v", "din", "all_equal")),
-          "no run crossed a slice at the FM, DIN or all-equal shape")
+    check(all(readings[n]["slice_crossing_rows"] for n in ("fm_v", "din", "all_equal"))
+          and all(readings[n]["tile_crossing_rows"] for n in ("din", "all_equal")),
+          "no run crossed a slice at the FM, DIN or all-equal shape, or a tile at DIN or all-equal")
+    records["sweep"] = scatter_sweep(torch, eu, gen)
 
     # kernel #10: copies, so exact; a gather of the neighbouring rows must differ
     gather = {}
@@ -1153,7 +1236,7 @@ def fused_vs_dense(torch, eu, config_fn, info, batch, tables, label):
     want = one_step_state(torch, Trainer(config_fn("dense"), info), batch, tables)
     fused = Trainer(config_fn("fused"), info)
     reading = dict(fused=engine_reading(one_step_state(torch, fused, batch, tables), want))
-    with mock.patch.object(eu, "fused_scatter_add", broken_scatters(torch, eu)[0]["broken_drop_carried"]):
+    with mock.patch.object(eu, "fused_scatter_add", broken_scatters(torch, eu)["broken_drop_slice_carried"]):
         reading["broken_drop_carried"] = engine_reading(
             one_step_state(torch, fused, batch, tables), want
         )
@@ -2212,6 +2295,12 @@ def main() -> int:
     print(smi, flush=True)
     print("torch", torch.__version__, "cuda", torch.version.cuda, "tf32",
           torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32, flush=True)
+    if sys.argv[1:] == ["--scatter"]:
+        # kernel #9 alone: its D sweep and DIN's stream, with the split
+        from tpurec_torch.ops import embedding_update as eu
+
+        scatter_sweep(torch, eu, torch.Generator(device="cuda").manual_seed(7))
+        return 0
 
     t0 = time.perf_counter()
     paths = kernels.build()
@@ -2261,7 +2350,8 @@ def main() -> int:
     scatter_paths = dict(fm_fused_training=fm_scatter_launches,
                          din_fused_training=din_fused["fused_scatter_add"])
     records["fused_scatter_add"] = dict(embedding["fm_v"], launches=sum(scatter_paths.values()),
-                                        launches_by_path=scatter_paths)
+                                        launches_by_path=scatter_paths,
+                                        other_shapes=dict(fm_w=embedding["fm_w"], din=embedding["din"]))
     # #10 is on no training path, in either package: checked and timed alone
     records["gather_rows_sorted"] = dict(embedding["gather"], launches=0, launches_by_path={})
     for name, rec in dcn_records.items():

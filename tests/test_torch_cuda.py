@@ -305,14 +305,17 @@ def test_train_step_on_card_matches_plain_attention(card):
 SUM_RTOL, SUM_ATOL = 2.0**-20, 1e-7
 
 
-def _sorted_stream(card, n, v, d, skew=0.0, seed=0):
-    """A plan over n ids in [0, v) (a share ``skew`` of them id 0) and fp32
+def _sorted_stream(card, n, v, d, skew=0.0, seed=0, outside=0.0):
+    """A plan over n ids in [0, v) (a share ``skew`` of them id 0, and a
+    share ``outside`` of them -3 or v + 2, outside the table) and fp32
     gradients in id order."""
     from tpurec_torch.ops import embedding_update as eu
 
     gen = torch.Generator(card).manual_seed(seed)
     ids = torch.randint(0, v, (n,), device=card, generator=gen)
     ids = torch.where(torch.rand(n, device=card, generator=gen) < skew, 0, ids)
+    far = torch.where(torch.rand(n, device=card, generator=gen) < 0.5, -3, v + 2)
+    ids = torch.where(torch.rand(n, device=card, generator=gen) < outside, far, ids)
     plan = eu.make_scatter_plan(ids, v)
     return plan, torch.randn(n, d, device=card, generator=gen)
 
@@ -327,19 +330,29 @@ def _sum_reading(got, plan, grads):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "n,v,d,skew",
-    [(50_000, 400_000, 32, 0.0), (50_000, 400_000, 1, 0.0), (60_000, 2_000, 32, 0.36),
-     (1003, 300, 8, 0.0), (1003, 300, 64, 0.0), (1003, 300, 160, 0.0), (5000, 300, 4, 1.0),
-     (1, 10, 3, 0.0), (0, 10, 8, 0.0)],
+    "n,v,d,skew,outside",
+    [(50_000, 400_000, 32, 0.0, 0.0), (50_000, 400_000, 1, 0.0, 0.0),
+     (60_000, 2_000, 32, 0.36, 0.0), (1003, 300, 8, 0.0, 0.0), (1003, 300, 64, 0.0, 0.0),
+     (1003, 300, 160, 0.0, 0.0), (5000, 300, 4, 1.0, 0.0), (1, 10, 3, 0.0, 0.0),
+     (0, 10, 8, 0.0, 0.0),
+     # widths whose rows share a warp's lanes unevenly, or spill past 32
+     (3000, 500, 2, 0.0, 0.0), (3000, 500, 3, 0.0, 0.0), (3000, 500, 5, 0.0, 0.0),
+     (50_000, 400_000, 16, 0.0, 0.0), (3000, 300, 33, 0.0, 0.0),
+     # D=1, runs of ~33 rows across slices (2,048 rows) and tiles (16,384)
+     (100_000, 3000, 1, 0.0, 0.0),
+     # one run through the whole stream
+     (100_000, 50, 1, 1.0, 0.0), (100_000, 50, 32, 1.0, 0.0),
+     # ids outside [0, V), which are dropped
+     (20_000, 1000, 8, 0.0, 0.1), (100_000, 3000, 1, 0.0, 0.1)],
 )
-def test_fused_scatter_add_kernel_matches_plain(card, n, v, d, skew):
-    """Every row within its limit of ``scatter_add_plain``; rows no id
-    touches exactly 0; two calls the same bits (no float atomics); a version
-    that drops what runs carry across slices, or keeps only each id's first
-    occurrence, reads above the limit."""
+def test_fused_scatter_add_kernel_matches_plain(card, n, v, d, skew, outside):
+    """Every row within its limit of ``scatter_add_plain`` over the ids in
+    [0, V); rows no such id touches exactly 0; two calls the same bits (no
+    float atomics); a version that keeps only each id's first occurrence
+    reads above the limit."""
     from tpurec_torch.ops import embedding_update as eu
 
-    plan, grads = _sorted_stream(card, n, v, d, skew)
+    plan, grads = _sorted_stream(card, n, v, d, skew, outside=outside)
     before = eu.fused_scatter_add.launches
     got = eu.fused_scatter_add(v, d, plan, grads)
     again = eu.fused_scatter_add(v, d, plan, grads)
@@ -349,12 +362,22 @@ def test_fused_scatter_add_kernel_matches_plain(card, n, v, d, skew):
     if n == 0:
         assert not got.any()
         return
+    inside = (plan.sids >= 0) & (plan.sids < v)
+    assert outside or inside.all()
+    plan, grads = plan._replace(sids=plan.sids[inside], n=int(inside.sum())), grads[inside]
     assert _sum_reading(got, plan, grads) <= 1.0
     touched = torch.zeros(v, dtype=torch.bool, device=card)
     touched[plan.sids.long()] = True
     assert not got[~touched].any()
-    if plan.sids.unique().numel() < n:
-        first = torch.ones(n, dtype=torch.bool, device=card)
+    # a version that loses what runs carry past the tile they begin in
+    tile = eu.scatter_tile_rows(d)
+    start = torch.searchsorted(plan.sids, plan.sids)
+    keep = torch.arange(plan.n, device=card) // tile == start // tile
+    if not keep.all():
+        dropped = eu.scatter_add_plain(v, plan.sids[keep], grads[keep])
+        assert _sum_reading(dropped, plan, grads) > 1.0
+    if plan.sids.unique().numel() < plan.n:
+        first = torch.ones(plan.n, dtype=torch.bool, device=card)
         first[1:] = plan.sids[1:] != plan.sids[:-1]
         keep_first = eu.scatter_add_plain(v, plan.sids[first], grads[first])
         assert _sum_reading(keep_first, plan, grads) > 1.0

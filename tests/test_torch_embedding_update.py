@@ -120,55 +120,138 @@ def test_fused_scatter_add_wrapper_takes_the_plain_version_on_cpu():
 
 # --------------------------------------------------------------------------
 # the CUDA design of kernel #9, emulated in numpy
-def _emulate_fused_scatter_add(sids, grads, v, slice_rows, warps=8, carry=True):
-    """``csrc/embedding_update.cu``'s algorithm step for step in fp32: pass 1
-    sums runs inside slices of ``slice_rows`` and leaves head/tail partials of
-    runs that cross slices (unwritten partials are NaN, so reading one shows);
-    pass 2 adds each crossing run's partials in ``warps`` contiguous stripes,
-    then the stripes in warp order. ``carry=False`` skips pass 2."""
+def _pow2_at_least(x):
+    w = 1
+    while w < x and w < 32:
+        w *= 2
+    return w
+
+
+def _rows_per_step(d):
+    """Rows of the stream a warp of a tile block takes a step: a lane holds 4
+    columns where D is a multiple of 4, else 1, and a row takes that many
+    columns a lane rounded up to a power of two lanes, at most 32
+    (``row_lanes`` in ``csrc/embedding_update.cu``)."""
+    vw = 4 if d % 4 == 0 else 1
+    return 32 // _pow2_at_least(-(-d // vw))
+
+
+def _emulate_fused_scatter_add(sids, grads, v, steps, warps=8, fold=True, carry=True):
+    """``csrc/embedding_update.cu``'s fused_scatter_add step for step in fp32,
+    the columns of a row side by side (each column is summed in the same
+    order). A warp walks a slice of ``steps`` steps of ``_rows_per_step(d)``
+    rows (the kernel takes 8 or 32 steps; fewer here, so small streams cross
+    many slices): a segmented scan across each step's rows, the open run
+    carried from step to step, runs that end inside the slice summed and the
+    pieces of runs that cross it left as warp partials; each tile of
+    ``warps`` slices folds those in slice order; the tile where a run that
+    crosses tiles ends adds the tile partials one by one where they are at
+    most 8, else in ``warps`` stripes (lanes across partials, a butterfly
+    across lanes), then the stripes in warp order. Zero blocks write zeros on
+    the rows no id touches (here: G starts as zeros). The partials start as
+    NaN, so one read before it is written shows.
+    ``fold=False`` restarts the fold's sum at every slice of a tile;
+    ``carry=False`` keeps only the part of a run inside the tile where it
+    begins."""
     n, d = grads.shape
+    p = _rows_per_step(d)
+    p2 = 32 // _pow2_at_least(d)  # finishing: a lane a column, the rest across partials
+    w_rows = steps * p
+    t_rows = warps * w_rows
+    slices = -(-n // w_rows)
+    tiles = -(-slices // warps)
     g_out = np.zeros((v, d), np.float32)
-    slices = -(-n // slice_rows)
-    head = np.full((slices, d), np.nan, np.float32)
-    tail = np.full((slices, d), np.nan, np.float32)
-    for s in range(slices):
-        s0, s1 = s * slice_rows, min((s + 1) * slice_rows, n)
-        head_carried = s0 > 0 and sids[s0 - 1] == sids[s0]
-        tail_open = s1 < n and sids[s1] == sids[s1 - 1]
+    warp_head = np.full((slices, d), np.nan, np.float32)
+    warp_tail = np.full((slices, d), np.nan, np.float32)
+    tile_head = np.full((tiles, d), np.nan, np.float32)
+    tile_tail = np.full((tiles, d), np.nan, np.float32)
 
-        def emit(i, acc, start, end):
-            if start == s0 and head_carried:
-                head[s] = acc
-            elif end == s1 and tail_open:
-                tail[s] = acc
+    def write(i, val):
+        if 0 <= i < v:
+            g_out[i] = val
+
+    flags = []
+    for s in range(slices):  # tile blocks: each warp's walk
+        a, b = s * w_rows, min((s + 1) * w_rows, n)
+        first, last = sids[a], sids[b - 1]
+        hc = a > 0 and sids[a - 1] == first
+        to = b < n and sids[b] == last
+        flags.append((first, last, hc, to))
+
+        def emit(i, val):
+            if hc and i == first:
+                warp_head[s] = val
+            elif to and i == last:
+                warp_tail[s] = val
             else:
-                g_out[i] = acc
+                write(i, val)
 
-        cur, start, acc = sids[s0], s0, np.zeros(d, np.float32)
-        for r in range(s0, s1):
-            if sids[r] != cur:
-                emit(cur, acc, start, r)
-                cur, start, acc = sids[r], r, np.zeros(d, np.float32)
-            acc = acc + grads[r]
-        emit(cur, acc, start, s1)
-    for s in range(slices if carry else 0):
-        s0, s1 = s * slice_rows, min((s + 1) * slice_rows, n)
+        cur, acc = first, np.zeros(d, np.float32)
+        for base in range(a, b, p):
+            rows = min(p, b - base)
+            ids, x = sids[base : base + rows], grads[base : base + rows].copy()
+            if ids[0] != cur:
+                emit(cur, acc)
+                cur, acc = ids[0], np.zeros(d, np.float32)
+            k = 1
+            while k < p:
+                y = x.copy()
+                for q in range(k, rows):
+                    if ids[q - k] == ids[q]:
+                        y[q] = x[q] + x[q - k]
+                x, k = y, 2 * k
+            x[ids == cur] += acc
+            for q in range(rows - 1):
+                if ids[q + 1] != ids[q]:
+                    emit(ids[q], x[q])
+            cur, acc = ids[rows - 1], x[rows - 1]
+        emit(cur, acc)
+    for t in range(tiles):  # tile blocks: the fold
+        acc, is_open, from_prev, rid = None, False, False, 0
+        for s in range(t * warps, min((t + 1) * warps, slices)):
+            first, last, hc, to = flags[s]
+            whole = hc and to and first == last
+            if hc:
+                if s == t * warps:
+                    acc, from_prev, rid = warp_head[s].copy(), True, first
+                else:
+                    acc = acc + warp_head[s] if fold else warp_head[s].copy()
+                is_open = True
+                if not whole:
+                    if from_prev:
+                        tile_head[t] = acc
+                    else:
+                        write(rid, acc)
+                    is_open = False
+            if to and not whole:
+                acc, is_open, from_prev, rid = warp_tail[s].copy(), True, False, last
+        if is_open:
+            (tile_head if from_prev else tile_tail)[t] = acc
+    for s in range(tiles if tiles > 1 else 0):  # the tile where a crossing run ends
+        s0, s1 = s * t_rows, min((s + 1) * t_rows, n)
         i = sids[s1 - 1]
         if not (s1 < n and sids[s1] == i and not (s0 > 0 and sids[s0 - 1] == i)):
             continue
-        end = int(np.searchsorted(sids, i, side="right"))
-        e = (end - 1) // slice_rows
+        e = (int(np.searchsorted(sids, i, side="right")) - 1) // t_rows
+        total = tile_tail[s].copy()
+        if e - s <= 8:  # one warp, tile by tile
+            for j in range(s + 1, e + 1 if carry else s + 1):
+                total = total + tile_head[j]
+            write(i, total)
+            continue
         per = -(-(e - s) // warps)
-        stripes = []
         for w in range(warps):
-            acc = np.zeros(d, np.float32)
-            for j in range(s + 1 + w * per, min(s + 1 + (w + 1) * per, e + 1)):
-                acc = acc + head[j]
-            stripes.append(acc)
-        total = tail[s]
-        for st in stripes:
-            total = total + st
-        g_out[i] = total
+            j0, j1 = s + 1 + w * per, min(s + 1 + (w + 1) * per, e + 1)
+            lanes = np.zeros((p2, d), np.float32)
+            for q in range(p2):
+                for j in range(j0 + q, j1, p2):
+                    lanes[q] = lanes[q] + tile_head[j]
+            m = 1
+            while m < p2:
+                lanes, m = lanes + lanes[np.arange(p2) ^ m], 2 * m
+            if carry:
+                total = total + lanes[0]
+        write(i, total)
     return g_out
 
 
@@ -180,37 +263,56 @@ def _sum_reading(got, sids, grads, v):
 
 
 @pytest.mark.parametrize(
-    "v,d,n,skew,slice_rows",
+    "v,d,n,skew,outside,steps",
     [
-        (300, 8, 1003, 0.0, 4),  # ragged: runs cross many slice boundaries
-        (300, 33, 1003, 0.0, 128),  # D not a multiple of 32
-        (40, 1, 517, 0.36, 8),  # a long id-0 run over ~23 slices, as DIN's padding
-        (5, 3, 2000, 0.0, 16),  # every run crosses slices
-        (20, 4, 300, 1.0, 16),  # every id equal: one run crosses every slice
-        (20, 4, 1, 0.0, 128),
+        (300, 8, 1003, 0.0, 0.0, 2),  # 16 rows a step, slices of 32, tiles of 256
+        (300, 33, 1003, 0.0, 0.0, 16),  # D above 32 (one row a step), not a multiple of 4
+        (40, 1, 517, 0.36, 0.0, 1),  # D=1 with a long id-0 run over slices and tiles, as DIN's padding
+        (5, 3, 2000, 0.0, 0.0, 4),  # three lanes of four live: every run crosses tiles
+        (20, 4, 300, 1.0, 0.0, 1),  # every id equal: one run through every tile
+        (20, 4, 1, 0.0, 0.0, 64),
+        (1000, 1, 3000, 0.0, 0.0, 1),  # D=1, short runs across slice boundaries
+        (50, 5, 2000, 0.5, 0.0, 2),  # a run over ~16 tiles: two a stripe when finished
+        (100, 2, 600, 0.0, 0.1, 2),  # ids outside [0, V), dropped
     ],
 )
-def test_emulated_scatter_design_matches_plain(v, d, n, skew, slice_rows):
+def test_emulated_scatter_design_matches_plain(v, d, n, skew, outside, steps):
+    rng = np.random.default_rng(5)
     ids = _ids(v, n, seed=3, skew=skew)
+    ids = np.where(rng.random(n) < outside, np.where(rng.random(n) < 0.5, -3, v + 2), ids)
     sids = np.sort(ids).astype(np.int32)
     grads = _normal((n, d), seed=4)
-    got = _emulate_fused_scatter_add(sids, grads, v, slice_rows)
+    got = _emulate_fused_scatter_add(sids, grads, v, steps)
     assert not np.isnan(got).any()
-    assert _sum_reading(got, sids, grads, v) <= 1.0
-    # the check has teeth: without pass 2 the carried parts are lost
-    if n > slice_rows and (sids[slice_rows:] == sids[slice_rows - 1]).any():
-        broken = _emulate_fused_scatter_add(sids, grads, v, slice_rows, carry=False)
-        assert _sum_reading(broken, sids, grads, v) > 1.0
+    keep = (sids >= 0) & (sids < v)
+    assert _sum_reading(got, sids[keep], grads[keep], v) <= 1.0
+    want = jeu.scatter_add_reference((v, d), jnp.asarray(sids[keep]), jnp.asarray(grads[keep]))
+    np.testing.assert_allclose(got, np.asarray(want), **GRAD_TOL)
+    # the check has teeth: a fold that drops what runs carry across slices
+    # of a tile, and a finish that drops what they carry across tiles,
+    # must read above the limit where such runs are
+    w_rows = steps * _rows_per_step(d)
+    pos = np.arange(n)
+    enters = (pos % w_rows == 0) & (pos > 0) & keep
+    enters[1:] &= sids[1:] == sids[:-1]
+    if (enters & (pos // w_rows % 8 != 0)).any():
+        broken = _emulate_fused_scatter_add(sids, grads, v, steps, fold=False)
+        assert _sum_reading(broken, sids[keep], grads[keep], v) > 1.0
+    start = np.searchsorted(sids, sids)
+    if (keep & (pos // (8 * w_rows) != start // (8 * w_rows))).any():
+        broken = _emulate_fused_scatter_add(sids, grads, v, steps, carry=False)
+        assert _sum_reading(broken, sids[keep], grads[keep], v) > 1.0
 
 
 def test_emulated_scatter_in_one_slice_is_the_plain_sum_bit_for_bit():
-    """A run inside one slice is summed row by row in stream order, as
-    ``index_add_`` sums it on the CPU."""
-    ids = _ids(50, 128, seed=5)
+    """Where a step is one row (D=33: a lane a column), a run inside one
+    slice is summed row by row in stream order, as ``index_add_`` sums it on
+    the CPU."""
+    ids = _ids(20, 64, seed=5)
     sids = np.sort(ids).astype(np.int32)
-    grads = _normal((128, 8), seed=6)
-    got = _emulate_fused_scatter_add(sids, grads, 50, slice_rows=128)
-    want = eu.scatter_add_plain(50, torch.from_numpy(sids), torch.from_numpy(grads)).numpy()
+    grads = _normal((64, 33), seed=6)
+    got = _emulate_fused_scatter_add(sids, grads, 20, steps=64)
+    want = eu.scatter_add_plain(20, torch.from_numpy(sids), torch.from_numpy(grads)).numpy()
     np.testing.assert_array_equal(got, want)
 
 

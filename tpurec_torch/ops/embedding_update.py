@@ -31,6 +31,7 @@ the ``lax.cond`` fallback when a chunk straddles more than two tiles, and
 
 from __future__ import annotations
 
+import os
 from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
@@ -112,13 +113,19 @@ def fused_scatter_add(
     ``G[plan.sids[j]] += grads_sorted[j]``, zeros on rows no id touches.
 
     CPU tensors take ``scatter_add_plain``. CUDA tensors launch the kernel of
-    ``csrc/embedding_update.cu``: a zero-fill of G, one warp per slice of the
-    stream summing the runs of equal ids inside it, and an ordered second
-    pass adding the partials of runs that cross slices. No float atomics: two
-    calls give the same bits. It takes int32 ``sids``, fp32 grads of shape
-    (N, ``d``) and ids in [0, ``table_rows``) (others are dropped), and raises
-    on anything else. It records no backward and refuses inputs that require
-    grad under grad mode."""
+    ``csrc/embedding_update.cu`` once: zero blocks write zeros on the rows no
+    id touches, while tile blocks sum the stream, one warp a slice of
+    ``scatter_slice_rows(d)`` rows with the lanes across rows and columns
+    (all 32 lanes load at any D), runs summed by a segmented scan in a fixed
+    order and written to G where they end inside a tile of
+    ``scatter_tile_rows(d)`` rows; a run that crosses tiles is finished by
+    the tile where it ends, which adds the other tiles' partials in a fixed
+    order once they are marked ready. No float atomics: two calls give the
+    same bits. It
+    takes int32 ``sids``, fp32 grads of shape (N, ``d``) and ids in [0,
+    ``table_rows``) (others are dropped), and raises on anything else. It
+    records no backward and refuses inputs that require grad under grad
+    mode."""
     grads = grads_sorted.reshape(plan.n, d)
     if grads.device.type == "cpu":
         return scatter_add_plain(table_rows, plan.sids, grads)
@@ -129,16 +136,20 @@ def fused_scatter_add(
     _require_ids("fused_scatter_add", dev, plan)
     lib = kernels._library("embedding_update")
     out = torch.empty(table_rows, d, device=dev, dtype=torch.float32)
-    slices = -(-plan.n // scatter_slice_rows())
-    # one partial per slice for a run carried into it (head) and one for a
-    # run that begins in it and goes on (tail)
-    head = torch.empty(slices, d, device=dev, dtype=torch.float32)
-    tail = torch.empty(slices, d, device=dev, dtype=torch.float32)
+    # the partials of runs that cross slices and tiles
+    scratch = torch.empty(
+        lib.embedding_scatter_scratch_floats(plan.n, d), device=dev, dtype=torch.float32
+    )
     grads = grads.contiguous()
+    if grads.data_ptr() % 16:
+        grads = grads.clone()  # 16-byte loads: the summation order is D's alone
     with torch.cuda.device(dev):
         err = lib.embedding_fused_scatter_add(
-            plan.sids.data_ptr(), grads.data_ptr(), out.data_ptr(), head.data_ptr(),
-            tail.data_ptr(), plan.n, d, table_rows, torch.cuda.current_stream(dev).cuda_stream,
+            plan.sids.data_ptr(), grads.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            # a new random mark each call: the kernel's tile blocks mark their
+            # partials ready with it in scratch that is not cleared
+            plan.n, d, table_rows, int.from_bytes(os.urandom(8), "little"),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     kernels._check_launch(lib, err, "fused_scatter_add")
     fused_scatter_add.launches += 1
@@ -148,11 +159,18 @@ def fused_scatter_add(
 fused_scatter_add.launches = 0
 
 
-def scatter_slice_rows() -> int:
-    """Rows of the sorted stream that one warp of the CUDA kernel's first
-    pass sums (builds and loads the kernel): a run longer than this, or one
-    that crosses a multiple of it, is finished by the second pass."""
-    return kernels._library("embedding_update").embedding_scatter_slice_rows()
+def scatter_slice_rows(d: int) -> int:
+    """Rows of the sorted stream that one warp of a CUDA tile block sums at
+    width ``d`` (builds and loads the kernel): a run that crosses a multiple
+    of it leaves a partial per slice, folded by its block."""
+    return kernels._library("embedding_update").embedding_scatter_slice_rows(d)
+
+
+def scatter_tile_rows(d: int) -> int:
+    """Rows of the sorted stream per tile block of the CUDA kernel at width
+    ``d`` (builds and loads the kernel): a run that crosses a multiple of it
+    is finished from the tiles' partials by the tile where it ends."""
+    return kernels._library("embedding_update").embedding_scatter_tile_rows(d)
 
 
 def _require_ids(what: str, device: torch.device, plan: ScatterPlan) -> None:

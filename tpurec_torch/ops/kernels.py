@@ -172,10 +172,13 @@ def _library(name: str) -> ctypes.CDLL:
                 )
                 lib.din_attention_backward.restype = ctypes.c_int
             elif name == "embedding_update":
-                lib.embedding_scatter_slice_rows.argtypes = []
-                lib.embedding_scatter_slice_rows.restype = ctypes.c_int
-                lib.embedding_fused_scatter_add.argtypes = [ctypes.c_void_p] * 5 + [
-                    ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
+                for fn in (lib.embedding_scatter_slice_rows, lib.embedding_scatter_tile_rows):
+                    fn.argtypes = [ctypes.c_int]
+                    fn.restype = ctypes.c_int
+                lib.embedding_scatter_scratch_floats.argtypes = [ctypes.c_int64, ctypes.c_int]
+                lib.embedding_scatter_scratch_floats.restype = ctypes.c_int64
+                lib.embedding_fused_scatter_add.argtypes = [ctypes.c_void_p] * 4 + [
+                    ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_uint64, ctypes.c_void_p
                 ]
                 lib.embedding_fused_scatter_add.restype = ctypes.c_int
                 lib.embedding_gather_rows.argtypes = [ctypes.c_void_p] * 3 + [
