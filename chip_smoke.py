@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --scatter   # kernel #9's D sweep alone (phase 7a's)
+    python3 chip_smoke.py --din-bwd   # kernel #5's checks alone (phase 6's)
 
 Needs one CUDA card, ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``) and ``triton``;
 it builds every kernel from the sources in this checkout and exits non-zero
@@ -45,10 +46,16 @@ on the first phase that fails. Phases:
    ``bench.py:75-87`` with seed 1), through ``Trainer(cfg, info)`` →
    ``init_state`` → ``device_batch`` → ``train_step``:
    - the DIN backward kernel against ``din_attention_bwd_plain`` at the
-     training shape (with and without PReLU slopes) and at ragged shapes,
-     each output's error in units of its limit (``bwd_reading``); a backward
-     that ignores the mask or drops the slopes must read above the limit;
-     its device time, bound and the plain version's time;
+     training shape (with and without PReLU slopes), at ragged shapes and
+     with a mask with holes (an all-zero row, a row live only at its last
+     step), each output's error in units of its limit (``bwd_reading``); a
+     backward that ignores the mask or drops the slopes, and the kernel's
+     unfolded products in single TF32 (``broken_single_tf32``; the kernel
+     computes them in 3xTF32), must read above the limit; two calls the
+     same bits; its device time at B=8192 and B=1024, the per-launch split
+     (``torch.profiler``), the occupancy query's block count, the bound and
+     the bytes-only bound (the tensor cores lift the operations limit), and
+     the plain version's time (``--din-bwd`` runs this alone);
    - one fp32 train step from the same weights and batch with the kernels
      against one with the plain attention forward and backward: the loss,
      every gradient and every parameter after Adam (``STEP_*``); a backward
@@ -601,6 +608,10 @@ def check_din_backward(torch, kernels):
     want = kernels.din_attention_bwd_plain(*args, *cot)
     readings["broken_mask_ignored"] = bwd_reading(kernels.din_attention_bwd_plain(*no_mask, *cot), want)
     readings["broken_alpha_dropped"] = bwd_reading(kernels.din_attention_bwd_plain(*relu, *cot), want)
+    # the kernel's unfolded products in single TF32 (3xTF32 is what holds)
+    readings["broken_single_tf32"] = bwd_reading(
+        kernels.din_attention_bwd_unfolded(*args, *cot, products="1xtf32"), want
+    )
     # ragged: B that is no multiple of the grid, L = 1, D = 8/16/64, H that
     # is no multiple of 4
     for shape in ((1003, 64, 32, 36), (37, 1, 32, 36), (300, 64, 8, 36), (300, 64, 16, 36),
@@ -609,6 +620,16 @@ def check_din_backward(torch, kernels):
         readings["x".join(map(str, shape))] = bwd_reading(
             kernels.din_attention_bwd_fused(*a, *c), kernels.din_attention_bwd_plain(*a, *c)
         )
+    # a mask with holes (not a prefix), a row whose only live step is the
+    # last, and an all-zero row
+    a, c = case(1003, 64, 32, 36)
+    a[2] = (torch.rand(a[2].shape, device="cuda", generator=gen) < 0.5).float()
+    a[2][1] = 0.0
+    a[2][2] = 0.0
+    a[2][2, -1] = 1.0
+    readings["mask_with_holes"] = bwd_reading(
+        kernels.din_attention_bwd_fused(*a, *c), kernels.din_attention_bwd_plain(*a, *c)
+    )
     print("din backward readings (error / limit):", json.dumps(readings), flush=True)
     for name, r in readings.items():
         worst = max(r.values())
@@ -623,18 +644,29 @@ def check_din_backward(torch, kernels):
     # dw1, db1, dw2, dalpha written. Operations of the fold algorithm: per row
     # the fold (2 D·H FMAs), dq and the running sums (4 D·H); per live step
     # lin, dkeys and M (3 D·H) and gp·k (D), ~8 per column for the activation.
+    # The tensor cores lift the operations limit, so the bytes-only bound is
+    # printed beside it.
     live = int(args[2].sum())
     nbytes = 4 * (3 * b * d + live * d + b * l * d + b * l + live + 2 * (4 * d * h + 3 * h))
     ops = 2 * (3 * live * d * h + 6 * b * d * h + live * d) + 8 * live * h
     bound_ms, bound_by = bound(nbytes, ops)
+    again = kernels.din_attention_bwd_fused(*args, *cot)
+    same = all(torch.equal(x, y) for x, y in zip(kernels.din_attention_bwd_fused(*args, *cot), again))
+    small = [x[:1024] if x.dim() and x.shape[0] == b else x for x in args]
+    small_cot = [x[:1024] for x in cot]
     rec = dict(
         name="din_attention_bwd", route="cuda", source="tpurec_torch/csrc/din_attention_bwd.cu",
         replaces="tpurec/ops/pallas/kernels.py:484", shape=[b, l, d, h], live_steps=live, max_abs_err=err,
         ms=device_ms(torch, lambda: kernels.din_attention_bwd_fused(*args, *cot)),
         plain_ms=device_ms(torch, lambda: kernels.din_attention_bwd_plain(*args, *cot)),
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        bound_ms=bound_ms, bound_by=bound_by, bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        library_ms=None, same_bits=same,
+        split_ms=kernel_split(torch, lambda: kernels.din_attention_bwd_fused(*args, *cot)),
+        b1024_ms=device_ms(torch, lambda: kernels.din_attention_bwd_fused(*small, *small_cot)),
+        blocks=kernels._library("din_attention_bwd").din_attention_bwd_blocks(b, l, d, h),
     )
     print("kernel check:", json.dumps(rec), flush=True)
+    check(same, "din backward kernel: two calls gave different bits")
     return rec
 
 
@@ -2300,6 +2332,12 @@ def main() -> int:
         from tpurec_torch.ops import embedding_update as eu
 
         scatter_sweep(torch, eu, torch.Generator(device="cuda").manual_seed(7))
+        return 0
+    if sys.argv[1:] == ["--din-bwd"]:
+        # kernel #5 alone: phase 6's kernel checks, with the split and B=1024
+        paths = kernels.build(["din_attention_bwd"])
+        print(open(f"{paths['din_attention_bwd']}.log").read(), flush=True)
+        check_din_backward(torch, kernels)
         return 0
 
     t0 = time.perf_counter()

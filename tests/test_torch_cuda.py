@@ -30,10 +30,19 @@ def card():
     return torch.device("cuda")
 
 
-def _din_args(card, b, l, d, h, with_alpha, seed=0):
+def _din_args(card, b, l, d, h, with_alpha, seed=0, holes=False):
+    """DIN attention inputs. The mask is a prefix of random length, or with
+    ``holes`` random steps with an all-zero first row and a second row whose
+    only live step is the last."""
     rng = np.random.default_rng(seed)
     lengths = rng.integers(0, l + 1, size=(b,))
     mask = (np.arange(l)[None, :] < lengths[:, None]).astype(np.float32)
+    if holes:
+        mask = (rng.random((b, l)) < 0.5).astype(np.float32)
+        mask[0] = 0.0
+        if b > 1:
+            mask[1] = 0.0
+            mask[1, -1] = 1.0
     arrays = [
         rng.normal(size=(b, d)),
         rng.normal(size=(b, l, d)),
@@ -108,9 +117,11 @@ def test_din_attention_bwd_kernel_rejects_what_it_does_not_take(card):
         kernels.din_attention_bwd_fused(*args, grads[0].double(), grads[1])
     with pytest.raises(ValueError, match="shapes"):
         kernels.din_attention_bwd_fused(*args, grads[0], grads[1][:, :4])
-    with pytest.raises(ValueError, match="shared"):
+    with pytest.raises(ValueError, match="hidden width"):
+        kernels.din_attention_bwd_fused(*_din_args(card, 2, 8, 8, 129, True), *cotangents(2, 8, 8))
+    with pytest.raises(ValueError, match="shared"):  # W alone outgrows a block
         kernels.din_attention_bwd_fused(
-            *_din_args(card, 2, 4096, 8, 5, True), *cotangents(2, 4096, 8)
+            *_din_args(card, 2, 8, 64, 128, True), *cotangents(2, 8, 64)
         )
     shifted = torch.empty(args[1].numel() + 1, device=card)[1:].view(args[1].shape)
     shifted.copy_(args[1])
@@ -129,14 +140,21 @@ def _assert_close_scaled(got, want, rtol=1e-4, what=""):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "b,l,d,h,with_alpha",
-    [(1024, 64, 32, 36, True), (1024, 64, 32, 36, False), (1003, 64, 32, 36, True),
-     (37, 200, 16, 7, True), (9, 1, 8, 80, True), (64, 33, 64, 36, False), (3, 5, 8, 1, True)],
+    "b,l,d,h,with_alpha,holes",
+    [(1024, 64, 32, 36, True, False), (1024, 64, 32, 36, False, False),
+     (1003, 64, 32, 36, True, False), (37, 200, 16, 7, True, False), (9, 1, 8, 80, True, False),
+     (64, 33, 64, 36, False, False), (3, 5, 8, 1, True, False),
+     # the tiled design's edges: masks with holes, a row live only at its
+     # last step, all-zero rows; L around the 16-step tile; H = 1, 7, 36, 80;
+     # every D; L=4096 (the old kernel's shared-memory refusal)
+     (300, 64, 32, 36, True, True), (130, 15, 8, 7, True, True), (130, 16, 16, 36, True, True),
+     (130, 17, 32, 1, True, True), (77, 200, 64, 80, True, True), (40, 17, 64, 7, False, True),
+     (2, 4096, 8, 5, True, False)],
 )
-def test_din_attention_bwd_kernel_matches_plain(card, b, l, d, h, with_alpha):
+def test_din_attention_bwd_kernel_matches_plain(card, b, l, d, h, with_alpha, holes):
     from tpurec_torch.ops import kernels
 
-    args = _din_args(card, b, l, d, h, True)
+    args = _din_args(card, b, l, d, h, True, holes=holes)
     if not with_alpha:
         args[-1] = torch.zeros_like(args[-1])
     gen = torch.Generator(card).manual_seed(3)

@@ -199,3 +199,67 @@ def test_bwd_wrapper_takes_plain_on_cpu():
     assert tk.din_attention_bwd_fused.launches == before
     tk.reset_launch_counts()
     assert tk.din_attention_bwd_fused.launches == tk.din_attention_fused.launches == 0
+
+
+def _holey_inputs(seed, b, l, d, h):
+    """``_din_inputs`` with a mask with holes (not a prefix), an all-zero row
+    and a row whose only live step is the last."""
+    args = _din_inputs(seed, b=b, l=l, d=d, h=h)
+    rng = np.random.default_rng(seed + 100)
+    mask = (rng.random((b, l)) < 0.6).astype(np.float32)
+    mask[0] = 0.0
+    mask[1] = 0.0
+    mask[1, -1] = 1.0
+    args[2] = mask
+    return args + _cotangents(seed + 1, b, l, d)
+
+
+def _bwd_readings(got, want):
+    """Each output's error in units of its limit (at most 1 passes): dq and
+    dkeys elementwise at atol = rtol = 1e-4 (``KERNEL_TOL`` of the card
+    checks), the parameter gradients at 1e-4 of their largest value
+    (``DIN_BWD_PARAM_RTOL``)."""
+    out = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = (g - w).abs()
+        if i < 2:
+            out.append(float((err / (1e-4 + 1e-4 * w.abs())).max()))
+        else:
+            out.append(float(err.max()) / (1e-4 * max(float(w.abs().max()), 1e-30)))
+    return out
+
+
+@pytest.mark.parametrize("products", ["fp32", "3xtf32", "1xtf32"])
+def test_din_bwd_unfolded_products_emulation(products):
+    """The CUDA kernel's arithmetic: the backward unfolded over the shared
+    weight ``[w_k; w_p]``, its three products in fp32, in 3xTF32 (what the
+    kernel's tensor cores compute) and in single TF32, against
+    ``din_attention_bwd_plain`` at B=512, L=48, D=32, H=36. fp32 and 3xTF32
+    hold the card's limits; single TF32 must miss them (PReLU's slope flips
+    where lin is near 0), so the check can fail. fp32 is also held to the
+    Pallas backward in interpret mode at a small size, at the tolerance of
+    ``test_din_attention_bwd_plain_matches_interpret_and_grad``."""
+    args = _torch(_holey_inputs(12, 512, 48, 32, 36))
+    got = tk.din_attention_bwd_unfolded(*args, products=products)
+    readings = _bwd_readings(got, tk.din_attention_bwd_plain(*args))
+    if products == "1xtf32":
+        assert max(readings) > 10.0, readings
+    else:
+        assert max(readings) <= 1.0, readings
+        # the steps past a row's last live step, and a dead row, are exact 0
+        mask = args[2]
+        assert torch.all(got[1][mask == 0] == 0.0)
+    if products == "fp32":
+        small = _holey_inputs(13, 70, 16, 8, 36)
+        got = tk.din_attention_bwd_unfolded(*_torch(small), products="fp32")
+        ker = jk.din_attention_bwd_fused(*_jax(small), interpret=True)
+        for name, g, w in zip(("dq", "dk", "dw1", "db1", "dw2", "dalpha"), got, ker):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name, rtol=2e-3, atol=2e-5)
+
+
+def test_round_tf32_keeps_ten_mantissa_bits():
+    x = torch.tensor([1.0, 1.0 + 2.0**-11, 1.0 + 2.0**-10 + 2.0**-11, -(1.0 + 2.0**-11), 3.0e-3])
+    r = tk.round_tf32(x)
+    assert r[0] == 1.0 and r[1] == 1.0 + 2.0**-10  # ties away from zero
+    assert r[2] == 1.0 + 2.0**-9 and r[3] == -(1.0 + 2.0**-10)
+    assert torch.all((r.view(torch.int32) & 0x1FFF) == 0)

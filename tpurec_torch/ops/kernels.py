@@ -163,12 +163,12 @@ def _library(name: str) -> ctypes.CDLL:
                 )
                 lib.din_attention_forward.restype = ctypes.c_int
             elif name == "din_attention_bwd":
-                lib.din_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
+                lib.din_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
                 lib.din_attention_bwd_smem_bytes.restype = ctypes.c_size_t
                 lib.din_attention_bwd_blocks.argtypes = [ctypes.c_int] * 4
                 lib.din_attention_bwd_blocks.restype = ctypes.c_int
                 lib.din_attention_backward.argtypes = (
-                    [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                    [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
                 )
                 lib.din_attention_backward.restype = ctypes.c_int
             elif name == "embedding_update":
@@ -271,6 +271,7 @@ def din_attention_plain(
 
 
 DIN_ATTENTION_DIMS = (8, 16, 32, 64)  # key widths the CUDA kernel is built for
+DIN_BWD_MAX_H = 128  # the backward kernel is built for H in 8-column tiles up to 16
 
 
 def din_attention_fused(
@@ -395,6 +396,66 @@ def din_attention_bwd_plain(
     return dq, dk, dw1, db1, dw2, dalpha
 
 
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32's 10-bit mantissa, to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds (finite inputs)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def din_attention_bwd_unfolded(
+    query, keys, mask, w1, b1, w2, alpha, gp, gs, products: str = "fp32"
+) -> Tuple[torch.Tensor, ...]:
+    """``din_attention_bwd_plain``'s function unfolded so that its three
+    products share one weight ``W = [w_k; w_p]`` (2D, H), the products taken
+    as ``products`` says: ``"fp32"``, ``"3xtf32"`` (each operand split into
+    TF32 hi and lo parts, ``hi·hi + hi·lo + lo·hi`` summed in fp32, as the
+    CUDA kernel's tensor-core products) or ``"1xtf32"`` (one product of the
+    TF32-rounded operands). The kernel takes the same products a row at a
+    time through ``W_eff = w_k + diag(q) w_p`` (``X·W = K·W_eff``)::
+
+        X_l = [k_l, q∘k_l],  lin = X·W + (q·w_q + b1),  Y = dlin·Wᵀ
+        dkeys = Y[:, :D] + Y[:, D:]∘q + s⊗gp,  dq = dlin_b·w_qᵀ + Σ_l Y[l, D:]∘k_l
+        [k_c; p_c] = Σ Xᵀ·dlin,  a_c = Σ q ⊗ dlin_b
+
+    It is the kernel's arithmetic on the CPU, for the tests and for
+    ``chip_smoke.py``'s broken single-TF32 version; no path runs it."""
+    if products not in ("fp32", "3xtf32", "1xtf32"):
+        raise ValueError(f"products must be fp32, 3xtf32 or 1xtf32, not {products!r}")
+
+    def mm(a, b):
+        if products == "fp32":
+            return a @ b
+        ah, bh = round_tf32(a), round_tf32(b)
+        if products == "1xtf32":
+            return ah @ bh
+        return ah @ bh + (ah @ round_tf32(b - bh) + round_tf32(a - ah) @ bh)
+
+    b, l, d = keys.shape
+    h = w1.shape[1]
+    w_q = w1[0:d] + w1[d : 2 * d]
+    w = torch.cat([w1[2 * d : 3 * d] - w1[d : 2 * d], w1[3 * d : 4 * d]])  # (2D, H)
+    x = torch.cat([keys, query[:, None, :] * keys], dim=-1).reshape(b * l, 2 * d)
+    lin = mm(x, w).reshape(b, l, h) + (query @ w_q + b1)[:, None, :]
+    neg = lin.clamp_max(0.0)
+    hval = lin.clamp_min(0.0) + alpha * neg
+    s = (hval @ w2) * mask
+    g = (gs + (gp[:, None, :] * keys).sum(dim=-1)) * mask
+    dh = g[:, :, None] * w2
+    dlin = dh * ((lin > 0).to(lin.dtype) + alpha * (lin < 0).to(lin.dtype))
+    y = mm(dlin.reshape(b * l, h), w.T).reshape(b, l, 2 * d)
+    dlin_b = dlin.sum(dim=1)
+    dk = y[..., :d] + y[..., d:] * query[:, None, :] + s[:, :, None] * gp[:, None, :]
+    dq = dlin_b @ w_q.T + (y[..., d:] * keys).sum(dim=1)
+    kp = mm(x.T, dlin.reshape(b * l, h))  # (2D, H): [k_c; p_c]
+    a_c = query.T @ dlin_b
+    dw1 = torch.cat([a_c, a_c - kp[:d], kp[:d], kp[d:]], dim=0)
+    return (
+        dq, dk, dw1, dlin.reshape(-1, h).sum(dim=0), (g[:, :, None] * hval).reshape(-1, h).sum(dim=0),
+        (dh * neg).reshape(-1, h).sum(dim=0),
+    )
+
+
 def din_attention_bwd_fused(
     query: torch.Tensor,
     keys: torch.Tensor,
@@ -410,13 +471,19 @@ def din_attention_bwd_fused(
     db1 (H,), dw2 (H,), dalpha (H,))``, fp32.
 
     CPU tensors take ``din_attention_bwd_plain``. CUDA tensors launch the
-    kernel of ``csrc/din_attention_bwd.cu``: one pass over the rows writes dq,
-    dkeys and one partial of the parameter gradients per block into a
-    ``torch.empty`` scratch, and a second pass adds the partials in a fixed
-    order, so the gradients are the same bits from run to run. It takes what
-    the forward kernel takes (fp32 on one device, D in ``DIN_ATTENTION_DIMS``,
-    keys on a 16-byte boundary, shared memory that fits one block) and raises
-    on anything else. ``alpha`` is required: zeros mean relu."""
+    passes of ``csrc/din_attention_bwd.cu``: each row's live 16-step tiles
+    (up to its last step with a nonzero mask), a cut of the rows into
+    contiguous ranges of even work, one a warp, then the main pass, whose
+    warps work their rows tile by tile with the three products over the
+    row's ``W_eff = w_k + diag(q) w_p`` on the tensor cores in 3xTF32
+    (``din_attention_bwd_unfolded`` is the same function in the unfolded
+    form, on the CPU); dq, dkeys and one partial of the parameter gradients
+    per block go to memory (``torch.empty`` scratch), and a last pass adds
+    the partials in a fixed order, so the gradients are the same bits from
+    run to run. It takes fp32 on one device, D in ``DIN_ATTENTION_DIMS``,
+    any L, keys on a 16-byte boundary and H up to ``DIN_BWD_MAX_H`` whose
+    weights fit one block's shared memory, and raises on anything else.
+    ``alpha`` is required: zeros mean relu."""
     if keys.device.type == "cpu":
         return din_attention_bwd_plain(query, keys, mask, w1, b1, w2, alpha, gp, gs)
     _refuse_grad("din_attention_bwd", query, keys, w1, b1, w2, alpha, gp, gs)
@@ -442,11 +509,13 @@ def din_attention_bwd_fused(
         )
     if d not in DIN_ATTENTION_DIMS:
         raise ValueError(f"din_attention_bwd: key width {d} not in {DIN_ATTENTION_DIMS}")
+    if h > DIN_BWD_MAX_H:
+        raise ValueError(f"din_attention_bwd: hidden width {h} above {DIN_BWD_MAX_H}, the widest built")
     lib = _library("din_attention_bwd")
-    smem = lib.din_attention_bwd_smem_bytes(l, d, h)
+    smem = lib.din_attention_bwd_smem_bytes(d, h)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
-            f"din_attention_bwd: L={l}, D={d}, H={h} needs {smem} bytes of shared "
+            f"din_attention_bwd: D={d}, H={h} needs {smem} bytes of shared "
             f"memory per block, more than {MAX_SMEM_BYTES}"
         )
     f32 = dict(device=dev, dtype=torch.float32)
@@ -469,11 +538,14 @@ def din_attention_bwd_fused(
             raise RuntimeError(f"din_attention_bwd: occupancy query gave {blocks} blocks")
         # one partial of (dw1's three D x H blocks, db1, dw2, dalpha) per block
         partials = torch.empty(blocks * (3 * d * h + 3 * h), **f32)
+        # each row's live 16-step tiles, and each warp's first row (8 a block)
+        tiles = torch.empty(b, device=dev, dtype=torch.int32)
+        starts = torch.empty(8 * blocks + 1, device=dev, dtype=torch.int32)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.din_attention_backward(
             *[t.data_ptr() for t in args],
             dq.data_ptr(), dk.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
-            dalpha.data_ptr(), partials.data_ptr(),
+            dalpha.data_ptr(), partials.data_ptr(), tiles.data_ptr(), starts.data_ptr(),
             b, l, d, h, blocks, stream,
         )
     _check_launch(lib, err, "din_attention_bwd")
