@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --scatter   # kernel #9's D sweep alone (phase 7a's)
     python3 chip_smoke.py --din-bwd   # kernel #5's checks alone (phase 6's)
+    python3 chip_smoke.py --capsule   # kernels #7/#8's checks alone (phase 9a's)
 
 Needs one CUDA card, ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``) and ``triton``;
 it builds every kernel from the sources in this checkout and exits non-zero
@@ -107,7 +108,8 @@ on the first phase that fails. Phases:
    (128, 128): #3) and ``fibinet`` (D=32, 'all' mode, reduction 3: #6),
    each with an MLP (64, 32):
    - 8a: #2, #3 and #6 against their plain versions at those shapes, #3
-     also at ``benchmarks/kernel_bench.py``'s B=4096, and at ragged shapes
+     also at ``benchmarks/kernel_bench.py``'s B=4096 and ``evaluate``'s
+     B=1024, and at ragged shapes
      (#2 at D=429 with L=2 and 6; #3 at F=7, D=8, sizes (5, 9, 3); #6 at
      F=5 and F=2, D=24); #2 and #6 at ``KERNEL_TOL``, #3 at
      ``CIN_COL_RTOL`` of each output column's largest |value|; a cross
@@ -135,11 +137,18 @@ on the first phase that fails. Phases:
    - 9a: #7 and #8 against their plain versions at (8192, 64, 64, 64, K=4),
      ``benchmarks/kernel_bench.py``'s B=4096 and ragged shapes (1 and 2
      iterations, a row whose mask is all zero), each output's error in
-     units of its limit; a forward that ignores the mask or runs one
-     iteration fewer, and a backward that differentiates through the
-     stop-gradient iterations or gives dlogits0 only the last iteration,
-     must read above it; device times, bounds and plain times; #7 also at
-     the serving paths' B=1 and B=1024;
+     units of its limit, and two calls of each the same bits; #7 also with
+     a mask with holes (``mask_with_holes``: random steps, an all-zero row,
+     a row live at its last step only); a forward that ignores the mask,
+     runs one iteration fewer or takes its products in single TF32
+     (``broken_single_tf32``; the kernel computes u = x·S in 3xTF32), and
+     a backward that differentiates through the stop-gradient iterations
+     or gives dlogits0 only the last iteration, must read above it; device
+     times, bounds, plain times, the per-launch split (``torch.profiler``)
+     and the blocks the card holds at once; #7 also at the serving paths'
+     B=1 and B=1024, each beside the launch floor (an empty kernel's time
+     in the same harness); ``--capsule`` runs this alone and adds #7's
+     time at B=1 and B=1024 for 1, 2 and 3 iterations;
    - 9b: ``export_params`` → ``load_servable`` → ``predict`` at B=8192 (#7
      once a call; its call held against the plain and broken versions on
      its inputs; the user embedding and capsules card against CPU on 256
@@ -1502,7 +1511,7 @@ def check_dcn_kernels(torch, kernels):
     # #3: emb, the weights and the (B, ΣS) output once; per level a
     # multiply-add for each (h, f) product and column, the products, the sums
     for b, f, d, sizes in ((8192, 26, 32, (128, 128)), (4096, 26, 32, (128, 128)),
-                           (1003, 7, 8, (5, 9, 3))):
+                           (1024, 26, 32, (128, 128)), (1003, 7, 8, (5, 9, 3))):
         weights, h = [], f
         for s in sizes:
             weights.append(randn(h * f, s, scale=(h * f) ** -0.5))
@@ -1513,7 +1522,7 @@ def check_dcn_kernels(torch, kernels):
             kernel=cin_reading(kernels.cin_fused(emb, weights), want),
             broken_fields_from_maps=cin_reading(cin_fields_from_maps(torch, emb, weights), want),
         )
-        if b in (8192, 4096):
+        if b in (8192, 4096, 1024):
             hs = [f, *sizes[:-1]]
             rec = record(
                 "cin", "cuda", "tpurec_torch/csrc/cin.cu", "tpurec/ops/pallas/kernels.py:248",
@@ -1524,8 +1533,8 @@ def check_dcn_kernels(torch, kernels):
             )
             if b == 8192:
                 records["cin"] = rec
-            else:
-                print("cin at kernel_bench's B=4096:", json.dumps(rec), flush=True)
+            else:  # kernel_bench's B=4096, evaluate's B=1024
+                print(f"cin at B={b}:", json.dumps(rec), flush=True)
     # #6: emb, the weights and the (B, P, D) output once; the squeeze, the
     # two small layers, v, v·Wb and the pair products
     for b, f, d in ((8192, 26, 32), (1003, 5, 24), (1003, 2, 24)):
@@ -1850,23 +1859,48 @@ def routing_work(b, live, l, d, e, k, iters):
     return fwd_bytes, fwd_ops, bwd_bytes, bwd_ops
 
 
-def check_capsule_kernels(torch, kernels):
+def launch_floor_ms(torch) -> float:
+    """``device_ms`` of an empty kernel (``torch.cuda._sleep(0)``): the
+    least time one launch reads in this harness."""
+    return device_ms(torch, lambda: torch.cuda._sleep(0))
+
+
+def holey_mask(torch, gen, mask):
+    """``mask`` with holes: every other row random steps, row 1 all zero,
+    row 2 live at its last step only."""
+    mask = mask.clone()
+    mask[::2] = (torch.rand(mask[::2].shape, device="cuda", generator=gen) < 0.5).float()
+    mask[1] = 0.0
+    mask[2] = 0.0
+    mask[2, -1] = 1.0
+    return mask
+
+
+def check_capsule_kernels(torch, kernels, detail=False):
     """Kernels #7 and #8 against their plain versions at the slice's shape,
     kernel_bench's B=4096 and ragged shapes; broken versions must read above
-    the limit (phase 9a)."""
+    the limit (phase 9a). #7 also at the serving shapes B=1 and B=1024 with
+    the launch floor beside its bound, with a mask with holes, and two calls
+    the same bits. ``detail`` (``--capsule``) adds #7's time at B=1 for 1
+    and 2 iterations (what one iteration costs a row)."""
     gen = torch.Generator(device="cuda").manual_seed(9)
+    floor_ms = launch_floor_ms(torch)
     # (B, L, D, E, K, iterations, broadcast logits0)
     shapes = [(TRAIN_BATCH, 64, 64, 64, 4, 3, True), (4096, 64, 64, 64, 4, 3, False),
               (9, 12, 8, 8, 4, 3, True), (33, 50, 48, 40, 3, 3, False), (9, 12, 8, 8, 4, 1, True),
               (33, 50, 48, 40, 3, 2, True)]
-    readings, records = {}, {}
+    readings, records, other = {}, {}, {}
     for b, l, d, e, k, iters, broadcast in shapes:
         args = routing_inputs(torch, gen, b, l, d, e, k, broadcast)
         g = torch.randn(b, k, e, device="cuda", generator=gen)
         want = kernels.capsule_routing_plain(*args, iters)
-        r = dict(kernel=tol_ratio(kernels.capsule_routing_fused(*args, iters), want, **KERNEL_TOL),
+        got = kernels.capsule_routing_fused(*args, iters)
+        r = dict(kernel=tol_ratio(got, want, **KERNEL_TOL),
+                 same_bits=bool(torch.equal(got, kernels.capsule_routing_fused(*args, iters))),
                  broken_mask_ignored=tol_ratio(kernels.capsule_routing_plain(
-                     args[0], torch.ones_like(args[1]), *args[2:], iters), want, **KERNEL_TOL))
+                     args[0], torch.ones_like(args[1]), *args[2:], iters), want, **KERNEL_TOL),
+                 broken_single_tf32=tol_ratio(kernels.capsule_routing_products(
+                     *args, iters, products="1xtf32"), want, **KERNEL_TOL))
         if iters > 1:
             r["broken_one_iteration_fewer"] = tol_ratio(
                 kernels.capsule_routing_plain(*args, iters - 1), want, **KERNEL_TOL)
@@ -1895,7 +1929,10 @@ def check_capsule_kernels(torch, kernels):
                     max_abs_err=float((kernels.capsule_routing_fused(*args, iters) - want).abs().max()),
                     ms=device_ms(torch, lambda: kernels.capsule_routing_fused(*args, iters)),
                     plain_ms=device_ms(torch, lambda: kernels.capsule_routing_plain(*args, iters)),
-                    bound_ms=fwd_bound, bound_by=fwd_by),
+                    bound_ms=fwd_bound, bound_by=fwd_by, launch_floor_ms=floor_ms,
+                    blocks=kernels._capsule_blocks(kernels._library("capsule_routing"), args[0].device,
+                                                   l, d, e, k),
+                    split_ms=kernel_split(torch, lambda: kernels.capsule_routing_fused(*args, iters))),
                 capsule_routing_bwd=dict(
                     base, name="capsule_routing_bwd", replaces="tpurec/ops/pallas/kernels.py:907",
                     max_abs_err=max(float((x - y).abs().max()) for x, y in zip(got_bwd, want_bwd)),
@@ -1908,8 +1945,19 @@ def check_capsule_kernels(torch, kernels):
                     records[name] = rec
                 else:
                     print(f"{name} at kernel_bench's B=4096:", json.dumps(rec), flush=True)
+                    other[name, f"b{b}"] = rec
+    # a mask with holes: zero steps inside a row's live range go through
+    # the math (w = 0 there), only the tail past the last live step is
+    # skipped
+    args = routing_inputs(torch, gen, 1003, 64, 64, 64, 4)
+    args[1] = holey_mask(torch, gen, args[1])
+    got = kernels.capsule_routing_fused(*args, 3)
+    readings["mask_with_holes 1003x64x64x64 K=4 iters=3"] = dict(
+        kernel=tol_ratio(got, kernels.capsule_routing_plain(*args, 3), **KERNEL_TOL),
+        same_bits=bool(torch.equal(got, kernels.capsule_routing_fused(*args, 3))))
+    check(not got[1].any(), "capsule_routing: a row whose mask is all zero gave nonzero capsules")
     # #7 at the serving paths' shapes: the HTTP user tower's B=1 and the
-    # offline index's B=1024
+    # offline index's and evaluate's B=1024
     for b in (1, 1024):
         args = routing_inputs(torch, gen, b, 64, 64, 64, 4, empty_row=False)
         want = kernels.capsule_routing_plain(*args, 3)
@@ -1917,15 +1965,22 @@ def check_capsule_kernels(torch, kernels):
             kernel=tol_ratio(kernels.capsule_routing_fused(*args, 3), want, **KERNEL_TOL))
         fwd_bytes, fwd_ops, _, _ = routing_work(b, int(args[1].sum()), 64, 64, 64, 4, 3)
         bound_ms, bound_by = bound(fwd_bytes, fwd_ops)
-        print("capsule_routing at a serving shape:", json.dumps(dict(
-            shape=[b, 64, 64, 64, 4, 3], live_steps=int(args[1].sum()),
-            ms=device_ms(torch, lambda: kernels.capsule_routing_fused(*args, 3)),
-            plain_ms=device_ms(torch, lambda: kernels.capsule_routing_plain(*args, 3)),
-            bound_ms=bound_ms, bound_by=bound_by)), flush=True)
+        rec = dict(shape=[b, 64, 64, 64, 4, 3], live_steps=int(args[1].sum()),
+                   ms=device_ms(torch, lambda: kernels.capsule_routing_fused(*args, 3)),
+                   plain_ms=device_ms(torch, lambda: kernels.capsule_routing_plain(*args, 3)),
+                   bound_ms=bound_ms, bound_by=bound_by, launch_floor_ms=floor_ms)
+        if detail:
+            rec["iterations_ms"] = {
+                it: device_ms(torch, lambda it=it: kernels.capsule_routing_fused(*args, it))
+                for it in (1, 2, 3)}
+            rec["split_ms"] = kernel_split(torch, lambda: kernels.capsule_routing_fused(*args, 3))
+        print("capsule_routing at a serving shape:", json.dumps(rec), flush=True)
+        other["capsule_routing", f"b{b}"] = rec
     print(f"capsule routing readings (error / limit; {KERNEL_TOL}, dS at {DIN_BWD_PARAM_RTOL} of "
           "its largest value):", json.dumps(readings), flush=True)
     for shape, r in readings.items():
         check(r["kernel"] <= 1.0, f"capsule_routing vs plain at {shape}: {r}")
+        check(r.get("same_bits", True), f"capsule_routing at {shape}: two calls gave different bits")
         if "bwd" in r:
             check(max(r["bwd"].values()) <= 1.0, f"capsule_routing_bwd vs plain at {shape}: {r}")
             check(r["bwd_same_bits"], f"capsule_routing_bwd at {shape}: two calls gave different bits")
@@ -1933,6 +1988,8 @@ def check_capsule_kernels(torch, kernels):
             if name.startswith("broken"):
                 worst = max(value.values()) if isinstance(value, dict) else value
                 check(worst > 1.0, f"{shape}: the check cannot tell a {name} version: {r}")
+    for name in ("capsule_routing", "capsule_routing_bwd"):
+        records[name]["other_shapes"] = {shape: r for (n, shape), r in other.items() if n == name}
     for rec in records.values():
         print("kernel check:", json.dumps(rec), flush=True)
     return records
@@ -2332,6 +2389,13 @@ def main() -> int:
         from tpurec_torch.ops import embedding_update as eu
 
         scatter_sweep(torch, eu, torch.Generator(device="cuda").manual_seed(7))
+        return 0
+    if sys.argv[1:] == ["--capsule"]:
+        # kernel #7 (and #8, same source) alone: phase 9a's checks, with the
+        # split, the launch floor and the serving shapes
+        paths = kernels.build(["capsule_routing"])
+        print(open(f"{paths['capsule_routing']}.log").read(), flush=True)
+        check_capsule_kernels(torch, kernels, detail=True)
         return 0
     if sys.argv[1:] == ["--din-bwd"]:
         # kernel #5 alone: phase 6's kernel checks, with the split and B=1024

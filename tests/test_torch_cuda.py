@@ -646,14 +646,22 @@ def test_dcn_family_on_card_matches_cpu(card, name, params, kernel):
 
 # --------------------------------------------------------------------------
 # capsule dynamic routing (#7 forward, #8 backward)
-def _routing_args(card, b, l, d, e, k, seed=0):
-    """behavior, a mask of lengths 0..L (row b // 2 all zero), S at the
-    scale of its glorot init, and a broadcast (1, K, L) logits0 as the
-    model passes it."""
+def _routing_args(card, b, l, d, e, k, seed=0, holes=False):
+    """behavior, a mask of lengths 0..L (row b // 2 all zero where B > 1),
+    S at the scale of its glorot init, and a broadcast (1, K, L) logits0 as
+    the model passes it. With ``holes`` every other row's mask is random
+    steps and the row after b // 2 is live at its last step only."""
     gen = torch.Generator(card).manual_seed(seed)
     lengths = torch.randint(0, l + 1, (b,), device=card, generator=gen)
-    lengths[b // 2] = 0
+    if b > 1:
+        lengths[b // 2] = 0
     mask = (torch.arange(l, device=card)[None, :] < lengths[:, None]).float()
+    if holes:
+        mask[::2] = (torch.rand(mask[::2].shape, device=card, generator=gen) < 0.5).float()
+        if b > 1:
+            mask[b // 2] = 0.0
+        mask[(b // 2 + 1) % b] = 0.0
+        mask[(b // 2 + 1) % b, -1] = 1.0
     beh = torch.randn(b, l, d, device=card, generator=gen)
     s = torch.randn(d, e, device=card, generator=gen) * (2.0 / (d + e)) ** 0.5
     l0 = torch.randn(1, k, l, device=card, generator=gen).expand(b, k, l)
@@ -699,25 +707,35 @@ def _routing_reading(got, want):
     return max(out)
 
 
+# (B, L, D, E, K, iterations): the slice's shape, ragged ones, B=1, L at
+# the forward's 16-step tile edges (15, 16, 17, 65), D and E that are no
+# multiple of 8, and the widest E and the most steps the forward takes
 ROUTING_SHAPES = [(1024, 64, 64, 64, 4, 3), (9, 12, 8, 8, 4, 3), (33, 50, 48, 40, 3, 3),
-                  (9, 12, 8, 8, 4, 1), (33, 50, 48, 40, 3, 2), (5, 1, 3, 2, 1, 3)]
+                  (9, 12, 8, 8, 4, 1), (33, 50, 48, 40, 3, 2), (5, 1, 3, 2, 1, 3),
+                  (1, 64, 64, 64, 4, 3), (7, 15, 64, 64, 4, 3), (7, 16, 32, 24, 4, 3),
+                  (7, 17, 20, 12, 3, 2), (5, 65, 64, 64, 4, 3), (9, 33, 13, 21, 4, 3),
+                  (6, 40, 5, 100, 2, 3), (4, 64, 64, 128, 8, 3), (3, 128, 16, 16, 4, 2)]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("holes", [False, True])
 @pytest.mark.parametrize("b,l,d,e,k,iters", ROUTING_SHAPES)
-def test_capsule_routing_kernel_matches_plain(card, b, l, d, e, k, iters):
+def test_capsule_routing_kernel_matches_plain(card, b, l, d, e, k, iters, holes):
     """#7 against its plain version, with a broadcast and a materialised
-    logits0; a forward that ignores the mask, or runs one iteration fewer,
-    misses the tolerance."""
+    logits0, with prefix masks and masks with holes; two calls give the
+    same bits; a forward that ignores the mask, or runs one iteration
+    fewer, misses the tolerance."""
     from tpurec_torch.ops import kernels
 
-    args = _routing_args(card, b, l, d, e, k)
+    args = _routing_args(card, b, l, d, e, k, holes=holes)
     before = kernels.capsule_routing_fused.launches
     got = kernels.capsule_routing_fused(*args, iters)
     dense = kernels.capsule_routing_fused(*args[:3], args[3].contiguous(), iters)
+    again = kernels.capsule_routing_fused(*args, iters)
     torch.cuda.synchronize()
-    assert kernels.capsule_routing_fused.launches == before + 2
-    assert got.shape == (b, k, e) and not got[b // 2].any()
+    assert kernels.capsule_routing_fused.launches == before + 3
+    assert torch.equal(got, again)
+    assert got.shape == (b, k, e) and (b == 1 or not got[b // 2].any())
     want = kernels.capsule_routing_plain(*args, iters)
     torch.testing.assert_close(got, want, **TOL)
     torch.testing.assert_close(dense, want, **TOL)
@@ -796,10 +814,12 @@ def test_capsule_routing_kernels_refuse_what_they_do_not_take(card):
     with pytest.raises(ValueError, match="num_iters"):
         kernels.capsule_routing_fused(beh, mask, s, l0, 0)
     big = _routing_args(card, 2, 2000, 64, 64, 4)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="steps"):
         kernels.capsule_routing_fused(*big)
     with pytest.raises(ValueError, match="shared memory"):
         kernels.capsule_routing_bwd_fused(*big, torch.zeros(2, 4, 64, device=card))
+    with pytest.raises(ValueError, match="capsule width"):
+        kernels.capsule_routing_fused(*_routing_args(card, 2, 8, 6, 129, 3))
     with pytest.raises(ValueError, match="g "):
         kernels.capsule_routing_bwd_fused(beh, mask, s, l0, g[:, :2])
     with pytest.raises(RuntimeError, match="requires grad"):

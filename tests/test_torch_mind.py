@@ -187,6 +187,43 @@ def test_capsule_function_gradients_match_jax_grad(b, iters):
         np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(y), **GRAD_TOL)
 
 
+def _holey_routing_inputs(b, l, d, e, k, seed):
+    """``chip_smoke.py``'s routing inputs (randn behavior and logits0, S at
+    its glorot scale, lengths L/4..L) with holes: every other row's mask is
+    random steps, row 0 is all zero and row 1 is live at its last step
+    only."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(l // 4, l + 1, size=(b,))
+    mask = (np.arange(l)[None, :] < lengths[:, None]).astype(np.float32)
+    mask[::2] = (rng.random((len(mask[::2]), l)) < 0.5).astype(np.float32)
+    mask[0] = 0.0
+    mask[1] = 0.0
+    mask[1, -1] = 1.0
+    s = _normal(rng, d, e, scale=(2.0 / (d + e)) ** 0.5)
+    return [_normal(rng, b, l, d), mask, s, _normal(rng, 1, k, l).repeat(b, axis=0)]
+
+
+@pytest.mark.parametrize("products", ["fp32", "3xtf32", "1xtf32"])
+@pytest.mark.parametrize("b,l,d,e,k,iters", [(256, 64, 64, 64, 4, 3), (33, 50, 48, 40, 3, 3)])
+def test_capsule_routing_tf32_products_emulation(b, l, d, e, k, iters, products):
+    """The CUDA kernel's arithmetic: the routing with its products in fp32,
+    in 3xTF32 (what the kernel's tensor cores compute for u = x·S) and in
+    single TF32, against ``capsule_routing_plain`` in units of the card's
+    limit (atol = rtol = 1e-4, ``chip_smoke.py``'s ``KERNEL_TOL``). fp32 and
+    3xTF32 hold it; single TF32 must miss it (the softmax and the squash
+    amplify u's error), so the check can fail. The all-zero row routes to
+    zero capsules."""
+    args = [torch.from_numpy(a) for a in _holey_routing_inputs(b, l, d, e, k, seed=b)]
+    want = tk.capsule_routing_plain(*args, iters)
+    got = tk.capsule_routing_products(*args, iters, products=products)
+    reading = float(((got - want).abs() / (1e-4 + 1e-4 * want.abs())).max())
+    if products == "1xtf32":
+        assert reading > 1.0, reading
+    else:
+        assert reading <= 1.0, reading
+        assert not got[0].any()
+
+
 def test_routing_wrappers_take_plain_on_cpu_and_count_nothing():
     args = [torch.from_numpy(a) for a in _routing_inputs(9, 12, 8, 8, 4)]
     g = torch.ones(9, 4, 8)

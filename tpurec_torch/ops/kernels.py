@@ -201,13 +201,16 @@ def _library(name: str) -> ctypes.CDLL:
                 ]
                 lib.senet_bilinear_forward.restype = ctypes.c_int
             elif name == "capsule_routing":
-                for fn in (lib.capsule_routing_smem_bytes, lib.capsule_routing_bwd_smem_bytes):
-                    fn.argtypes = [ctypes.c_int] * 5
-                    fn.restype = ctypes.c_size_t
+                lib.capsule_routing_smem_bytes.argtypes = [ctypes.c_int] * 4
+                lib.capsule_routing_smem_bytes.restype = ctypes.c_size_t
+                lib.capsule_routing_bwd_smem_bytes.argtypes = [ctypes.c_int] * 5
+                lib.capsule_routing_bwd_smem_bytes.restype = ctypes.c_size_t
+                lib.capsule_routing_blocks.argtypes = [ctypes.c_int] * 4
+                lib.capsule_routing_blocks.restype = ctypes.c_int
                 lib.capsule_routing_bwd_blocks.argtypes = [ctypes.c_int] * 6
                 lib.capsule_routing_bwd_blocks.restype = ctypes.c_int
                 lib.capsule_routing_forward.argtypes = [ctypes.c_void_p] * 4 + [
-                    ctypes.c_long, ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+                    ctypes.c_long, ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
                 lib.capsule_routing_forward.restype = ctypes.c_int
                 lib.capsule_routing_backward.argtypes = [ctypes.c_void_p] * 4 + [
                     ctypes.c_long] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -970,6 +973,41 @@ def capsule_routing_plain(
     return capsules
 
 
+def capsule_routing_products(
+    behavior, mask, s, logits0, num_iters: int = 3, products: str = "fp32"
+) -> torch.Tensor:
+    """``capsule_routing_plain``'s function with its products (u = x·S,
+    z = w·u, caps·uᵀ) taken as ``products`` says: ``"fp32"``, ``"3xtf32"``
+    (operands split into TF32 hi and lo, ``hi·hi + hi·lo + lo·hi`` summed in
+    fp32, as the CUDA kernel's tensor-core product u = x·S) or ``"1xtf32"``
+    (one product of the TF32-rounded operands). It is the kernel's
+    arithmetic on the CPU, for the tests and for ``chip_smoke.py``'s broken
+    single-TF32 version; no path runs it."""
+    from tpurec_torch.ops.capsule import squash
+
+    if products not in ("fp32", "3xtf32", "1xtf32"):
+        raise ValueError(f"products must be fp32, 3xtf32 or 1xtf32, not {products!r}")
+
+    def mm(a, b):
+        if products == "fp32":
+            return a @ b
+        ah, bh = round_tf32(a), round_tf32(b)
+        if products == "1xtf32":
+            return ah @ bh
+        return ah @ bh + (ah @ round_tf32(b - bh) + round_tf32(a - ah) @ bh)
+
+    u = mm(behavior, s)  # (B, L, E)
+    live = mask.bool()[:, None, :]
+    logits = logits0
+    capsules = None
+    for it in range(num_iters):
+        w = torch.softmax(torch.where(live, logits, -1e9), dim=1) * mask[:, None, :]
+        capsules = squash(mm(w, u))
+        if it < num_iters - 1:
+            logits = logits + mm(capsules, u.transpose(1, 2))
+    return capsules
+
+
 def capsule_routing_bwd_plain(
     behavior: torch.Tensor,
     mask: torch.Tensor,
@@ -1016,6 +1054,45 @@ def _capsule_args(what: str, behavior, mask, s, logits0, num_iters: int):
     return b, l, d, e, k, mask.contiguous(), logits0, stride
 
 
+CAPSULE_MAX_STEPS = 128  # the forward kernel: a warp a 16-step tile, 8 warps a block
+CAPSULE_MAX_WIDTH = 128  # capsule columns, held by a warp in 8-column tiles
+# (device index, L, D, E, K) -> blocks of the forward the card holds at once
+_CAPSULE_BLOCKS: Dict[Tuple[int, int, int, int, int], int] = {}
+
+
+def _capsule_blocks(lib: ctypes.CDLL, device: torch.device, l: int, d: int, e: int, k: int) -> int:
+    """The forward's launch configuration for a shape on a device, found once
+    (shared memory, the occupancy query) and then read from a dict: no host
+    work beyond it on later calls, and no sync. Raises ValueError on a shape
+    the kernel does not take."""
+    key = (device.index, l, d, e, k)
+    blocks = _CAPSULE_BLOCKS.get(key)
+    if blocks is None:
+        if l > CAPSULE_MAX_STEPS:
+            raise ValueError(
+                f"capsule_routing: L={l} steps, more than the {CAPSULE_MAX_STEPS} the kernel takes "
+                "(a warp a 16-step tile, 8 warps a block)"
+            )
+        if e > CAPSULE_MAX_WIDTH:
+            raise ValueError(
+                f"capsule_routing: capsule width E={e}, more than the {CAPSULE_MAX_WIDTH} the kernel "
+                "takes (a warp holds u for all E in registers)"
+            )
+        smem = lib.capsule_routing_smem_bytes(l, d, e, k)
+        if smem > MAX_SMEM_BYTES:
+            raise ValueError(
+                f"capsule_routing: L={l}, D={d}, E={e}, K={k} need {smem} bytes of shared memory "
+                f"per block, more than {MAX_SMEM_BYTES}"
+            )
+        with torch.cuda.device(device):
+            blocks = lib.capsule_routing_blocks(l, d, e, k)
+        if blocks < 1:
+            _check_launch(lib, -blocks, "capsule_routing (occupancy query)")
+            raise RuntimeError(f"capsule_routing: no block of L={l}, D={d}, E={e}, K={k} fits an SM")
+        _CAPSULE_BLOCKS[key] = blocks
+    return blocks
+
+
 def capsule_routing_fused(
     behavior: torch.Tensor,
     mask: torch.Tensor,
@@ -1027,13 +1104,16 @@ def capsule_routing_fused(
     mask (B, L), S (D, E), logits0 (B, K, L), fp32 → capsules (B, K, E) fp32.
 
     CPU tensors take ``capsule_routing_plain``. CUDA tensors launch the
-    kernel of ``csrc/capsule_routing.cu``, which keeps u = behavior·S in
-    shared memory through every iteration. logits0 may be a broadcast view
-    (batch stride 0) of one (K, L) slice. It takes any B, L, D, E, K and
-    ``num_iters`` ≥ 1 whose shared memory fits one block, fp32 on one
-    device, and raises on anything else. It records no backward: on CUDA it
-    raises under grad mode when an input requires grad (``CapsuleRouting``
-    is the differentiable form)."""
+    kernel of ``csrc/capsule_routing.cu``: a warp owns a 16-step tile of a
+    row, computes u = behavior·S for it on the tensor cores in 3xTF32 and
+    keeps u in registers through every iteration; tiles past the row's last
+    step with a nonzero mask are skipped. logits0 may be a broadcast view
+    (batch stride 0) of one (K, L) slice. It takes any B, D, K and
+    ``num_iters`` ≥ 1 with L ≤ ``CAPSULE_MAX_STEPS`` and E ≤
+    ``CAPSULE_MAX_WIDTH`` whose shared memory fits one block, fp32 on one
+    device, and raises on anything else. The same bits on every call. It
+    records no backward: on CUDA it raises under grad mode when an input
+    requires grad (``CapsuleRouting`` is the differentiable form)."""
     if behavior.device.type == "cpu":
         return capsule_routing_plain(behavior, mask, s, logits0, num_iters)
     _refuse_grad("capsule_routing", behavior, s, logits0)
@@ -1041,12 +1121,7 @@ def capsule_routing_fused(
         "capsule_routing", behavior, mask, s, logits0, num_iters
     )
     lib = _library("capsule_routing")
-    smem = lib.capsule_routing_smem_bytes(l, d, e, k, num_iters)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"capsule_routing: L={l}, D={d}, E={e}, K={k} need {smem} bytes of shared memory "
-            f"per block, more than {MAX_SMEM_BYTES}"
-        )
+    blocks = _capsule_blocks(lib, behavior.device, l, d, e, k)
     out = torch.empty(b, k, e, device=behavior.device, dtype=torch.float32)
     if b == 0:
         return out
@@ -1055,7 +1130,7 @@ def capsule_routing_fused(
         stream = torch.cuda.current_stream(behavior.device).cuda_stream
         err = lib.capsule_routing_forward(
             behavior.data_ptr(), mask.data_ptr(), s.data_ptr(), logits0.data_ptr(), stride,
-            out.data_ptr(), b, l, d, e, k, num_iters, stream,
+            out.data_ptr(), b, l, d, e, k, num_iters, blocks, stream,
         )
     _check_launch(lib, err, "capsule_routing")
     capsule_routing_fused.launches += 1
