@@ -5,6 +5,7 @@
     python3 chip_smoke.py --scatter   # kernel #9's D sweep alone (phase 7a's)
     python3 chip_smoke.py --din-bwd   # kernel #5's checks alone (phase 6's)
     python3 chip_smoke.py --capsule   # kernels #7/#8's checks alone (phase 9a's)
+    python3 chip_smoke.py --cin       # kernel #3's checks alone (phase 8a's)
 
 Needs one CUDA card, ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``) and ``triton``;
 it builds every kernel from the sources in this checkout and exits non-zero
@@ -193,6 +194,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # fp32 outside the tensor cores
+TF32_FLOPS = 495e12  # TF32 on the tensor cores, dense
 KERNEL_TOL = dict(atol=1e-4, rtol=1e-4)
 # DIN servable (phase 4). The attention's own outputs at the servable's
 # inputs: scores fp32; pooled is rounded to bf16 for the MLP (one bf16 step
@@ -1467,10 +1469,11 @@ def senet_pairs_swapped(torch, emb, w1, w2, wb, b1, b2):
     return (v @ wb)[:, ju] * v[:, iu]
 
 
-def cin_reading(got, want) -> float:
-    """max |got − want| / (CIN_COL_RTOL · the column's max |want|): at most 1
-    passes."""
-    scale = want.abs().amax(dim=0).clamp_min(1e-30)
+def cin_reading(got, want, scale_from=None) -> float:
+    """max |got − want| / (CIN_COL_RTOL · the column's max |want|, or max
+    |scale_from| where a batch to take the columns' scale from is given): at
+    most 1 passes."""
+    scale = (want if scale_from is None else scale_from).abs().amax(dim=0).clamp_min(1e-30)
     return float(((got - want).abs() / scale).max()) / CIN_COL_RTOL
 
 
@@ -1508,33 +1511,9 @@ def check_dcn_kernels(torch, kernels):
                 lambda: kernels.cross_network_fused(*args), lambda: kernels.cross_network_plain(*args),
                 4 * (2 * b * d + 2 * layers * d), 5 * b * d * layers,
             )
-    # #3: emb, the weights and the (B, ΣS) output once; per level a
-    # multiply-add for each (h, f) product and column, the products, the sums
-    for b, f, d, sizes in ((8192, 26, 32, (128, 128)), (4096, 26, 32, (128, 128)),
-                           (1024, 26, 32, (128, 128)), (1003, 7, 8, (5, 9, 3))):
-        weights, h = [], f
-        for s in sizes:
-            weights.append(randn(h * f, s, scale=(h * f) ** -0.5))
-            h = s
-        emb = randn(b, f, d)
-        want = kernels.cin_plain(emb, weights)
-        readings[f"cin {b}x{f}x{d} {list(sizes)}"] = dict(
-            kernel=cin_reading(kernels.cin_fused(emb, weights), want),
-            broken_fields_from_maps=cin_reading(cin_fields_from_maps(torch, emb, weights), want),
-        )
-        if b in (8192, 4096, 1024):
-            hs = [f, *sizes[:-1]]
-            rec = record(
-                "cin", "cuda", "tpurec_torch/csrc/cin.cu", "tpurec/ops/pallas/kernels.py:248",
-                [b, f, d, list(sizes)], lambda: kernels.cin_fused(emb, weights),
-                lambda: kernels.cin_plain(emb, weights),
-                4 * (b * f * d + sum(hl * f * s for hl, s in zip(hs, sizes)) + b * sum(sizes)),
-                sum(b * d * (2 * hl * f * s + hl * f + s) for hl, s in zip(hs, sizes)),
-            )
-            if b == 8192:
-                records["cin"] = rec
-            else:  # kernel_bench's B=4096, evaluate's B=1024
-                print(f"cin at B={b}:", json.dumps(rec), flush=True)
+    # #3 (phase 8a's CIN checks, also run alone by --cin)
+    cin_readings, records["cin"] = check_cin(torch, kernels)
+    readings.update(cin_readings)
     # #6: emb, the weights and the (B, P, D) output once; the squeeze, the
     # two small layers, v, v·Wb and the pair products
     for b, f, d in ((8192, 26, 32), (1003, 5, 24), (1003, 2, 24)):
@@ -1559,14 +1538,118 @@ def check_dcn_kernels(torch, kernels):
             )
     print(f"dcn kernel readings (error / limit; #2 and #6 at {KERNEL_TOL}, #3 at {CIN_COL_RTOL} "
           "of each column's largest |value|):", json.dumps(readings), flush=True)
-    for shape, r in readings.items():
-        check(r["kernel"] <= 1.0, f"{shape}: kernel vs plain {r}")
-        for name, value in r.items():
-            if name.startswith("broken"):
-                check(value > 1.0, f"{shape}: the check cannot tell a {name} version: {r}")
+    check_readings(readings)
     for rec in records.values():
         print("kernel check:", json.dumps(rec), flush=True)
     return records
+
+
+def check_readings(readings) -> None:
+    for shape, r in readings.items():
+        check(r["kernel"] <= 1.0, f"{shape}: kernel vs plain {r}")
+        check(r.get("same_bits", True), f"{shape}: two calls gave different bits")
+        for name, value in r.items():
+            if name.startswith("broken"):
+                check(value > 1.0, f"{shape}: the check cannot tell a {name} version: {r}")
+
+
+def cin_work(b, f, d, sizes):
+    """(bytes, tensor-core operations, CUDA-core operations) of one call:
+    emb, the weights and the (B, ΣS) output once; per level 2·H·F·S
+    multiply-add operations a row (b, d) for C_f = x·W (the tensor cores'
+    part), and for acc += e·C_f and the sums over d 2·F·S + S (fp32)."""
+    hs = [f, *sizes[:-1]]
+    m = b * d
+    nbytes = 4 * (b * f * d + sum(h * f * s for h, s in zip(hs, sizes)) + b * sum(sizes))
+    mma_ops = sum(2 * m * h * f * s for h, s in zip(hs, sizes))
+    fma_ops = sum(m * (2 * f * s + s) for s in sizes)
+    return nbytes, mma_ops, fma_ops
+
+
+def cin_bounds(b, f, d, sizes) -> dict:
+    """#3's two bounds. The kernel's: its products in 3xTF32 (three TF32
+    multiply-adds per fp32 one at 495 TFLOP/s) plus its fp32 CUDA-core work
+    at 67 TFLOP/s, against the bytes at 3.35 TB/s; and, beside it, the
+    bound of the same work in fp32 FMA (every operation at 67 TFLOP/s)."""
+    nbytes, mma_ops, fma_ops = cin_work(b, f, d, sizes)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (3 * mma_ops / TF32_FLOPS + fma_ops / FP32_FLOPS) * 1e3
+    fp32_ms, fp32_by = bound(nbytes, mma_ops + fma_ops)
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_units="3xTF32 tensor cores (3 TF32 multiply-adds per fp32 one, 495 TFLOP/s)",
+                bound_fp32_ms=fp32_ms, bound_fp32_by=fp32_by)
+
+
+def cin_weights(torch, gen, f, sizes):
+    weights, h = [], f
+    for s in sizes:
+        weights.append((h * f) ** -0.5 * torch.randn(h * f, s, device="cuda", generator=gen))
+        h = s
+    return weights
+
+
+CIN_SHAPE = (26, 32, (128, 128))  # xDeepFM's F, D and CIN levels over the FM schema
+
+
+def check_cin(torch, kernels, detail=False):
+    """Kernel #3 against its plain version at the slice's shape (B=8192),
+    ``benchmarks/kernel_bench.py``'s B=4096, ``evaluate``'s B=1024, the
+    HTTP path's B=1 and a ragged shape, each column's error in units of
+    ``CIN_COL_RTOL`` of its largest |value|; a CIN that pairs maps with maps
+    and the kernel's arithmetic in single TF32 (``broken_single_tf32``; the
+    kernel takes its products in 3xTF32) must read above it; two calls give
+    the same bits. Device time (median of 30, L2 flushed) at B=1, 1024, 4096
+    and 8192 beside both bounds and the launch floor. ``detail``
+    (``--cin``) adds the blocks an SM holds and the shared memory a block
+    takes. Returns the readings and the B=8192 record."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    floor_ms = launch_floor_ms(torch)
+    f0, d0, sizes0 = CIN_SHAPE
+    readings, other, record = {}, {}, None
+    for b, f, d, sizes in ((8192, f0, d0, sizes0), (4096, f0, d0, sizes0), (1024, f0, d0, sizes0),
+                           (1, f0, d0, sizes0), (1003, 7, 8, (5, 9, 3))):
+        if b == 1:
+            # the first row of the B=1024 batch, held to that batch's column
+            # scale: a one-row column's largest |value| is the value itself,
+            # and there fp32 in any order reads up to 7 against float64 (CPU,
+            # 8 seeds)
+            emb, scale_from = emb[:1], want
+        else:
+            weights = cin_weights(torch, gen, f, sizes)
+            emb = torch.randn(b, f, d, device="cuda", generator=gen)
+            scale_from = None
+        want = kernels.cin_plain(emb, weights)
+        got = kernels.cin_fused(emb, weights)
+        readings[f"cin {b}x{f}x{d} {list(sizes)}"] = dict(
+            kernel=cin_reading(got, want, scale_from),
+            same_bits=bool(torch.equal(got, kernels.cin_fused(emb, weights))),
+            broken_fields_from_maps=cin_reading(cin_fields_from_maps(torch, emb, weights), want, scale_from),
+            broken_single_tf32=cin_reading(kernels.cin_products(emb, weights, "1xtf32"), want, scale_from),
+        )
+        if (f, d, sizes) != CIN_SHAPE:
+            continue
+        rec = dict(
+            name="cin", route="cuda", source="tpurec_torch/csrc/cin.cu",
+            replaces="tpurec/ops/pallas/kernels.py:248", shape=[b, f, d, list(sizes)],
+            max_abs_err=float((got - want).abs().max()),
+            ms=device_ms(torch, lambda: kernels.cin_fused(emb, weights)),
+            plain_ms=device_ms(torch, lambda: kernels.cin_plain(emb, weights)),
+            **cin_bounds(b, f, d, sizes), launch_floor_ms=floor_ms, library_ms=None,
+        )
+        if b == TRAIN_BATCH:
+            record = rec
+        else:  # kernel_bench's B=4096, evaluate's B=1024, an HTTP request's B=1
+            print(f"cin at B={b}:", json.dumps(rec), flush=True)
+            other[f"b{b}"] = rec
+    record["other_shapes"] = other
+    if detail:
+        lib = kernels._library("cin")
+        record["smem_bytes_per_block"] = lib.cin_smem_bytes(f0, d0, max(sizes0))
+        record["blocks_per_sm"] = kernels._cin_blocks(lib, torch.device("cuda", 0), f0, d0, sizes0)
+    print(f"cin readings (error / limit; {CIN_COL_RTOL} of each column's largest |value|):",
+          json.dumps(readings), flush=True)
+    check_readings(readings)
+    return readings, record
 
 
 def dcn_counts(kernels) -> dict:
@@ -2396,6 +2479,14 @@ def main() -> int:
         paths = kernels.build(["capsule_routing"])
         print(open(f"{paths['capsule_routing']}.log").read(), flush=True)
         check_capsule_kernels(torch, kernels, detail=True)
+        return 0
+    if sys.argv[1:] == ["--cin"]:
+        # kernel #3 alone: phase 8a's CIN checks, with the launch floor, the
+        # serving and evaluate shapes and the block's resources
+        paths = kernels.build(["cin"])
+        print(open(f"{paths['cin']}.log").read(), flush=True)
+        _, record = check_cin(torch, kernels, detail=True)
+        print("kernel check:", json.dumps(record), flush=True)
         return 0
     if sys.argv[1:] == ["--din-bwd"]:
         # kernel #5 alone: phase 6's kernel checks, with the split and B=1024

@@ -108,6 +108,35 @@ def test_cin_plain_matches_reference_and_interpret(b, f, d, sizes):
     np.testing.assert_allclose(got, np.asarray(jk.cin_fused(*jargs, interpret=True)), **TOL)
 
 
+def _col_reading(got, want):
+    """max |got − want| over 1e-4 of each output column's largest |want|
+    (``chip_smoke.py``'s ``CIN_COL_RTOL``): at most 1 passes."""
+    scale = np.abs(want).max(axis=0).clip(min=1e-30)
+    return float((np.abs(got - want) / scale).max()) / 1e-4
+
+
+@pytest.mark.parametrize("products", ["fp32", "3xtf32", "1xtf32"])
+@pytest.mark.parametrize("b,f,d,sizes", [(8, 26, 32, (128, 128)), (37, 7, 8, (5, 9, 3)), (16, 4, 6, (5, 3))])
+def test_cin_tf32_products_emulation(b, f, d, sizes, products):
+    """The CUDA kernel's arithmetic (H contracted first for each field, the
+    sum over fields in order) with its products in fp32, in 3xTF32 (what
+    the kernel's tensor cores compute) and in single TF32, against
+    tpurec's ``cin_reference`` and its Pallas kernel in interpret mode:
+    fp32 and 3xTF32 hold ``TOL`` and 1e-4 of each column's largest |value|
+    (the card's limit); single TF32 must read above the card's limit (8-21×
+    at these shapes), so the check can fail."""
+    emb, weights = _cin_inputs(1, b, f, d, sizes)
+    got = tk.cin_products(torch.from_numpy(emb), [torch.from_numpy(w) for w in weights], products).numpy()
+    jargs = (jnp.asarray(emb), tuple(map(jnp.asarray, weights)))
+    assert got.shape == (b, sum(sizes))
+    for want in (np.asarray(jk.cin_reference(*jargs)), np.asarray(jk.cin_fused(*jargs, interpret=True))):
+        if products == "1xtf32":
+            assert _col_reading(got, want) > 1.0
+        else:
+            np.testing.assert_allclose(got, want, **TOL)
+            assert _col_reading(got, want) <= 1.0
+
+
 def _senet_inputs(seed, b, f, d, with_bias=True):
     rng = np.random.default_rng(seed)
     r = max(1, f // 3)

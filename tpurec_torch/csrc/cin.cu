@@ -1,170 +1,356 @@
 // CIN (the xDeepFM compressed interaction network) forward for Hopper
-// (sm_90a), fp32, every level in one launch.
+// (sm_90a), fp32 in and out, every level in one launch, its products on the
+// tensor cores in 3xTF32.
 //
 // Replaces the Pallas TPU kernel tpurec/ops/pallas/kernels.py:cin_fused
-// (_cin_kernel). Same function as cin_reference: with x_0 = e (B, F, D) and
-// one weight W_l (H_l*F, S_l) per level (H_0 = F, H_{l+1} = S_l),
+// (_cin_kernel, :218-245). Same function as cin_reference: with x_0 = e
+// (B, F, D) and one weight W_l (H_l*F, S_l) per level (H_0 = F,
+// H_{l+1} = S_l),
 //
 //   x_{l+1}[b, s, d] = sum_{h, f} W_l[h*F + f, s] * x_l[b, h, d] * e[b, f, d]
 //   out[b, off_l + s] = sum_d x_{l+1}[b, s, d]        (off_l = S_0 + ... + S_{l-1})
 //
-// What bounds it on an H100: operations. At the xDeepFM serving shape (B=8192,
-// F=26, D=32, sizes (128, 128)) one call is ~272 GFLOP of fp32 multiply-adds
-// (45 for level 1, 223 for level 2), ~4 ms at 67 TFLOP/s without tensor
-// cores, against ~30 MB of inputs and outputs (~9 us at 3.35 TB/s). The plain
-// version materialises z = (B, H*F, D) for every level, 3.5 GB at level 2.
+// What bounds it on an H100: operations. At the xDeepFM serving shape
+// (B=8192, F=26, D=32, sizes (128, 128)) one call is ~269 GFLOP of
+// multiply-adds over M = B*D = 262,144 rows (b, d): 45.4 for level 1
+// (K = H*F = 676), 223.3 for level 2 (K = 3,328), against ~30 MB of inputs
+// and outputs (~9 us at 3.35 TB/s). On the CUDA cores in fp32 that is
+// 4.03 ms at 67 TFLOP/s. On the tensor cores a product keeps fp32's
+// accuracy in 3xTF32: v = hi + lo (both TF32), a*b ~ a_hi*b_hi + a_hi*b_lo +
+// a_lo*b_hi, three TF32 multiply-adds per fp32 one, so the least time is
+// 3 * 269 GFLOP / 495 TFLOP/s = 1.63 ms (plus 0.05 ms of fp32 work below).
+// One TF32 product misses the fp32 limit (cin_products in
+// tpurec_torch/ops/kernels.py, which the CPU tests run); 3xTF32 holds it.
 //
-// Design: each level is a matrix product over the rows m = (b, d),
-//   y[m, s] = sum_k A[m, k] * W_l[k, s],   A[m, h*F + f] = x_l[m, h] * e[m, f],
-// whose A is never stored: a block owns Bt = 128 / D batch rows (M = Bt*D
-// rows, all of D, so that the sum over d stays in the block) and keeps e and
-// the level's x in shared memory, column-major (one row of shared memory per
-// field or map, padded to an odd stride). A block tile is 128 rows x 128
-// columns of y, computed by 256 threads holding 8 x 8 accumulators each; for
-// each map h a thread loads its 8 rows of x_l[:, h] once, and for each field
-// f forms the 8 products x*e and does 64 FMAs against 8 weights from shared
-// memory (a broadcast across the warp). The weights stream from L2 one map's
-// (F, 128) slice at a time, double-buffered with cp.async so the next slice
-// is in flight while the current one is used. With M = 128 rows a block,
-// each weight element loaded is used 128 times. The new map y stays in
-// shared memory as the next level's x; its column sums over d are the
-// level's slice of the output. No intermediate leaves the block.
+// Design. As the TPU kernel, each level contracts H first, per field f:
 //
-// Any F, D and level sizes: rows past the batch are zero (so they add
-// nothing), columns past S are skipped, and the wrapper refuses shapes whose
-// shared memory does not fit one block. fp32 FMA only: tensor-core (TF32 or
-// bf16) products are a later change.
+//   C_f[m, s] = sum_h x_l[m, h] * W_l[h*F + f, s]      (tensor cores, K = H)
+//   acc[m, s] += e[m, f] * C_f[m, s]                    (fp32 FMA, f = 0..F-1)
+//
+// This replaces PR 4's design, which formed A[m, h*F + f] = x*e in
+// registers and summed its K = H*F products in fp32 FMA on the CUDA cores.
+// Here every tensor-core sum is short (a fresh C for each f, K = H rounded
+// up to 8), which matters because the tensor cores' fp32 accumulation does
+// not round to nearest; the sum over f is fp32 FMA in a fixed order. The
+// extra CUDA-core work, M*S*F FMAs a level, is ~0.05 ms at the slice's
+// shape. Level 1's K = F = 26 is padded to 32 (4 % of the call's work).
+//
+// - A block owns Bt = 128 / D whole batch rows (M = Bt*D rows, so the sum
+//   over d stays in the block; D > 128 takes one batch row in 128-row
+//   tiles) and keeps e, x_l and the next level's x in shared memory,
+//   column-major (one row of shared memory per field or map, stride
+//   rows + 8, so that a warp's fragment loads hit 32 distinct banks).
+// - A block tile is 128 rows x 128 columns; 8 warps each own 64 x 32 of
+//   it, as 4 x 4 mma.sync m16n8k8 tiles: C_f and acc are 64 floats each
+//   in registers. Warps whose columns lie past S skip the math.
+// - W_l streams from L2 in stages of 32 maps h x 128 columns of one field
+//   f, a 3-stage cp.async ring (16-byte copies when S % 4 == 0), one block
+//   barrier a stage: F * ceil(H / 32) stages a tile (26 at level 1, 104 at
+//   level 2 of the slice).
+// - Operands are split into TF32 hi and lo as their fragments are loaded
+//   from shared memory (4 integer/float operations a value); W is never
+//   pre-split in device memory, which would double the bytes from L2.
+// - The new maps are stored into shared memory as the next level's x; the
+//   level's slice of the output is their column sums over d, one thread an
+//   output, d in order. No float atomics: the same bits on every call.
+//
+// Resources at the slice's shape: 208,896 bytes of shared memory a block
+// (e 32 x 136, two maps buffers 128 x 136, the ring 3 x 32 x 136 floats),
+// so one block of 8 warps an SM (the registers, up to 255 a thread, allow
+// no second either). Bytes from L2: every block reads the whole of every
+// W_l, 2.05 MB at the slice's shape, so 4.2 GB a call at B=8192 (2,048
+// blocks) and 0.52 GB at B=1024. Waves: 2,048 blocks on 132 SMs are 15.5
+// waves at B=8192; at B=1024 (evaluate's shape) 256 blocks are 1.94 waves.
+//
+// Any F, D and level sizes: rows past the batch and maps past H are zero
+// (so they add nothing), columns past S are neither computed nor stored,
+// and the wrapper refuses shapes whose shared memory does not fit a block.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include <cstddef>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 128;     // rows and columns of a block tile
-constexpr int kTM = 8;         // rows of a thread tile
-constexpr int kTN = 8;         // columns of a thread tile
+constexpr int kTileM = 128;            // rows of a block tile
+constexpr int kTileN = 128;            // columns of a block tile
+constexpr int kKC = 32;                // maps h of one W stage
+constexpr int kStages = 3;             // depth of the W ring
+constexpr int kNP = kTileN + 8;        // row stride of a W stage (8 mod 32)
+constexpr int kStageFloats = kKC * kNP;
 constexpr int kMaxLevels = 8;
+constexpr int kMaxSmemBytes = 232448;  // Hopper's per-block limit (227 KB)
 
 struct Levels {
   int n;
   int sizes[kMaxLevels];
+  const float* w[kMaxLevels];
+  int vec[kMaxLevels];  // 16-byte copies of W_l (S % 4 == 0, aligned)
 };
 
-__host__ __device__ inline int rows_per_block(int D) { return D >= kTile ? 1 : kTile / D; }
+__host__ __device__ inline int rows_per_block(int D) { return D >= kTileM ? 1 : kTileM / D; }
 __host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+struct Layout {
+  int bt;  // batch rows of a block
+  int mb;  // live rows (bt * D)
+  int mr;  // rows computed (mb rounded up to a tile)
+  int mp;  // row stride of e and the maps (mr + 8: 8 mod 32)
+  int fp;  // rows of e (F rounded up to 8: the level-1 K padding)
+  int sp;  // rows of a maps buffer (largest S rounded up to 8)
+};
+
+__host__ __device__ inline Layout make_layout(int F, int D, int smax) {
+  Layout L;
+  L.bt = rows_per_block(D);
+  L.mb = L.bt * D;
+  L.mr = round_up(L.mb, kTileM);
+  L.mp = L.mr + 8;
+  L.fp = round_up(F, 8);
+  L.sp = round_up(smax, 8);
+  return L;
+}
+
+__host__ __device__ inline size_t smem_floats(const Layout& L) {
+  return static_cast<size_t>(L.fp + 2 * L.sp) * L.mp + static_cast<size_t>(kStages) * kStageFloats;
+}
 
 __device__ inline void cp_async4(float* dst, const float* src) {
   const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(addr), "l"(src));
 }
+__device__ inline void cp_async16(float* dst, const float* src) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(src));
+}
 __device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ inline void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+template <int N>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
-// One map's slice of W_l, rows h*F .. h*F+F-1, columns ct .. ct+127, into
-// dst (F, kTile); columns past S are zero.
-__device__ inline void load_w_slice(float* dst, const float* wl, int h, int F, int S, int ct,
-                                    int tid) {
-  const float* src = wl + static_cast<size_t>(h) * F * S + ct;
-  for (int i = tid; i < F * kTile; i += kThreads) {
-    const int f = i / kTile;
-    const int c = i % kTile;
-    if (ct + c < S) {
-      cp_async4(dst + i, src + static_cast<size_t>(f) * S + c);
-    } else {
-      dst[i] = 0.f;
+// x = hi + lo, both TF32. hi is x rounded to nearest, ties away from zero
+// (half a TF32 ulp added, the 13 low bits cleared: cvt.rna.tf32.f32's
+// rounding in two integer operations); lo = x - hi is exact in fp32. The
+// tensor cores read a TF32 operand's 19 high bits and ignore the 13 low
+// ones, so lo gets the same rounding from the half ulp added alone.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a.b in 3xTF32: the two small terms first, then the big one
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                                     uint32_t bh0, uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  mma(d, al, bh0, bh1);
+  mma(d, ah, bl0, bl1);
+  mma(d, ah, bh0, bh1);
+}
+
+// One stage of W_l: maps h = h0 .. h0+31 of field f, columns ct .. ct+127,
+// into dst (kKC, kNP); maps past H and columns past S are zero.
+__device__ inline void load_stage(float* dst, const float* wl, int vec, int f, int h0, int H, int F,
+                                  int S, int ct, int tid) {
+  if (vec) {
+    for (int i = tid; i < kKC * (kTileN / 4); i += kThreads) {
+      const int r = i / (kTileN / 4);
+      const int c = (i % (kTileN / 4)) * 4;
+      float* d = dst + r * kNP + c;
+      const int h = h0 + r;
+      if (h < H && ct + c < S) {
+        cp_async16(d, wl + (static_cast<size_t>(h) * F + f) * S + ct + c);
+      } else {
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  } else {
+    for (int i = tid; i < kKC * kTileN; i += kThreads) {
+      const int r = i / kTileN;
+      const int c = i % kTileN;
+      const int h = h0 + r;
+      if (h < H && ct + c < S) {
+        cp_async4(dst + r * kNP + c, wl + (static_cast<size_t>(h) * F + f) * S + ct + c);
+      } else {
+        dst[r * kNP + c] = 0.f;
+      }
     }
   }
   cp_async_commit();
 }
 
-__global__ void __launch_bounds__(kThreads) cin_kernel(
+__global__ void __launch_bounds__(kThreads, 1) cin_kernel(
     const float* __restrict__ emb,  // (B, F, D)
-    const float* __restrict__ w,    // every W_l, flattened one after another
     float* __restrict__ out,        // (B, sum S_l)
     Levels lv, int B, int F, int D, int smax, int total_s) {
   extern __shared__ __align__(16) float smem[];
-  const int bt = rows_per_block(D);
-  const int mb = bt * D;                // live rows of the block
-  const int mr = round_up(mb, kTile);   // rows computed
-  const int mp = mr + 1;                // odd stride of a shared-memory row
-  float* e_s = smem;                    // (F, mp): e[m, f] at f*mp + m
-  float* buf0 = e_s + F * mp;           // (smax, mp)
-  float* buf1 = buf0 + smax * mp;       // (smax, mp)
-  float* w_s0 = buf1 + smax * mp;       // (F, kTile)
-  float* w_s1 = w_s0 + F * kTile;       // (F, kTile)
+  const Layout L = make_layout(F, D, smax);
+  const int mp = L.mp;
+  float* e_s = smem;                 // (fp, mp): e[m, f] at f*mp + m
+  float* buf0 = e_s + L.fp * mp;     // (sp, mp)
+  float* buf1 = buf0 + L.sp * mp;    // (sp, mp)
+  float* ring = buf1 + L.sp * mp;    // kStages x (kKC, kNP)
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int b0 = blockIdx.x * bt;
-  const int nb = min(bt, B - b0);
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int gid = lane / 4;
+  const int tig = lane % 4;
+  const int wm = warp % 2;  // rows wm*64 .. +63 of a tile
+  const int wn = warp / 2;  // columns wn*32 .. +31 of a tile
+  const int b0 = blockIdx.x * L.bt;
+  const int nb = min(L.bt, B - b0);
 
-  // e: the block's rows are contiguous in emb; row m = bl*D + d of field f
+  // e, row m = bl*D + d of field f; rows past the batch and fields past F
+  // are zero
   const float* e_g = emb + static_cast<size_t>(b0) * F * D;
-  for (int i = tid; i < bt * F * D; i += kThreads) {
-    const int bl = i / (F * D);
-    const int r = i % (F * D);
-    const int f = r / D;
-    const int d = r % D;
-    e_s[f * mp + bl * D + d] = bl < nb ? __ldg(e_g + i) : 0.f;
-  }
-  for (int i = tid; i < F * (mr - mb); i += kThreads) {
-    e_s[(i / (mr - mb)) * mp + mb + i % (mr - mb)] = 0.f;
+  for (int i = tid; i < L.fp * L.mr; i += kThreads) {
+    const int f = i / L.mr;
+    const int m = i % L.mr;
+    const int bl = m / D;
+    float v = 0.f;
+    if (f < F && m < L.mb && bl < nb) v = __ldg(e_g + (static_cast<size_t>(bl) * F + f) * D + m % D);
+    e_s[f * mp + m] = v;
   }
 
   const float* x = e_s;
   float* y = buf0;
-  const float* wl = w;
-  int h_count = F;
+  int H = F;
   int off = 0;
   for (int l = 0; l < lv.n; ++l) {
     const int S = lv.sizes[l];
-    for (int rt = 0; rt < mr; rt += kTile) {
-      for (int ct = 0; ct < S; ct += kTile) {
-        float acc[kTM][kTN];
+    const float* wl = lv.w[l];
+    const int vec = lv.vec[l];
+    const int nkc = (H + kKC - 1) / kKC;
+    const int T = F * nkc;
+    // maps S .. round_up(S, 8) - 1 are the next level's K padding: zero
+    for (int i = tid; i < (round_up(S, 8) - S) * L.mr; i += kThreads) {
+      y[(S + i / L.mr) * mp + i % L.mr] = 0.f;
+    }
+    for (int rt = 0; rt < L.mr; rt += kTileM) {
+      for (int ct = 0; ct < S; ct += kTileN) {
+        const int n0 = ct + wn * 32;
+        const int ntl = max(0, min(4, (S - n0 + 7) / 8));  // live 8-column tiles of the warp
+        const int m0 = rt + wm * 64;
+        float acc[4][4][4];
+        float c[4][4][4];
 #pragma unroll
-        for (int i = 0; i < kTM; ++i) {
+        for (int i = 0; i < 4; ++i) {
 #pragma unroll
-          for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+          for (int j = 0; j < 4; ++j) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+          }
         }
-        __syncthreads();  // the previous tile is done with both weight buffers
-        load_w_slice(w_s0, wl, 0, F, S, ct, tid);
-        for (int h = 0; h < h_count; ++h) {
-          cp_async_wait_all();
-          __syncthreads();  // slice h is in; every thread is done with slice h-1
-          const float* w_cur = (h & 1) ? w_s1 : w_s0;
-          if (h + 1 < h_count) load_w_slice((h & 1) ? w_s0 : w_s1, wl, h + 1, F, S, ct, tid);
-          float xv[kTM];
+        __syncthreads();  // the ring is free; e, x and y's zeros are in
 #pragma unroll
-          for (int i = 0; i < kTM; ++i) xv[i] = x[h * mp + rt + ty + 16 * i];
-          for (int f = 0; f < F; ++f) {
-            float a[kTM];
-            float wv[kTN];
+        for (int i = 0; i < kStages - 1; ++i) {
+          if (i < T) {
+            load_stage(ring + i * kStageFloats, wl, vec, i / nkc, (i % nkc) * kKC, H, F, S, ct, tid);
+          } else {
+            cp_async_commit();
+          }
+        }
+        for (int t = 0; t < T; ++t) {
+          cp_async_wait<kStages - 2>();
+          __syncthreads();  // stage t is in; every warp is done with stage t-1
+          const int tn = t + kStages - 1;
+          if (tn < T) {
+            load_stage(ring + (tn % kStages) * kStageFloats, wl, vec, tn / nkc, (tn % nkc) * kKC, H, F,
+                       S, ct, tid);
+          } else {
+            cp_async_commit();
+          }
+          if (ntl == 0) continue;
+          const int f = t / nkc;
+          const int kc = t % nkc;
+          const int h0 = kc * kKC;
+          if (kc == 0) {
 #pragma unroll
-            for (int i = 0; i < kTM; ++i) a[i] = xv[i] * e_s[f * mp + rt + ty + 16 * i];
+            for (int i = 0; i < 4; ++i) {
 #pragma unroll
-            for (int j = 0; j < kTN; ++j) wv[j] = w_cur[f * kTile + tx + 16 * j];
+              for (int j = 0; j < 4; ++j) {
 #pragma unroll
-            for (int i = 0; i < kTM; ++i) {
+                for (int r = 0; r < 4; ++r) c[i][j][r] = 0.f;
+              }
+            }
+          }
+          const float* ws = ring + (t % kStages) * kStageFloats;
+          const int nks = (min(kKC, H - h0) + 7) / 8;
 #pragma unroll
-              for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], wv[j], acc[i][j]);
+          for (int ks = 0; ks < kKC / 8; ++ks) {
+            if (ks < nks) {
+              const float* xa = x + (h0 + ks * 8 + tig) * mp + m0 + gid;
+              uint32_t ah[4][4], al[4][4];
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                split(xa[i * 16], ah[i][0], al[i][0]);
+                split(xa[i * 16 + 8], ah[i][1], al[i][1]);
+                split(xa[4 * mp + i * 16], ah[i][2], al[i][2]);
+                split(xa[4 * mp + i * 16 + 8], ah[i][3], al[i][3]);
+              }
+              const float* wb = ws + (ks * 8 + tig) * kNP + wn * 32 + gid;
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                if (j < ntl) {
+                  uint32_t bh0, bl0, bh1, bl1;
+                  split(wb[j * 8], bh0, bl0);
+                  split(wb[4 * kNP + j * 8], bh1, bl1);
+#pragma unroll
+                  for (int i = 0; i < 4; ++i) mma3(c[i][j], ah[i], al[i], bh0, bh1, bl0, bl1);
+                }
+              }
+            }
+          }
+          if (kc == nkc - 1) {  // C_f is complete: acc += e[:, f] * C_f
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float e0 = e_s[f * mp + m0 + i * 16 + gid];
+              const float e1 = e_s[f * mp + m0 + i * 16 + gid + 8];
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                if (j < ntl) {
+                  acc[i][j][0] = fmaf(e0, c[i][j][0], acc[i][j][0]);
+                  acc[i][j][1] = fmaf(e0, c[i][j][1], acc[i][j][1]);
+                  acc[i][j][2] = fmaf(e1, c[i][j][2], acc[i][j][2]);
+                  acc[i][j][3] = fmaf(e1, c[i][j][3], acc[i][j][3]);
+                }
+              }
             }
           }
         }
+        // the tile's new maps (C layout: rows gid and gid + 8, columns
+        // 2*tig and 2*tig + 1 of each 16 x 8 tile)
 #pragma unroll
-        for (int j = 0; j < kTN; ++j) {
-          const int s = ct + tx + 16 * j;
-          if (s < S) {
+        for (int j = 0; j < 4; ++j) {
+          if (j < ntl) {
+            const int s = n0 + j * 8 + 2 * tig;
 #pragma unroll
-            for (int i = 0; i < kTM; ++i) y[s * mp + rt + ty + 16 * i] = acc[i][j];
+            for (int i = 0; i < 4; ++i) {
+              const int m = m0 + i * 16 + gid;
+              if (s < S) {
+                y[s * mp + m] = acc[i][j][0];
+                y[s * mp + m + 8] = acc[i][j][2];
+              }
+              if (s + 1 < S) {
+                y[(s + 1) * mp + m] = acc[i][j][1];
+                y[(s + 1) * mp + m + 8] = acc[i][j][3];
+              }
+            }
           }
         }
       }
     }
     __syncthreads();  // y is complete
-    // this level's slice of the output: sum over d of each (b, s)
+    // this level's slice of the output: sum over d of each (b, s), d in order
     for (int i = tid; i < nb * S; i += kThreads) {
       const int bl = i / S;
       const int s = i % S;
@@ -174,8 +360,7 @@ __global__ void __launch_bounds__(kThreads) cin_kernel(
       out[static_cast<size_t>(b0 + bl) * total_s + off + s] = sum;
     }
     off += S;
-    wl += static_cast<size_t>(h_count) * F * S;
-    h_count = S;
+    H = S;
     x = y;
     y = (y == buf0) ? buf1 : buf0;
   }
@@ -188,16 +373,30 @@ extern "C" {
 // Dynamic shared memory (bytes) one block needs; the wrapper checks it
 // against the card's per-block limit before launching.
 size_t cin_smem_bytes(int F, int D, int smax) {
-  const size_t mp = round_up(rows_per_block(D) * D, kTile) + 1;
-  return sizeof(float) * (static_cast<size_t>(F) * mp + 2 * static_cast<size_t>(smax) * mp +
-                          2 * static_cast<size_t>(F) * kTile);
+  return sizeof(float) * smem_floats(make_layout(F, D, smax));
 }
 
-// Returns a cudaError_t (0 = launched). w holds every level's weight, each
-// (H_l*F, S_l) row-major, one after another; sizes[l] = S_l, at most
-// kMaxLevels (8) levels. Every pointer is a contiguous fp32 device array;
-// out is (B, sum S_l).
-int cin_forward(const float* emb, const float* w, const int* sizes, int num_levels, float* out,
+// Run once for each device and shape by the wrapper: lets the kernel use
+// the card's whole per-block shared memory and returns the blocks of this
+// shape an SM holds (occupancy query), or minus a cudaError_t.
+int cin_blocks_per_sm(int F, int D, int smax) {
+  if (F < 1 || D < 1 || smax < 1) return -static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err =
+      cudaFuncSetAttribute(cin_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
+  int per_sm = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cin_kernel, kThreads,
+                                                        cin_smem_bytes(F, D, smax));
+  }
+  return err == cudaSuccess ? per_sm : -static_cast<int>(err);
+}
+
+// Returns a cudaError_t (0 = launched). w[l] is level l's weight, (H_l*F,
+// S_l) row-major, a contiguous fp32 device array; sizes[l] = S_l, at most
+// kMaxLevels (8) levels (w and sizes are host arrays). emb (B, F, D) and out
+// (B, sum S_l) are contiguous fp32 device arrays. cin_blocks_per_sm must
+// have run for the device first.
+int cin_forward(const float* emb, const float* const* w, const int* sizes, int num_levels, float* out,
                 int B, int F, int D, void* stream) {
   if (num_levels < 1 || num_levels > kMaxLevels || B < 1 || F < 1 || D < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -206,21 +405,25 @@ int cin_forward(const float* emb, const float* w, const int* sizes, int num_leve
   lv.n = num_levels;
   int smax = 1;
   int total_s = 0;
-  for (int l = 0; l < kMaxLevels; ++l) lv.sizes[l] = 0;
+  for (int l = 0; l < kMaxLevels; ++l) {
+    lv.sizes[l] = 0;
+    lv.w[l] = nullptr;
+    lv.vec[l] = 0;
+  }
   for (int l = 0; l < num_levels; ++l) {
-    if (sizes[l] < 1) return static_cast<int>(cudaErrorInvalidValue);
+    if (sizes[l] < 1 || w[l] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     lv.sizes[l] = sizes[l];
+    lv.w[l] = w[l];
+    lv.vec[l] = sizes[l] % 4 == 0 && reinterpret_cast<uintptr_t>(w[l]) % 16 == 0;
     smax = sizes[l] > smax ? sizes[l] : smax;
     total_s += sizes[l];
   }
   const size_t smem = cin_smem_bytes(F, D, smax);
-  cudaError_t err = cudaFuncSetAttribute(cin_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > static_cast<size_t>(kMaxSmemBytes)) return static_cast<int>(cudaErrorInvalidValue);
   const int bt = rows_per_block(D);
   const int blocks = (B + bt - 1) / bt;
-  cin_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      emb, w, out, lv, B, F, D, smax, total_s);
+  cin_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(emb, out, lv, B, F, D, smax,
+                                                                            total_s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -188,6 +188,8 @@ def _library(name: str) -> ctypes.CDLL:
             elif name == "cin":
                 lib.cin_smem_bytes.argtypes = [ctypes.c_int] * 3
                 lib.cin_smem_bytes.restype = ctypes.c_size_t
+                lib.cin_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+                lib.cin_blocks_per_sm.restype = ctypes.c_int
                 lib.cin_forward.argtypes = [ctypes.c_void_p] * 3 + [
                     ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p,
@@ -797,7 +799,68 @@ def cin_plain(emb: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tenso
     return torch.cat(outs, dim=-1)
 
 
+def cin_products(
+    emb: torch.Tensor, weights: Sequence[torch.Tensor], products: str = "fp32"
+) -> torch.Tensor:
+    """``cin_plain``'s function in the CUDA kernel's order: over the rows
+    m = (b, d), each level contracts H first for each field f,
+    C_f = x_l · W_l[h·F + f, :], then adds e[:, f] · C_f for f = 0..F−1;
+    the products of C_f are taken as ``products`` says: ``"fp32"``,
+    ``"3xtf32"`` (operands split into TF32 hi and lo, ``hi·hi + hi·lo +
+    lo·hi`` summed in fp32, as the kernel's tensor cores) or ``"1xtf32"``
+    (one product of the TF32-rounded operands). It is the kernel's
+    arithmetic on the CPU, for the tests and for ``chip_smoke.py``'s broken
+    single-TF32 version; no path runs it."""
+    if products not in ("fp32", "3xtf32", "1xtf32"):
+        raise ValueError(f"products must be fp32, 3xtf32 or 1xtf32, not {products!r}")
+
+    def mm(a, b):
+        if products == "fp32":
+            return a @ b
+        ah, bh = round_tf32(a), round_tf32(b)
+        if products == "1xtf32":
+            return ah @ bh
+        return ah @ bh + (ah @ round_tf32(b - bh) + round_tf32(a - ah) @ bh)
+
+    b, f, d = emb.shape
+    e = emb.transpose(1, 2).reshape(b * d, f)
+    x, outs = e, []
+    for w in weights:
+        wf = w.reshape(x.shape[1], f, w.shape[1])
+        acc = torch.zeros(b * d, w.shape[1], dtype=emb.dtype, device=emb.device)
+        for i in range(f):
+            acc = acc + e[:, i : i + 1] * mm(x, wf[:, i])
+        x = acc
+        outs.append(acc.reshape(b, d, -1).sum(dim=1))
+    return torch.cat(outs, dim=-1)
+
+
 CIN_MAX_LEVELS = 8  # levels the CUDA kernel takes in one launch
+# (device index, F, D, largest S) -> blocks of the kernel an SM holds
+_CIN_BLOCKS: Dict[Tuple[int, int, int, int], int] = {}
+
+
+def _cin_blocks(lib: ctypes.CDLL, device: torch.device, f: int, d: int, sizes: Sequence[int]) -> int:
+    """The kernel's launch configuration for a shape on a device, found once
+    (shared memory, the card's shared-memory attribute, the occupancy query)
+    and then read from a dict. Raises ValueError on a shape whose shared
+    memory does not fit one block."""
+    key = (device.index, f, d, max(sizes))
+    blocks = _CIN_BLOCKS.get(key)
+    if blocks is None:
+        smem = lib.cin_smem_bytes(f, d, max(sizes))
+        if smem > MAX_SMEM_BYTES:
+            raise ValueError(
+                f"cin: F={f}, D={d}, level sizes {list(sizes)} need {smem} bytes of shared memory "
+                f"per block, more than {MAX_SMEM_BYTES}"
+            )
+        with torch.cuda.device(device):
+            blocks = lib.cin_blocks_per_sm(f, d, max(sizes))
+        if blocks < 1:
+            _check_launch(lib, -blocks, "cin (occupancy query)")
+            raise RuntimeError(f"cin: no block of F={f}, D={d}, level sizes {list(sizes)} fits an SM")
+        _CIN_BLOCKS[key] = blocks
+    return blocks
 
 
 def cin_fused(emb: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -805,11 +868,14 @@ def cin_fused(emb: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tenso
     level (H_0 = F, H_{l+1} = S_l), fp32 → (B, ΣS_l) fp32.
 
     CPU tensors take ``cin_plain``; CUDA tensors launch the kernel of
-    ``csrc/cin.cu``, which never materialises the (B, H·F, D) products. It
-    takes any F, D and level sizes (not only multiples of 128), fp32 on one
-    device, at most ``CIN_MAX_LEVELS`` levels and shapes whose shared memory
-    fits one block, and raises on anything else. It records no backward: on
-    CUDA it raises under grad mode when an input requires grad."""
+    ``csrc/cin.cu``, which never materialises the (B, H·F, D) products: it
+    contracts H first for each field on the tensor cores in 3xTF32 and sums
+    over the fields in fp32 (``cin_products`` is its arithmetic). It takes
+    any F, D and level sizes (not only multiples of 128), fp32 on one
+    device, at most ``CIN_MAX_LEVELS`` levels and shapes whose shared
+    memory fits one block, and raises on anything else. The same bits on
+    every call. It records no backward: on CUDA it raises under grad mode
+    when an input requires grad."""
     weights = list(weights)
     if emb.device.type == "cpu":
         return cin_plain(emb, weights)
@@ -828,22 +894,19 @@ def cin_fused(emb: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tenso
         h = w.shape[1]
     sizes = [int(w.shape[1]) for w in weights]
     lib = _library("cin")
-    smem = lib.cin_smem_bytes(f, d, max(sizes))
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"cin: F={f}, D={d}, level sizes {sizes} need {smem} bytes of shared memory "
-            f"per block, more than {MAX_SMEM_BYTES}"
-        )
+    if f and d:
+        _cin_blocks(lib, emb.device, f, d, sizes)
     out = torch.empty(b, sum(sizes), device=emb.device, dtype=torch.float32)
     if b == 0 or f == 0 or d == 0:
         return out.zero_()
     emb = emb.contiguous()
-    flat = torch.cat([w.reshape(-1) for w in weights])
+    weights = [w.contiguous() for w in weights]
+    c_weights = (ctypes.c_void_p * len(weights))(*(w.data_ptr() for w in weights))
     c_sizes = (ctypes.c_int * len(sizes))(*sizes)
     with torch.cuda.device(emb.device):
         stream = torch.cuda.current_stream(emb.device).cuda_stream
         err = lib.cin_forward(
-            emb.data_ptr(), flat.data_ptr(), c_sizes, len(sizes), out.data_ptr(), b, f, d, stream
+            emb.data_ptr(), c_weights, c_sizes, len(sizes), out.data_ptr(), b, f, d, stream
         )
     _check_launch(lib, err, "cin")
     cin_fused.launches += 1
