@@ -123,7 +123,7 @@ def test_cin_tf32_products_emulation(b, f, d, sizes, products):
     the kernel's tensor cores compute) and in single TF32, against
     tpurec's ``cin_reference`` and its Pallas kernel in interpret mode:
     fp32 and 3xTF32 hold ``TOL`` and 1e-4 of each column's largest |value|
-    (the card's limit); single TF32 must read above the card's limit (8-21×
+    (the card's limit); single TF32 must read above the card's limit (22-31×
     at these shapes), so the check can fail."""
     emb, weights = _cin_inputs(1, b, f, d, sizes)
     got = tk.cin_products(torch.from_numpy(emb), [torch.from_numpy(w) for w in weights], products).numpy()

@@ -1,6 +1,6 @@
 // CIN (the xDeepFM compressed interaction network) forward for Hopper
 // (sm_90a), fp32 in and out, every level in one launch, its products on the
-// tensor cores in 3xTF32.
+// tensor cores (wgmma) in 3xTF32.
 //
 // Replaces the Pallas TPU kernel tpurec/ops/pallas/kernels.py:cin_fused
 // (_cin_kernel, :218-245). Same function as cin_reference: with x_0 = e
@@ -14,13 +14,13 @@
 // (B=8192, F=26, D=32, sizes (128, 128)) one call is ~269 GFLOP of
 // multiply-adds over M = B*D = 262,144 rows (b, d): 45.4 for level 1
 // (K = H*F = 676), 223.3 for level 2 (K = 3,328), against ~30 MB of inputs
-// and outputs (~9 us at 3.35 TB/s). On the CUDA cores in fp32 that is
-// 4.03 ms at 67 TFLOP/s. On the tensor cores a product keeps fp32's
-// accuracy in 3xTF32: v = hi + lo (both TF32), a*b ~ a_hi*b_hi + a_hi*b_lo +
-// a_lo*b_hi, three TF32 multiply-adds per fp32 one, so the least time is
-// 3 * 269 GFLOP / 495 TFLOP/s = 1.63 ms (plus 0.05 ms of fp32 work below).
-// One TF32 product misses the fp32 limit (cin_products in
-// tpurec_torch/ops/kernels.py, which the CPU tests run); 3xTF32 holds it.
+// and outputs (~9 us at 3.35 TB/s): 4.0 ms on the CUDA cores in fp32 at 67
+// TFLOP/s. On the tensor cores a product keeps fp32's accuracy in 3xTF32:
+// v = hi + lo (both TF32), a*b ~ a_hi*b_hi + a_hi*b_lo + a_lo*b_hi, three
+// TF32 multiply-adds per fp32 one, so the least time is 3 * 269 GFLOP /
+// 495 TFLOP/s = 1.63 ms (plus ~0.05 ms of fp32 work below). One TF32
+// product misses the fp32 limit (cin_products in tpurec_torch/ops/kernels.py,
+// which the CPU tests run); 3xTF32 holds it.
 //
 // Design. As the TPU kernel, each level contracts H first, per field f:
 //
@@ -29,42 +29,53 @@
 //
 // This replaces PR 4's design, which formed A[m, h*F + f] = x*e in
 // registers and summed its K = H*F products in fp32 FMA on the CUDA cores.
-// Here every tensor-core sum is short (a fresh C for each f, K = H rounded
+// Every tensor-core sum here is short (a fresh C for each f, K = H rounded
 // up to 8), which matters because the tensor cores' fp32 accumulation does
-// not round to nearest; the sum over f is fp32 FMA in a fixed order. The
-// extra CUDA-core work, M*S*F FMAs a level, is ~0.05 ms at the slice's
-// shape. Level 1's K = F = 26 is padded to 32 (4 % of the call's work).
+// not round to nearest; the sum over f is fp32 FMA in a fixed order. Level
+// 1's K = F = 26 is padded to 32 (4 % of the call's work).
 //
 // - A block owns Bt = 128 / D whole batch rows (M = Bt*D rows, so the sum
 //   over d stays in the block; D > 128 takes one batch row in 128-row
 //   tiles) and keeps e, x_l and the next level's x in shared memory,
 //   column-major (one row of shared memory per field or map, stride
 //   rows + 8, so that a warp's fragment loads hit 32 distinct banks).
-// - A block tile is 128 rows x 128 columns; 8 warps each own 64 x 32 of
-//   it, as 4 x 4 mma.sync m16n8k8 tiles: C_f and acc are 64 floats each
-//   in registers. Warps whose columns lie past S skip the math.
-// - W_l streams from L2 in stages of 32 maps h x 128 columns of one field
-//   f, a 3-stage cp.async ring (16-byte copies when S % 4 == 0), one block
-//   barrier a stage: F * ceil(H / 32) stages a tile (26 at level 1, 104 at
-//   level 2 of the slice).
-// - Operands are split into TF32 hi and lo as their fragments are loaded
-//   from shared memory (4 integer/float operations a value); W is never
-//   pre-split in device memory, which would double the bytes from L2.
+// - A block tile is 128 rows x 128 columns: two warpgroups of 64 rows, each
+//   C_f and acc in registers (64 floats a thread). A warpgroup's products
+//   are wgmma m64n128k8 TF32: A, this warp's 16 x 8 slice of x_l, from
+//   registers; B, W_l's 8 x 128 slice for field f, from shared memory as
+//   K-major core matrices (8 columns x 4 maps, 128 contiguous bytes).
+//   (mma.sync m16n8k8 in the same layout ran at ~207 TFLOP/s TF32 on the
+//   card: three products alone took ~4 ms at the slice's shape.)
+// - Operands split as v = hi + lo with hi = v itself (the tensor cores read
+//   a TF32 operand's 19 high bits, so hi is v truncated to TF32) and lo =
+//   v - trunc(v), exact in fp32 and truncated in turn: two operations a
+//   value. x's fragments are split as they are loaded; W when it is staged.
+//   W is never pre-split in device memory, which would double the bytes
+//   from L2.
+// - W_l streams from L2 in stages of 32 maps x 128 columns of one field (hi
+//   and lo, double-buffered, one block barrier a stage): F * ceil(H / 32)
+//   stages a tile, 26 at level 1 and 104 at level 2 of the slice. Each
+//   thread holds a quarter of the next stage in registers and stores it,
+//   and fetches the stage after, a quarter after each k-step's products: a
+//   warp cannot pass its queued wgmma until they have read their A
+//   registers, about as long as they take to run, so the staging fills that
+//   time instead of following it (clock64 in an instrumented copy).
 // - The new maps are stored into shared memory as the next level's x; the
 //   level's slice of the output is their column sums over d, one thread an
 //   output, d in order. No float atomics: the same bits on every call.
 //
-// Resources at the slice's shape: 208,896 bytes of shared memory a block
-// (e 32 x 136, two maps buffers 128 x 136, the ring 3 x 32 x 136 floats),
-// so one block of 8 warps an SM (the registers, up to 255 a thread, allow
-// no second either). Bytes from L2: every block reads the whole of every
-// W_l, 2.05 MB at the slice's shape, so 4.2 GB a call at B=8192 (2,048
-// blocks) and 0.52 GB at B=1024. Waves: 2,048 blocks on 132 SMs are 15.5
-// waves at B=8192; at B=1024 (evaluate's shape) 256 blocks are 1.94 waves.
+// Resources at the slice's shape: 222,208 bytes of shared memory a block
+// (e 32 x 136, two maps buffers 128 x 136, the W stages 4 x 32 x 128
+// floats), so one block of 8 warps an SM; ~226 registers a thread. Bytes
+// from L2: every block reads the whole of every W_l, 2.05 MB at the slice's
+// shape, so 4.2 GB a call at B=8192 (2,048 blocks) and 0.52 GB at B=1024.
+// Waves: 2,048 blocks on 132 SMs are 15.5 waves at B=8192; at B=1024
+// (evaluate's shape) 256 blocks are 1.94 waves.
 //
 // Any F, D and level sizes: rows past the batch and maps past H are zero
-// (so they add nothing), columns past S are neither computed nor stored,
-// and the wrapper refuses shapes whose shared memory does not fit a block.
+// (so they add nothing), columns past S are computed on zero weights and
+// not stored, and the wrapper refuses shapes whose shared memory does not
+// fit a block.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -77,9 +88,9 @@ constexpr int kThreads = 256;
 constexpr int kTileM = 128;            // rows of a block tile
 constexpr int kTileN = 128;            // columns of a block tile
 constexpr int kKC = 32;                // maps h of one W stage
-constexpr int kStages = 3;             // depth of the W ring
-constexpr int kNP = kTileN + 8;        // row stride of a W stage (8 mod 32)
-constexpr int kStageFloats = kKC * kNP;
+constexpr int kStageFloats = kKC * kTileN;
+constexpr uint32_t kLBO = 128;             // bytes to a core matrix's next 4 maps
+constexpr uint32_t kSBO = kKC / 4 * 128;   // bytes to the next 8 columns
 constexpr int kMaxLevels = 8;
 constexpr int kMaxSmemBytes = 232448;  // Hopper's per-block limit (227 KB)
 
@@ -87,7 +98,6 @@ struct Levels {
   int n;
   int sizes[kMaxLevels];
   const float* w[kMaxLevels];
-  int vec[kMaxLevels];  // 16-byte copies of W_l (S % 4 == 0, aligned)
 };
 
 __host__ __device__ inline int rows_per_block(int D) { return D >= kTileM ? 1 : kTileM / D; }
@@ -113,78 +123,95 @@ __host__ __device__ inline Layout make_layout(int F, int D, int smax) {
   return L;
 }
 
+// e, two maps buffers, and the W stages (hi and lo, two of each)
 __host__ __device__ inline size_t smem_floats(const Layout& L) {
-  return static_cast<size_t>(L.fp + 2 * L.sp) * L.mp + static_cast<size_t>(kStages) * kStageFloats;
+  return static_cast<size_t>(L.fp + 2 * L.sp) * L.mp + 4 * static_cast<size_t>(kStageFloats);
 }
 
-__device__ inline void cp_async4(float* dst, const float* src) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(addr), "l"(src));
-}
-__device__ inline void cp_async16(float* dst, const float* src) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(src));
-}
-__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ inline void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+// v = hi + lo, both read as TF32 by the tensor cores (their 19 high bits):
+// hi is v itself (truncated to TF32 by the read), lo = v - trunc(v) is exact
+// in fp32 (and is truncated by the read in turn)
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(v);
+  lo = __float_as_uint(v - __uint_as_float(hi & 0xffffe000u));
 }
 
-// x = hi + lo, both TF32. hi is x rounded to nearest, ties away from zero
-// (half a TF32 ulp added, the 13 low bits cleared: cvt.rna.tf32.f32's
-// rounding in two integer operations); lo = x - hi is exact in fp32. The
-// tensor cores read a TF32 operand's 19 high bits and ignore the 13 low
-// ones, so lo gets the same rounding from the half ulp added alone.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+// d (64 rows x 128 columns of a warpgroup) [+]= a (this warp's 16 x 8
+// TF32 fragment, mma.sync's A layout) . b (8 x 128 TF32 in shared memory,
+// K-major, described by desc); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps a register live (and unchanged) up to this point: the A fragments
+// and C must outlive the wgmma that read and write them
+__device__ __forceinline__ void keep(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
+__device__ __forceinline__ void keep(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+// Descriptor of a K-major TF32 tile without swizzle: core matrices of 8
+// rows (columns n of W) x 16 bytes (4 maps k) stored as 128 contiguous
+// bytes, the next 4 k lbo bytes on, the next 8 rows sbo bytes on.
+__device__ __forceinline__ uint64_t smem_desc(const float* p, uint32_t lbo, uint32_t sbo) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
 }
 
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// A W stage (maps h0 .. h0+31 of field f, columns ct .. ct+127) as TF32
+// core matrices: element (n, k) at float ((n/8)*8 + k/4)*32 + (n%8)*4 + k%4.
+// Thread (warp w, lane) holds k = 4w + lane%4 and n = 8i + lane/4 for
+// i = 0..15, whose offset is i*256 + tid: a stage's stores are linear.
+constexpr int kPer = kKC * kTileN / kThreads;  // elements of a stage a thread holds
+struct StageSrc {
+  const float* p;  // W_l row (h0 + k)*F + f, column ct + lane/4
+  int ncol;        // columns S - ct - lane/4 this thread may read
+};
+__device__ __forceinline__ StageSrc stage_src(const float* wl, int f, int h0, int H, int F, int S,
+                                              int ct, int warp, int lane) {
+  const int h = h0 + 4 * warp + lane % 4;
+  const int n0 = ct + lane / 4;
+  StageSrc s;
+  s.p = wl + (static_cast<size_t>(min(h, H - 1)) * F + f) * S + min(n0, S - 1);
+  s.ncol = h < H ? S - n0 : 0;
+  return s;
 }
-
-// d += a.b in 3xTF32: the two small terms first, then the big one
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4], const uint32_t (&al)[4],
-                                     uint32_t bh0, uint32_t bh1, uint32_t bl0, uint32_t bl1) {
-  mma(d, al, bh0, bh1);
-  mma(d, ah, bl0, bl1);
-  mma(d, ah, bh0, bh1);
+__device__ __forceinline__ float fetch1(const StageSrc& s, int i) {
+  return 8 * i < s.ncol ? __ldg(s.p + 8 * i) : 0.f;
 }
-
-// One stage of W_l: maps h = h0 .. h0+31 of field f, columns ct .. ct+127,
-// into dst (kKC, kNP); maps past H and columns past S are zero.
-__device__ inline void load_stage(float* dst, const float* wl, int vec, int f, int h0, int H, int F,
-                                  int S, int ct, int tid) {
-  if (vec) {
-    for (int i = tid; i < kKC * (kTileN / 4); i += kThreads) {
-      const int r = i / (kTileN / 4);
-      const int c = (i % (kTileN / 4)) * 4;
-      float* d = dst + r * kNP + c;
-      const int h = h0 + r;
-      if (h < H && ct + c < S) {
-        cp_async16(d, wl + (static_cast<size_t>(h) * F + f) * S + ct + c);
-      } else {
-        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-    }
-  } else {
-    for (int i = tid; i < kKC * kTileN; i += kThreads) {
-      const int r = i / kTileN;
-      const int c = i % kTileN;
-      const int h = h0 + r;
-      if (h < H && ct + c < S) {
-        cp_async4(dst + r * kNP + c, wl + (static_cast<size_t>(h) * F + f) * S + ct + c);
-      } else {
-        dst[r * kNP + c] = 0.f;
-      }
-    }
-  }
-  cp_async_commit();
+__device__ __forceinline__ void store1(float v, float* hi, float* lo, int i, int tid) {
+  uint32_t h, l;
+  split(v, h, l);
+  hi[i * kThreads + tid] = __uint_as_float(h);
+  lo[i * kThreads + tid] = __uint_as_float(l);
 }
 
 __global__ void __launch_bounds__(kThreads, 1) cin_kernel(
@@ -197,15 +224,16 @@ __global__ void __launch_bounds__(kThreads, 1) cin_kernel(
   float* e_s = smem;                 // (fp, mp): e[m, f] at f*mp + m
   float* buf0 = e_s + L.fp * mp;     // (sp, mp)
   float* buf1 = buf0 + L.sp * mp;    // (sp, mp)
-  float* ring = buf1 + L.sp * mp;    // kStages x (kKC, kNP)
+  float* bhi = buf1 + L.sp * mp;       // 2 W stages, hi (kKC x kTileN core matrices)
+  float* blo = bhi + 2 * kStageFloats;  // 2 W stages, lo
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int gid = lane / 4;
   const int tig = lane % 4;
-  const int wm = warp % 2;  // rows wm*64 .. +63 of a tile
-  const int wn = warp / 2;  // columns wn*32 .. +31 of a tile
+  const int wg = warp / 4;  // warpgroup: rows wg*64 .. +63 of a tile
+  const int wq = warp % 4;  // warp of the warpgroup: its rows wq*16 .. +15
   const int b0 = blockIdx.x * L.bt;
   const int nb = min(L.bt, B - b0);
 
@@ -228,7 +256,6 @@ __global__ void __launch_bounds__(kThreads, 1) cin_kernel(
   for (int l = 0; l < lv.n; ++l) {
     const int S = lv.sizes[l];
     const float* wl = lv.w[l];
-    const int vec = lv.vec[l];
     const int nkc = (H + kKC - 1) / kKC;
     const int T = F * nkc;
     // maps S .. round_up(S, 8) - 1 are the next level's K padding: zero
@@ -237,114 +264,105 @@ __global__ void __launch_bounds__(kThreads, 1) cin_kernel(
     }
     for (int rt = 0; rt < L.mr; rt += kTileM) {
       for (int ct = 0; ct < S; ct += kTileN) {
-        const int n0 = ct + wn * 32;
-        const int ntl = max(0, min(4, (S - n0 + 7) / 8));  // live 8-column tiles of the warp
-        const int m0 = rt + wm * 64;
-        float acc[4][4][4];
-        float c[4][4][4];
+        const int m0 = rt + wg * 64 + wq * 16;  // this warp's 16 rows
+        float acc[64];
+        float c[64];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int r = 0; r < 64; ++r) acc[r] = 0.f;
+        float v[kPer];
+        __syncthreads();  // the W stages are free; e, x and y's zeros are in
+        {
+          const StageSrc s0 = stage_src(wl, 0, 0, H, F, S, ct, warp, lane);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
+          for (int i = 0; i < kPer; ++i) store1(fetch1(s0, i), bhi, blo, i, tid);
+          const StageSrc s1 = stage_src(wl, 1 / nkc, (1 % nkc) * kKC, H, F, S, ct, warp, lane);
 #pragma unroll
-            for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
-          }
+          for (int i = 0; i < kPer; ++i) v[i] = T > 1 ? fetch1(s1, i) : 0.f;
         }
-        __syncthreads();  // the ring is free; e, x and y's zeros are in
-#pragma unroll
-        for (int i = 0; i < kStages - 1; ++i) {
-          if (i < T) {
-            load_stage(ring + i * kStageFloats, wl, vec, i / nkc, (i % nkc) * kKC, H, F, S, ct, tid);
-          } else {
-            cp_async_commit();
-          }
-        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncthreads();
         for (int t = 0; t < T; ++t) {
-          cp_async_wait<kStages - 2>();
-          __syncthreads();  // stage t is in; every warp is done with stage t-1
-          const int tn = t + kStages - 1;
-          if (tn < T) {
-            load_stage(ring + (tn % kStages) * kStageFloats, wl, vec, tn / nkc, (tn % nkc) * kKC, H, F,
-                       S, ct, tid);
-          } else {
-            cp_async_commit();
-          }
-          if (ntl == 0) continue;
           const int f = t / nkc;
           const int kc = t % nkc;
           const int h0 = kc * kKC;
-          if (kc == 0) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-#pragma unroll
-              for (int j = 0; j < 4; ++j) {
-#pragma unroll
-                for (int r = 0; r < 4; ++r) c[i][j][r] = 0.f;
-              }
-            }
-          }
-          const float* ws = ring + (t % kStages) * kStageFloats;
           const int nks = (min(kKC, H - h0) + 7) / 8;
+          const float* bh = bhi + (t & 1) * kStageFloats;
+          const float* bl = blo + (t & 1) * kStageFloats;
+          uint32_t ah[kKC / 8][4], al[kKC / 8][4];
 #pragma unroll
           for (int ks = 0; ks < kKC / 8; ++ks) {
             if (ks < nks) {
               const float* xa = x + (h0 + ks * 8 + tig) * mp + m0 + gid;
-              uint32_t ah[4][4], al[4][4];
-#pragma unroll
-              for (int i = 0; i < 4; ++i) {
-                split(xa[i * 16], ah[i][0], al[i][0]);
-                split(xa[i * 16 + 8], ah[i][1], al[i][1]);
-                split(xa[4 * mp + i * 16], ah[i][2], al[i][2]);
-                split(xa[4 * mp + i * 16 + 8], ah[i][3], al[i][3]);
-              }
-              const float* wb = ws + (ks * 8 + tig) * kNP + wn * 32 + gid;
-#pragma unroll
-              for (int j = 0; j < 4; ++j) {
-                if (j < ntl) {
-                  uint32_t bh0, bl0, bh1, bl1;
-                  split(wb[j * 8], bh0, bl0);
-                  split(wb[4 * kNP + j * 8], bh1, bl1);
-#pragma unroll
-                  for (int i = 0; i < 4; ++i) mma3(c[i][j], ah[i], al[i], bh0, bh1, bl0, bl1);
-                }
-              }
+              split(xa[0], ah[ks][0], al[ks][0]);
+              split(xa[8], ah[ks][1], al[ks][1]);
+              split(xa[4 * mp], ah[ks][2], al[ks][2]);
+              split(xa[4 * mp + 8], ah[ks][3], al[ks][3]);
             }
           }
+          // stage t+1's W (fetched a stage ago) is stored, and stage t+2's
+          // fetched, a quarter after each k-step's products: a warp's wgmma
+          // take about as long to issue as to run
+          float* nh = bhi + ((t + 1) & 1) * kStageFloats;
+          float* nl = blo + ((t + 1) & 1) * kStageFloats;
+          const bool next1 = t + 1 < T;
+          const bool next2 = t + 2 < T;
+          const StageSrc s2 =
+              stage_src(wl, (t + 2) / nkc, ((t + 2) % nkc) * kKC, H, F, S, ct, warp, lane);
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < kKC / 8; ++ks) {
+            if (ks < nks) {
+              const uint64_t dh = smem_desc(bh + ks * 64, kLBO, kSBO);
+              const uint64_t dl = smem_desc(bl + ks * 64, kLBO, kSBO);
+              wgmma(c, al[ks], dh, kc != 0 || ks != 0);
+              wgmma(c, ah[ks], dl, 1);
+              wgmma(c, ah[ks], dh, 1);
+            }
+#pragma unroll
+            for (int i = ks * kPer / 4; i < (ks + 1) * kPer / 4; ++i) {
+              if (next1) store1(v[i], nh, nl, i, tid);
+              if (next2) v[i] = fetch1(s2, i);
+            }
+          }
+          wgmma_commit();
+          wgmma_wait0();
+#pragma unroll
+          for (int ks = 0; ks < kKC / 8; ++ks) {
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              keep(ah[ks][r]);
+              keep(al[ks][r]);
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < 64; ++r) keep(c[r]);
           if (kc == nkc - 1) {  // C_f is complete: acc += e[:, f] * C_f
+            const float e0 = e_s[f * mp + m0 + gid];
+            const float e1 = e_s[f * mp + m0 + gid + 8];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const float e0 = e_s[f * mp + m0 + i * 16 + gid];
-              const float e1 = e_s[f * mp + m0 + i * 16 + gid + 8];
-#pragma unroll
-              for (int j = 0; j < 4; ++j) {
-                if (j < ntl) {
-                  acc[i][j][0] = fmaf(e0, c[i][j][0], acc[i][j][0]);
-                  acc[i][j][1] = fmaf(e0, c[i][j][1], acc[i][j][1]);
-                  acc[i][j][2] = fmaf(e1, c[i][j][2], acc[i][j][2]);
-                  acc[i][j][3] = fmaf(e1, c[i][j][3], acc[i][j][3]);
-                }
-              }
+            for (int j = 0; j < 16; ++j) {
+              acc[4 * j + 0] = fmaf(e0, c[4 * j + 0], acc[4 * j + 0]);
+              acc[4 * j + 1] = fmaf(e0, c[4 * j + 1], acc[4 * j + 1]);
+              acc[4 * j + 2] = fmaf(e1, c[4 * j + 2], acc[4 * j + 2]);
+              acc[4 * j + 3] = fmaf(e1, c[4 * j + 3], acc[4 * j + 3]);
             }
           }
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          __syncthreads();  // stage t+1 is in; every warp is done with stage t
         }
-        // the tile's new maps (C layout: rows gid and gid + 8, columns
-        // 2*tig and 2*tig + 1 of each 16 x 8 tile)
+        // the tile's new maps (rows gid and gid + 8 of the warp's 16,
+        // columns 8j + 2*tig and 8j + 2*tig + 1)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (j < ntl) {
-            const int s = n0 + j * 8 + 2 * tig;
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const int m = m0 + i * 16 + gid;
-              if (s < S) {
-                y[s * mp + m] = acc[i][j][0];
-                y[s * mp + m + 8] = acc[i][j][2];
-              }
-              if (s + 1 < S) {
-                y[(s + 1) * mp + m] = acc[i][j][1];
-                y[(s + 1) * mp + m + 8] = acc[i][j][3];
-              }
-            }
+        for (int j = 0; j < 16; ++j) {
+          const int s = ct + 8 * j + 2 * tig;
+          const int m = m0 + gid;
+          if (s < S) {
+            y[s * mp + m] = acc[4 * j + 0];
+            y[s * mp + m + 8] = acc[4 * j + 2];
+          }
+          if (s + 1 < S) {
+            y[(s + 1) * mp + m] = acc[4 * j + 1];
+            y[(s + 1) * mp + m + 8] = acc[4 * j + 3];
           }
         }
       }
@@ -408,13 +426,11 @@ int cin_forward(const float* emb, const float* const* w, const int* sizes, int n
   for (int l = 0; l < kMaxLevels; ++l) {
     lv.sizes[l] = 0;
     lv.w[l] = nullptr;
-    lv.vec[l] = 0;
   }
   for (int l = 0; l < num_levels; ++l) {
     if (sizes[l] < 1 || w[l] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     lv.sizes[l] = sizes[l];
     lv.w[l] = w[l];
-    lv.vec[l] = sizes[l] % 4 == 0 && reinterpret_cast<uintptr_t>(w[l]) % 16 == 0;
     smax = sizes[l] > smax ? sizes[l] : smax;
     total_s += sizes[l];
   }

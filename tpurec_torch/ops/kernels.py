@@ -799,16 +799,22 @@ def cin_plain(emb: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tenso
     return torch.cat(outs, dim=-1)
 
 
+def trunc_tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 cut to TF32's 10-bit mantissa (the 13 low bits cleared): what
+    the tensor cores read of an fp32 operand."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
 def cin_products(
     emb: torch.Tensor, weights: Sequence[torch.Tensor], products: str = "fp32"
 ) -> torch.Tensor:
     """``cin_plain``'s function in the CUDA kernel's order: over the rows
     m = (b, d), each level contracts H first for each field f,
-    C_f = x_l · W_l[h·F + f, :], then adds e[:, f] · C_f for f = 0..F−1;
-    the products of C_f are taken as ``products`` says: ``"fp32"``,
-    ``"3xtf32"`` (operands split into TF32 hi and lo, ``hi·hi + hi·lo +
-    lo·hi`` summed in fp32, as the kernel's tensor cores) or ``"1xtf32"``
-    (one product of the TF32-rounded operands). It is the kernel's
+    C_f = x_l · W_l[h·F + f, :], then adds e[:, f] · C_f for f = 0..F−1.
+    The products of C_f are taken as ``products`` says: ``"fp32"``,
+    ``"3xtf32"`` (as the kernel's tensor cores: each operand v read as
+    hi = trunc(v) and lo = trunc(v − trunc(v)), ``hi·hi + hi·lo + lo·hi``
+    summed in fp32) or ``"1xtf32"`` (``hi·hi`` alone). It is the kernel's
     arithmetic on the CPU, for the tests and for ``chip_smoke.py``'s broken
     single-TF32 version; no path runs it."""
     if products not in ("fp32", "3xtf32", "1xtf32"):
@@ -817,10 +823,10 @@ def cin_products(
     def mm(a, b):
         if products == "fp32":
             return a @ b
-        ah, bh = round_tf32(a), round_tf32(b)
+        ah, bh = trunc_tf32(a), trunc_tf32(b)
         if products == "1xtf32":
             return ah @ bh
-        return ah @ bh + (ah @ round_tf32(b - bh) + round_tf32(a - ah) @ bh)
+        return ah @ bh + (ah @ trunc_tf32(b - bh) + trunc_tf32(a - ah) @ bh)
 
     b, f, d = emb.shape
     e = emb.transpose(1, 2).reshape(b * d, f)
@@ -869,8 +875,9 @@ def cin_fused(emb: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tenso
 
     CPU tensors take ``cin_plain``; CUDA tensors launch the kernel of
     ``csrc/cin.cu``, which never materialises the (B, H·F, D) products: it
-    contracts H first for each field on the tensor cores in 3xTF32 and sums
-    over the fields in fp32 (``cin_products`` is its arithmetic). It takes
+    contracts H first for each field on the tensor cores (``wgmma``) in
+    3xTF32 and sums over the fields in fp32 (``cin_products`` is its
+    arithmetic). It takes
     any F, D and level sizes (not only multiples of 128), fp32 on one
     device, at most ``CIN_MAX_LEVELS`` levels and shapes whose shared
     memory fits one block, and raises on anything else. The same bits on
