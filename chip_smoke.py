@@ -19,7 +19,8 @@ on the first phase that fails. Phases:
    CUDA events, L2 flushed before each launch), the plain version's time and
    the bound: the larger of the bytes the function must move over 3.35 TB/s
    and the fp32 operations the kernel does over 67 TFLOP/s (H100 SXM data
-   sheet);
+   sheet; #3's products on the tensor cores over 495 TFLOP/s TF32, three
+   TF32 multiply-adds per fp32 one, in phase 8a);
 4. DIN at full width (the ``bench.py`` configuration: 3 profile fields over
    21,500 ids, a 64-step history, D=32, attention H=36, MLP (200, 80), bf16
    dense compute, fp32 params and attention), random seeded weights:
@@ -109,14 +110,20 @@ on the first phase that fails. Phases:
    (128, 128): #3) and ``fibinet`` (D=32, 'all' mode, reduction 3: #6),
    each with an MLP (64, 32):
    - 8a: #2, #3 and #6 against their plain versions at those shapes, #3
-     also at ``benchmarks/kernel_bench.py``'s B=4096 and ``evaluate``'s
-     B=1024, and at ragged shapes
+     also at ``benchmarks/kernel_bench.py``'s B=4096, ``evaluate``'s
+     B=1024 and B=1 (the first row of the B=1024 batch, held to that
+     batch's column scale), and at ragged shapes
      (#2 at D=429 with L=2 and 6; #3 at F=7, D=8, sizes (5, 9, 3); #6 at
      F=5 and F=2, D=24); #2 and #6 at ``KERNEL_TOL``, #3 at
      ``CIN_COL_RTOL`` of each output column's largest |value|; a cross
-     that dots x0, a CIN that pairs maps with maps and a SENet-bilinear
-     with (j, i) pairs must read above the limit; device time, bound and
-     the plain version's time;
+     that dots x0, a CIN that pairs maps with maps or takes its products
+     in single TF32 (``broken_single_tf32``; the kernel takes them in
+     3xTF32) and a SENet-bilinear with (j, i) pairs must read above the
+     limit; two calls of #3 the same bits; device time, bound and the
+     plain version's time, #3 beside the launch floor and two bounds (its
+     products in 3xTF32 on the tensor cores, and all of it in fp32 FMA);
+     ``--cin`` runs #3's part alone with its block's shared memory and
+     the blocks an SM holds;
    - 8b: ``export_params`` → ``load_servable`` → ``Servable.predict``:
      finite probabilities, the model's kernel launched once a call and the
      other two not at all; the kernel's call inside the servable against
@@ -1553,25 +1560,18 @@ def check_readings(readings) -> None:
                 check(value > 1.0, f"{shape}: the check cannot tell a {name} version: {r}")
 
 
-def cin_work(b, f, d, sizes):
-    """(bytes, tensor-core operations, CUDA-core operations) of one call:
-    emb, the weights and the (B, ΣS) output once; per level 2·H·F·S
-    multiply-add operations a row (b, d) for C_f = x·W (the tensor cores'
-    part), and for acc += e·C_f and the sums over d 2·F·S + S (fp32)."""
+def cin_bounds(b, f, d, sizes) -> dict:
+    """#3's two bounds. Bytes: emb, the weights and the (B, ΣS) output
+    once. Operations, per level and row (b, d): 2·H·F·S for the products
+    C_f = x·W, 2·F·S + S for acc += e·C_f and the sums over d. The kernel's
+    bound takes the products in 3xTF32 (three TF32 multiply-adds per fp32
+    one at 495 TFLOP/s) and the rest at 67 TFLOP/s; beside it, the bound of
+    the same work all in fp32 FMA at 67 TFLOP/s."""
     hs = [f, *sizes[:-1]]
     m = b * d
     nbytes = 4 * (b * f * d + sum(h * f * s for h, s in zip(hs, sizes)) + b * sum(sizes))
     mma_ops = sum(2 * m * h * f * s for h, s in zip(hs, sizes))
     fma_ops = sum(m * (2 * f * s + s) for s in sizes)
-    return nbytes, mma_ops, fma_ops
-
-
-def cin_bounds(b, f, d, sizes) -> dict:
-    """#3's two bounds. The kernel's: its products in 3xTF32 (three TF32
-    multiply-adds per fp32 one at 495 TFLOP/s) plus its fp32 CUDA-core work
-    at 67 TFLOP/s, against the bytes at 3.35 TB/s; and, beside it, the
-    bound of the same work in fp32 FMA (every operation at 67 TFLOP/s)."""
-    nbytes, mma_ops, fma_ops = cin_work(b, f, d, sizes)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = (3 * mma_ops / TF32_FLOPS + fma_ops / FP32_FLOPS) * 1e3
     fp32_ms, fp32_by = bound(nbytes, mma_ops + fma_ops)
@@ -1593,8 +1593,8 @@ CIN_SHAPE = (26, 32, (128, 128))  # xDeepFM's F, D and CIN levels over the FM sc
 
 def check_cin(torch, kernels, detail=False):
     """Kernel #3 against its plain version at the slice's shape (B=8192),
-    ``benchmarks/kernel_bench.py``'s B=4096, ``evaluate``'s B=1024, the
-    HTTP path's B=1 and a ragged shape, each column's error in units of
+    ``benchmarks/kernel_bench.py``'s B=4096, ``evaluate``'s B=1024, a
+    single row (B=1) and a ragged shape, each column's error in units of
     ``CIN_COL_RTOL`` of its largest |value|; a CIN that pairs maps with maps
     and the kernel's arithmetic in single TF32 (``broken_single_tf32``; the
     kernel takes its products in 3xTF32) must read above it; two calls give
@@ -1638,7 +1638,7 @@ def check_cin(torch, kernels, detail=False):
         )
         if b == TRAIN_BATCH:
             record = rec
-        else:  # kernel_bench's B=4096, evaluate's B=1024, an HTTP request's B=1
+        else:  # kernel_bench's B=4096, evaluate's B=1024, a single row
             print(f"cin at B={b}:", json.dumps(rec), flush=True)
             other[f"b{b}"] = rec
     record["other_shapes"] = other
@@ -2481,8 +2481,8 @@ def main() -> int:
         check_capsule_kernels(torch, kernels, detail=True)
         return 0
     if sys.argv[1:] == ["--cin"]:
-        # kernel #3 alone: phase 8a's CIN checks, with the launch floor, the
-        # serving and evaluate shapes and the block's resources
+        # kernel #3 alone: phase 8a's CIN checks, with the launch floor and
+        # the block's resources
         paths = kernels.build(["cin"])
         print(open(f"{paths['cin']}.log").read(), flush=True)
         _, record = check_cin(torch, kernels, detail=True)

@@ -531,14 +531,15 @@ def _cin_reading(got, want):
                                          (8192, 26, 32, (128, 128)), (64, 1, 16, (3, 5)),
                                          (300, 5, 1, (12, 7)), (77, 6, 17, (10, 20, 30)),
                                          (45, 4, 33, (8,) * 8), (9, 26, 128, (128, 128)),
-                                         (7, 5, 129, (16, 13)), (50, 3, 8, (138, 130))])
+                                         (7, 5, 129, (16, 13)), (50, 3, 8, (138, 130)),
+                                         (50, 3, 8, (150, 130)), (20, 26, 32, (160, 150))])
 def test_cin_kernel_matches_plain(card, b, f, d, sizes):
     """Any F, D and level sizes (not only multiples of 128): the slice's
     shape at B = 1, 256 and 8192; F = 1; D = 1, 5, 8, 16, 17, 32, 33 and the
     128-row block tile's edges 128, 129 and 200; one, two, three and eight
-    levels; S not a multiple of 8 or of 4 (the 4-byte weight copies) and
-    above the 128-column tile; K = H·F not a multiple of 8; B = 0 (no
-    launch). Two calls give the same bits."""
+    levels; S not a multiple of 8 and above the 128-column tile; S past the
+    tensor-core kernel's shared memory (the fp32-FMA kernel runs); K = H·F
+    not a multiple of 8; B = 0 (no launch). Two calls give the same bits."""
     from tpurec_torch.ops import kernels
 
     emb, weights = _cin_args(card, b, f, d, sizes)

@@ -27,8 +27,9 @@
 //   C_f[m, s] = sum_h x_l[m, h] * W_l[h*F + f, s]      (tensor cores, K = H)
 //   acc[m, s] += e[m, f] * C_f[m, s]                    (fp32 FMA, f = 0..F-1)
 //
-// This replaces PR 4's design, which formed A[m, h*F + f] = x*e in
-// registers and summed its K = H*F products in fp32 FMA on the CUDA cores.
+// This replaces a design that formed A[m, h*F + f] = x*e in registers
+// and summed its K = H*F products in fp32 FMA on the CUDA cores, which
+// stays below for shapes this one cannot hold.
 // Every tensor-core sum here is short (a fresh C for each f, K = H rounded
 // up to 8), which matters because the tensor cores' fp32 accumulation does
 // not round to nearest; the sum over f is fp32 FMA in a fixed order. Level
@@ -44,8 +45,9 @@
 //   are wgmma m64n128k8 TF32: A, this warp's 16 x 8 slice of x_l, from
 //   registers; B, W_l's 8 x 128 slice for field f, from shared memory as
 //   K-major core matrices (8 columns x 4 maps, 128 contiguous bytes).
-//   (mma.sync m16n8k8 in the same layout ran at ~207 TFLOP/s TF32 on the
-//   card: three products alone took ~4 ms at the slice's shape.)
+//   (mma.sync m16n8k8 with the same tiles took 3.14 ms at B=4096 where
+//   this takes 1.89, chip_smoke.py --cin on an NVIDIA H100 80GB HBM3 at
+//   700 W.)
 // - Operands split as v = hi + lo with hi = v itself (the tensor cores read
 //   a TF32 operand's 19 high bits, so hi is v truncated to TF32) and lo =
 //   v - trunc(v), exact in fp32 and truncated in turn: two operations a
@@ -59,7 +61,7 @@
 //   and fetches the stage after, a quarter after each k-step's products: a
 //   warp cannot pass its queued wgmma until they have read their A
 //   registers, about as long as they take to run, so the staging fills that
-//   time instead of following it (clock64 in an instrumented copy).
+//   time instead of following it.
 // - The new maps are stored into shared memory as the next level's x; the
 //   level's slice of the output is their column sums over d, one thread an
 //   output, d in order. No float atomics: the same bits on every call.
@@ -74,8 +76,9 @@
 //
 // Any F, D and level sizes: rows past the batch and maps past H are zero
 // (so they add nothing), columns past S are computed on zero weights and
-// not stored, and the wrapper refuses shapes whose shared memory does not
-// fit a block.
+// not stored. Shapes whose shared memory this kernel cannot hold (level
+// sizes above 136 at F = 26, D <= 128) run the fp32-FMA kernel
+// (cin_fma_kernel, below), and the wrapper refuses shapes neither fits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -384,14 +387,165 @@ __global__ void __launch_bounds__(kThreads, 1) cin_kernel(
   }
 }
 
+// The fp32-FMA kernel (the earlier design), for shapes whose shared memory the
+// tensor-core kernel cannot hold: at D <= 128 the tensor-core kernel takes
+// level sizes up to 136 at F = 26 (144 at F = 3), this one up to 186 (220).
+// Each level is a product over the rows (b, d) whose A[m, h*F + f] =
+// x[m, h] * e[m, f] is formed in registers and never stored: a thread owns
+// 8 x 8 outputs of a 128 x 128 block tile, the weights stream from L2 one
+// map's (F, 128) slice at a time (cp.async, double-buffered), and the new
+// maps stay in shared memory (rows of an odd stride) as the next level's x.
+constexpr int kTM = 8;  // rows of a thread tile
+constexpr int kTN = 8;  // columns of a thread tile
+
+__device__ inline void cp_async4(float* dst, const float* src) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(addr), "l"(src));
+}
+__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ inline void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+
+// shared memory of cin_fma_kernel, in floats: e, two maps buffers (rows of
+// stride mr + 1) and two weight slices
+__host__ __device__ inline size_t fma_smem_floats(int F, int D, int smax) {
+  const size_t mp = round_up(rows_per_block(D) * D, kTileM) + 1;
+  return static_cast<size_t>(F) * mp + 2 * static_cast<size_t>(smax) * mp +
+         2 * static_cast<size_t>(F) * kTileN;
+}
+
+// One map's slice of W_l, rows h*F .. h*F+F-1, columns ct .. ct+127, into
+// dst (F, kTileN); columns past S are zero.
+__device__ inline void load_w_slice(float* dst, const float* wl, int h, int F, int S, int ct,
+                                    int tid) {
+  const float* src = wl + static_cast<size_t>(h) * F * S + ct;
+  for (int i = tid; i < F * kTileN; i += kThreads) {
+    const int f = i / kTileN;
+    const int c = i % kTileN;
+    if (ct + c < S) {
+      cp_async4(dst + i, src + static_cast<size_t>(f) * S + c);
+    } else {
+      dst[i] = 0.f;
+    }
+  }
+  cp_async_commit();
+}
+
+__global__ void __launch_bounds__(kThreads) cin_fma_kernel(
+    const float* __restrict__ emb,  // (B, F, D)
+    float* __restrict__ out,        // (B, sum S_l)
+    Levels lv, int B, int F, int D, int smax, int total_s) {
+  extern __shared__ __align__(16) float smem[];
+  const int bt = rows_per_block(D);
+  const int mb = bt * D;                // live rows of the block
+  const int mr = round_up(mb, kTileM);  // rows computed
+  const int mp = mr + 1;                // odd stride of a shared-memory row
+  float* e_s = smem;                    // (F, mp): e[m, f] at f*mp + m
+  float* buf0 = e_s + F * mp;           // (smax, mp)
+  float* buf1 = buf0 + smax * mp;       // (smax, mp)
+  float* w_s0 = buf1 + smax * mp;       // (F, kTileN)
+  float* w_s1 = w_s0 + F * kTileN;      // (F, kTileN)
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int b0 = blockIdx.x * bt;
+  const int nb = min(bt, B - b0);
+
+  // e: the block's rows are contiguous in emb; row m = bl*D + d of field f
+  const float* e_g = emb + static_cast<size_t>(b0) * F * D;
+  for (int i = tid; i < bt * F * D; i += kThreads) {
+    const int bl = i / (F * D);
+    const int r = i % (F * D);
+    const int f = r / D;
+    const int d = r % D;
+    e_s[f * mp + bl * D + d] = bl < nb ? __ldg(e_g + i) : 0.f;
+  }
+  for (int i = tid; i < F * (mr - mb); i += kThreads) {
+    e_s[(i / (mr - mb)) * mp + mb + i % (mr - mb)] = 0.f;
+  }
+
+  const float* x = e_s;
+  float* y = buf0;
+  int h_count = F;
+  int off = 0;
+  for (int l = 0; l < lv.n; ++l) {
+    const int S = lv.sizes[l];
+    const float* wl = lv.w[l];
+    for (int rt = 0; rt < mr; rt += kTileM) {
+      for (int ct = 0; ct < S; ct += kTileN) {
+        float acc[kTM][kTN];
+#pragma unroll
+        for (int i = 0; i < kTM; ++i) {
+#pragma unroll
+          for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+        }
+        __syncthreads();  // the previous tile is done with both weight buffers
+        load_w_slice(w_s0, wl, 0, F, S, ct, tid);
+        for (int h = 0; h < h_count; ++h) {
+          cp_async_wait_all();
+          __syncthreads();  // slice h is in; every thread is done with slice h-1
+          const float* w_cur = (h & 1) ? w_s1 : w_s0;
+          if (h + 1 < h_count) load_w_slice((h & 1) ? w_s0 : w_s1, wl, h + 1, F, S, ct, tid);
+          float xv[kTM];
+#pragma unroll
+          for (int i = 0; i < kTM; ++i) xv[i] = x[h * mp + rt + ty + 16 * i];
+          for (int f = 0; f < F; ++f) {
+            float a[kTM];
+            float wv[kTN];
+#pragma unroll
+            for (int i = 0; i < kTM; ++i) a[i] = xv[i] * e_s[f * mp + rt + ty + 16 * i];
+#pragma unroll
+            for (int j = 0; j < kTN; ++j) wv[j] = w_cur[f * kTileN + tx + 16 * j];
+#pragma unroll
+            for (int i = 0; i < kTM; ++i) {
+#pragma unroll
+              for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], wv[j], acc[i][j]);
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) {
+          const int s = ct + tx + 16 * j;
+          if (s < S) {
+#pragma unroll
+            for (int i = 0; i < kTM; ++i) y[s * mp + rt + ty + 16 * i] = acc[i][j];
+          }
+        }
+      }
+    }
+    __syncthreads();  // y is complete
+    // this level's slice of the output: sum over d of each (b, s)
+    for (int i = tid; i < nb * S; i += kThreads) {
+      const int bl = i / S;
+      const int s = i % S;
+      const float* row = y + s * mp + bl * D;
+      float sum = 0.f;
+      for (int d = 0; d < D; ++d) sum += row[d];
+      out[static_cast<size_t>(b0 + bl) * total_s + off + s] = sum;
+    }
+    off += S;
+    h_count = S;
+    x = y;
+    y = (y == buf0) ? buf1 : buf0;
+  }
+}
+
+// The tensor-core kernel runs where its shared memory fits a block, else
+// the fp32-FMA one.
+bool tensor_cores(int F, int D, int smax) {
+  return sizeof(float) * smem_floats(make_layout(F, D, smax)) <= static_cast<size_t>(kMaxSmemBytes);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory (bytes) one block needs; the wrapper checks it
-// against the card's per-block limit before launching.
+// Dynamic shared memory (bytes) one block of the kernel that runs this
+// shape needs; the wrapper checks it against the card's per-block limit
+// before launching.
 size_t cin_smem_bytes(int F, int D, int smax) {
-  return sizeof(float) * smem_floats(make_layout(F, D, smax));
+  return sizeof(float) * (tensor_cores(F, D, smax) ? smem_floats(make_layout(F, D, smax))
+                                                   : fma_smem_floats(F, D, smax));
 }
 
 // Run once for each device and shape by the wrapper: lets the kernel use
@@ -399,11 +553,13 @@ size_t cin_smem_bytes(int F, int D, int smax) {
 // shape an SM holds (occupancy query), or minus a cudaError_t.
 int cin_blocks_per_sm(int F, int D, int smax) {
   if (F < 1 || D < 1 || smax < 1) return -static_cast<int>(cudaErrorInvalidValue);
+  const void* kernel = tensor_cores(F, D, smax) ? reinterpret_cast<const void*>(cin_kernel)
+                                                 : reinterpret_cast<const void*>(cin_fma_kernel);
   cudaError_t err =
-      cudaFuncSetAttribute(cin_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
   int per_sm = 0;
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cin_kernel, kThreads,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
                                                         cin_smem_bytes(F, D, smax));
   }
   return err == cudaSuccess ? per_sm : -static_cast<int>(err);
@@ -438,8 +594,12 @@ int cin_forward(const float* emb, const float* const* w, const int* sizes, int n
   if (smem > static_cast<size_t>(kMaxSmemBytes)) return static_cast<int>(cudaErrorInvalidValue);
   const int bt = rows_per_block(D);
   const int blocks = (B + bt - 1) / bt;
-  cin_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(emb, out, lv, B, F, D, smax,
-                                                                            total_s);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tensor_cores(F, D, smax)) {
+    cin_kernel<<<blocks, kThreads, smem, st>>>(emb, out, lv, B, F, D, smax, total_s);
+  } else {
+    cin_fma_kernel<<<blocks, kThreads, smem, st>>>(emb, out, lv, B, F, D, smax, total_s);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -877,12 +877,13 @@ def cin_fused(emb: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tenso
     ``csrc/cin.cu``, which never materialises the (B, H·F, D) products: it
     contracts H first for each field on the tensor cores (``wgmma``) in
     3xTF32 and sums over the fields in fp32 (``cin_products`` is its
-    arithmetic). It takes
-    any F, D and level sizes (not only multiples of 128), fp32 on one
+    arithmetic); shapes whose shared memory it cannot hold (level sizes
+    above 136 at F=26, D ≤ 128) run the same source's fp32-FMA kernel. It
+    takes any F, D and level sizes (not only multiples of 128), fp32 on one
     device, at most ``CIN_MAX_LEVELS`` levels and shapes whose shared
-    memory fits one block, and raises on anything else. The same bits on
-    every call. It records no backward: on CUDA it raises under grad mode
-    when an input requires grad."""
+    memory fits one block of either kernel, and raises on anything else. The
+    same bits on every call. It records no backward: on CUDA it raises
+    under grad mode when an input requires grad."""
     weights = list(weights)
     if emb.device.type == "cpu":
         return cin_plain(emb, weights)
