@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --scatter   # kernel #9's D sweep alone (phase 7a's)
+    python3 chip_smoke.py --din       # kernel #4's checks alone (phase 3's)
+    python3 chip_smoke.py --din-ab DIR  # #4 of the checkout DIR against this one's
     python3 chip_smoke.py --din-bwd   # kernel #5's checks alone (phase 6's)
     python3 chip_smoke.py --capsule   # kernels #7/#8's checks alone (phase 9a's)
     python3 chip_smoke.py --cin       # kernel #3's checks alone (phase 8a's)
@@ -20,7 +22,19 @@ on the first phase that fails. Phases:
    the bound: the larger of the bytes the function must move over 3.35 TB/s
    and the fp32 operations the kernel does over 67 TFLOP/s (H100 SXM data
    sheet; #3's products on the tensor cores over 495 TFLOP/s TF32, three
-   TF32 multiply-adds per fp32 one, in phase 8a);
+   TF32 multiply-adds per fp32 one, in phase 8a). #4 (DIN attention) at
+   the serving shape B=8192, L=64, D=32, H=36 with and without PReLU
+   slopes, at ragged shapes (B=1003; L=1 and 33; D=8/16/64; H=7; H=128,
+   the tensor-core kernel's widest build, and 129 and 200, which take the
+   fp32 kernel) and with a mask with holes (``holey_mask``: random steps,
+   an all-zero row, a row live at its last step only), each output's
+   error in units of the limit; a forward that ignores the mask, drops the
+   slopes or takes lin in single TF32 (``broken_single_tf32``; the kernel
+   takes it in 3xTF32) must read above it; two calls the same bits; its
+   device time also at B=4096, 1024 and 1; ``--din`` runs this alone and
+   adds the launch floor and the launch's blocks, warps and shared memory;
+   ``--din-ab DIR`` times the kernel of the checkout DIR against this one's
+   (parent, change, change, parent);
 4. DIN at full width (the ``bench.py`` configuration: 3 profile fields over
    21,500 ids, a 64-step history, D=32, attention H=36, MLP (200, 80), bf16
    dense compute, fp32 params and attention), random seeded weights:
@@ -285,6 +299,126 @@ def din_inputs(torch, gen, b, l, d, h):
     ]
 
 
+def din_reading(got, want) -> dict:
+    """pooled's and the scores' errors in units of ``KERNEL_TOL`` (at most 1
+    passes)."""
+    return {name: tol_ratio(g, w, **KERNEL_TOL) for name, g, w in zip(("pooled", "scores"), got, want)}
+
+
+def din_bound(args):
+    """What this run's mask needs (ms, by): keys are read and scored at live
+    steps only (a masked step's score is 0 and adds nothing to pooled); q,
+    the mask, the weights read and pooled, scores written once; per live
+    step the folded product and the activation, per row the fold."""
+    b, l, d = args[1].shape
+    h = args[3].shape[1]
+    live = int(args[2].count_nonzero())
+    nbytes = 4 * (b * d + live * d + b * l + 4 * d * h + 3 * h + b * d + b * l)
+    ops = live * (2 * d * h + 6 * h + 1) + b * (6 * d * h + h) + 2 * live * d
+    return (*bound(nbytes, ops), live)
+
+
+def check_din_forward(torch, kernels, detail=False):
+    """Kernel #4 against its plain version (phase 3): the serving shape with
+    and without PReLU slopes, ragged shapes, a mask with holes, both sides of
+    the tensor-core kernel's H limit; a forward that ignores the mask, drops
+    the slopes or takes lin in single TF32 must read above the limit; two
+    calls the same bits; device time at B=8192, 4096, 1024 and 1, the bound
+    and the plain version's time. ``detail`` (``--din``) adds the launch
+    floor and the blocks, warps and shared memory of the launch."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    lib = kernels._library("din_attention")
+    b, l, d, h = 8192, 64, 32, 36
+    args = din_inputs(torch, gen, b, l, d, h)
+    relu = args[:6] + [None]
+    want = kernels.din_attention_plain(*args)
+    readings, err = {}, 0.0
+    for name, a in (("prelu", args), ("relu", relu)):
+        got, ref = kernels.din_attention_fused(*a), kernels.din_attention_plain(*a)
+        readings[name] = din_reading(got, ref)
+        err = max(err, max(float((g - w).abs().max()) for g, w in zip(got, ref)))
+    # what a forward that ignores the mask, drops the slopes or takes lin in
+    # single TF32 would read (the kernel takes it in 3xTF32)
+    no_mask = args[:2] + [torch.ones_like(args[2])] + args[3:]
+    readings["broken_mask_ignored"] = din_reading(kernels.din_attention_plain(*no_mask), want)
+    readings["broken_alpha_dropped"] = din_reading(kernels.din_attention_plain(*relu), want)
+    readings["broken_single_tf32"] = din_reading(kernels.din_attention_unfolded(*args, products="1xtf32"), want)
+    # ragged: B that is no multiple of the grid, L = 1 and 33, D = 8/16/64,
+    # H = 7, H = 128 (the widest tensor-core build) and 129, 200 (the fp32
+    # kernel)
+    for shape in ((1003, 64, 32, 36), (37, 1, 32, 36), (300, 33, 32, 36), (300, 64, 8, 36),
+                  (300, 64, 16, 36), (300, 48, 64, 36), (257, 33, 16, 7), (300, 64, 32, 128),
+                  (300, 64, 32, 129), (300, 64, 32, 200)):
+        a = din_inputs(torch, gen, *shape)
+        readings["x".join(map(str, shape))] = din_reading(
+            kernels.din_attention_fused(*a), kernels.din_attention_plain(*a)
+        )
+    # a mask with holes (not a prefix), a row whose only live step is the
+    # last, and an all-zero row
+    a = din_inputs(torch, gen, 1003, 64, 32, 36)
+    a[2] = holey_mask(torch, gen, a[2])
+    readings["mask_with_holes"] = din_reading(kernels.din_attention_fused(*a), kernels.din_attention_plain(*a))
+    print("din forward readings (error / limit):", json.dumps(readings), flush=True)
+    for name, r in readings.items():
+        worst = max(r.values())
+        if name.startswith("broken"):
+            check(worst > 1.0, f"the forward check cannot tell a {name} forward from a sound one")
+        else:
+            check(worst <= 1.0, f"din forward kernel vs plain at {name}: {r}")
+    check(lib.din_attention_route(32, 128) == 1 and lib.din_attention_route(32, 129) == 0,
+          "din forward: H = 128 must take the tensor-core kernel, H = 129 the fp32 one")
+
+    bound_ms, bound_by, live = din_bound(args)
+    first = kernels.din_attention_fused(*args)
+    same = all(torch.equal(x, y) for x, y in zip(first, kernels.din_attention_fused(*args)))
+    rec = dict(
+        name="din_attention", route="cuda", source="tpurec_torch/csrc/din_attention.cu",
+        replaces="tpurec/ops/pallas/kernels.py:350", shape=[b, l, d, h], live_steps=live, max_abs_err=err,
+        ms=device_ms(torch, lambda: kernels.din_attention_fused(*args)),
+        plain_ms=device_ms(torch, lambda: kernels.din_attention_plain(*args)),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None, same_bits=same,
+    )
+    for rows in (4096, 1024, 1):
+        small = [x[:rows] if x.dim() and x.shape[0] == b else x for x in args]
+        rec[f"b{rows}_ms"] = device_ms(torch, lambda: kernels.din_attention_fused(*small))
+        rec[f"b{rows}_bound_ms"] = din_bound(small)[0]
+    if detail:
+        rec.update(
+            launch_floor_ms=launch_floor_ms(torch), blocks=lib.din_attention_blocks(b, d, h),
+            warps=lib.din_attention_warps(d, h), smem_bytes=lib.din_attention_smem_bytes(l, d, h),
+        )
+    print("kernel check:", json.dumps(rec), flush=True)
+    check(same, "din forward kernel: two calls gave different bits")
+    return rec
+
+
+def din_ab(torch, kernels, parent_dir):
+    """Kernel #4 of the checkout at ``parent_dir`` against this one's, on the
+    same inputs in one process: parent, change, change, parent, each at
+    B=8192, 4096, 1024 and 1 (the serving shape's rows), held to the plain
+    version and timed."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "parent_kernels", os.path.join(parent_dir, "tpurec_torch", "ops", "kernels.py")
+    )
+    parent = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(parent)
+    parent.build(["din_attention"])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    args = din_inputs(torch, gen, 8192, 64, 32, 36)
+    runs = []
+    for label, mod in (("parent", parent), ("change", kernels), ("change", kernels), ("parent", parent)):
+        times = {}
+        for rows in (8192, 4096, 1024, 1):
+            a = [x[:rows] if x.dim() and x.shape[0] == 8192 else x for x in args]
+            max_err(torch, mod.din_attention_fused(*a), kernels.din_attention_plain(*a))
+            times[f"b{rows}_ms"] = device_ms(torch, lambda: mod.din_attention_fused(*a))
+        runs.append(dict(tree=label, **times))
+        print("din a/b:", json.dumps(runs[-1]), flush=True)
+    return runs
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 def check_kernels(torch, kernels):
@@ -293,24 +427,7 @@ def check_kernels(torch, kernels):
     def randn(*shape, scale=1.0):
         return scale * torch.randn(*shape, device="cuda", generator=gen)
 
-    records = {}
-    # DIN attention at the serving shape
-    b, l, d, h = 8192, 64, 32, 36
-    args = din_inputs(torch, gen, b, l, d, h)
-    err = max_err(torch, kernels.din_attention_fused(*args), kernels.din_attention_plain(*args))
-    # what this run's mask needs: keys are read and scored at live steps
-    # only (a masked step's score is 0 and adds nothing to pooled)
-    live = int(args[2].sum())
-    nbytes = 4 * (b * d + live * d + b * l + 4 * d * h + 3 * h + b * d + b * l)
-    ops = live * (2 * d * h + 6 * h + 1) + b * (6 * d * h + h) + 2 * live * d
-    bound_ms, bound_by = bound(nbytes, ops)
-    records["din_attention"] = dict(
-        name="din_attention", route="cuda", source="tpurec_torch/csrc/din_attention.cu",
-        replaces="tpurec/ops/pallas/kernels.py:350", shape=[b, l, d, h], live_steps=live, max_abs_err=err,
-        ms=device_ms(torch, lambda: kernels.din_attention_fused(*args)),
-        plain_ms=device_ms(torch, lambda: kernels.din_attention_plain(*args)),
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-    )
+    records = {"din_attention": check_din_forward(torch, kernels)}
     # FM cross term: the benchmark shape, then the rank path's bucket shapes
     f, d = 26, 32
     for b in (8192, 256, 32):
@@ -330,8 +447,7 @@ def check_kernels(torch, kernels):
             records["fm_second_order"] = rec
         else:
             print("fm_second_order at the rank shape:", json.dumps(rec), flush=True)
-    for rec in records.values():
-        print("kernel check:", json.dumps(rec), flush=True)
+    print("kernel check:", json.dumps(records["fm_second_order"]), flush=True)
     return records
 
 
@@ -1546,8 +1662,7 @@ def check_dcn_kernels(torch, kernels):
     print(f"dcn kernel readings (error / limit; #2 and #6 at {KERNEL_TOL}, #3 at {CIN_COL_RTOL} "
           "of each column's largest |value|):", json.dumps(readings), flush=True)
     check_readings(readings)
-    for rec in records.values():
-        print("kernel check:", json.dumps(rec), flush=True)
+    print("kernel check:", json.dumps(records["fm_second_order"]), flush=True)
     return records
 
 
@@ -2073,8 +2188,7 @@ def check_capsule_kernels(torch, kernels, detail=False):
                 check(worst > 1.0, f"{shape}: the check cannot tell a {name} version: {r}")
     for name in ("capsule_routing", "capsule_routing_bwd"):
         records[name]["other_shapes"] = {shape: r for (n, shape), r in other.items() if n == name}
-    for rec in records.values():
-        print("kernel check:", json.dumps(rec), flush=True)
+    print("kernel check:", json.dumps(records["fm_second_order"]), flush=True)
     return records
 
 
@@ -2487,6 +2601,19 @@ def main() -> int:
         print(open(f"{paths['cin']}.log").read(), flush=True)
         _, record = check_cin(torch, kernels, detail=True)
         print("kernel check:", json.dumps(record), flush=True)
+        return 0
+    if sys.argv[1:] == ["--din"]:
+        # kernel #4 alone: phase 3's DIN checks, with the launch floor and the
+        # launch's blocks and shared memory
+        paths = kernels.build(["din_attention"])
+        print(open(f"{paths['din_attention']}.log").read(), flush=True)
+        check_din_forward(torch, kernels, detail=True)
+        return 0
+    if sys.argv[1:2] == ["--din-ab"] and len(sys.argv) == 3:
+        # kernel #4 of another checkout (a git archive of the parent commit)
+        # against this one's, alternating
+        kernels.build(["din_attention"])
+        din_ab(torch, kernels, sys.argv[2])
         return 0
     if sys.argv[1:] == ["--din-bwd"]:
         # kernel #5 alone: phase 6's kernel checks, with the split and B=1024

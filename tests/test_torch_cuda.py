@@ -60,21 +60,33 @@ def _din_args(card, b, l, d, h, with_alpha, seed=0, holes=False):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "b,l,d,h,with_alpha",
-    [(256, 64, 32, 36, True), (256, 64, 32, 36, False), (37, 200, 16, 7, True),
-     (9, 5, 8, 80, True), (64, 33, 64, 36, True)],
+    "b,l,d,h,with_alpha,holes",
+    [(256, 64, 32, 36, True, False), (256, 64, 32, 36, False, False), (37, 200, 16, 7, True, False),
+     (9, 5, 8, 80, True, False), (64, 33, 64, 36, True, False),
+     # the tensor-core kernel's edges: masks with holes, an all-zero row, a
+     # row live only at its last step; L = 1 and around the 16-step tile;
+     # every D; H = 128, its widest build, and H = 129 and 200, which run the
+     # fp32 kernel; L = 8192, more than the fp32 kernel's shared memory holds
+     (300, 64, 32, 36, True, True), (130, 1, 32, 36, True, False), (130, 1, 8, 7, False, True),
+     (130, 15, 8, 7, True, True), (130, 16, 16, 36, False, True), (130, 17, 32, 1, True, True),
+     (77, 200, 64, 80, True, True), (40, 33, 64, 128, True, True), (40, 33, 32, 129, True, True),
+     (40, 64, 16, 200, False, True), (2, 8192, 8, 5, True, False)],
 )
-def test_din_attention_kernel_matches_plain(card, b, l, d, h, with_alpha):
+def test_din_attention_kernel_matches_plain(card, b, l, d, h, with_alpha, holes):
     from tpurec_torch.ops import kernels
 
-    args = _din_args(card, b, l, d, h, with_alpha)
+    args = _din_args(card, b, l, d, h, with_alpha, holes=holes)
+    assert kernels._library("din_attention").din_attention_route(d, h) == (h <= kernels.DIN_TC_MAX_H)
     before = kernels.din_attention_fused.launches
     pooled, scores = kernels.din_attention_fused(*args)
+    again = kernels.din_attention_fused(*args)
     torch.cuda.synchronize()
-    assert kernels.din_attention_fused.launches == before + 1
+    assert kernels.din_attention_fused.launches == before + 2
     ref_p, ref_s = kernels.din_attention_plain(*args)
     torch.testing.assert_close(pooled, ref_p, **TOL)
     torch.testing.assert_close(scores, ref_s, **TOL)
+    # each row is summed by one warp in a fixed order: the same bits each call
+    assert torch.equal(pooled, again[0]) and torch.equal(scores, again[1])
 
 
 @pytest.mark.cuda
@@ -83,6 +95,11 @@ def test_din_attention_kernel_rejects_what_it_does_not_take(card):
 
     args = _din_args(card, 4, 8, 12, 5, True)  # D=12 is not built
     with pytest.raises(ValueError):
+        kernels.din_attention_fused(*args)
+    # H past the tensor-core kernel runs the fp32 kernel, whose block holds a
+    # row's keys: refused where they do not fit
+    args = _din_args(card, 2, 8192, 64, 200, True)
+    with pytest.raises(ValueError, match="shared"):
         kernels.din_attention_fused(*args)
     args = _din_args(card, 4, 8, 8, 5, True)
     with pytest.raises(TypeError):

@@ -230,6 +230,29 @@ def _bwd_readings(got, want):
 
 
 @pytest.mark.parametrize("products", ["fp32", "3xtf32", "1xtf32"])
+def test_din_attention_unfolded_products_emulation(products):
+    """The forward CUDA kernel's arithmetic: lin as one product over the
+    shared weight ``[w_k; w_p]`` in fp32, in 3xTF32 (what the kernel's tensor
+    cores compute) and in single TF32, against ``din_attention_plain`` and
+    tpurec's Pallas kernel in interpret mode, with a mask with holes, an
+    all-zero row and a row whose only live step is the last, at the size of
+    ``test_din_attention_plain_matches_reference_and_interpret`` (at 1e-5,
+    wider rows' pooled sums already differ by their order in fp32). fp32 and
+    3xTF32 hold ``TOL``; single TF32 must miss it (by ~100x here), so the
+    card's check of that version can fail."""
+    args = _holey_inputs(14, 16, 16, 8, 36)[:7]
+    got = [g.numpy() for g in tk.din_attention_unfolded(*_torch(args), products=products)]
+    plain = [w.numpy() for w in tk.din_attention_plain(*_torch(args))]
+    pallas = [np.asarray(w) for w in jk.din_attention_fused(*_jax(args), interpret=True)]
+    for want in (plain, pallas):
+        close = [np.allclose(g, w, **TOL) for g, w in zip(got, want)]
+        assert close == ([False, False] if products == "1xtf32" else [True, True]), close
+    # masked steps score exactly 0; the all-zero row pools to 0
+    assert np.all(got[1][args[2] == 0] == 0.0)
+    assert np.all(got[0][0] == 0.0)
+
+
+@pytest.mark.parametrize("products", ["fp32", "3xtf32", "1xtf32"])
 def test_din_bwd_unfolded_products_emulation(products):
     """The CUDA kernel's arithmetic: the backward unfolded over the shared
     weight ``[w_k; w_p]``, its three products in fp32, in 3xTF32 (what the

@@ -158,6 +158,12 @@ def _library(name: str) -> ctypes.CDLL:
             if name == "din_attention":
                 lib.din_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
                 lib.din_attention_smem_bytes.restype = ctypes.c_size_t
+                lib.din_attention_route.argtypes = [ctypes.c_int] * 2
+                lib.din_attention_route.restype = ctypes.c_int
+                lib.din_attention_warps.argtypes = [ctypes.c_int] * 2
+                lib.din_attention_warps.restype = ctypes.c_int
+                lib.din_attention_blocks.argtypes = [ctypes.c_int] * 3
+                lib.din_attention_blocks.restype = ctypes.c_int
                 lib.din_attention_forward.argtypes = (
                     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
                 )
@@ -275,8 +281,10 @@ def din_attention_plain(
     return pooled, scores
 
 
-DIN_ATTENTION_DIMS = (8, 16, 32, 64)  # key widths the CUDA kernel is built for
-DIN_BWD_MAX_H = 128  # the backward kernel is built for H in 8-column tiles up to 16
+DIN_ATTENTION_DIMS = (8, 16, 32, 64)  # key widths the CUDA kernels are built for
+# the forward's tensor-core kernel and the backward are built for H in
+# 8-column tiles up to 16; the forward takes wider H on its fp32 kernel
+DIN_TC_MAX_H = DIN_BWD_MAX_H = 128
 
 
 def din_attention_fused(
@@ -290,14 +298,17 @@ def din_attention_fused(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """DIN target attention: ``(pooled (B, D), scores (B, L))``, fp32.
 
-    CPU tensors take ``din_attention_plain``. CUDA tensors launch the kernel
-    of ``csrc/din_attention.cu``, which never materialises the (B, L, 4D)
-    features; it takes fp32 inputs on one device, D in
-    ``DIN_ATTENTION_DIMS``, keys that start on a 16-byte boundary and shapes
-    whose shared memory fits one block, and raises on anything else.
-    ``alpha=None`` means relu (zero slopes). It records no backward: on CUDA
-    it raises under grad mode when an input requires grad (``DinAttention``
-    is the differentiable form)."""
+    CPU tensors take ``din_attention_plain``. CUDA tensors launch a kernel of
+    ``csrc/din_attention.cu``, which never materialises the (B, L, 4D)
+    features: for H up to ``DIN_TC_MAX_H`` the tensor-core kernel (each
+    row's live 16-step tiles, ``lin = K·W_eff`` in 3xTF32 ``mma.sync``, any
+    L; ``din_attention_unfolded`` is its arithmetic on the CPU), for wider H
+    the fp32 kernel, which holds a row's keys in shared memory. It takes fp32
+    inputs on one device, D in ``DIN_ATTENTION_DIMS``, keys that start on a
+    16-byte boundary and shapes whose shared memory fits one block, and
+    raises on anything else. ``alpha=None`` means relu (zero slopes). It
+    records no backward: on CUDA it raises under grad mode when an input
+    requires grad (``DinAttention`` is the differentiable form)."""
     if keys.device.type == "cpu":
         return din_attention_plain(query, keys, mask, w1, b1, w2, alpha)
     _refuse_grad("din_attention", query, keys, w1, b1, w2, alpha)
@@ -408,6 +419,47 @@ def round_tf32(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
+def _products(a: torch.Tensor, b: torch.Tensor, products: str) -> torch.Tensor:
+    """``a @ b`` taken as ``products`` says: ``"fp32"``, ``"3xtf32"`` (each
+    operand split into TF32 hi and lo parts, ``hi·hi + hi·lo + lo·hi`` summed
+    in fp32, as the CUDA kernels' tensor-core products) or ``"1xtf32"`` (one
+    product of the TF32-rounded operands)."""
+    if products == "fp32":
+        return a @ b
+    ah, bh = round_tf32(a), round_tf32(b)
+    if products == "1xtf32":
+        return ah @ bh
+    if products == "3xtf32":
+        return ah @ bh + (ah @ round_tf32(b - bh) + round_tf32(a - ah) @ bh)
+    raise ValueError(f"products must be fp32, 3xtf32 or 1xtf32, not {products!r}")
+
+
+def din_attention_unfolded(
+    query, keys, mask, w1, b1, w2, alpha=None, products: str = "fp32"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``din_attention_plain``'s function with lin as one product over the
+    shared weight ``W = [w_k; w_p]`` (2D, H), taken as ``products`` says
+    (``_products``); the CUDA kernel takes it a row at a time through
+    ``W_eff = w_k + diag(q) w_p`` (``X·W = K·W_eff``)::
+
+        X_l = [k_l, q∘k_l],  lin = X·W + (q·w_q + b1)
+        s = where(mask != 0, PReLU(lin)·w2, 0),  pooled = Σ_l s_l k_l (fp32)
+
+    It is the kernel's arithmetic on the CPU, for the tests and for
+    ``chip_smoke.py``'s broken single-TF32 version; no path runs it."""
+    b, l, d = keys.shape
+    h = w1.shape[1]
+    w_q = w1[0:d] + w1[d : 2 * d]
+    w = torch.cat([w1[2 * d : 3 * d] - w1[d : 2 * d], w1[3 * d : 4 * d]])  # (2D, H)
+    x = torch.cat([keys, query[:, None, :] * keys], dim=-1).reshape(b * l, 2 * d)
+    lin = _products(x, w, products).reshape(b, l, h) + (query @ w_q + b1)[:, None, :]
+    hidden = lin.clamp_min(0.0)
+    if alpha is not None:
+        hidden = hidden + alpha * lin.clamp_max(0.0)
+    scores = torch.where(mask != 0, hidden @ w2, 0.0)
+    return torch.einsum("bl,bld->bd", scores, keys), scores
+
+
 def din_attention_bwd_unfolded(
     query, keys, mask, w1, b1, w2, alpha, gp, gs, products: str = "fp32"
 ) -> Tuple[torch.Tensor, ...]:
@@ -425,16 +477,9 @@ def din_attention_bwd_unfolded(
 
     It is the kernel's arithmetic on the CPU, for the tests and for
     ``chip_smoke.py``'s broken single-TF32 version; no path runs it."""
-    if products not in ("fp32", "3xtf32", "1xtf32"):
-        raise ValueError(f"products must be fp32, 3xtf32 or 1xtf32, not {products!r}")
 
     def mm(a, b):
-        if products == "fp32":
-            return a @ b
-        ah, bh = round_tf32(a), round_tf32(b)
-        if products == "1xtf32":
-            return ah @ bh
-        return ah @ bh + (ah @ round_tf32(b - bh) + round_tf32(a - ah) @ bh)
+        return _products(a, b, products)
 
     b, l, d = keys.shape
     h = w1.shape[1]
