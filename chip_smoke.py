@@ -46,7 +46,9 @@ on the first phase that fails. Phases:
    through the plain attention (``DIN_LOGIT_TOL``) and with the port on the
    CPU over the first 256 rows (``DIN_LOGIT_TOL_CPU``), while an attention
    that returns pooled = 0 or ignores the mask must miss ``DIN_LOGIT_TOL``:
-   the check has to be able to fail;
+   the check has to be able to fail; predict p50 of 10 after 2 warm-ups and
+   a profiler summary of 5 calls (here and in phases 6 and 7 the DIN
+   kernels' device time is listed beside the top operators);
 5. the HTTP server over the FM benchmark schema (26 fields × 80,000 ids =
    2.08M rows, padded to 2,080,128, D=32): a ``dssm_double`` retrieval model
    (user f0-f12, item f13-f25) and a ``deepfm`` ranker, random seeded
@@ -572,10 +574,11 @@ def run_din_servable(torch, kernels, workdir, card):
         t0 = time.perf_counter()
         servable.predict(batch)["output"].cpu()
         times.append((time.perf_counter() - t0) * 1e3)
+    busy_ms, top_ops = profile_steps(torch, lambda: servable.predict(batch))
     result = dict(
         card=card, batch=batch_size, din_launches=launches, predict_p50_ms=statistics.median(times[2:]),
         examples_per_s=batch_size / (statistics.median(times[2:]) / 1e3),
-        mean_prob=float(out.mean()),
+        mean_prob=float(out.mean()), device_busy_ms=busy_ms, top_ops_ms=top_ops,
     )
     print("din servable:", json.dumps(result), flush=True)
     return launches, result
@@ -868,7 +871,8 @@ def count_syncs(torch, fn) -> list:
 def profile_steps(torch, step, steps=5):
     """``torch.profiler`` over ``steps`` calls of ``step()``: the device's
     busy time per step (the sum of its kernels, copies and fills) and the
-    eight operators whose kernels take most of it, in ms per step."""
+    eight operators whose kernels take most of it, in ms per step, with the
+    DIN attention kernels (#4, #5) beside them as ``kernel <name>``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -883,7 +887,11 @@ def profile_steps(torch, step, steps=5):
         (e for e in averages if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
         key=lambda e: -e.self_device_time_total,
     )
-    return busy / steps / 1e3, {e.key: e.self_device_time_total / steps / 1e3 for e in ops[:8]}
+    din = {
+        f"kernel {e.key[:60]}": e.self_device_time_total / steps / 1e3
+        for e in averages if e.device_type == DeviceType.CUDA and "din_attention" in e.key
+    }
+    return busy / steps / 1e3, {**{e.key: e.self_device_time_total / steps / 1e3 for e in ops[:8]}, **din}
 
 
 def run_din_training(torch, kernels, workdir, card):

@@ -141,17 +141,18 @@ __host__ __device__ constexpr int col(int j, int tig) {
   return 4 * W * (j / W) + W * tig + j % W;
 }
 
-// this lane's D/4 columns of a D-wide row (16- or 8-byte loads)
+// this lane's D/4 columns of a D-wide row, from p = the row + its first
+// column (16- or 8-byte loads)
 template <int D>
-__device__ __forceinline__ void load_cols(const float* __restrict__ row, int tig, float (&v)[D / 4]) {
+__device__ __forceinline__ void load_cols(const float* __restrict__ p, float (&v)[D / 4]) {
   if constexpr (D == 8) {
-    const float2 x = __ldg(reinterpret_cast<const float2*>(row) + tig);
+    const float2 x = __ldg(reinterpret_cast<const float2*>(p));
     v[0] = x.x;
     v[1] = x.y;
   } else {
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) {
-      const float4 x = __ldg(reinterpret_cast<const float4*>(row + 16 * c) + tig);
+      const float4 x = __ldg(reinterpret_cast<const float4*>(p + 16 * c));
       v[4 * c] = x.x;
       v[4 * c + 1] = x.y;
       v[4 * c + 2] = x.z;
@@ -200,8 +201,25 @@ __global__ void __launch_bounds__(32 * kMaxWarps, (D <= 32 && NT <= 6) ? 2 : 1) 
   float* weff = smem + const_floats(D, Hp) + warp * warp_floats(D, Hp);
   float* c_s = weff + 2 * D * Hp;
 
-  // the block's rows
+  // the block's rows: warp w takes the range's w-th, then the next from the
+  // counter
+  const int r_begin = static_cast<int>(static_cast<long long>(B) * blockIdx.x / gridDim.x);
   const int r_end = static_cast<int>(static_cast<long long>(B) * (blockIdx.x + 1) / gridDim.x);
+
+  // what is loaded ahead: the next row's mask head and q, and the next
+  // tile's keys (rows gid, gid + 8) and mask
+  float mh[kMaskAhead], qv[J], kn[2][J], mn[2];
+  auto start_row = [&](int r) {
+    if (r >= r_end) return;
+#pragma unroll
+    for (int c = 0; c < kMaskAhead; ++c) {
+      const int l = 32 * c + lane;
+      mh[c] = l < L ? __ldg(mask + static_cast<size_t>(r) * L + l) : 0.f;
+    }
+    load_cols<D>(query + static_cast<size_t>(r) * D + (D == 8 ? 2 : 4) * tig, qv);
+  };
+  int row = r_begin + warp;
+  start_row(row);  // in flight while the constants are staged
 
   // the block's constants; padded columns are zero
   for (int i = threadIdx.x; i < KT * NT * 32; i += blockDim.x) {
@@ -226,25 +244,13 @@ __global__ void __launch_bounds__(32 * kMaxWarps, (D <= 32 && NT <= 6) ? 2 : 1) 
     w2_s[h] = h < H ? __ldg(w2 + h) : 0.f;
     al_s[h] = h < H ? __ldg(alpha + h) : 0.f;
   }
-  if (threadIdx.x == 0) next_row = static_cast<int>(static_cast<long long>(B) * blockIdx.x / gridDim.x);
+  if (threadIdx.x == 0) next_row = r_begin + blockDim.x / 32;
   __syncthreads();
 
-  // what is loaded ahead: the next row's mask head and q, and the next
-  // tile's keys (rows gid, gid + 8) and mask
-  float mh[kMaskAhead], qv[J], kn[2][J], mn[2];
   auto grab = [&]() {
     int r = 0;
     if (lane == 0) r = atomicAdd(&next_row, 1);
     return __shfl_sync(0xffffffffu, r, 0);
-  };
-  auto start_row = [&](int r) {
-    if (r >= r_end) return;
-#pragma unroll
-    for (int c = 0; c < kMaskAhead; ++c) {
-      const int l = 32 * c + lane;
-      mh[c] = l < L ? __ldg(mask + static_cast<size_t>(r) * L + l) : 0.f;
-    }
-    load_cols<D>(query + static_cast<size_t>(r) * D, tig, qv);
   };
   // the row's live 16-step tiles, up to its last step with a nonzero mask
   auto live_tiles = [&](int r) {
@@ -263,13 +269,16 @@ __global__ void __launch_bounds__(32 * kMaxWarps, (D <= 32 && NT <= 6) ? 2 : 1) 
     }
     return (last + 16) / 16;
   };
-  auto fetch = [&](int r, int l0) {
+  // a tile's keys (rows gid, gid + 8) and mask, from the row's keys kr
+  // (at lane's step gid and first column) and mask mr (at step gid)
+  const float *kr = keys, *mr = mask;
+  auto fetch = [&](int l0) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const int l = l0 + gid + 8 * e;
-      if (l < L) {
-        load_cols<D>(keys + (static_cast<size_t>(r) * L + l) * D, tig, kn[e]);
-        mn[e] = __ldg(mask + static_cast<size_t>(r) * L + l);
+      const int l = l0 + 8 * e;
+      if (l + gid < L) {
+        load_cols<D>(kr + static_cast<size_t>(l) * D, kn[e]);
+        mn[e] = __ldg(mr + l);
       } else {
 #pragma unroll
         for (int j = 0; j < J; ++j) kn[e][j] = 0.f;
@@ -277,11 +286,14 @@ __global__ void __launch_bounds__(32 * kMaxWarps, (D <= 32 && NT <= 6) ? 2 : 1) 
       }
     }
   };
+  auto fetch_row = [&](int r) {
+    kr = keys + (static_cast<size_t>(r) * L + gid) * D + (D == 8 ? 2 : 4) * tig;
+    mr = mask + static_cast<size_t>(r) * L + gid;
+    fetch(0);
+  };
 
-  int row = grab();
-  start_row(row);
   int tiles = live_tiles(row);
-  if (tiles > 0) fetch(row, 0);
+  if (tiles > 0) fetch_row(row);
   while (row < r_end) {
     const size_t row_l = static_cast<size_t>(row) * L;
     // the fold: W_eff in TF32 parts (this lane's B fragments) and c = q.w_q
@@ -330,7 +342,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, (D <= 32 && NT <= 6) ? 2 : 1) 
       // in flight while this tile computes
       const bool last = t + 1 == tiles;
       if (!last) {
-        fetch(row, l0 + 16);
+        fetch(l0 + 16);
       } else {
         nrow = grab();
         start_row(nrow);
@@ -384,14 +396,14 @@ __global__ void __launch_bounds__(32 * kMaxWarps, (D <= 32 && NT <= 6) ? 2 : 1) 
       for (int j = 0; j < J; ++j) p[j] = fmaf(s1, k[1][j], fmaf(s0, k[0][j], p[j]));
       if (last) {
         ntiles = live_tiles(nrow);
-        if (ntiles > 0) fetch(nrow, 0);
+        if (ntiles > 0) fetch_row(nrow);
       }
     }
     if (tiles == 0) {
       nrow = grab();
       start_row(nrow);
       ntiles = live_tiles(nrow);
-      if (ntiles > 0) fetch(nrow, 0);
+      if (ntiles > 0) fetch_row(nrow);
     }
 
     // the row's end: pooled (the eight lanes of each column added), and the
