@@ -41,7 +41,8 @@
 //   quad reading 64 contiguous bytes; its vector element j serves the k-step
 //   j / 2 (col<D> below). No shared-memory staging, every sector used once.
 //   The next tile's keys and mask, or the next row's mask head and q and
-//   then its first tile, are loaded while this tile computes.
+//   then its first tile, are loaded while this tile computes; a warp's first
+//   row's while the block stages its constants.
 // - The fold once a row, from shared memory. A block holds w_k, w_p, w_q (in
 //   the B-fragment order of lin's product), b1, w2 and alpha for its life;
 //   per row a warp builds W_eff split into TF32 hi and lo, and c, from them.
@@ -57,8 +58,8 @@
 //   column add by a shuffle butterfly.
 // - Even work without a planning pass: the grid is as many blocks as the
 //   card holds at once, each takes a contiguous range of rows, and its warps
-//   take the range's rows one at a time from a shared counter, so a warp
-//   that drew short rows takes more. The counter decides which warp works a
+//   take the range's rows one at a time (warp w the w-th first, then the
+//   next from a shared counter), so a warp that drew short rows takes more. The counter decides which warp works a
 //   row, never how: each row's outputs come from one warp in a fixed order.
 //
 // The sum order (the same bits on every call): a step's score adds its H

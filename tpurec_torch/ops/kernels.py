@@ -465,11 +465,9 @@ def din_attention_bwd_unfolded(
 ) -> Tuple[torch.Tensor, ...]:
     """``din_attention_bwd_plain``'s function unfolded so that its three
     products share one weight ``W = [w_k; w_p]`` (2D, H), the products taken
-    as ``products`` says: ``"fp32"``, ``"3xtf32"`` (each operand split into
-    TF32 hi and lo parts, ``hi·hi + hi·lo + lo·hi`` summed in fp32, as the
-    CUDA kernel's tensor-core products) or ``"1xtf32"`` (one product of the
-    TF32-rounded operands). The kernel takes the same products a row at a
-    time through ``W_eff = w_k + diag(q) w_p`` (``X·W = K·W_eff``)::
+    as ``products`` says (``_products``: ``"fp32"``, ``"3xtf32"`` or
+    ``"1xtf32"``). The kernel takes the same products a row at a time
+    through ``W_eff = w_k + diag(q) w_p`` (``X·W = K·W_eff``)::
 
         X_l = [k_l, q∘k_l],  lin = X·W + (q·w_q + b1),  Y = dlin·Wᵀ
         dkeys = Y[:, :D] + Y[:, D:]∘q + s⊗gp,  dq = dlin_b·w_qᵀ + Σ_l Y[l, D:]∘k_l
@@ -477,27 +475,23 @@ def din_attention_bwd_unfolded(
 
     It is the kernel's arithmetic on the CPU, for the tests and for
     ``chip_smoke.py``'s broken single-TF32 version; no path runs it."""
-
-    def mm(a, b):
-        return _products(a, b, products)
-
     b, l, d = keys.shape
     h = w1.shape[1]
     w_q = w1[0:d] + w1[d : 2 * d]
     w = torch.cat([w1[2 * d : 3 * d] - w1[d : 2 * d], w1[3 * d : 4 * d]])  # (2D, H)
     x = torch.cat([keys, query[:, None, :] * keys], dim=-1).reshape(b * l, 2 * d)
-    lin = mm(x, w).reshape(b, l, h) + (query @ w_q + b1)[:, None, :]
+    lin = _products(x, w, products).reshape(b, l, h) + (query @ w_q + b1)[:, None, :]
     neg = lin.clamp_max(0.0)
     hval = lin.clamp_min(0.0) + alpha * neg
     s = (hval @ w2) * mask
     g = (gs + (gp[:, None, :] * keys).sum(dim=-1)) * mask
     dh = g[:, :, None] * w2
     dlin = dh * ((lin > 0).to(lin.dtype) + alpha * (lin < 0).to(lin.dtype))
-    y = mm(dlin.reshape(b * l, h), w.T).reshape(b, l, 2 * d)
+    y = _products(dlin.reshape(b * l, h), w.T, products).reshape(b, l, 2 * d)
     dlin_b = dlin.sum(dim=1)
     dk = y[..., :d] + y[..., d:] * query[:, None, :] + s[:, :, None] * gp[:, None, :]
     dq = dlin_b @ w_q.T + (y[..., d:] * keys).sum(dim=1)
-    kp = mm(x.T, dlin.reshape(b * l, h))  # (2D, H): [k_c; p_c]
+    kp = _products(x.T, dlin.reshape(b * l, h), products)  # (2D, H): [k_c; p_c]
     a_c = query.T @ dlin_b
     dw1 = torch.cat([a_c, a_c - kp[:d], kp[:d], kp[d:]], dim=0)
     return (
