@@ -8,10 +8,15 @@
     python3 chip_smoke.py --din-bwd   # kernel #5's checks alone (phase 6's)
     python3 chip_smoke.py --capsule   # kernels #7/#8's checks alone (phase 9a's)
     python3 chip_smoke.py --cin       # kernel #3's checks alone (phase 8a's)
+    python3 chip_smoke.py --fm        # kernel #1's checks alone (phase 3's)
+    python3 chip_smoke.py --fm-ab DIR  # #1 of the checkout DIR against this one's
+    python3 chip_smoke.py --cross     # kernel #2's checks alone (phase 8a's)
+    python3 chip_smoke.py --cross-ab DIR  # #2 of the checkout DIR against this one's
 
-Needs one CUDA card, ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``) and ``triton``;
-it builds every kernel from the sources in this checkout and exits non-zero
-on the first phase that fails. Phases:
+Needs one CUDA card and ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``); ``triton``
+only for ``--fm-ab`` and ``--cross-ab`` against a parent whose #1 and #2
+were Triton kernels. It builds every kernel from the sources in this
+checkout and exits non-zero on the first phase that fails. Phases:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels (``tpurec_torch.ops.kernels.build``);
@@ -34,7 +39,14 @@ on the first phase that fails. Phases:
    device time also at B=4096, 1024 and 1; ``--din`` runs this alone and
    adds the launch floor and the launch's blocks, warps and shared memory;
    ``--din-ab DIR`` times the kernel of the checkout DIR against this one's
-   (parent, change, change, parent);
+   (parent, change, change, parent). #1 (the FM cross term) at deepfm's
+   F=26, D=32 and B=8192, 256, 32 and 8 (the rank path's buckets), and at
+   B=8192 with an input 4 bytes off a 16-byte boundary (4-byte loads); a
+   term that drops the last field or squares after summing over columns
+   must read above the limit; two calls the same bits; device times beside
+   the launch floor (an empty kernel's time); ``--fm`` runs this alone and
+   adds the launches' blocks and warps and the registers and spills,
+   ``--fm-ab DIR`` as ``--din-ab``;
 4. DIN at full width (the ``bench.py`` configuration: 3 profile fields over
    21,500 ids, a 64-step history, D=32, attention H=36, MLP (200, 80), bf16
    dense compute, fp32 params and attention), random seeded weights:
@@ -125,21 +137,24 @@ on the first phase that fails. Phases:
    vector cross layers: #2 at (8192, 416, L=3)), ``xdeepfm`` (D=32, CIN
    (128, 128): #3) and ``fibinet`` (D=32, 'all' mode, reduction 3: #6),
    each with an MLP (64, 32):
-   - 8a: #2, #3 and #6 against their plain versions at those shapes, #3
-     also at ``benchmarks/kernel_bench.py``'s B=4096, ``evaluate``'s
-     B=1024 and B=1 (the first row of the B=1024 batch, held to that
-     batch's column scale), and at ragged shapes
+   - 8a: #2, #3 and #6 against their plain versions at those shapes, #2
+     also at ``evaluate``'s B=1024 and with x0, w and b off a 16-byte
+     boundary (4-byte units), #3 also at ``benchmarks/kernel_bench.py``'s
+     B=4096, ``evaluate``'s B=1024, the rank path's buckets B=256, 32 and 8
+     and B=1 (the first rows of the B=1024 batch, held to that batch's
+     column scale), and at ragged shapes
      (#2 at D=429 with L=2 and 6; #3 at F=7, D=8, sizes (5, 9, 3); #6 at
      F=5 and F=2, D=24); #2 and #6 at ``KERNEL_TOL``, #3 at
      ``CIN_COL_RTOL`` of each output column's largest |value|; a cross
      that dots x0, a CIN that pairs maps with maps or takes its products
      in single TF32 (``broken_single_tf32``; the kernel takes them in
      3xTF32) and a SENet-bilinear with (j, i) pairs must read above the
-     limit; two calls of #3 the same bits; device time, bound and the
-     plain version's time, #3 beside the launch floor and two bounds (its
-     products in 3xTF32 on the tensor cores, and all of it in fp32 FMA);
-     ``--cin`` runs #3's part alone with its block's shared memory and
-     the blocks an SM holds;
+     limit; two calls of #2 and #3 the same bits; device time, bound and
+     the plain version's time, #2 and #3 beside the launch floor, #3 beside
+     two bounds (its products in 3xTF32 on the tensor cores, and all of it
+     in fp32 FMA); ``--cin`` runs #3's part alone with its block's shared
+     memory and the blocks an SM holds, ``--cross`` #2's with its route,
+     blocks, registers and spills, ``--cross-ab DIR`` as ``--din-ab``;
    - 8b: ``export_params`` → ``load_servable`` → ``Servable.predict``:
      finite probabilities, the model's kernel launched once a call and the
      other two not at all; the kernel's call inside the servable against
@@ -252,9 +267,12 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def device_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
+def device_ms(torch, fn, iters: int = 30, warmup: int = 3, flush_l2: bool = True) -> float:
     """Median device time of one ``fn()`` launch. The L2 cache (50 MB) is
-    flushed before each launch. A sleep kernel ahead of the loop holds the
+    flushed before each launch (by writing 256 MB, so it holds dirty lines
+    that a launch's reads must evict), unless ``flush_l2`` is False: then
+    the inputs stay in L2 from the warm-up, as a kernel finds them right
+    after the op that wrote them. A sleep kernel ahead of the loop holds the
     card while the host queues every launch, so host-side launch overhead
     stays out of the times."""
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB
@@ -267,7 +285,8 @@ def device_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
     ]
     torch.cuda._sleep(100_000_000)
     for start, end in events:
-        flush.zero_()
+        if flush_l2:
+            flush.zero_()
         start.record()
         fn()
         end.record()
@@ -394,11 +413,10 @@ def check_din_forward(torch, kernels, detail=False):
     return rec
 
 
-def din_ab(torch, kernels, parent_dir):
-    """Kernel #4 of the checkout at ``parent_dir`` against this one's, on the
-    same inputs in one process: parent, change, change, parent, each at
-    B=8192, 4096, 1024 and 1 (the serving shape's rows), held to the plain
-    version and timed."""
+def parent_kernels(parent_dir):
+    """``tpurec_torch/ops/kernels.py`` of the checkout at ``parent_dir`` (a
+    ``git archive`` of the parent commit), loaded by path: it builds its
+    CUDA sources into that checkout's ``build/kernels``."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
@@ -406,51 +424,166 @@ def din_ab(torch, kernels, parent_dir):
     )
     parent = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(parent)
-    parent.build(["din_attention"])
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    args = din_inputs(torch, gen, 8192, 64, 32, 36)
+    return parent
+
+
+def ab_runs(torch, what, parent, kernels, fn, cases, check_fn):
+    """Parent, change, change, parent: each tree's ``fn`` on every case of
+    ``cases`` (label → arguments), checked by ``check_fn(got, args)`` and
+    timed (``device_ms``)."""
     runs = []
     for label, mod in (("parent", parent), ("change", kernels), ("change", kernels), ("parent", parent)):
         times = {}
-        for rows in (8192, 4096, 1024, 1):
-            a = [x[:rows] if x.dim() and x.shape[0] == 8192 else x for x in args]
-            max_err(torch, mod.din_attention_fused(*a), kernels.din_attention_plain(*a))
-            times[f"b{rows}_ms"] = device_ms(torch, lambda: mod.din_attention_fused(*a))
+        for key, args in cases.items():
+            check_fn(getattr(mod, fn)(*args), args)
+            times[key] = device_ms(torch, lambda: getattr(mod, fn)(*args))
         runs.append(dict(tree=label, **times))
-        print("din a/b:", json.dumps(runs[-1]), flush=True)
+        print(f"{what} a/b:", json.dumps(runs[-1]), flush=True)
     return runs
+
+
+def din_ab(torch, kernels, parent_dir):
+    """Kernel #4 of the checkout at ``parent_dir`` against this one's, on the
+    same inputs in one process: parent, change, change, parent, each at
+    B=8192, 4096, 1024 and 1 (the serving shape's rows), held to the plain
+    version and timed."""
+    parent = parent_kernels(parent_dir)
+    parent.build(["din_attention"])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    args = din_inputs(torch, gen, 8192, 64, 32, 36)
+    cases = {f"b{rows}_ms": [x[:rows] if x.dim() and x.shape[0] == 8192 else x for x in args]
+             for rows in (8192, 4096, 1024, 1)}
+    return ab_runs(torch, "din", parent, kernels, "din_attention_fused", cases,
+                   lambda got, a: max_err(torch, got, kernels.din_attention_plain(*a)))
 
 
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
-def check_kernels(torch, kernels):
+FM_SHAPE = (26, 32)  # deepfm's F and D over the FM schema (phase 5)
+# the benchmark shape of the kernel table, then the rank path's buckets
+# (serving/server.py:126): rank 200, rank 20 and from_retrieval, the smallest
+FM_BATCHES = (8192, 256, 32, 8)
+
+
+def fm_bound(b, f, d):
+    """emb read once and the (B,) output written once; 3 flops an element
+    and 3 a column."""
+    return bound(4 * (b * f * d + b), b * f * d * 3 + b * d * 3 + b)
+
+
+def fm_square_over_columns(torch, emb):
+    """A broken FM cross term: squares after summing over columns too,
+    0.5·[(Σ_f Σ_d e)² − Σ_f Σ_d e²], where each column's square is summed."""
+    return 0.5 * (torch.square(emb.sum(dim=(1, 2))) - torch.square(emb).sum(dim=(1, 2)))
+
+
+def unaligned(torch, t):
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    boundary (the kernels then take 4-byte loads)."""
+    buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def ptxas_resources(path, *kernel_names) -> dict:
+    """Registers and spill bytes of the named kernels (substrings of their
+    mangled names) from the ``-Xptxas -v`` log kept beside the library at
+    ``path``."""
+    import re
+
+    found, fn = {}, None
+    for line in open(f"{path}.log").read().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            found.setdefault(fn, {})["spill_bytes"] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            found.setdefault(fn, {})["registers"] = int(m.group(1))
+    return {name: next((v for k, v in found.items() if name in k), None) for name in kernel_names}
+
+
+def check_fm(torch, kernels, detail=False):
+    """Kernel #1 against its plain version (phase 3) at deepfm's F=26, D=32
+    and B = 8192, 256, 32 and 8 (``FM_BATCHES``), and at B=8192 with an
+    input 4 bytes off a 16-byte boundary (4-byte loads), at ``KERNEL_TOL``;
+    a term that drops the last field or squares after summing over columns
+    must read above it; two calls the same bits. Device time (median of 30,
+    L2 flushed), the plain version's and the bound at each B, beside the
+    launch floor, the time with the input in L2 (``warm_ms``, as the rank
+    path has it) and the time of one PyTorch call that reads the same bytes
+    (``same_bytes_ms``). ``detail`` (``--fm``) adds each launch's blocks and warps
+    and the kernels' registers and spills. Returns the B=8192 record with
+    the others under ``other_shapes``."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-
-    def randn(*shape, scale=1.0):
-        return scale * torch.randn(*shape, device="cuda", generator=gen)
-
-    records = {"din_attention": check_din_forward(torch, kernels)}
-    # FM cross term: the benchmark shape, then the rank path's bucket shapes
-    f, d = 26, 32
-    for b in (8192, 256, 32):
-        emb = randn(b, f, d)
-        err = max_err(
-            torch, [kernels.fm_second_order_fused(emb)], [kernels.fm_second_order_plain(emb)]
+    f, d = FM_SHAPE
+    floor_ms = launch_floor_ms(torch)
+    readings, other, record = {}, {}, None
+    for b in FM_BATCHES:
+        emb = torch.randn(b, f, d, device="cuda", generator=gen)
+        got, want = kernels.fm_second_order_fused(emb), kernels.fm_second_order_plain(emb)
+        readings[f"fm {b}x{f}x{d}"] = dict(
+            kernel=tol_ratio(got, want, **KERNEL_TOL),
+            same_bits=bool(torch.equal(got, kernels.fm_second_order_fused(emb))),
+            broken_last_field_dropped=tol_ratio(kernels.fm_second_order_plain(emb[:, :-1]), want, **KERNEL_TOL),
+            broken_squared_over_columns=tol_ratio(fm_square_over_columns(torch, emb), want, **KERNEL_TOL),
         )
-        bound_ms, bound_by = bound(4 * (b * f * d + b), b * f * d * 3 + b * d * 3 + b)
+        bound_ms, bound_by = fm_bound(b, f, d)
         rec = dict(
-            name="fm_second_order", route="triton", source="tpurec_torch/ops/kernels.py",
-            replaces="tpurec/ops/pallas/kernels.py:110", shape=[b, f, d], max_abs_err=err,
+            name="fm_second_order", route="cuda", source="tpurec_torch/csrc/fm_second_order.cu",
+            replaces="tpurec/ops/pallas/kernels.py:110", shape=[b, f, d],
+            max_abs_err=float((got - want).abs().max()),
             ms=device_ms(torch, lambda: kernels.fm_second_order_fused(emb)),
             plain_ms=device_ms(torch, lambda: kernels.fm_second_order_plain(emb)),
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            bound_ms=bound_ms, bound_by=bound_by, launch_floor_ms=floor_ms, library_ms=None,
+            warm_ms=device_ms(torch, lambda: kernels.fm_second_order_fused(emb), flush_l2=False),
+            same_bytes_call="emb.sum(dim=(1, 2))",
+            same_bytes_ms=device_ms(torch, lambda: emb.sum(dim=(1, 2))),
         )
-        if b == 8192:
-            records["fm_second_order"] = rec
+        if detail:
+            warps = kernels._library("fm_second_order").fm_second_order_warps(b)
+            rec.update(warps_per_block=warps, blocks=-(-b // warps))
+        if b == FM_BATCHES[0]:
+            record = rec
+            odd = unaligned(torch, emb)
+            got = kernels.fm_second_order_fused(odd)
+            readings[f"fm {b}x{f}x{d} unaligned"] = dict(
+                kernel=tol_ratio(got, want, **KERNEL_TOL),
+                same_bits=bool(torch.equal(got, kernels.fm_second_order_fused(odd))),
+            )
+            rec["unaligned_ms"] = device_ms(torch, lambda: kernels.fm_second_order_fused(odd))
         else:
-            print("fm_second_order at the rank shape:", json.dumps(rec), flush=True)
-    print("kernel check:", json.dumps(records["fm_second_order"]), flush=True)
-    return records
+            print(f"fm_second_order at B={b}:", json.dumps(rec), flush=True)
+            other[f"b{b}"] = rec
+    record["other_shapes"] = other
+    if detail:
+        path = kernels.library_path("fm_second_order")
+        # D=32 in float4 units (8 lanes a field) and in floats (a lane a column)
+        record["ptxas"] = ptxas_resources(path, "fm_kernelILi4ELi0E", "fm_kernelILi1ELi0E")
+    print(f"fm readings (error / limit, {KERNEL_TOL}):", json.dumps(readings), flush=True)
+    check_readings(readings)
+    print("kernel check:", json.dumps(record), flush=True)
+    return record
+
+
+def fm_ab(torch, kernels, parent_dir):
+    """Kernel #1 of the checkout at ``parent_dir`` (the parent's Triton
+    kernel) against this one's, parent, change, change, parent, at
+    ``FM_BATCHES``, each call held to the plain version."""
+    parent = parent_kernels(parent_dir)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    emb = torch.randn(FM_BATCHES[0], *FM_SHAPE, device="cuda", generator=gen)
+    cases = {f"b{b}_ms": [emb[:b]] for b in FM_BATCHES}
+    return ab_runs(torch, "fm", parent, kernels, "fm_second_order_fused", cases,
+                   lambda got, a: max_err(torch, [got], [kernels.fm_second_order_plain(*a)]))
+
+
+def check_kernels(torch, kernels):
+    return {"din_attention": check_din_forward(torch, kernels), "fm_second_order": check_fm(torch, kernels)}
 
 
 # ---------------------------------------------------------------------------
@@ -672,7 +805,7 @@ def run_http(torch, kernels, workdir, card, n_requests=200):
     latency = {}
     try:
         for name, (make, verify) in paths.items():
-            for uid in uids[:5]:  # warm-up: first Triton compile, allocator
+            for uid in uids[:5]:  # warm-up: the first launches, the allocator
                 post(make(uid))
             times = []
             for uid in uids:
@@ -1627,21 +1760,8 @@ def check_dcn_kernels(torch, kernels):
         )
 
     readings, records = {}, {}
-    # #2: x0 and x written once; the dot and the update, 5 flops an element a layer
-    for b, d, layers in ((8192, 416, 3), (1003, 429, 2), (1003, 429, 6)):
-        args = [randn(b, d), randn(layers, d, scale=0.5 / d**0.5), randn(layers, d)]
-        want = kernels.cross_network_plain(*args)
-        readings[f"cross_network {b}x{d} L={layers}"] = dict(
-            kernel=tol_ratio(kernels.cross_network_fused(*args), want, **KERNEL_TOL),
-            broken_dots_x0=tol_ratio(cross_dots_x0(*args), want, **KERNEL_TOL),
-        )
-        if b == 8192:
-            records["cross_network"] = record(
-                "cross_network", "triton", "tpurec_torch/ops/kernels.py",
-                "tpurec/ops/pallas/kernels.py:160", [b, d, layers],
-                lambda: kernels.cross_network_fused(*args), lambda: kernels.cross_network_plain(*args),
-                4 * (2 * b * d + 2 * layers * d), 5 * b * d * layers,
-            )
+    cross_readings, records["cross_network"] = check_cross(torch, kernels)
+    readings.update(cross_readings)
     # #3 (phase 8a's CIN checks, also run alone by --cin)
     cin_readings, records["cin"] = check_cin(torch, kernels)
     readings.update(cin_readings)
@@ -1673,6 +1793,99 @@ def check_dcn_kernels(torch, kernels):
     for rec in records.values():
         print("kernel check:", json.dumps(rec), flush=True)
     return records
+
+
+CROSS_SHAPE = (416, 3)  # DCN's D (26 fields x 16) and cross layers (phase 8)
+
+
+def cross_bound(b, d, layers):
+    """x0 read and x_L written once, w and b read once; the dot and the
+    update, 5 flops an element a layer."""
+    return bound(4 * (2 * b * d + 2 * layers * d), 5 * b * d * layers)
+
+
+def check_cross(torch, kernels, detail=False):
+    """Kernel #2 against its plain version (phase 8a) at DCN's predict
+    shape (B=8192, D=416, L=3), ``evaluate``'s B=1024, ragged shapes (D=429
+    with L=2 and 6) and B=8192 with x0, w and b 4 bytes off a 16-byte
+    boundary (4-byte units), at ``KERNEL_TOL``; a stack that dots x0 must
+    read above it; two calls the same bits. Device time (median of 30, L2
+    flushed), the plain version's and the bound at B=8192 and B=1024,
+    beside the launch floor, the time with x0 in L2 (``warm_ms``) and a
+    device-to-device copy of x0 (``same_bytes_ms``, the bytes the stack must
+    move). ``detail`` (``--cross``) adds each launch's
+    route and blocks and the kernels' registers and spills. Returns the
+    readings and the B=8192 record with B=1024's under ``other_shapes``."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    d0, l0 = CROSS_SHAPE
+    floor_ms = launch_floor_ms(torch)
+    readings, other, record = {}, {}, None
+    for b, d, layers in ((8192, d0, l0), (1024, d0, l0), (1003, 429, 2), (1003, 429, 6)):
+        args = [torch.randn(b, d, device="cuda", generator=gen),
+                torch.randn(layers, d, device="cuda", generator=gen) * (0.5 / d**0.5),
+                torch.randn(layers, d, device="cuda", generator=gen)]
+        got, want = kernels.cross_network_fused(*args), kernels.cross_network_plain(*args)
+        readings[f"cross_network {b}x{d} L={layers}"] = dict(
+            kernel=tol_ratio(got, want, **KERNEL_TOL),
+            same_bits=bool(torch.equal(got, kernels.cross_network_fused(*args))),
+            broken_dots_x0=tol_ratio(cross_dots_x0(*args), want, **KERNEL_TOL),
+        )
+        if (d, layers) != CROSS_SHAPE:
+            continue
+        bound_ms, bound_by = cross_bound(b, d, layers)
+        rec = dict(
+            name="cross_network", route="cuda", source="tpurec_torch/csrc/cross_network.cu",
+            replaces="tpurec/ops/pallas/kernels.py:160", shape=[b, d, layers],
+            max_abs_err=float((got - want).abs().max()),
+            ms=device_ms(torch, lambda: kernels.cross_network_fused(*args)),
+            plain_ms=device_ms(torch, lambda: kernels.cross_network_plain(*args)),
+            bound_ms=bound_ms, bound_by=bound_by, launch_floor_ms=floor_ms, library_ms=None,
+            warm_ms=device_ms(torch, lambda: kernels.cross_network_fused(*args), flush_l2=False),
+            same_bytes_call="out.copy_(x0)",
+            same_bytes_ms=device_ms(torch, lambda: torch.empty_like(args[0]).copy_(args[0])),
+        )
+        if detail:
+            lib = kernels._library("cross_network")
+            rec.update(warp_a_row=bool(lib.cross_network_route(d, layers)), threads_per_block=256,
+                       blocks=lib.cross_network_blocks(b, d, layers, 4))
+        if b == TRAIN_BATCH:
+            record = rec
+            odd = [unaligned(torch, t) for t in args]
+            got = kernels.cross_network_fused(*odd)
+            readings[f"cross_network {b}x{d} L={layers} unaligned"] = dict(
+                kernel=tol_ratio(got, want, **KERNEL_TOL),
+                same_bits=bool(torch.equal(got, kernels.cross_network_fused(*odd))),
+            )
+            rec["unaligned_ms"] = device_ms(torch, lambda: kernels.cross_network_fused(*odd))
+            if detail:
+                rec["unaligned_blocks"] = kernels._library("cross_network").cross_network_blocks(b, d, layers, 1)
+        else:
+            print(f"cross_network at B={b}:", json.dumps(rec), flush=True)
+            other[f"b{b}"] = rec
+    record["other_shapes"] = other
+    if detail:
+        path = kernels.library_path("cross_network")
+        # D=416 in float4 units (4 a lane) and in floats (13 a lane)
+        record["ptxas"] = ptxas_resources(path, "cross_warp_kernelILi4ELi4E", "cross_warp_kernelILi1ELi13E")
+    print(f"cross_network readings (error / limit, {KERNEL_TOL}):", json.dumps(readings), flush=True)
+    check_readings(readings)
+    return readings, record
+
+
+def cross_ab(torch, kernels, parent_dir):
+    """Kernel #2 of the checkout at ``parent_dir`` (the parent's Triton
+    kernel) against this one's, parent, change, change, parent, at DCN's
+    predict (B=8192) and ``evaluate`` (B=1024) shapes, each call held to the
+    plain version."""
+    parent = parent_kernels(parent_dir)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    d, layers = CROSS_SHAPE
+    args = [torch.randn(TRAIN_BATCH, d, device="cuda", generator=gen),
+            torch.randn(layers, d, device="cuda", generator=gen) * (0.5 / d**0.5),
+            torch.randn(layers, d, device="cuda", generator=gen)]
+    cases = {f"b{b}_ms": [args[0][:b], *args[1:]] for b in (TRAIN_BATCH, 1024)}
+    return ab_runs(torch, "cross_network", parent, kernels, "cross_network_fused", cases,
+                   lambda got, a: max_err(torch, [got], [kernels.cross_network_plain(*a)]))
 
 
 def check_readings(readings) -> None:
@@ -1717,33 +1930,37 @@ CIN_SHAPE = (26, 32, (128, 128))  # xDeepFM's F, D and CIN levels over the FM sc
 
 def check_cin(torch, kernels, detail=False):
     """Kernel #3 against its plain version at the slice's shape (B=8192),
-    ``benchmarks/kernel_bench.py``'s B=4096, ``evaluate``'s B=1024, a
+    ``benchmarks/kernel_bench.py``'s B=4096, ``evaluate``'s B=1024, the
+    rank path's buckets B=256, 32 and 8 (``serving/server.py:126``), a
     single row (B=1) and a ragged shape, each column's error in units of
     ``CIN_COL_RTOL`` of its largest |value|; a CIN that pairs maps with maps
     and the kernel's arithmetic in single TF32 (``broken_single_tf32``; the
     kernel takes its products in 3xTF32) must read above it; two calls give
-    the same bits. Device time (median of 30, L2 flushed) at B=1, 1024, 4096
-    and 8192 beside both bounds and the launch floor. ``detail``
+    the same bits. Device time (median of 30, L2 flushed) and the plain
+    version's at every B of the slice's shape, beside both bounds and the
+    launch floor. ``detail``
     (``--cin``) adds the blocks an SM holds and the shared memory a block
     takes. Returns the readings and the B=8192 record."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     floor_ms = launch_floor_ms(torch)
     f0, d0, sizes0 = CIN_SHAPE
-    readings, other, record = {}, {}, None
-    for b, f, d, sizes in ((8192, f0, d0, sizes0), (4096, f0, d0, sizes0), (1024, f0, d0, sizes0),
-                           (1, f0, d0, sizes0), (1003, 7, 8, (5, 9, 3))):
-        if b == 1:
-            # the first row of the B=1024 batch, held to that batch's column
-            # scale: a one-row column's largest |value| is the value itself,
-            # and there fp32 in any order reads up to 7 against float64 (CPU,
-            # 8 seeds)
-            emb, scale_from = emb[:1], want
+    readings, other, record, batch_1024 = {}, {}, None, None
+    shapes = [(b, f0, d0, sizes0) for b in (8192, 4096, 1024, 256, 32, 8, 1)] + [(1003, 7, 8, (5, 9, 3))]
+    for b, f, d, sizes in shapes:
+        if batch_1024 is not None and b < 1024 and sizes == sizes0:
+            # the first b rows of the B=1024 batch, held to that batch's
+            # column scale: a one-row column's largest |value| is the value
+            # itself, and there fp32 in any order reads up to 7 against
+            # float64 (CPU, 8 seeds)
+            emb, scale_from = batch_1024[0][:b], batch_1024[1]
         else:
             weights = cin_weights(torch, gen, f, sizes)
             emb = torch.randn(b, f, d, device="cuda", generator=gen)
             scale_from = None
         want = kernels.cin_plain(emb, weights)
         got = kernels.cin_fused(emb, weights)
+        if b == 1024:
+            batch_1024 = emb, want
         readings[f"cin {b}x{f}x{d} {list(sizes)}"] = dict(
             kernel=cin_reading(got, want, scale_from),
             same_bits=bool(torch.equal(got, kernels.cin_fused(emb, weights))),
@@ -1762,7 +1979,7 @@ def check_cin(torch, kernels, detail=False):
         )
         if b == TRAIN_BATCH:
             record = rec
-        else:  # kernel_bench's B=4096, evaluate's B=1024, a single row
+        else:  # kernel_bench's B=4096, evaluate's B=1024, the rank buckets, a single row
             print(f"cin at B={b}:", json.dumps(rec), flush=True)
             other[f"b{b}"] = rec
     record["other_shapes"] = other
@@ -2624,6 +2841,23 @@ def main() -> int:
         # against this one's, alternating
         kernels.build(["din_attention"])
         din_ab(torch, kernels, sys.argv[2])
+        return 0
+    if sys.argv[1:] in (["--fm"], ["--cross"]):
+        # kernel #1 (phase 3's FM checks) or #2 (phase 8a's cross checks)
+        # alone, with the launch floor, blocks, warps, registers and spills
+        name = "fm_second_order" if sys.argv[1] == "--fm" else "cross_network"
+        kernels.build([name])
+        if name == "fm_second_order":
+            check_fm(torch, kernels, detail=True)
+        else:
+            print("kernel check:", json.dumps(check_cross(torch, kernels, detail=True)[1]), flush=True)
+        return 0
+    if sys.argv[1:2] in (["--fm-ab"], ["--cross-ab"]) and len(sys.argv) == 3:
+        # kernel #1 or #2 of another checkout (a git archive of the parent
+        # commit, whose kernels are Triton) against this one's, alternating
+        name = "fm_second_order" if sys.argv[1] == "--fm-ab" else "cross_network"
+        kernels.build([name])
+        (fm_ab if name == "fm_second_order" else cross_ab)(torch, kernels, sys.argv[2])
         return 0
     if sys.argv[1:] == ["--din-bwd"]:
         # kernel #5 alone: phase 6's kernel checks, with the split and B=1024

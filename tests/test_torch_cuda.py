@@ -1,6 +1,6 @@
-"""The port's CUDA and Triton kernels against their plain versions, on the
-card. Every test here is marked ``cuda`` and skips where there is no GPU.
-The file imports no JAX, so on a machine without it run it as
+"""The port's CUDA kernels against their plain versions, on the card. Every
+test here is marked ``cuda`` and skips where there is no GPU. The file
+imports no JAX, so on a machine without it run it as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
@@ -8,8 +8,9 @@ Tolerances: fp32 on both sides with TF32 off; the kernels sum in another
 order than the plain versions, so values of O(1)-O(10) agree to ~1e-5
 relative: atol/rtol 1e-4. The aggregated embedding gradient (kernel #9) is
 held row by row to 2^-20 (16 fp32 ulps) of the sum of its rows' magnitudes
-plus 1e-7: a run of ~10^5 rows sums to 10^2-10^3 in either order. Gathered
-rows (kernel #10) are copies: exact.
+plus 1e-7: a run of ~10^5 rows sums to 10^2-10^3 in either order. The FM
+cross term (kernel #1) over every width is held to 1e-5 of the terms it
+sums (``_fm_limit``). Gathered rows (kernel #10) are copies: exact.
 """
 
 import numpy as np
@@ -247,6 +248,74 @@ def test_fm_kernel_matches_plain(card, shape):
     torch.cuda.synchronize()
     assert kernels.fm_second_order_fused.launches == before + 1
     torch.testing.assert_close(got, kernels.fm_second_order_plain(emb), **TOL)
+
+
+def _fm_limit(emb):
+    """1e-5 of each row's 0.5·Σ_d[(Σ_f e)² + Σ_f e²], plus 1e-6. The kernel
+    and the plain version sum those terms in fp32 in other orders and the
+    result cancels them ((Σ_f e)² − Σ_f e²), so its error scales with the
+    terms and not with the result: at most 4.3e-7 of them over F ≤ 39,
+    D ≤ 256 in a CPU emulation, where ``TOL`` itself reads up to 1.2 (F=26,
+    D=128) on rows whose result is near 0."""
+    e = emb.double()
+    return 1e-5 * 0.5 * (e.sum(dim=1).square() + e.square().sum(dim=1)).sum(dim=-1) + 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 2, 26, 39])
+@pytest.mark.parametrize("d", [1, 3, 8, 16, 32, 33, 64, 128, 256])
+def test_fm_kernel_every_width(card, f, d):
+    """Every F and D at B = 1, 8, 32, 256 (the server's smallest, rank-20
+    and rank-200 buckets), 1003 and 8192: rows read unpadded, in 16-byte
+    loads where D % 4 == 0 and 4-byte ones else, lanes folded by a
+    butterfly where D/4 (or D) divides 32 and in order else, wider rows in
+    passes of 32 units. One launch a call; two calls the same bits."""
+    from tpurec_torch.ops import kernels
+
+    gen = torch.Generator(card).manual_seed(1000 * f + d)
+    for b in (1, 8, 32, 256, 1003, 8192):
+        emb = torch.randn(b, f, d, device=card, generator=gen)
+        before = kernels.fm_second_order_fused.launches
+        got = kernels.fm_second_order_fused(emb)
+        torch.cuda.synchronize()
+        assert kernels.fm_second_order_fused.launches == before + 1
+        err = (got - kernels.fm_second_order_plain(emb)).abs().double()
+        assert bool((err <= _fm_limit(emb)).all()), (b, float(err.max()))
+        assert torch.equal(got, kernels.fm_second_order_fused(emb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,f,d", [(1003, 26, 32), (8, 26, 32), (37, 2, 256), (5, 39, 4), (64, 3, 8)])
+def test_fm_kernel_takes_an_unaligned_input(card, b, f, d):
+    """An input that starts 4 bytes past a 16-byte boundary (a view one
+    float into its buffer, contiguous, so the wrapper passes it as it is)
+    takes the 4-byte loads: right, and the same bits on two calls."""
+    from tpurec_torch.ops import kernels
+
+    buf = torch.randn(b * f * d + 1, device=card, generator=torch.Generator(card).manual_seed(b))
+    emb = buf[1:].view(b, f, d)
+    assert emb.data_ptr() % 16 == 4 and emb.is_contiguous()
+    got = kernels.fm_second_order_fused(emb)
+    torch.cuda.synchronize()
+    err = (got - kernels.fm_second_order_plain(emb)).abs().double()
+    assert bool((err <= _fm_limit(emb)).all()), float(err.max())
+    assert torch.equal(got, kernels.fm_second_order_fused(emb))
+
+
+@pytest.mark.cuda
+def test_fm_kernel_refuses_what_it_does_not_take(card):
+    from tpurec_torch.ops import kernels
+
+    emb = torch.randn(4, 3, 8, device=card)
+    with pytest.raises(TypeError, match="must be float32"):
+        kernels.fm_second_order_fused(emb.double())
+    with pytest.raises(ValueError, match=r"expected \(B, F, D\)"):
+        kernels.fm_second_order_fused(emb[0])
+    with pytest.raises(ValueError, match="pad to 64x512, above the 16384-element tile"):
+        kernels.fm_second_order_fused(torch.randn(2, 33, 257, device=card))
+    before = kernels.fm_second_order_fused.launches
+    assert kernels.fm_second_order_fused(emb[:0]).shape == (0,)
+    assert kernels.fm_second_order_fused.launches == before  # B = 0: no launch
 
 
 @pytest.mark.cuda
@@ -532,6 +601,55 @@ def test_cross_network_kernel_matches_plain(card, b, d, layers):
     assert got.shape == (b, d)
     assert kernels.cross_network_fused.launches == before + (1 if b else 0)
     torch.testing.assert_close(got, kernels.cross_network_plain(x0, w, bias), **TOL)
+
+
+def _cross_args(card, b, d, layers, seed=0):
+    gen = torch.Generator(card).manual_seed(seed)
+    x0 = torch.randn(b, d, device=card, generator=gen)
+    w = torch.randn(layers, d, device=card, generator=gen) * 0.5 / d**0.5
+    return x0, w, torch.randn(layers, d, device=card, generator=gen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers", [1, 2, 3, 6])
+@pytest.mark.parametrize("d", [1, 7, 16, 416, 429, 1024, 8192])
+def test_cross_network_kernel_every_width(card, d, layers):
+    """Every D and L at B = 1, 1003 and 8192: a warp a row up to D = 1024
+    (w and b staged in shared memory), a block a row at D = 8192; 16-byte
+    units where D % 4 == 0, 4-byte ones else. One launch a call; two calls
+    the same bits."""
+    from tpurec_torch.ops import kernels
+
+    assert kernels._library("cross_network").cross_network_route(d, layers) == int(d <= 1024)
+    for b in (1, 1003, 8192):
+        x0, w, bias = _cross_args(card, b, d, layers, seed=d + layers)
+        before = kernels.cross_network_fused.launches
+        got = kernels.cross_network_fused(x0, w, bias)
+        torch.cuda.synchronize()
+        assert kernels.cross_network_fused.launches == before + 1
+        torch.testing.assert_close(got, kernels.cross_network_plain(x0, w, bias), **TOL)
+        assert torch.equal(got, kernels.cross_network_fused(x0, w, bias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,layers", [(8192, 416, 3), (1024, 416, 3), (37, 8192, 2), (5, 64, 1)])
+def test_cross_network_kernel_takes_unaligned_inputs(card, b, d, layers):
+    """x0, w and b that start 4 bytes past a 16-byte boundary (views one
+    float into their buffers, contiguous) take the 4-byte units: right, and
+    the same bits on two calls."""
+    from tpurec_torch.ops import kernels
+
+    args = []
+    for t in _cross_args(card, b, d, layers):
+        buf = torch.empty(t.numel() + 1, device=card)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 == 4 and view.is_contiguous()
+        args.append(view)
+    got = kernels.cross_network_fused(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, kernels.cross_network_plain(*args), **TOL)
+    assert torch.equal(got, kernels.cross_network_fused(*args))
 
 
 def _cin_reading(got, want):

@@ -8,6 +8,8 @@ O(1)). The CUDA kernels themselves are checked on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +22,23 @@ from tpurec_torch.ops.interactions import fm_second_order
 torch.set_num_threads(1)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", sorted(tk.CUDA_SOURCES))
+def test_every_bound_c_function_is_exported_by_its_source(name):
+    """Each CUDA source exists and defines, inside its ``extern "C"`` block,
+    every C function that ``_library`` binds for it, with as many parameters
+    as the binding's argument types: a binding typo shows without a card."""
+    src = (tk.CSRC_DIR / tk.CUDA_SOURCES[name]).read_text()
+    blocks = re.findall(r'^extern "C" \{$(.*?)^\}  // extern "C"$', src, re.S | re.M)
+    assert blocks, f'{tk.CUDA_SOURCES[name]} has no extern "C" block'
+    defined = {
+        m.group(1): [p for p in m.group(2).split(",") if p.strip() not in ("", "void")]
+        for m in re.finditer(r"^[A-Za-z_][\w\s*]*?\b(\w+)\(([^)]*)\)", "\n".join(blocks), re.M)
+    }
+    for fn, (argtypes, _) in {**tk._COMMON_FUNCTIONS, **tk.C_FUNCTIONS[name]}.items():
+        assert fn in defined, f'{tk.CUDA_SOURCES[name]} defines no extern "C" {fn}'
+        assert len(defined[fn]) == len(argtypes), (fn, defined[fn], argtypes)
 
 
 def _din_inputs(seed, b=16, l=16, d=8, h=36, with_alpha=True):

@@ -25,9 +25,11 @@ Kernels of this module:
   (``tpurec_torch/csrc/din_attention_bwd.cu``), the same route. Replaces
   ``tpurec/ops/pallas/kernels.py:din_attention_bwd_fused``. ``DinAttention``
   pairs it with the forward.
-- ``fm_second_order_fused``: Triton. Replaces
+- ``fm_second_order_fused``: CUDA C++ for ``sm_90a``
+  (``tpurec_torch/csrc/fm_second_order.cu``), the ``ctypes`` route. Replaces
   ``tpurec/ops/pallas/kernels.py:fm_second_order_fused``.
-- ``cross_network_fused``: Triton. Replaces
+- ``cross_network_fused``: CUDA C++ for ``sm_90a``
+  (``tpurec_torch/csrc/cross_network.cu``), the ``ctypes`` route. Replaces
   ``tpurec/ops/pallas/kernels.py:cross_network_stack`` (every DCN vector
   cross layer in one pass).
 - ``cin_fused``: CUDA C++ for ``sm_90a`` (``tpurec_torch/csrc/cin.cu``), the
@@ -38,7 +40,7 @@ Kernels of this module:
   ``tpurec/ops/pallas/kernels.py:senet_bilinear_fused`` (FiBiNET's SENet
   and 'all'-mode bilinear pairs).
 
-These three run at inference only, as in the JAX package: a module in
+These four run at inference only, as in the JAX package: a module in
 training mode takes the plain version (``tpurec_torch.ops.interactions``).
 
 - ``capsule_routing_fused`` and ``capsule_routing_bwd_fused``: CUDA C++ for
@@ -56,14 +58,13 @@ loaded here, the same route.
 
 CUDA sources build on first use (or through ``build()``) into ``build/kernels``
 at the repository root, named by a hash of the source, so a checkout builds
-everything it runs from its own files. Triton compiles at first launch into
-``build/triton`` (``TRITON_CACHE_DIR`` unless the caller set one).
+everything it runs from its own files. ``C_FUNCTIONS`` lists the C
+functions each source exports and ``_library`` binds.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
@@ -77,7 +78,6 @@ import torch
 _PACKAGE = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parent / "build" / "kernels"
-TRITON_CACHE_DIR = _PACKAGE.parent / "build" / "triton"
 # one shared library per CUDA source
 CUDA_SOURCES = {
     "din_attention": "din_attention.cu",
@@ -86,6 +86,59 @@ CUDA_SOURCES = {
     "cin": "cin.cu",
     "senet_bilinear": "senet_bilinear.cu",
     "capsule_routing": "capsule_routing.cu",
+    "fm_second_order": "fm_second_order.cu",
+    "cross_network": "cross_network.cu",
+}
+_I, _I64, _P, _SIZE = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p, ctypes.c_size_t
+# the C functions each source exports and ``_library`` binds: name →
+# (argument types, result type); every pointer and the stream are c_void_p
+_COMMON_FUNCTIONS = {"tpurec_cuda_error_string": ([_I], ctypes.c_char_p)}
+C_FUNCTIONS = {
+    "din_attention": {
+        "din_attention_smem_bytes": ([_I] * 3, _SIZE),
+        "din_attention_route": ([_I] * 2, _I),
+        "din_attention_warps": ([_I] * 2, _I),
+        "din_attention_blocks": ([_I] * 3, _I),
+        "din_attention_forward": ([_P] * 9 + [_I] * 4 + [_P], _I),
+    },
+    "din_attention_bwd": {
+        "din_attention_bwd_smem_bytes": ([_I] * 2, _SIZE),
+        "din_attention_bwd_blocks": ([_I] * 4, _I),
+        "din_attention_backward": ([_P] * 18 + [_I] * 5 + [_P], _I),
+    },
+    "embedding_update": {
+        "embedding_scatter_slice_rows": ([_I], _I),
+        "embedding_scatter_tile_rows": ([_I], _I),
+        "embedding_scatter_scratch_floats": ([_I64, _I], _I64),
+        "embedding_fused_scatter_add": ([_P] * 4 + [_I64, _I, _I64, ctypes.c_uint64, _P], _I),
+        "embedding_gather_rows": ([_P] * 3 + [_I64, _I, _I64, _I, _P], _I),
+    },
+    "cin": {
+        "cin_smem_bytes": ([_I] * 3, _SIZE),
+        "cin_blocks_per_sm": ([_I] * 3, _I),
+        "cin_forward": ([_P] * 3 + [_I, _P, _I, _I, _I, _P], _I),
+    },
+    "senet_bilinear": {
+        "senet_bilinear_smem_bytes": ([_I] * 3, _SIZE),
+        "senet_bilinear_forward": ([_P] * 7 + [_I] * 4 + [_P], _I),
+    },
+    "capsule_routing": {
+        "capsule_routing_smem_bytes": ([_I] * 4, _SIZE),
+        "capsule_routing_bwd_smem_bytes": ([_I] * 5, _SIZE),
+        "capsule_routing_blocks": ([_I] * 4, _I),
+        "capsule_routing_bwd_blocks": ([_I] * 6, _I),
+        "capsule_routing_forward": ([_P] * 4 + [ctypes.c_long, _P] + [_I] * 7 + [_P], _I),
+        "capsule_routing_backward": ([_P] * 4 + [ctypes.c_long] + [_P] * 5 + [_I] * 7 + [_P], _I),
+    },
+    "fm_second_order": {
+        "fm_second_order_warps": ([_I], _I),
+        "fm_second_order_forward": ([_P] * 2 + [_I] * 3 + [_P], _I),
+    },
+    "cross_network": {
+        "cross_network_route": ([_I] * 2, _I),
+        "cross_network_blocks": ([_I] * 4, _I),
+        "cross_network_forward": ([_P] * 4 + [_I] * 3 + [_P], _I),
+    },
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -153,76 +206,9 @@ def _library(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build([name])[name]))
-            lib.tpurec_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.tpurec_cuda_error_string.restype = ctypes.c_char_p
-            if name == "din_attention":
-                lib.din_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
-                lib.din_attention_smem_bytes.restype = ctypes.c_size_t
-                lib.din_attention_route.argtypes = [ctypes.c_int] * 2
-                lib.din_attention_route.restype = ctypes.c_int
-                lib.din_attention_warps.argtypes = [ctypes.c_int] * 2
-                lib.din_attention_warps.restype = ctypes.c_int
-                lib.din_attention_blocks.argtypes = [ctypes.c_int] * 3
-                lib.din_attention_blocks.restype = ctypes.c_int
-                lib.din_attention_forward.argtypes = (
-                    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-                )
-                lib.din_attention_forward.restype = ctypes.c_int
-            elif name == "din_attention_bwd":
-                lib.din_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
-                lib.din_attention_bwd_smem_bytes.restype = ctypes.c_size_t
-                lib.din_attention_bwd_blocks.argtypes = [ctypes.c_int] * 4
-                lib.din_attention_bwd_blocks.restype = ctypes.c_int
-                lib.din_attention_backward.argtypes = (
-                    [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-                )
-                lib.din_attention_backward.restype = ctypes.c_int
-            elif name == "embedding_update":
-                for fn in (lib.embedding_scatter_slice_rows, lib.embedding_scatter_tile_rows):
-                    fn.argtypes = [ctypes.c_int]
-                    fn.restype = ctypes.c_int
-                lib.embedding_scatter_scratch_floats.argtypes = [ctypes.c_int64, ctypes.c_int]
-                lib.embedding_scatter_scratch_floats.restype = ctypes.c_int64
-                lib.embedding_fused_scatter_add.argtypes = [ctypes.c_void_p] * 4 + [
-                    ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_uint64, ctypes.c_void_p
-                ]
-                lib.embedding_fused_scatter_add.restype = ctypes.c_int
-                lib.embedding_gather_rows.argtypes = [ctypes.c_void_p] * 3 + [
-                    ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
-                ]
-                lib.embedding_gather_rows.restype = ctypes.c_int
-            elif name == "cin":
-                lib.cin_smem_bytes.argtypes = [ctypes.c_int] * 3
-                lib.cin_smem_bytes.restype = ctypes.c_size_t
-                lib.cin_blocks_per_sm.argtypes = [ctypes.c_int] * 3
-                lib.cin_blocks_per_sm.restype = ctypes.c_int
-                lib.cin_forward.argtypes = [ctypes.c_void_p] * 3 + [
-                    ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_void_p,
-                ]
-                lib.cin_forward.restype = ctypes.c_int
-            elif name == "senet_bilinear":
-                lib.senet_bilinear_smem_bytes.argtypes = [ctypes.c_int] * 3
-                lib.senet_bilinear_smem_bytes.restype = ctypes.c_size_t
-                lib.senet_bilinear_forward.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
-                    ctypes.c_void_p
-                ]
-                lib.senet_bilinear_forward.restype = ctypes.c_int
-            elif name == "capsule_routing":
-                lib.capsule_routing_smem_bytes.argtypes = [ctypes.c_int] * 4
-                lib.capsule_routing_smem_bytes.restype = ctypes.c_size_t
-                lib.capsule_routing_bwd_smem_bytes.argtypes = [ctypes.c_int] * 5
-                lib.capsule_routing_bwd_smem_bytes.restype = ctypes.c_size_t
-                lib.capsule_routing_blocks.argtypes = [ctypes.c_int] * 4
-                lib.capsule_routing_blocks.restype = ctypes.c_int
-                lib.capsule_routing_bwd_blocks.argtypes = [ctypes.c_int] * 6
-                lib.capsule_routing_bwd_blocks.restype = ctypes.c_int
-                lib.capsule_routing_forward.argtypes = [ctypes.c_void_p] * 4 + [
-                    ctypes.c_long, ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-                lib.capsule_routing_forward.restype = ctypes.c_int
-                lib.capsule_routing_backward.argtypes = [ctypes.c_void_p] * 4 + [
-                    ctypes.c_long] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-                lib.capsule_routing_backward.restype = ctypes.c_int
+            for fn, (argtypes, restype) in {**_COMMON_FUNCTIONS, **C_FUNCTIONS[name]}.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
             _LIBS[name] = lib
         return lib
 
@@ -638,52 +624,20 @@ def fm_second_order_plain(emb: torch.Tensor) -> torch.Tensor:
     return 0.5 * (sum_sq - sq_sum).sum(dim=-1)
 
 
-@functools.cache
-def _fm_triton_kernel():
-    """The Triton FM kernel, defined at first use (``triton`` is imported
-    here, never at module import, so the CPU tests import this module).
-
-    Replaces tpurec/ops/pallas/kernels.py:fm_second_order_fused (_fm_kernel).
-    Bound: a pure streaming reduction — B·F·D·4 bytes read once (27 MB at
-    B=8192, F=26, D=32: ~8 us at 3.35 TB/s), ~3 flops a byte loaded. Design:
-    one program per BLOCK_B rows loads the whole (BLOCK_B, F, D) tile at once
-    (F and D padded to powers of two with masked loads, so every load of a
-    program is in flight together), reduces over fields in registers and
-    writes one fp32 per row. Nothing but the input and the (B,) output
-    touches device memory."""
-    os.environ.setdefault("TRITON_CACHE_DIR", str(TRITON_CACHE_DIR))
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def fm_kernel(
-        emb_ptr, out_ptr, B, F, D,
-        BLOCK_B: tl.constexpr, BLOCK_F: tl.constexpr, BLOCK_D: tl.constexpr,
-    ):
-        rows = tl.program_id(0) * BLOCK_B + tl.arange(0, BLOCK_B)
-        r3 = rows.to(tl.int64)[:, None, None]
-        f3 = tl.arange(0, BLOCK_F)[None, :, None]
-        d3 = tl.arange(0, BLOCK_D)[None, None, :]
-        valid = (r3 < B) & (f3 < F) & (d3 < D)
-        e = tl.load(emb_ptr + r3 * (F * D) + f3 * D + d3, mask=valid, other=0.0)
-        total = tl.sum(e, axis=1)  # (BLOCK_B, BLOCK_D)
-        cross = total * total - tl.sum(e * e, axis=1)
-        tl.store(out_ptr + rows, 0.5 * tl.sum(cross, axis=1), mask=rows < B)
-
-    return triton, fm_kernel
-
-
-FM_MAX_TILE = 16_384  # largest padded F·D one program reduces
+FM_MAX_TILE = 16_384  # largest F·D, each rounded up to a power of two, the wrapper takes
 
 
 def fm_second_order_fused(emb: torch.Tensor) -> torch.Tensor:
     """FM cross term, (B, F, D) fp32 → (B,) fp32.
 
-    CPU tensors take ``fm_second_order_plain``; CUDA tensors launch the Triton
-    kernel, and anything it does not take (not fp32, not 3-D, padded F·D
-    above ``FM_MAX_TILE``) raises. It records no backward: on CUDA it raises
-    under grad mode when ``emb`` requires grad (training takes the plain
-    math, ``ops.interactions.fm_second_order``)."""
+    CPU tensors take ``fm_second_order_plain``; CUDA tensors launch the
+    kernel of ``csrc/fm_second_order.cu`` (a warp a row, unpadded, 16-byte
+    loads where D % 4 == 0 and the input starts on a 16-byte boundary), and
+    anything the wrapper does not take (not fp32, not 3-D, F·D rounded up to
+    powers of two above ``FM_MAX_TILE``) raises. The same bits on every
+    call. It records no backward: on CUDA it raises under grad mode when
+    ``emb`` requires grad (training takes the plain math,
+    ``ops.interactions.fm_second_order``)."""
     if emb.device.type == "cpu":
         return fm_second_order_plain(emb)
     _refuse_grad("fm_second_order", emb)
@@ -701,13 +655,12 @@ def fm_second_order_fused(emb: torch.Tensor) -> torch.Tensor:
     out = torch.empty(b, device=emb.device, dtype=torch.float32)
     if b == 0:
         return out
-    block_b = max(1, min(8, FM_MAX_TILE // 2 // (block_f * block_d)))
-    triton, kernel = _fm_triton_kernel()
+    emb = emb.contiguous()
+    lib = _library("fm_second_order")
     with torch.cuda.device(emb.device):
-        kernel[(triton.cdiv(b, block_b),)](
-            emb.contiguous(), out, b, f, d,
-            BLOCK_B=block_b, BLOCK_F=block_f, BLOCK_D=block_d, num_warps=4,
-        )
+        stream = torch.cuda.current_stream(emb.device).cuda_stream
+        err = lib.fm_second_order_forward(emb.data_ptr(), out.data_ptr(), b, f, d, stream)
+    _check_launch(lib, err, "fm_second_order")
     fm_second_order_fused.launches += 1
     return out
 
@@ -734,46 +687,7 @@ def cross_network_plain(
     return x
 
 
-@functools.cache
-def _cross_triton_kernel():
-    """The Triton DCN cross kernel, defined at first use (``triton`` is
-    imported here, never at module import).
-
-    Replaces tpurec/ops/pallas/kernels.py:cross_network_stack (_cross_kernel).
-    Bound: bytes — x0 read once and x written once, B·D·4 bytes each (27 MB
-    at B=8192, D=416: ~8 us at 3.35 TB/s), against ~4 flops an element a
-    layer. Design: one program per BLOCK_B rows holds the whole rows of x0
-    and x (D padded to a power of two, masked) in registers through all L
-    layers: a layer is one row reduction (x·w_l) and one elementwise update,
-    with w_l and b_l read from L2. Nothing but x0 and the output touches
-    device memory."""
-    os.environ.setdefault("TRITON_CACHE_DIR", str(TRITON_CACHE_DIR))
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def cross_kernel(
-        x0_ptr, w_ptr, b_ptr, out_ptr, B, D, L,
-        BLOCK_B: tl.constexpr, BLOCK_D: tl.constexpr,
-    ):
-        rows = tl.program_id(0) * BLOCK_B + tl.arange(0, BLOCK_B)
-        cols = tl.arange(0, BLOCK_D)
-        r2 = rows.to(tl.int64)[:, None]
-        c2 = cols[None, :]
-        valid = (r2 < B) & (c2 < D)
-        x0 = tl.load(x0_ptr + r2 * D + c2, mask=valid, other=0.0)
-        x = x0
-        for layer in range(L):
-            w = tl.load(w_ptr + layer * D + cols, mask=cols < D, other=0.0)
-            bias = tl.load(b_ptr + layer * D + cols, mask=cols < D, other=0.0)
-            xw = tl.sum(x * w[None, :], axis=1)
-            x = x0 * xw[:, None] + bias[None, :] + x
-        tl.store(out_ptr + r2 * D + c2, x, mask=valid)
-
-    return triton, cross_kernel
-
-
-CROSS_MAX_D = 8192  # largest padded D one program holds
+CROSS_MAX_D = 8192  # largest D, rounded up to a power of two, the wrapper takes
 
 
 def cross_network_fused(
@@ -782,11 +696,14 @@ def cross_network_fused(
     """Every DCN vector-cross layer at once: x0 (B, D), weights and biases
     (L, D), fp32 → (B, D) fp32.
 
-    CPU tensors take ``cross_network_plain``; CUDA tensors launch the Triton
-    kernel, and anything it does not take (not fp32, shapes that disagree,
-    padded D above ``CROSS_MAX_D``) raises. It records no backward: on CUDA it
-    raises under grad mode when an input requires grad (training takes the
-    plain math, ``ops.interactions.CrossNetwork``)."""
+    CPU tensors take ``cross_network_plain``; CUDA tensors launch a kernel of
+    ``csrc/cross_network.cu`` (a warp a row with x0 and x in registers
+    through every layer, w and b staged once a block; a block a row for
+    rows wider than a warp holds), and anything the wrapper does not take
+    (not fp32, shapes that disagree, D rounded up to a power of two above
+    ``CROSS_MAX_D``) raises. The same bits on every call. It records no
+    backward: on CUDA it raises under grad mode when an input requires grad
+    (training takes the plain math, ``ops.interactions.CrossNetwork``)."""
     if x0.device.type == "cpu":
         return cross_network_plain(x0, weights, biases)
     _refuse_grad("cross_network", x0, weights, biases)
@@ -806,14 +723,14 @@ def cross_network_fused(
     out = torch.empty(b, d, device=x0.device, dtype=torch.float32)
     if b == 0:
         return out
-    block_b = max(1, min(16, 4096 // block_d))
-    triton, kernel = _cross_triton_kernel()
+    args = [t.contiguous() for t in (x0, weights, biases)]
+    lib = _library("cross_network")
     with torch.cuda.device(x0.device):
-        kernel[(triton.cdiv(b, block_b),)](
-            x0.contiguous(), weights.contiguous(), biases.contiguous(), out, b, d,
-            weights.shape[0], BLOCK_B=block_b, BLOCK_D=block_d,
-            num_warps=4 if block_b * block_d <= 4096 else 8,
+        stream = torch.cuda.current_stream(x0.device).cuda_stream
+        err = lib.cross_network_forward(
+            *[t.data_ptr() for t in args], out.data_ptr(), b, d, weights.shape[0], stream
         )
+    _check_launch(lib, err, "cross_network")
     cross_network_fused.launches += 1
     return out
 
