@@ -45,7 +45,9 @@ checkout and exits non-zero on the first phase that fails. Phases:
    term that drops the last field or squares after summing over columns
    must read above the limit; two calls the same bits; device times beside
    the launch floor (an empty kernel's time); ``--fm`` runs this alone and
-   adds the launches' blocks and warps and the registers and spills,
+   adds the launches' blocks and warps, the registers and spills, the 4-byte
+   loads' time and ``flush_times`` (the time with L2 flushed by a read and
+   with the input in L2, beside one PyTorch call over the same bytes),
    ``--fm-ab DIR`` as ``--din-ab``;
 4. DIN at full width (the ``bench.py`` configuration: 3 profile fields over
    21,500 ids, a 64-step history, D=32, attention H=36, MLP (200, 80), bf16
@@ -154,7 +156,8 @@ checkout and exits non-zero on the first phase that fails. Phases:
      two bounds (its products in 3xTF32 on the tensor cores, and all of it
      in fp32 FMA); ``--cin`` runs #3's part alone with its block's shared
      memory and the blocks an SM holds, ``--cross`` #2's with its route,
-     blocks, registers and spills, ``--cross-ab DIR`` as ``--din-ab``;
+     blocks, registers and spills, the 4-byte units' time and
+     ``flush_times``, ``--cross-ab DIR`` as ``--din-ab``;
    - 8b: ``export_params`` → ``load_servable`` → ``Servable.predict``:
      finite probabilities, the model's kernel launched once a call and the
      other two not at all; the kernel's call inside the servable against
@@ -267,15 +270,16 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def device_ms(torch, fn, iters: int = 30, warmup: int = 3, flush_l2: bool = True) -> float:
+def device_ms(torch, fn, iters: int = 30, warmup: int = 3, flush: str | None = "write") -> float:
     """Median device time of one ``fn()`` launch. The L2 cache (50 MB) is
-    flushed before each launch (by writing 256 MB, so it holds dirty lines
-    that a launch's reads must evict), unless ``flush_l2`` is False: then
-    the inputs stay in L2 from the warm-up, as a kernel finds them right
-    after the op that wrote them. A sleep kernel ahead of the loop holds the
-    card while the host queues every launch, so host-side launch overhead
-    stays out of the times."""
-    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB
+    flushed before each launch: by writing 256 MB (``flush="write"``), which
+    leaves it full of dirty lines that a launch's reads must first evict, or
+    by reading 256 MB (``"read"``), which leaves clean lines; ``None`` keeps
+    the inputs in L2 from the warm-up, as a kernel finds them right after
+    the op that wrote them. A sleep kernel ahead of the loop holds the card
+    while the host queues every launch, so host-side launch overhead stays
+    out of the times."""
+    buf = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -285,13 +289,29 @@ def device_ms(torch, fn, iters: int = 30, warmup: int = 3, flush_l2: bool = True
     ]
     torch.cuda._sleep(100_000_000)
     for start, end in events:
-        if flush_l2:
-            flush.zero_()
+        if flush == "write":
+            buf.zero_()
+        elif flush == "read":
+            buf.sum()
         start.record()
         fn()
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def flush_times(torch, fn, same_bytes_call, same_bytes_fn) -> dict:
+    """``fn``'s device time with L2 flushed by a read and with its input in
+    L2, beside one PyTorch call that moves the same bytes
+    (``same_bytes_fn``) under both flushes: what the write flush of
+    ``device_ms`` costs a streaming launch."""
+    return dict(
+        read_flush_ms=device_ms(torch, fn, flush="read"),
+        warm_ms=device_ms(torch, fn, flush=None),
+        same_bytes_call=same_bytes_call,
+        same_bytes_ms=device_ms(torch, same_bytes_fn),
+        same_bytes_read_flush_ms=device_ms(torch, same_bytes_fn, flush="read"),
+    )
 
 
 def bound(nbytes: float, ops: float):
@@ -514,11 +534,11 @@ def check_fm(torch, kernels, detail=False):
     a term that drops the last field or squares after summing over columns
     must read above it; two calls the same bits. Device time (median of 30,
     L2 flushed), the plain version's and the bound at each B, beside the
-    launch floor, the time with the input in L2 (``warm_ms``, as the rank
-    path has it) and the time of one PyTorch call that reads the same bytes
-    (``same_bytes_ms``). ``detail`` (``--fm``) adds each launch's blocks and warps
-    and the kernels' registers and spills. Returns the B=8192 record with
-    the others under ``other_shapes``."""
+    launch floor. ``detail`` (``--fm``) adds each launch's blocks and warps,
+    ``flush_times`` (L2 flushed by a read, the input in L2, and one PyTorch
+    call reading the same bytes), the 4-byte loads' time and the kernels'
+    registers and spills. Returns the B=8192 record with the others under
+    ``other_shapes``."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     f, d = FM_SHAPE
     floor_ms = launch_floor_ms(torch)
@@ -540,13 +560,13 @@ def check_fm(torch, kernels, detail=False):
             ms=device_ms(torch, lambda: kernels.fm_second_order_fused(emb)),
             plain_ms=device_ms(torch, lambda: kernels.fm_second_order_plain(emb)),
             bound_ms=bound_ms, bound_by=bound_by, launch_floor_ms=floor_ms, library_ms=None,
-            warm_ms=device_ms(torch, lambda: kernels.fm_second_order_fused(emb), flush_l2=False),
-            same_bytes_call="emb.sum(dim=(1, 2))",
-            same_bytes_ms=device_ms(torch, lambda: emb.sum(dim=(1, 2))),
         )
         if detail:
-            warps = kernels._library("fm_second_order").fm_second_order_warps(b)
+            sms = kernels._sm_count(emb.device)
+            warps = kernels._library("fm_second_order").fm_second_order_warps(b, sms)
             rec.update(warps_per_block=warps, blocks=-(-b // warps))
+            rec.update(flush_times(torch, lambda: kernels.fm_second_order_fused(emb),
+                                   "emb.sum(dim=(1, 2))", lambda: emb.sum(dim=(1, 2))))
         if b == FM_BATCHES[0]:
             record = rec
             odd = unaligned(torch, emb)
@@ -555,7 +575,8 @@ def check_fm(torch, kernels, detail=False):
                 kernel=tol_ratio(got, want, **KERNEL_TOL),
                 same_bits=bool(torch.equal(got, kernels.fm_second_order_fused(odd))),
             )
-            rec["unaligned_ms"] = device_ms(torch, lambda: kernels.fm_second_order_fused(odd))
+            if detail:
+                rec["unaligned_ms"] = device_ms(torch, lambda: kernels.fm_second_order_fused(odd))
         else:
             print(f"fm_second_order at B={b}:", json.dumps(rec), flush=True)
             other[f"b{b}"] = rec
@@ -1811,15 +1832,23 @@ def check_cross(torch, kernels, detail=False):
     boundary (4-byte units), at ``KERNEL_TOL``; a stack that dots x0 must
     read above it; two calls the same bits. Device time (median of 30, L2
     flushed), the plain version's and the bound at B=8192 and B=1024,
-    beside the launch floor, the time with x0 in L2 (``warm_ms``) and a
-    device-to-device copy of x0 (``same_bytes_ms``, the bytes the stack must
-    move). ``detail`` (``--cross``) adds each launch's
-    route and blocks and the kernels' registers and spills. Returns the
-    readings and the B=8192 record with B=1024's under ``other_shapes``."""
+    beside the launch floor. ``detail`` (``--cross``) adds each launch's
+    route and blocks, ``flush_times`` (L2 flushed by a read, x0 in L2, and
+    a device-to-device copy of x0, the bytes the stack must move), the
+    4-byte units' time and blocks, and the kernels' registers and spills.
+    Returns the readings and the B=8192 record with B=1024's under
+    ``other_shapes``."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     d0, l0 = CROSS_SHAPE
     floor_ms = launch_floor_ms(torch)
     readings, other, record = {}, {}, None
+    lib = kernels._library("cross_network")
+    device = torch.device("cuda", torch.cuda.current_device())
+
+    def blocks(b, d, layers, vw):
+        resident = kernels._cross_resident(lib, device, d, layers, vw)
+        return min(-(-b // 8), resident) if resident else b
+
     for b, d, layers in ((8192, d0, l0), (1024, d0, l0), (1003, 429, 2), (1003, 429, 6)):
         args = [torch.randn(b, d, device="cuda", generator=gen),
                 torch.randn(layers, d, device="cuda", generator=gen) * (0.5 / d**0.5),
@@ -1840,14 +1869,12 @@ def check_cross(torch, kernels, detail=False):
             ms=device_ms(torch, lambda: kernels.cross_network_fused(*args)),
             plain_ms=device_ms(torch, lambda: kernels.cross_network_plain(*args)),
             bound_ms=bound_ms, bound_by=bound_by, launch_floor_ms=floor_ms, library_ms=None,
-            warm_ms=device_ms(torch, lambda: kernels.cross_network_fused(*args), flush_l2=False),
-            same_bytes_call="out.copy_(x0)",
-            same_bytes_ms=device_ms(torch, lambda: torch.empty_like(args[0]).copy_(args[0])),
         )
         if detail:
-            lib = kernels._library("cross_network")
             rec.update(warp_a_row=bool(lib.cross_network_route(d, layers)), threads_per_block=256,
-                       blocks=lib.cross_network_blocks(b, d, layers, 4))
+                       blocks=blocks(b, d, layers, 4))
+            rec.update(flush_times(torch, lambda: kernels.cross_network_fused(*args), "out.copy_(x0)",
+                                   lambda: torch.empty_like(args[0]).copy_(args[0])))
         if b == TRAIN_BATCH:
             record = rec
             odd = [unaligned(torch, t) for t in args]
@@ -1856,9 +1883,9 @@ def check_cross(torch, kernels, detail=False):
                 kernel=tol_ratio(got, want, **KERNEL_TOL),
                 same_bits=bool(torch.equal(got, kernels.cross_network_fused(*odd))),
             )
-            rec["unaligned_ms"] = device_ms(torch, lambda: kernels.cross_network_fused(*odd))
             if detail:
-                rec["unaligned_blocks"] = kernels._library("cross_network").cross_network_blocks(b, d, layers, 1)
+                rec["unaligned_ms"] = device_ms(torch, lambda: kernels.cross_network_fused(*odd))
+                rec["unaligned_blocks"] = blocks(b, d, layers, 1)
         else:
             print(f"cross_network at B={b}:", json.dumps(rec), flush=True)
             other[f"b{b}"] = rec

@@ -22,7 +22,8 @@
 // partial dot, a 5-step butterfly that leaves the same sum on every lane,
 // and the lane's update: no barrier and no shared-memory round trip inside
 // the layer loop. Blocks of 8 warps are persistent (as many as fit on the
-// card at once); each stages w and b of all L layers in shared memory once,
+// card at once, from an occupancy query the caller makes once a device and
+// shape); each stages w and b of all L layers in shared memory once,
 // with all of a thread's staging loads in flight together, and its warps
 // walk rows at a stride of the whole grid's warps. A warp's first row is
 // loaded before the staging, and while it has a next row, that row is
@@ -290,39 +291,19 @@ size_t stage_bytes(int D, int L) { return 2 * sizeof(float) * static_cast<size_t
 
 bool warp_route(int D, int L) { return D <= kWarpMaxD && stage_bytes(D, L) <= kStageBytes; }
 
-struct Launch {
-  Kernel kernel;
-  int blocks;
-  size_t smem;
-};
-
-cudaError_t plan(int B, int D, int L, int vw, Launch* launch) {
+// The kernel for this shape and unit width (vw 4: 16-byte units, 1: floats),
+// its dynamic shared memory, and whether a warp takes a row.
+Kernel pick(int D, int L, int vw, size_t* smem, bool* warp) {
   const int units = vw == 4 ? D / 4 : D;
-  if (warp_route(D, L)) {
+  *warp = warp_route(D, L);
+  if (*warp) {
+    *smem = stage_bytes(D, L);
     const int nv = units > 32 ? (units + 31) / 32 : 1;
-    launch->kernel = vw == 4 ? warp_kernel<4, 1, kWarpMaxD / 128>(nv)
-                             : warp_kernel<1, 1, kWarpMaxD / 32>(nv);
-    launch->smem = stage_bytes(D, L);
-    int dev = 0;
-    int sms = 0;
-    int per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, reinterpret_cast<const void*>(launch->kernel), kThreads, launch->smem);
-    }
-    if (err != cudaSuccess) return err;
-    const int needed = (B + kWarps - 1) / kWarps;
-    const int resident = (per_sm > 0 ? per_sm : 1) * sms;
-    launch->blocks = needed < resident ? needed : resident;
-  } else {
-    const int nv = (units + kThreads - 1) / kThreads;
-    launch->kernel = vw == 4 ? block_kernel<4, 1, 8>(nv) : block_kernel<1, 1, 32>(nv);
-    launch->smem = 0;
-    launch->blocks = B;
+    return vw == 4 ? warp_kernel<4, 1, kWarpMaxD / 128>(nv) : warp_kernel<1, 1, kWarpMaxD / 32>(nv);
   }
-  return launch->kernel ? cudaSuccess : cudaErrorInvalidValue;
+  *smem = 0;
+  const int nv = (units + kThreads - 1) / kThreads;
+  return vw == 4 ? block_kernel<4, 1, 8>(nv) : block_kernel<1, 1, 32>(nv);
 }
 
 }  // namespace
@@ -333,30 +314,51 @@ extern "C" {
 // where a block does.
 int cross_network_route(int D, int L) { return warp_route(D, L) ? 1 : 0; }
 
-// Blocks of kThreads the launch at this shape takes on the current device,
-// with 16-byte units (vw 4) or 4-byte ones (vw 1), or minus a cudaError_t.
-int cross_network_blocks(int B, int D, int L, int vw) {
-  Launch launch;
-  const cudaError_t err = plan(B, D, L, vw, &launch);
-  return err == cudaSuccess ? launch.blocks : -static_cast<int>(err);
+// Blocks of the warp kernel for this shape and unit width that the current
+// device holds at once (the most a launch takes: they are persistent), 0
+// where a block takes a row, or minus a cudaError_t. The caller finds it
+// once a device and shape.
+int cross_network_resident(int D, int L, int vw) {
+  size_t smem = 0;
+  bool warp = false;
+  const Kernel kernel = pick(D, L, vw, &smem, &warp);
+  if (!kernel) return -static_cast<int>(cudaErrorInvalidValue);
+  if (!warp) return 0;
+  int dev = 0;
+  int sms = 0;
+  int per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, reinterpret_cast<const void*>(kernel), kThreads, smem);
+  }
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return (per_sm > 0 ? per_sm : 1) * sms;
 }
 
 // out (B, D) = x_L of the cross stack; x0 (B, D), w and b (L, D) and out are
 // contiguous fp32 device arrays, D at most 8192 (the block kernel's widest).
+// vw 4 reads and writes 16-byte units (D % 4 == 0 and every pointer on a
+// 16-byte boundary), vw 1 floats. Where a warp takes a row, resident is
+// cross_network_resident's count for the shape and vw, and the launch takes
+// at most that many blocks of kWarps rows; else a block takes a row.
 // Returns a cudaError_t (0 = launched).
 int cross_network_forward(const float* x0, const float* w, const float* b, float* out, int B,
-                          int D, int L, void* stream) {
+                          int D, int L, int vw, int resident, void* stream) {
   if (B < 1 || D < 0 || D > 8192 || L < 0) return static_cast<int>(cudaErrorInvalidValue);
   const bool aligned = (reinterpret_cast<uintptr_t>(x0) | reinterpret_cast<uintptr_t>(w) |
                         reinterpret_cast<uintptr_t>(b) | reinterpret_cast<uintptr_t>(out)) %
                            16 ==
                        0;
-  const int vw = D % 4 == 0 && aligned ? 4 : 1;
-  Launch launch;
-  const cudaError_t err = plan(B, D, L, vw, &launch);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  launch.kernel<<<launch.blocks, kThreads, launch.smem, static_cast<cudaStream_t>(stream)>>>(
-      x0, w, b, out, B, D, L);
+  if (vw != 1 && !(vw == 4 && D % 4 == 0 && aligned)) return static_cast<int>(cudaErrorInvalidValue);
+  size_t smem = 0;
+  bool warp = false;
+  const Kernel kernel = pick(D, L, vw, &smem, &warp);
+  if (!kernel || (warp && resident < 1)) return static_cast<int>(cudaErrorInvalidValue);
+  const int needed = (B + kWarps - 1) / kWarps;
+  const int blocks = !warp ? B : needed < resident ? needed : resident;
+  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(x0, w, b, out, B, D, L);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,24 +17,25 @@
 // - A lane owns fixed columns. The row's F*D values are read unpadded, in
 //   16-byte loads where D % 4 == 0 and the input starts on a 16-byte
 //   boundary (every row then does too), else in 4-byte loads. With
-//   U = D / 4 (or D) column units a field and U <= 32, the warp is cut into
-//   G = 32 / U field groups: lane l takes unit l % U of fields l / U,
+//   U = D / 4 (or D) column units a field, U a power of two up to 32, the
+//   warp is cut into G = 32 / U field groups: lane l takes unit l % U of fields l / U,
 //   l / U + G, ... At D = 32 that is float4 column block l % 8 of fields
 //   l / 8, l / 8 + 4, ...: 7 loads at F = 26, all in flight before the
 //   first add (up to kLoads a lane at once; see sum_fields and fm_kernel
 //   for what that takes from the compiler: sent one to four at a time, the
 //   loads made the rank shapes slower than the Triton kernel this replaces).
-// - Each lane keeps sum_f e and sum_f e^2 for its columns. Shuffles fold the
-//   lanes that share columns (a butterfly over the groups when U is a power
-//   of two, else lane u + k*U folded into lane u in order of k). Then each
-//   of the U lanes forms 0.5 * (s^2 - q) over its columns and a fixed
-//   butterfly over the warp sums them; lane 0 writes.
-// - Wider rows (U > 32) take a lane's columns in passes of 32 units, the
-//   fields of a pass summed as above.
+// - Each lane keeps sum_f e and sum_f e^2 for its columns. A butterfly over
+//   the groups folds the lanes that share columns; then each of the U lanes
+//   forms 0.5 * (s^2 - q) over its columns and a fixed butterfly over the
+//   warp sums them; lane 0 writes.
+// - Other rows (U above 32, or not a power of two) take a lane's columns in
+//   passes of 32 units (lane l takes units l, l + 32, ...), each unit's
+//   fields summed by its lane alone.
 // Blocks: a warp a block while B is at most 4 rows an SM, so small batches
 // reach the most SMs; kWarps warps a block above that (at B=8192, 2,048
-// blocks that all fit on the card at once). Every sum runs in a fixed order
-// and nothing is atomic: the same bits on every call.
+// blocks that all fit on the card at once). The caller passes the card's SM
+// count (found once a device), so a launch makes no device query. Every sum
+// runs in a fixed order and nothing is atomic: the same bits on every call.
 
 #include <cuda_runtime.h>
 
@@ -97,11 +98,11 @@ __device__ __forceinline__ float cross(const float (&s)[VW], const float (&q)[VW
   return t;
 }
 
-// How a row's column units map to lanes: U <= 32 units a field, lanes that
-// share columns folded by a butterfly (U a power of two) or in order; or
-// U > 32, in passes of 32 units. Each is its own kernel, so the path a
-// launch runs is straight-line code.
-enum Layout { kGroupsPow2 = 0, kGroups = 1, kPasses = 2 };
+// How a row's column units map to lanes: U a power of two up to 32, in
+// 32 / U field groups folded by a butterfly; or any other U, in passes of 32
+// units. Each is its own kernel, so the path a launch runs is straight-line
+// code.
+enum Layout { kGroupsPow2 = 0, kPasses = 1 };
 
 // At least one block an SM (__launch_bounds__'s second argument) lets
 // ptxas give a lane the registers to hold all kLoads loads at once; without
@@ -132,28 +133,11 @@ __global__ void __launch_bounds__(kWarps * 32, 1) fm_kernel(const float* __restr
 #pragma unroll
     for (int c = 0; c < VW; ++c) s[c] = q[c] = 0.f;
     if (grp < G) sum_fields<VW>(e + col * VW, D, grp, G, F, s, q);
-    if constexpr (LAYOUT == kGroupsPow2) {
-      for (int off = U; off < 32; off <<= 1) {
-#pragma unroll
-        for (int c = 0; c < VW; ++c) {
-          s[c] += __shfl_xor_sync(kFull, s[c], off);
-          q[c] += __shfl_xor_sync(kFull, q[c], off);
-        }
-      }
-    } else {
-      float s0[VW], q0[VW];
+    for (int off = U; off < 32; off <<= 1) {
 #pragma unroll
       for (int c = 0; c < VW; ++c) {
-        s0[c] = s[c];
-        q0[c] = q[c];
-      }
-      for (int k = 1; k < G; ++k) {
-        const int src = col + k * U;
-#pragma unroll
-        for (int c = 0; c < VW; ++c) {
-          s[c] += __shfl_sync(kFull, s0[c], src);
-          q[c] += __shfl_sync(kFull, q0[c], src);
-        }
+        s[c] += __shfl_xor_sync(kFull, s[c], off);
+        q[c] += __shfl_xor_sync(kFull, q[c], off);
       }
     }
     if (lane < U) t = cross<VW>(s, q);
@@ -168,48 +152,35 @@ void launch(int layout, int blocks, int threads, cudaStream_t st, const float* e
             int B, int F, int D) {
   if (layout == kGroupsPow2) {
     fm_kernel<VW, kGroupsPow2><<<blocks, threads, 0, st>>>(emb, out, B, F, D);
-  } else if (layout == kGroups) {
-    fm_kernel<VW, kGroups><<<blocks, threads, 0, st>>>(emb, out, B, F, D);
   } else {
     fm_kernel<VW, kPasses><<<blocks, threads, 0, st>>>(emb, out, B, F, D);
   }
-}
-
-cudaError_t sm_count(int* sms) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  return err;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Warps a block at batch size B on the current device (or minus a
-// cudaError_t): one while B is at most 4 rows an SM, else kWarps.
-int fm_second_order_warps(int B) {
-  int sms = 0;
-  const cudaError_t err = sm_count(&sms);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  return B <= 4 * sms ? 1 : kWarps;
-}
+// Warps a block at batch size B on a card of sms SMs: one while B is at
+// most 4 rows an SM, else kWarps.
+int fm_second_order_warps(int B, int sms) { return B <= 4 * sms ? 1 : kWarps; }
 
 // out (B,) = the FM cross term of emb (B, F, D), both contiguous fp32 device
-// arrays. Returns a cudaError_t (0 = launched).
-int fm_second_order_forward(const float* emb, float* out, int B, int F, int D, void* stream) {
-  if (B < 1 || F < 0 || D < 0) return static_cast<int>(cudaErrorInvalidValue);
+// arrays, on the current device, which has sms SMs. Returns a cudaError_t
+// (0 = launched).
+int fm_second_order_forward(const float* emb, float* out, int B, int F, int D, int sms,
+                            void* stream) {
+  if (B < 1 || F < 0 || D < 0 || sms < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (F == 0 || D == 0) {  // an empty sum: every row is 0
     F = 0;
     D = 1;
   }
-  const int warps = fm_second_order_warps(B);
-  if (warps < 0) return -warps;
+  const int warps = fm_second_order_warps(B, sms);
   const int blocks = (B + warps - 1) / warps;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool vec4 = D % 4 == 0 && reinterpret_cast<uintptr_t>(emb) % 16 == 0;
   const int U = vec4 ? D / 4 : D;
-  const int layout = U > 32 ? kPasses : (U & (U - 1)) == 0 ? kGroupsPow2 : kGroups;
+  const int layout = U <= 32 && (U & (U - 1)) == 0 ? kGroupsPow2 : kPasses;
   if (vec4) {
     launch<4>(layout, blocks, warps * 32, st, emb, out, B, F, D);
   } else {

@@ -131,13 +131,13 @@ C_FUNCTIONS = {
         "capsule_routing_backward": ([_P] * 4 + [ctypes.c_long] + [_P] * 5 + [_I] * 7 + [_P], _I),
     },
     "fm_second_order": {
-        "fm_second_order_warps": ([_I], _I),
-        "fm_second_order_forward": ([_P] * 2 + [_I] * 3 + [_P], _I),
+        "fm_second_order_warps": ([_I] * 2, _I),
+        "fm_second_order_forward": ([_P] * 2 + [_I] * 4 + [_P], _I),
     },
     "cross_network": {
         "cross_network_route": ([_I] * 2, _I),
-        "cross_network_blocks": ([_I] * 4, _I),
-        "cross_network_forward": ([_P] * 4 + [_I] * 3 + [_P], _I),
+        "cross_network_resident": ([_I] * 3, _I),
+        "cross_network_forward": ([_P] * 4 + [_I] * 5 + [_P], _I),
     },
 }
 NVCC_FLAGS = [
@@ -625,6 +625,16 @@ def fm_second_order_plain(emb: torch.Tensor) -> torch.Tensor:
 
 
 FM_MAX_TILE = 16_384  # largest F·D, each rounded up to a power of two, the wrapper takes
+# device index -> its SM count, which sets the FM kernel's warps a block
+_SM_COUNT: Dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    """The device's SM count, read once and then from a dict."""
+    sms = _SM_COUNT.get(device.index)
+    if sms is None:
+        sms = _SM_COUNT[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms
 
 
 def fm_second_order_fused(emb: torch.Tensor) -> torch.Tensor:
@@ -659,7 +669,9 @@ def fm_second_order_fused(emb: torch.Tensor) -> torch.Tensor:
     lib = _library("fm_second_order")
     with torch.cuda.device(emb.device):
         stream = torch.cuda.current_stream(emb.device).cuda_stream
-        err = lib.fm_second_order_forward(emb.data_ptr(), out.data_ptr(), b, f, d, stream)
+        err = lib.fm_second_order_forward(
+            emb.data_ptr(), out.data_ptr(), b, f, d, _sm_count(emb.device), stream
+        )
     _check_launch(lib, err, "fm_second_order")
     fm_second_order_fused.launches += 1
     return out
@@ -688,6 +700,23 @@ def cross_network_plain(
 
 
 CROSS_MAX_D = 8192  # largest D, rounded up to a power of two, the wrapper takes
+# (device index, D, L, unit width) -> blocks of the warp kernel the card holds at once
+_CROSS_RESIDENT: Dict[Tuple[int, int, int, int], int] = {}
+
+
+def _cross_resident(lib: ctypes.CDLL, device: torch.device, d: int, l: int, vw: int) -> int:
+    """The cross kernel's persistent grid for a shape on a device (0 where a
+    block takes a row), found once (the occupancy query) and then read from
+    a dict."""
+    key = (device.index, d, l, vw)
+    resident = _CROSS_RESIDENT.get(key)
+    if resident is None:
+        with torch.cuda.device(device):
+            resident = lib.cross_network_resident(d, l, vw)
+        if resident < 0:
+            _check_launch(lib, -resident, "cross_network (occupancy query)")
+        _CROSS_RESIDENT[key] = resident
+    return resident
 
 
 def cross_network_fused(
@@ -724,12 +753,13 @@ def cross_network_fused(
     if b == 0:
         return out
     args = [t.contiguous() for t in (x0, weights, biases)]
+    ptrs = [t.data_ptr() for t in args] + [out.data_ptr()]
+    vw = 4 if d % 4 == 0 and all(p % 16 == 0 for p in ptrs) else 1
     lib = _library("cross_network")
+    resident = _cross_resident(lib, x0.device, d, weights.shape[0], vw)
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream(x0.device).cuda_stream
-        err = lib.cross_network_forward(
-            *[t.data_ptr() for t in args], out.data_ptr(), b, d, weights.shape[0], stream
-        )
+        err = lib.cross_network_forward(*ptrs, b, d, weights.shape[0], vw, resident, stream)
     _check_launch(lib, err, "cross_network")
     cross_network_fused.launches += 1
     return out
