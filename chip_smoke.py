@@ -7,6 +7,7 @@
     python3 chip_smoke.py --din-ab DIR  # #4 of the checkout DIR against this one's
     python3 chip_smoke.py --din-bwd   # kernel #5's checks alone (phase 6's)
     python3 chip_smoke.py --capsule   # kernels #7/#8's checks alone (phase 9a's)
+    python3 chip_smoke.py --capsule-bwd-ab DIR  # #8 of the checkout DIR against this one's
     python3 chip_smoke.py --cin       # kernel #3's checks alone (phase 8a's)
     python3 chip_smoke.py --fm        # kernel #1's checks alone (phase 3's)
     python3 chip_smoke.py --fm-ab DIR  # #1 of the checkout DIR against this one's
@@ -179,18 +180,25 @@ checkout and exits non-zero on the first phase that fails. Phases:
    - 9a: #7 and #8 against their plain versions at (8192, 64, 64, 64, K=4),
      ``benchmarks/kernel_bench.py``'s B=4096 and ragged shapes (1 and 2
      iterations, a row whose mask is all zero), each output's error in
-     units of its limit, and two calls of each the same bits; #7 also with
-     a mask with holes (``mask_with_holes``: random steps, an all-zero row,
-     a row live at its last step only); a forward that ignores the mask,
-     runs one iteration fewer or takes its products in single TF32
+     units of its limit, and two calls of each the same bits; both also
+     with a mask with holes (``mask_with_holes``: random steps, an all-zero
+     row, a row live at its last step only); a forward that ignores the
+     mask, runs one iteration fewer or takes its products in single TF32
      (``broken_single_tf32``; the kernel computes u = x·S in 3xTF32), and
-     a backward that differentiates through the stop-gradient iterations
-     or gives dlogits0 only the last iteration, must read above it; device
-     times, bounds, plain times, the per-launch split (``torch.profiler``)
-     and the blocks the card holds at once; #7 also at the serving paths'
-     B=1 and B=1024, each beside the launch floor (an empty kernel's time
-     in the same harness); ``--capsule`` runs this alone and adds #7's
-     time at B=1 and B=1024 for 1, 2 and 3 iterations;
+     a backward that differentiates through the stop-gradient iterations,
+     gives dlogits0 only the last iteration or takes u, dbehavior and dS
+     in single TF32 (``broken_bwd_single_tf32``; the kernel takes them in
+     3xTF32), must read above it; device times, bounds, plain times, the
+     per-launch split (``torch.profiler``) and the blocks the card holds at
+     once; #7 also at the serving paths' B=1 and B=1024 and #8 at B=1024,
+     each beside the launch floor (an empty kernel's time in the same
+     harness); #8's route (the tensor-core kernel at the slice's shape);
+     ``--capsule`` runs this alone and adds #7's time at B=1 and B=1024 for
+     1, 2 and 3 iterations and both kernels' registers and spills;
+     ``--capsule-bwd-ab DIR`` times #8 of the checkout DIR against this
+     one's (parent, change, change, parent at B=8192, 4096 and 1024), #7
+     of both (the same bits), and the kernel-pair A/B below through each
+     tree's pair;
    - 9b: ``export_params`` → ``load_servable`` → ``predict`` at B=8192 (#7
      once a call; its call held against the plain and broken versions on
      its inputs; the user embedding and capsules card against CPU on 256
@@ -2299,12 +2307,16 @@ def routing_work(b, live, l, d, e, k, iters):
     operations) this run's mask needs. A masked step has w = 0: it adds
     nothing to z, and its du, dbehavior row and dS terms are 0, so u, z,
     the logit update and the backward's products count live steps only.
+    du = w_lastᵀ dz has rank K, so the backward's dbehavior and dS count as
+    the K-deep products the kernel computes, w_lastᵀ (dz Sᵀ) and (w_last
+    x)ᵀ dz, not as the L-deep du Sᵀ and xᵀ du.
     Bytes: behavior read at live steps, the mask, S, one (K, L) logits0
     slice, the capsules written; the backward reads g as well and writes
     all of dbehavior, dS and dlogits0."""
     route = 2 * k * live * e  # one (K, L)·(L, E) or (K, E)·(E, L) product
     fwd_ops = 2 * live * d * e + iters * route + (iters - 1) * route + iters * b * k * (6 * l + 4 * e)
-    bwd_ops = fwd_ops + 2 * route + 2 * (iters - 1) * route + 2 * 2 * live * d * e
+    rank_k = 2 * k * (2 * live * d + 2 * b * d * e)  # w x, w (dz S^T); dz S^T, (w x)^T dz
+    bwd_ops = fwd_ops + 2 * route + 2 * (iters - 1) * route + rank_k
     fwd_bytes = 4 * (live * d + b * l + d * e + k * l + b * k * e)
     bwd_bytes = fwd_bytes + 4 * (b * l * d + d * e + b * k * l)
     return fwd_bytes, fwd_ops, bwd_bytes, bwd_ops
@@ -2329,12 +2341,15 @@ def holey_mask(torch, gen, mask):
 
 def check_capsule_kernels(torch, kernels, detail=False):
     """Kernels #7 and #8 against their plain versions at the slice's shape,
-    kernel_bench's B=4096 and ragged shapes; broken versions must read above
-    the limit (phase 9a). #7 also at the serving shapes B=1 and B=1024 with
-    the launch floor beside its bound, with a mask with holes, and two calls
-    the same bits. ``detail`` (``--capsule``) adds #7's time at B=1 for 1
-    and 2 iterations (what one iteration costs a row)."""
+    kernel_bench's B=4096 and ragged shapes; broken versions (#8's products
+    in single TF32 among them) must read above the limit (phase 9a). Both
+    also with a mask with holes, two calls the same bits; #7 at the serving
+    shapes B=1 and B=1024, #8 at B=1024, each with the launch floor beside
+    its bound; #8's route, blocks and per-launch split. ``detail``
+    (``--capsule``) adds #7's time at B=1 for 1 and 2 iterations (what one
+    iteration costs a row) and both kernels' registers and spills."""
     gen = torch.Generator(device="cuda").manual_seed(9)
+    lib = kernels._library("capsule_routing")
     floor_ms = launch_floor_ms(torch)
     # (B, L, D, E, K, iterations, broadcast logits0)
     shapes = [(TRAIN_BATCH, 64, 64, 64, 4, 3, True), (4096, 64, 64, 64, 4, 3, False),
@@ -2360,6 +2375,10 @@ def check_capsule_kernels(torch, kernels, detail=False):
         again = kernels.capsule_routing_bwd_fused(*args, g, iters)
         r["bwd_same_bits"] = all(torch.equal(x, y) for x, y in zip(got_bwd, again))
         r["bwd"] = routing_bwd_reading(got_bwd, want_bwd)
+        # the backward's three large products in single TF32 (the kernel
+        # takes them in 3xTF32)
+        r["broken_bwd_single_tf32"] = routing_bwd_reading(
+            kernels.capsule_routing_bwd_products(*args, g, iters, products="1xtf32"), want_bwd)
         if iters > 1:
             for name, kw in (("broken_bwd_through_stop_gradient", dict(stop_grad=False)),
                              ("broken_bwd_dlogits0_last_iteration", dict(chain=False))):
@@ -2389,7 +2408,10 @@ def check_capsule_kernels(torch, kernels, detail=False):
                     max_abs_err=max(float((x - y).abs().max()) for x, y in zip(got_bwd, want_bwd)),
                     ms=device_ms(torch, lambda: kernels.capsule_routing_bwd_fused(*args, g, iters)),
                     plain_ms=device_ms(torch, lambda: kernels.capsule_routing_bwd_plain(*args, g, iters)),
-                    bound_ms=bwd_bound, bound_by=bwd_by),
+                    bound_ms=bwd_bound, bound_by=bwd_by, bytes_bound_ms=bwd_bytes / HBM_BYTES_PER_S * 1e3,
+                    launch_floor_ms=floor_ms, tensor_cores=bool(lib.capsule_routing_bwd_route(l, d, e, k, iters)),
+                    blocks=kernels._capsule_bwd_blocks(lib, args[0].device, l, d, e, k, iters),
+                    split_ms=kernel_split(torch, lambda: kernels.capsule_routing_bwd_fused(*args, g, iters))),
             )
             for name, rec in recs.items():
                 if b == TRAIN_BATCH:
@@ -2403,10 +2425,18 @@ def check_capsule_kernels(torch, kernels, detail=False):
     args = routing_inputs(torch, gen, 1003, 64, 64, 64, 4)
     args[1] = holey_mask(torch, gen, args[1])
     got = kernels.capsule_routing_fused(*args, 3)
+    g = torch.randn(1003, 4, 64, device="cuda", generator=gen)
+    got_bwd = kernels.capsule_routing_bwd_fused(*args, g, 3)
     readings["mask_with_holes 1003x64x64x64 K=4 iters=3"] = dict(
         kernel=tol_ratio(got, kernels.capsule_routing_plain(*args, 3), **KERNEL_TOL),
-        same_bits=bool(torch.equal(got, kernels.capsule_routing_fused(*args, 3))))
+        same_bits=bool(torch.equal(got, kernels.capsule_routing_fused(*args, 3))),
+        bwd=routing_bwd_reading(got_bwd, kernels.capsule_routing_bwd_plain(*args, g, 3)),
+        bwd_same_bits=all(torch.equal(x, y) for x, y in zip(got_bwd, kernels.capsule_routing_bwd_fused(*args, g, 3))))
     check(not got[1].any(), "capsule_routing: a row whose mask is all zero gave nonzero capsules")
+    check(not got_bwd[0][1].any() and not got_bwd[2][1].any(),
+          "capsule_routing_bwd: a row whose mask is all zero gave nonzero dbehavior or dlogits0")
+    check(lib.capsule_routing_bwd_route(64, 64, 64, 4, 3) == 1,
+          "capsule_routing_bwd: the slice's shape must take the tensor-core kernel")
     # #7 at the serving paths' shapes: the HTTP user tower's B=1 and the
     # offline index's and evaluate's B=1024
     for b in (1, 1024):
@@ -2427,20 +2457,40 @@ def check_capsule_kernels(torch, kernels, detail=False):
             rec["split_ms"] = kernel_split(torch, lambda: kernels.capsule_routing_fused(*args, 3))
         print("capsule_routing at a serving shape:", json.dumps(rec), flush=True)
         other["capsule_routing", f"b{b}"] = rec
+    # #8 at B=1024, beside the launch floor
+    args = routing_inputs(torch, gen, 1024, 64, 64, 64, 4, empty_row=False)
+    g = torch.randn(1024, 4, 64, device="cuda", generator=gen)
+    readings["1024x64x64x64 K=4 iters=3 (backward)"] = dict(
+        bwd=routing_bwd_reading(kernels.capsule_routing_bwd_fused(*args, g, 3),
+                                            kernels.capsule_routing_bwd_plain(*args, g, 3)))
+    _, _, bwd_bytes, bwd_ops = routing_work(1024, int(args[1].sum()), 64, 64, 64, 4, 3)
+    bound_ms, bound_by = bound(bwd_bytes, bwd_ops)
+    rec = dict(shape=[1024, 64, 64, 64, 4, 3], live_steps=int(args[1].sum()),
+               ms=device_ms(torch, lambda: kernels.capsule_routing_bwd_fused(*args, g, 3)),
+               plain_ms=device_ms(torch, lambda: kernels.capsule_routing_bwd_plain(*args, g, 3)),
+               bound_ms=bound_ms, bound_by=bound_by, launch_floor_ms=floor_ms,
+               split_ms=kernel_split(torch, lambda: kernels.capsule_routing_bwd_fused(*args, g, 3)))
+    print("capsule_routing_bwd at B=1024:", json.dumps(rec), flush=True)
+    other["capsule_routing_bwd", "b1024"] = rec
     print(f"capsule routing readings (error / limit; {KERNEL_TOL}, dS at {DIN_BWD_PARAM_RTOL} of "
           "its largest value):", json.dumps(readings), flush=True)
     for shape, r in readings.items():
-        check(r["kernel"] <= 1.0, f"capsule_routing vs plain at {shape}: {r}")
+        check(r.get("kernel", 0.0) <= 1.0, f"capsule_routing vs plain at {shape}: {r}")
         check(r.get("same_bits", True), f"capsule_routing at {shape}: two calls gave different bits")
         if "bwd" in r:
             check(max(r["bwd"].values()) <= 1.0, f"capsule_routing_bwd vs plain at {shape}: {r}")
-            check(r["bwd_same_bits"], f"capsule_routing_bwd at {shape}: two calls gave different bits")
+            check(r.get("bwd_same_bits", True), f"capsule_routing_bwd at {shape}: two calls gave different bits")
         for name, value in r.items():
             if name.startswith("broken"):
                 worst = max(value.values()) if isinstance(value, dict) else value
                 check(worst > 1.0, f"{shape}: the check cannot tell a {name} version: {r}")
     for name in ("capsule_routing", "capsule_routing_bwd"):
         records[name]["other_shapes"] = {shape: r for (n, shape), r in other.items() if n == name}
+    if detail:
+        ptxas = ptxas_resources(kernels.library_path("capsule_routing"), "capsule_routing_kernelILi8E",
+                                "capsule_routing_bwd_tc_kernelILi8E", "capsule_routing_bwd_fma_kernel")
+        records["capsule_routing"]["ptxas"] = ptxas["capsule_routing_kernelILi8E"]
+        records["capsule_routing_bwd"]["ptxas"] = {k: v for k, v in ptxas.items() if "bwd" in k}
     for rec in records.values():
         print("kernel check:", json.dumps(rec), flush=True)
     return records
@@ -2489,6 +2539,37 @@ def routing_pair_ab(torch, kernels, card):
           json.dumps(result), flush=True)
     check(launched == (1, 1), f"the kernel pair launched {launched}")
     return result
+
+
+def capsule_bwd_ab(torch, kernels, parent_dir, card):
+    """Kernel #8 of the checkout at ``parent_dir`` against this one's, on the
+    same inputs in one process: parent, change, change, parent at B=8192,
+    4096 and 1024 (the slice's widths), each held to the plain version and
+    timed; #7 of both trees at B=8192, the same bits and timed the same way;
+    then ``routing_pair_ab`` through the parent's kernel pair and this
+    tree's, in the same turns."""
+    parent = parent_kernels(parent_dir)
+    parent.build(["capsule_routing"])
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    args = routing_inputs(torch, gen, TRAIN_BATCH, 64, 64, 64, 4)
+    g = torch.randn(TRAIN_BATCH, 4, 64, device="cuda", generator=gen)
+    cases = {f"b{rows}_ms": [args[0][:rows], args[1][:rows], args[2], args[3][:rows], g[:rows], 3]
+             for rows in (TRAIN_BATCH, 4096, 1024)}
+
+    def held(got, a):
+        r = routing_bwd_reading(got, kernels.capsule_routing_bwd_plain(*a))
+        check(max(r.values()) <= 1.0, f"capsule_routing_bwd a/b at B={a[0].shape[0]}: {r}")
+
+    runs = ab_runs(torch, "capsule_routing_bwd", parent, kernels, "capsule_routing_bwd_fused", cases, held)
+    same = torch.equal(parent.capsule_routing_fused(*args, 3), kernels.capsule_routing_fused(*args, 3))
+    print("capsule_routing (#7), parent and change the same bits:", same, flush=True)
+    check(same, "#7 gives other bits than the parent's")
+    fwd_runs = ab_runs(torch, "capsule_routing", parent, kernels, "capsule_routing_fused",
+                       {"b8192_ms": [*args, 3]}, lambda got, a: None)
+    pairs = []
+    for label, mod in (("parent", parent), ("change", kernels), ("change", kernels), ("parent", parent)):
+        pairs.append(dict(tree=label, **routing_pair_ab(torch, mod, card)))
+    return runs, fwd_runs, pairs
 
 
 def run_mind_serving(torch, kernels, workdir, card):
@@ -2847,6 +2928,12 @@ def main() -> int:
         paths = kernels.build(["capsule_routing"])
         print(open(f"{paths['capsule_routing']}.log").read(), flush=True)
         check_capsule_kernels(torch, kernels, detail=True)
+        return 0
+    if sys.argv[1:2] == ["--capsule-bwd-ab"] and len(sys.argv) == 3:
+        # kernel #8 of another checkout (a git archive of the parent commit)
+        # against this one's, alternating, and the kernel pair's A/B of each
+        kernels.build(["capsule_routing"])
+        capsule_bwd_ab(torch, kernels, sys.argv[2], smi)
         return 0
     if sys.argv[1:] == ["--cin"]:
         # kernel #3 alone: phase 8a's CIN checks, with the launch floor and

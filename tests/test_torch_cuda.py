@@ -891,24 +891,39 @@ def test_capsule_routing_kernel_matches_plain(card, b, l, d, e, k, iters, holes)
         assert not torch.allclose(kernels.capsule_routing_plain(*args, iters - 1), want, **TOL)
 
 
+# #8 also at the slice's B=8192 and past the tensor-core kernel's limits
+# (L > 128, E > 128), which take the fp32-FMA kernel
+ROUTING_BWD_SHAPES = ROUTING_SHAPES + [(8192, 64, 64, 64, 4, 3), (3, 200, 16, 16, 4, 2),
+                                       (4, 12, 8, 136, 2, 2)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,l,d,e,k,iters", ROUTING_SHAPES)
-def test_capsule_routing_bwd_kernel_matches_plain(card, b, l, d, e, k, iters):
+@pytest.mark.parametrize("holes", [False, True])
+@pytest.mark.parametrize("b,l,d,e,k,iters", ROUTING_BWD_SHAPES)
+def test_capsule_routing_bwd_kernel_matches_plain(card, b, l, d, e, k, iters, holes):
     """#8 against autograd of the plain version: dbehavior, dlogits0 at TOL,
-    dS at 1e-4 of its largest value; two calls the same bits; a backward
-    through the stop-gradient iterations, or one that gives logits0 only
-    the last iteration, reads above the limit."""
+    dS at 1e-4 of its largest value, with prefix masks and masks with
+    holes; the C side's route (the tensor-core kernel for L, E <= 128);
+    rows past a row's last live step are zeros; two calls the same bits; a
+    backward through the stop-gradient iterations, or one that gives
+    logits0 only the last iteration, reads above the limit."""
     from tpurec_torch.ops import kernels
 
-    args = _routing_args(card, b, l, d, e, k, seed=1)
+    args = _routing_args(card, b, l, d, e, k, seed=1, holes=holes)
     g = torch.randn(b, k, e, device=card, generator=torch.Generator(card).manual_seed(2))
     before = kernels.capsule_routing_bwd_fused.launches
     got = kernels.capsule_routing_bwd_fused(*args, g, iters)
     again = kernels.capsule_routing_bwd_fused(*args, g, iters)
     torch.cuda.synchronize()
     assert kernels.capsule_routing_bwd_fused.launches == before + 2
+    route = kernels._library("capsule_routing").capsule_routing_bwd_route(l, d, e, k, iters)
+    assert route == int(l <= kernels.CAPSULE_MAX_STEPS and e <= kernels.CAPSULE_MAX_WIDTH)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
     assert [t.shape for t in got] == [(b, l, d), (d, e), (b, k, l)]
+    steps = torch.arange(l, device=card)
+    last = torch.where(args[1] != 0, steps, -1).max(dim=1).values
+    past = steps[None, :] > last[:, None]
+    assert not got[0][past].any() and not got[2].transpose(1, 2)[past].any()
     want = kernels.capsule_routing_bwd_plain(*args, g, iters)
     assert _routing_reading(got, want) <= 1.0
     if iters > 1 and k > 1:
@@ -974,6 +989,17 @@ def test_capsule_routing_kernels_refuse_what_they_do_not_take(card):
     with torch.no_grad():
         kernels.capsule_routing_fused(beh, mask, s.clone().requires_grad_(), l0)
     assert kernels.capsule_routing_fused(beh[:0], mask[:0], s, l0[:0]).shape == (0, 3, 5)
+    # behavior that is NaN past each row's last live step: the backward
+    # never reads it (x arrives as zeros there) and gives what it gives for
+    # zeros, where the plain version multiplies it by w = 0 and gives NaN
+    mask = (torch.arange(8, device=card)[None, :] < torch.tensor([[3], [8], [0], [5]], device=card)).float()
+    zeros = torch.where(mask[:, :, None] != 0, beh, 0.0)
+    nan = torch.where(mask[:, :, None] != 0, beh, float("nan"))
+    got = kernels.capsule_routing_bwd_fused(nan, mask, s, l0, g)
+    assert all(torch.equal(x, y) for x, y in zip(got, kernels.capsule_routing_bwd_fused(zeros, mask, s, l0, g)))
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    assert not bool(torch.isfinite(kernels.capsule_routing_bwd_plain(nan, mask, s, l0, g)[1]).all())
+    assert _routing_reading(got, kernels.capsule_routing_bwd_plain(zeros, mask, s, l0, g)) <= 1.0
 
 
 @pytest.mark.cuda

@@ -224,6 +224,42 @@ def test_capsule_routing_tf32_products_emulation(b, l, d, e, k, iters, products)
         assert not got[0].any()
 
 
+def _routing_bwd_reading(got, want):
+    """``chip_smoke.py``'s ``routing_bwd_reading``: dbehavior and dlogits0
+    elementwise at atol = rtol = 1e-4, dS (a sum over B·L rows) at 1e-4 of
+    its largest value; at most 1 passes."""
+    out = []
+    for i, (x, y) in enumerate(zip(got, want)):
+        if i == 1:
+            out.append(float((x - y).abs().max()) / (1e-4 * float(y.abs().max())))
+        else:
+            out.append(float(((x - y).abs() / (1e-4 + 1e-4 * y.abs())).max()))
+    return max(out)
+
+
+@pytest.mark.parametrize("products", ["fp32", "3xtf32", "1xtf32"])
+@pytest.mark.parametrize("b,l,d,e,k,iters", [(256, 64, 64, 64, 4, 3), (33, 50, 48, 40, 3, 3)])
+def test_capsule_routing_bwd_products_emulation(b, l, d, e, k, iters, products):
+    """The backward CUDA kernel's arithmetic: u, dbehavior and dS in fp32,
+    in 3xTF32 (the kernel's tensor cores) and in single TF32, against
+    ``capsule_routing_bwd_plain`` at the card's limits. fp32 and 3xTF32
+    hold them, fp32 also against the Pallas backward in interpret mode;
+    single TF32 must miss them, so the check can fail."""
+    inputs = _holey_routing_inputs(b, l, d, e, k, seed=b)
+    g = _normal(np.random.default_rng(b + 1), b, k, e)
+    args = [torch.from_numpy(a) for a in inputs]
+    got = tk.capsule_routing_bwd_products(*args, torch.from_numpy(g), iters, products=products)
+    reading = _routing_bwd_reading(got, tk.capsule_routing_bwd_plain(*args, torch.from_numpy(g), iters))
+    if products == "1xtf32":
+        assert reading > 1.0, reading
+        return
+    assert reading <= 1.0, reading
+    if products == "fp32":
+        jargs = [jnp.asarray(a) for a in inputs]
+        want = jk.capsule_routing_bwd_fused(*jargs, jnp.asarray(g), iters, interpret=True)
+        assert _routing_bwd_reading(got, [torch.from_numpy(np.array(w)) for w in want]) <= 1.0
+
+
 def test_routing_wrappers_take_plain_on_cpu_and_count_nothing():
     args = [torch.from_numpy(a) for a in _routing_inputs(9, 12, 8, 8, 4)]
     g = torch.ones(9, 4, 8)

@@ -70,23 +70,60 @@
 // logits0 may repeat one (K, L) slice for every row (batch stride 0), as the
 // model's fixed routing init does.
 //
-// The backward's design: a block keeps one row's x, u and du in shared
-// memory with S beside them, so nothing but x, the mask, logits0 and g is
-// read and nothing but the outputs is written. Each product is a
-// register-tiled loop over shared memory (a thread owns up to 4 x 4
-// outputs, every operand loaded once per step of the reduction), with every
-// array's row stride made odd so that the walks along either dimension are
-// free of bank conflicts. Blocks walk the rows with a grid stride. Counting
-// every step, the backward (u again, dx and dS: three L D E products a row)
-// is ~15.8 GFLOP at the slice's shape, ~0.24 ms at the fp32 rate, against
-// ~0.088 ms of bytes; it works on every step.
-//
-// The sum of dS over rows. The TPU grid runs in order and accumulates dS in
-// place (:898-904); blocks on Hopper run in no order. Each block keeps its
-// running dS in shared memory, each element owned by one thread, and writes
-// one partial into a scratch buffer the wrapper allocates (torch.empty); a
-// second kernel adds the partials in block order. No atomics: the same bits
-// on every call.
+// The backward (#8) on the tensor cores. du = w_last^T dz has rank K, so
+// the two L-deep products of the gradient factor through K: dS = sum over
+// rows of x^T du = (w_last x)^T dz and dx = du S^T = w_last^T (dz S^T).
+// What bounds it on an H100: at the slice's shape the function reads x at
+// live steps, g, the mask and logits0 and writes all of dbehavior and
+// dlogits0 (~0.071 ms of bytes at 3.35 TB/s); its operations are the
+// forward's again (u = x S the largest), the reverse sweep and the K-deep
+// products: ~5.5 GFLOP at live steps, ~0.082 ms at the fp32 rate
+// (chip_smoke.py counts both from its mask; counted with L-deep products
+// the bound was ~0.150 ms). As in the forward, what holds the kernel is
+// the row's chain of short dependent steps, with its block barriers, and
+// the rows an SM holds (two blocks of ~107 KB of shared memory). The
+// design:
+// - The forward's layout: a warp a 16-step tile, a block one row at a
+//   time, blocks walking the rows. Tiles past the row's last live step are
+//   not computed; their dbehavior and dlogits0 rows are written as zeros,
+//   which is what the plain version gives there. x of the steps past the
+//   last live one arrives as zeros (cp.async's zero fill reads nothing),
+//   so a non-finite value there reaches no output. Zero steps inside the
+//   live range go through the math, so masks with holes stay exact.
+// - The forward again with its parts (u = x S in 3xTF32 in the
+//   accumulators, z = w u from u's transpose, the warps' partials added in
+//   warp order), keeping each iteration's p at the warp's steps and z.
+// - dz = squash'(z_last)^T g by the warp that squashes capsule k. Then
+//   each warp forms its tile's partial of w_last x (K x D) in fp32 from its
+//   x tile, and the warps take dz S^T (K x D) in 16-column chunks on the
+//   tensor cores in 3xTF32 (mma.sync m16n8k8; single TF32 misses the fp32
+//   limits, capsule_routing_bwd_products in tpurec_torch/ops/kernels.py),
+//   reading S's fragments transposed: dz S^T's columns are taken in a
+//   permuted order (column gid of the n-tile pair (c, h) is d = 16 c + 4
+//   (gid % 4) + 2 (gid / 4) + h), so that one 16-byte load holds S at (d,
+//   e) for both n-tiles of a pair, and each group of 32 entries is stored
+//   swizzled, so that these reads and u's hit distinct banks.
+// - dx = w_last^T (dz S^T) at a warp's own steps and dS += (w_last x)^T dz
+//   (w_last x the warps' partials added in warp order) are K deep, fp32 on
+//   the CUDA cores, each element of the running dS owned by one thread in
+//   shared memory. On the TPU the grid runs in order and accumulates dS in
+//   place (:898-904); here each block writes one partial into a scratch
+//   buffer the wrapper allocates (torch.empty) and a second kernel adds the
+//   partials in block order. No float atomics: the same bits on every call.
+// - Then the reverse sweep for dlogits0 on u's fragments: dw = dz u^T with
+//   the quads' shuffles as the forward's logit update, the softmax VJP a
+//   step a lane, dcaps = dlog u as z = w u. The next row's x, logits0 and g
+//   (cp.async) arrive meanwhile; its mask was read a row earlier.
+// - The launch configuration (blocks the card holds for a shape, the
+//   shared-memory attribute) is found once for each shape and device by
+//   the wrapper; a launch queries nothing.
+// Shapes the tensor-core kernel cannot hold (E > 128, L > 128, or more
+// shared memory than a block has) take the port's first backward kernel,
+// kept as capsule_routing_bwd_fma_kernel: a block keeps one row's x, u and
+// du in shared memory with S beside them and runs each product as a
+// register-tiled fp32 loop over every step; its row strides are odd, so
+// walks along either dimension are free of bank conflicts. It sums dS the
+// same way (a running dS a block, a partial each, the ordered second pass).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -290,7 +327,7 @@ __device__ void load_s(const float* s, float* s_s, const Dims& d) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads) capsule_routing_bwd_kernel(
+__global__ void __launch_bounds__(kThreads) capsule_routing_bwd_fma_kernel(
     const float* __restrict__ x,      // (B, L, D)
     const float* __restrict__ mask,   // (B, L)
     const float* __restrict__ s,      // (D, E)
@@ -499,8 +536,12 @@ __device__ void zero_x_pads(float* xs, int st, int D, int dk, int t0, int L, int
 // each 16-wide chunk c of D is permuted so that a lane's A fragments of two
 // k-steps are one 16-byte load of x: k-step 2c + h reads d = 16c + 4 tig +
 // 2h (+1) at its positions tig (+4). A thread builds whole entries, 16 at
-// a time with all their loads in flight; past D and E they are zero.
-template <int NT>
+// a time with all their loads in flight; past D and E they are zero. With
+// kSwizzle, entry (ks, j, lane) is stored at (ks, j, swizzle(lane)), so
+// that the backward's transposed reads hit distinct banks too.
+__host__ __device__ constexpr int swizzle(int lane) { return lane ^ (((lane >> 3) & 1) << 1); }
+
+template <int NT, bool kSwizzle = false>
 __device__ void fill_s(float4* sfrag, const float* __restrict__ s, int D, int E, int dk) {
   constexpr int kBatch = 16;
   const int n = (dk / 8) * NT * 32;
@@ -521,8 +562,8 @@ __device__ void fill_s(float4* sfrag, const float* __restrict__ s, int D, int E,
         uint32_t h0, lo0, h1, lo1;
         split(v[q][0], h0, lo0);
         split(v[q][1], h1, lo1);
-        sfrag[i] = make_float4(__uint_as_float(h0), __uint_as_float(h1), __uint_as_float(lo0),
-                               __uint_as_float(lo1));
+        sfrag[kSwizzle ? swizzle(i) : i] = make_float4(__uint_as_float(h0), __uint_as_float(h1),
+                                                       __uint_as_float(lo0), __uint_as_float(lo1));
       }
     }
   }
@@ -826,6 +867,720 @@ __global__ void __maxnreg__(NT <= 8 ? 168 : 255) capsule_routing_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// #8, the backward on the tensor cores: a warp a live 16-step tile
+
+// The backward's forward parts on a warp's 16-step tile, as the forward
+// kernel computes them inline (it keeps its own code, as measured): lane =
+// threadIdx.x % 32, gid = lane / 4, tig = lane % 4; EP = 8 NT capsule
+// columns, CPL = columns a lane owns: lane + 32 q.
+
+// u += x S for the tile in 3xTF32: x from the warp's stage (16 rows, stride
+// st, zeros where it has no data), S from sfrag (fill_s<NT, true>'s
+// order); u[j]
+// holds steps gid (0, 1) and gid + 8 (2, 3) at columns 8 j + 2 tig (+1)
+template <int NT>
+__device__ __forceinline__ void tile_u(const float* xs, int st, const float4* sfrag, int dk,
+                                       float (&u)[NT][4]) {
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  const int slot = swizzle(lane);  // where fill_s<NT, true> put the lane's entry
+  const float* xa = xs + gid * st + 4 * tig;
+  for (int c = 0; c < dk / 16; ++c) {
+    const float4 pa = *reinterpret_cast<const float4*>(xa + 16 * c);
+    const float4 pb = *reinterpret_cast<const float4*>(xa + 8 * st + 16 * c);
+    uint32_t ah[2][4], al[2][4];
+    split(pa.x, ah[0][0], al[0][0]);
+    split(pb.x, ah[0][1], al[0][1]);
+    split(pa.y, ah[0][2], al[0][2]);
+    split(pb.y, ah[0][3], al[0][3]);
+    split(pa.z, ah[1][0], al[1][0]);
+    split(pb.z, ah[1][1], al[1][1]);
+    split(pa.w, ah[1][2], al[1][2]);
+    split(pb.w, ah[1][3], al[1][3]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float4 bf = sfrag[((2 * c + h) * NT + j) * 32 + slot];
+        mma3(u[j], ah[h], al[h], __float_as_uint(bf.x), __float_as_uint(bf.y), __float_as_uint(bf.z),
+             __float_as_uint(bf.w));
+      }
+    }
+  }
+}
+
+// u again, transposed through a stage (16 rows, stride ss): uc[q][r] is u at
+// step r and the lane's column lane + 32 q (0 past EP), for the products
+// over the tile's steps, which then need no reduction across lanes
+template <int NT, int CPL>
+__device__ __forceinline__ void transpose_u(float* stage, int ss, const float (&u)[NT][4],
+                                            float (&uc)[CPL][kTile]) {
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    *reinterpret_cast<float2*>(stage + gid * ss + 8 * j + 2 * tig) = make_float2(u[j][0], u[j][1]);
+    *reinterpret_cast<float2*>(stage + (gid + 8) * ss + 8 * j + 2 * tig) = make_float2(u[j][2], u[j][3]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int q = 0; q < CPL; ++q) {
+#pragma unroll
+    for (int r = 0; r < kTile; ++r) uc[q][r] = lane + 32 * q < 8 * NT ? stage[r * ss + lane + 32 * q] : 0.f;
+  }
+}
+
+// out[k, c] = sum over the tile's steps r of a[r, k] u[r, c] at the lane's
+// columns, KC capsules at a time (a: 16 rows of kp, a multiple of 4; out:
+// (K, EP), the warp's partials): z = w u, or dcaps = dlog u
+template <int NT, int CPL>
+__device__ __forceinline__ void steps_times_u(const float* a, int kp, const float (&uc)[CPL][kTile],
+                                              float* out, int K) {
+  constexpr int EP = 8 * NT, KC = 4;
+  const int lane = threadIdx.x & 31;
+#pragma unroll 1
+  for (int k0 = 0; k0 < K; k0 += KC) {
+    float acc[KC][CPL];
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk) {
+#pragma unroll
+      for (int q = 0; q < CPL; ++q) acc[kk][q] = 0.f;
+    }
+#pragma unroll
+    for (int r = 0; r < kTile; ++r) {
+      const float4 wv = *reinterpret_cast<const float4*>(a + r * kp + k0);
+#pragma unroll
+      for (int q = 0; q < CPL; ++q) {
+        acc[0][q] = fmaf(wv.x, uc[q][r], acc[0][q]);
+        acc[1][q] = fmaf(wv.y, uc[q][r], acc[1][q]);
+        acc[2][q] = fmaf(wv.z, uc[q][r], acc[2][q]);
+        acc[3][q] = fmaf(wv.w, uc[q][r], acc[3][q]);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk) {
+#pragma unroll
+      for (int q = 0; q < CPL; ++q) {
+        if (k0 + kk < K && lane + 32 * q < EP) out[(k0 + kk) * EP + lane + 32 * q] = acc[kk][q];
+      }
+    }
+  }
+}
+
+// z[q] = the first nlive warps' partials of capsule k (parts: (W, K, EP))
+// added in warp order at the lane's columns: four warps' loads, then their
+// sum
+template <int NT, int CPL>
+__device__ __forceinline__ void sum_partials(const float* parts, int k, int nlive, int W, int K,
+                                             float (&z)[CPL]) {
+  constexpr int EP = 8 * NT;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int q = 0; q < CPL; ++q) z[q] = 0.f;
+#pragma unroll 1
+  for (int w0 = 0; w0 < nlive; w0 += 4) {
+    float part[4][CPL];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int q = 0; q < CPL; ++q) {
+        const int c = min(lane + 32 * q, EP - 1);
+        part[i][q] = parts[(static_cast<size_t>(min(w0 + i, W - 1)) * K + k) * EP + c];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int q = 0; q < CPL; ++q) z[q] += w0 + i < nlive && lane + 32 * q < EP ? part[i][q] : 0.f;
+    }
+  }
+}
+
+// out[k, step] (+)= sum_e c[k, e] u[step, e] at the warp's steps gid and
+// gid + 8 (out: (K, 16)): the lane's columns, then the quad's two shuffles,
+// KC capsules at a time. c is (K, EP); its rows past K are read (and not
+// stored), so three rows of shared memory must follow it. The logit
+// update, or dw = dz u^T
+template <int NT, bool kAdd>
+__device__ __forceinline__ void caps_dot_u(const float* c, const float (&u)[NT][4], float* out, int K) {
+  constexpr int EP = 8 * NT, KC = 4;
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+#pragma unroll 1
+  for (int k0 = 0; k0 < K; k0 += KC) {
+    float a[KC][2];
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk) a[kk][0] = a[kk][1] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk) {
+        const float2 cv = *reinterpret_cast<const float2*>(c + (k0 + kk) * EP + 8 * j + 2 * tig);
+        a[kk][0] = fmaf(cv.y, u[j][1], fmaf(cv.x, u[j][0], a[kk][0]));
+        a[kk][1] = fmaf(cv.y, u[j][3], fmaf(cv.x, u[j][2], a[kk][1]));
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        a[kk][h] += __shfl_xor_sync(0xffffffffu, a[kk][h], 1);
+        a[kk][h] += __shfl_xor_sync(0xffffffffu, a[kk][h], 2);
+      }
+      if (tig == 0 && k0 + kk < K) {
+        if (kAdd) {
+          out[(k0 + kk) * kTile + gid] += a[kk][0];
+          out[(k0 + kk) * kTile + gid + 8] += a[kk][1];
+        } else {
+          out[(k0 + kk) * kTile + gid] = a[kk][0];
+          out[(k0 + kk) * kTile + gid + 8] = a[kk][1];
+        }
+      }
+    }
+  }
+}
+
+// Shared memory of the backward's tensor-core kernel, offsets in floats
+// (each a multiple of 4):
+//   sfrag (DK/8, NT, 32, 4): S split into TF32 in the forward's order,
+//         each group of 32 entries swizzled (fill_s)
+//   caps  (K, EP): the squashed capsules; dz from the last iteration on
+//   g     (K, EP): the row's cotangent (zeros past E); with ds it is the
+//         shared memory after caps that caps_dot_u reads
+//   ds    (DK, EP): the block's running dS, each float4 owned by one thread
+//   xs    (tiles, 16, ST): each warp's x tile, ST 16 mod 32 as the forward's
+//   ut    (tiles, 16, SD): each warp's stage for u's transpose, SD even
+//   z     (iters, K, EP): each iteration's z
+//   parts (tiles, K, EP): each warp's z or dcaps partials
+//   xw    (tiles, K, DK): each warp's partial of w_last x
+//   dzs   (K, DK): dz S^T
+//   p     (iters, tiles, 16, KP): each iteration's softmax at the warp's steps
+//   ws    (tiles, 16, KP): the iteration's weights; dlog in the reverse sweep
+//   lg    (tiles, K, 16): each warp's logits
+//   dw    (tiles, K, 16): each warp's dw at its steps
+struct BwdLayout {
+  int tiles, nt, ep, dk, st, sd, kp;
+  size_t caps, g, ds, xs, ut, z, parts, xw, dzs, p, ws, lg, dw, total;
+};
+
+__host__ __device__ inline BwdLayout bwd_layout(int L, int D, int E, int K, int iters) {
+  BwdLayout f;
+  f.tiles = (L + kTile - 1) / kTile;
+  f.nt = fwd_nt(E);
+  f.ep = 8 * f.nt;
+  f.dk = round16(D);
+  f.st = f.dk + (f.dk % 32 ? 0 : 16);
+  f.sd = f.ep + (40 - f.ep % 32) % 32;
+  f.kp = (K + 3) & ~3;
+  f.caps = static_cast<size_t>(f.dk) * f.nt * 16;
+  f.g = f.caps + static_cast<size_t>(K) * f.ep;
+  f.ds = f.g + static_cast<size_t>(K) * f.ep;
+  f.xs = f.ds + static_cast<size_t>(f.dk) * f.ep;
+  f.ut = f.xs + static_cast<size_t>(f.tiles) * kTile * f.st;
+  f.z = f.ut + static_cast<size_t>(f.tiles) * kTile * f.sd;
+  f.parts = f.z + static_cast<size_t>(iters) * K * f.ep;
+  f.xw = f.parts + static_cast<size_t>(f.tiles) * K * f.ep;
+  f.dzs = f.xw + static_cast<size_t>(f.tiles) * K * f.dk;
+  f.p = f.dzs + static_cast<size_t>(K) * f.dk;
+  f.ws = f.p + static_cast<size_t>(iters) * f.tiles * kTile * f.kp;
+  f.lg = f.ws + static_cast<size_t>(f.tiles) * kTile * f.kp;
+  f.dw = f.lg + static_cast<size_t>(f.tiles) * K * kTile;
+  f.total = f.dw + static_cast<size_t>(f.tiles) * K * kTile;
+  return f;
+}
+
+// cp.async of 16 or 4 bytes that reads n of them (n = 0 or all) and fills
+// the rest with zeros
+__device__ __forceinline__ void cp_async16_fill(float* dst, const float* src, int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async4_fill(float* dst, const float* src, int n) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(n));
+}
+
+// The warp's tile of one row's x: steps t0 .. t0 + 15 up to the row's last
+// live step, zeros past it (and past L); 16 bytes a copy where D and x
+// allow, else 4
+__device__ void load_x_live(float* xs, int st, const float* xb, int t0, int last, int D, bool vec,
+                            int lane) {
+  const int q = vec ? D >> 2 : D;  // copies a step
+  int r = lane / q, c = lane - r * q;
+  while (r < kTile) {
+    const bool in = t0 + r <= last;
+    const float* src = xb + static_cast<size_t>(in ? t0 + r : 0) * D;
+    if (vec) {
+      cp_async16_fill(xs + r * st + 4 * c, src + 4 * c, in ? 16 : 0);
+    } else {
+      cp_async4_fill(xs + r * st + c, src + c, in ? 4 : 0);
+    }
+    for (c += 32; c >= q; c -= q) ++r;
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// dz = squash'(z)^T gc for one capsule at the lane's columns, given sq =
+// |z|^2 (tpurec/ops/pallas/kernels.py:854-862); dz: the capsule's row
+template <int NT, int CPL>
+__device__ __forceinline__ void squash_vjp_lane(const float (&gc)[CPL], const float (&z)[CPL], float sq,
+                                                float* dz) {
+  const int lane = threadIdx.x & 31;
+  float gz = 0.f;
+#pragma unroll
+  for (int q = 0; q < CPL; ++q) gz = fmaf(gc[q], z[q], gz);
+  gz = warp_sum(gz);
+  const float rs = rsqrtf(sq + kEps), a = (sq / (1.f + sq)) * rs;
+  const float ap = rs / (1.f + sq) - a / (1.f + sq) - a / (2.f * (sq + kEps));
+#pragma unroll
+  for (int q = 0; q < CPL; ++q) {
+    if (lane + 32 * q < 8 * NT) dz[lane + 32 * q] = a * gc[q] + 2.f * z[q] * ap * gz;
+  }
+}
+
+// dlog (+)= softmax'(p)^T (dw m) at step r = the lane (< 16): dp = dw m;
+// p (dp - sum_k p dp) (tpurec/ops/pallas/kernels.py:864-867); p and dlog
+// rows of kp (a multiple of 4; p is 0 past K), dw (K, 16); four capsules
+// at a time
+__device__ __forceinline__ void softmax_vjp_step(const float* dw, const float* p, float* dlog, int kp,
+                                                 int K, float m, bool add) {
+  const int r = threadIdx.x & 31;
+  const float* prow = p + r * kp;
+  float* drow = dlog + r * kp;
+  float s = 0.f;
+#pragma unroll 1
+  for (int k0 = 0; k0 < kp; k0 += 4) {
+    const float4 pv = *reinterpret_cast<const float4*>(prow + k0);
+    s = fmaf(pv.x, dw[k0 * kTile + r] * m, s);
+    if (k0 + 1 < K) s = fmaf(pv.y, dw[(k0 + 1) * kTile + r] * m, s);
+    if (k0 + 2 < K) s = fmaf(pv.z, dw[(k0 + 2) * kTile + r] * m, s);
+    if (k0 + 3 < K) s = fmaf(pv.w, dw[(k0 + 3) * kTile + r] * m, s);
+  }
+#pragma unroll 1
+  for (int k0 = 0; k0 < kp; k0 += 4) {
+    const float4 pv = *reinterpret_cast<const float4*>(prow + k0);
+    float v[4] = {pv.x * (dw[k0 * kTile + r] * m - s), 0.f, 0.f, 0.f};
+    if (k0 + 1 < K) v[1] = pv.y * (dw[(k0 + 1) * kTile + r] * m - s);
+    if (k0 + 2 < K) v[2] = pv.z * (dw[(k0 + 2) * kTile + r] * m - s);
+    if (k0 + 3 < K) v[3] = pv.w * (dw[(k0 + 3) * kTile + r] * m - s);
+    float4 out = make_float4(v[0], v[1], v[2], v[3]);
+    if (add) {
+      const float4 o = *reinterpret_cast<const float4*>(drow + k0);
+      out = make_float4(o.x + v[0], o.y + v[1], o.z + v[2], o.w + v[3]);
+    }
+    *reinterpret_cast<float4*>(drow + k0) = out;
+  }
+}
+
+template <int NT>
+__global__ void __launch_bounds__(32 * kMaxTiles) capsule_routing_bwd_tc_kernel(
+    const float* __restrict__ x,      // (B, L, D)
+    const float* __restrict__ mask,   // (B, L)
+    const float* __restrict__ s,      // (D, E)
+    const float* __restrict__ l0,     // (B, K, L), batch stride l0_stride
+    const float* __restrict__ g,      // (B, K, E)
+    float* __restrict__ dx,           // (B, L, D)
+    float* __restrict__ dl0,          // (B, K, L)
+    float* __restrict__ partials,     // (gridDim.x, D, E)
+    int B, int L, int D, int E, int K, int iters, long l0_stride) {
+  constexpr int EP = 8 * NT;             // E padded
+  constexpr int CPL = (EP + 31) / 32;    // columns a lane owns: lane + 32 q
+  constexpr int KC = 4;                  // capsules worked together
+  extern __shared__ __align__(16) float smem[];
+  const BwdLayout f = bwd_layout(L, D, E, K, iters);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  const int W = f.tiles, t0 = kTile * warp, kp = f.kp, st = f.st, sd = f.sd, mts = f.dk / 16;
+  const int G = gridDim.x;
+  float4* sfrag = reinterpret_cast<float4*>(smem);
+  float* caps = smem + f.caps;
+  float* gs = smem + f.g;
+  float4* dsr = reinterpret_cast<float4*>(smem + f.ds);
+  float* xs = smem + f.xs + warp * kTile * st;
+  float* uts = smem + f.ut + warp * kTile * sd;
+  float* zs = smem + f.z;
+  const float* parts = smem + f.parts;
+  float* wparts = smem + f.parts + static_cast<size_t>(warp) * K * EP;
+  const float* xwall = smem + f.xw;
+  float* dzs = smem + f.dzs;
+  float* ps = smem + f.p + warp * kTile * kp;
+  const int p_step = W * kTile * kp;  // floats between two iterations' p
+  float* ws = smem + f.ws + warp * kTile * kp;
+  float* lg = smem + f.lg + warp * K * kTile;
+  float* dwb = smem + f.dw + warp * K * kTile;
+  const bool vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+
+  auto load_mask = [&](int b, float (&mv)[kMaxTiles / 2]) {
+    const float* mb = mask + static_cast<size_t>(b) * L;
+#pragma unroll
+    for (int r = 0; r < kMaxTiles / 2; ++r) mv[r] = 32 * r + lane < L ? __ldg(mb + 32 * r + lane) : 0.f;
+  };
+  // the row's last step with a nonzero mask (-1: none)
+  auto last_live = [&](const float (&mv)[kMaxTiles / 2]) {
+    int last = -1;
+#pragma unroll
+    for (int r = 0; r < kMaxTiles / 2; ++r) {
+      const unsigned bal = __ballot_sync(0xffffffffu, mv[r] != 0.f);
+      if (bal) last = 32 * r + 31 - __clz(bal);
+    }
+    return last;
+  };
+  // the mask at the lane's step t0 + lane % 16, from the lane that read it
+  auto step_mask = [&](const float (&mv)[kMaxTiles / 2]) {
+    float m = mv[0];
+#pragma unroll
+    for (int r = 1; r < kMaxTiles / 2; ++r) m = (t0 >> 5) == r ? mv[r] : m;
+    return __shfl_sync(0xffffffffu, m, (t0 + (lane & (kTile - 1))) & 31);
+  };
+  // a row's x tile and logits0 at the warp's steps (a live tile only) and
+  // its g (the whole block), all cp.async
+  auto load_row = [&](int b, int last) {
+    if (t0 <= last) {
+      load_x_live(xs, st, x + static_cast<size_t>(b) * L * D, t0, last, D, vec, lane);
+      const float* lb = l0 + b * l0_stride;
+      for (int i = lane; i < K * kTile; i += 32) {
+        const int step = t0 + (i & (kTile - 1));
+        if (step < L) {
+          cp_async4(lg + i, lb + (i / kTile) * L + step);
+        } else {
+          lg[i] = 0.f;
+        }
+      }
+    }
+    const float* gb = g + static_cast<size_t>(b) * K * E;
+    for (int i = threadIdx.x; i < K * E; i += blockDim.x) {
+      const int k = i / E;
+      cp_async4(gs + k * EP + i - k * E, gb + i);
+    }
+  };
+
+  // once a block: zeros where the stages get no data (x past D, g past E)
+  // and in the running dS; S's fragments; the first row's loads
+  for (int r = 0; r < kTile; ++r) {
+    for (int c = D + lane; c < f.dk; c += 32) xs[r * st + c] = 0.f;
+  }
+  if (EP > E) {
+    for (int i = threadIdx.x; i < K * (EP - E); i += blockDim.x) {
+      const int k = i / (EP - E);
+      gs[k * EP + E + i - k * (EP - E)] = 0.f;
+    }
+  }
+  for (int i = threadIdx.x; i < f.dk * EP; i += blockDim.x) smem[f.ds + i] = 0.f;
+  int b = blockIdx.x;
+  float mv[kMaxTiles / 2];
+  load_mask(b, mv);
+  int last = last_live(mv);
+  float ms = step_mask(mv);
+  load_row(b, last);
+  fill_s<NT, true>(sfrag, s, D, E, f.dk);
+  if (b + G < B) load_mask(b + G, mv);  // the next row's, for its loads
+  for (; b < B; b += G) {
+    const bool live = t0 <= last;
+    const int nlive = (last + kTile) / kTile;
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncwarp();
+    if (b == static_cast<int>(blockIdx.x)) __syncthreads();  // S and the zeros in place
+
+    // u = x S for the tile in 3xTF32, kept in the accumulators, and its
+    // transpose through the du stage
+    float u[NT][4], uc[CPL][kTile];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) u[j][0] = u[j][1] = u[j][2] = u[j][3] = 0.f;
+    if (live) {
+      tile_u<NT>(xs, st, sfrag, f.dk, u);
+      transpose_u<NT, CPL>(uts, sd, u, uc);
+    }
+
+    // the forward again, keeping p (at the warp's steps) and z of every
+    // iteration; the last iteration's squash is its VJP: dz
+    const float neg = kNeg * (1.f - ms);
+    for (int it = 0; it < iters; ++it) {
+      const bool last_it = it == iters - 1;
+      if (live) {
+        // p = softmax over the capsules at the lane's step, w = p m, KC
+        // capsules at a time (the capsules past K take -FLT_MAX: p = 0)
+        if (lane < kTile) {
+          float* wrow = ws + lane * kp;
+          float* prow = ps + it * p_step + lane * kp;
+          float mx = -FLT_MAX, sum = 0.f;
+#pragma unroll 1
+          for (int k0 = 0; k0 < kp; k0 += KC) {
+            float v[KC];
+#pragma unroll
+            for (int kk = 0; kk < KC; ++kk) {
+              v[kk] = k0 + kk < K ? lg[(k0 + kk) * kTile + lane] + neg : -FLT_MAX;
+              mx = fmaxf(mx, v[kk]);
+            }
+            *reinterpret_cast<float4*>(wrow + k0) = make_float4(v[0], v[1], v[2], v[3]);
+          }
+#pragma unroll 1
+          for (int k0 = 0; k0 < kp; k0 += KC) {
+            float4 e = *reinterpret_cast<const float4*>(wrow + k0);
+            e = make_float4(expf(e.x - mx), expf(e.y - mx), expf(e.z - mx), expf(e.w - mx));
+            sum += e.x;
+            sum += e.y;
+            sum += e.z;
+            sum += e.w;
+            *reinterpret_cast<float4*>(wrow + k0) = e;
+          }
+          const float inv = 1.f / sum;
+#pragma unroll 1
+          for (int k0 = 0; k0 < kp; k0 += KC) {
+            const float4 e = *reinterpret_cast<const float4*>(wrow + k0);
+            const float4 p = make_float4(e.x * inv, e.y * inv, e.z * inv, e.w * inv);
+            *reinterpret_cast<float4*>(prow + k0) = p;
+            *reinterpret_cast<float4*>(wrow + k0) = make_float4(p.x * ms, p.y * ms, p.z * ms, p.w * ms);
+          }
+        }
+        __syncwarp();
+        steps_times_u<NT, CPL>(ws, kp, uc, wparts, K);  // this tile's z = w u
+      }
+      __syncthreads();
+      // z = the live warps' partials added in warp order; warp w finishes
+      // capsules w, w + W, ...: the squash, or in the last iteration dz =
+      // squash'(z)^T g
+#pragma unroll 1
+      for (int k = warp; k < K; k += W) {
+        float z[CPL], sq = 0.f;
+        sum_partials<NT, CPL>(parts, k, nlive, W, K, z);
+        float* zk = zs + (it * K + k) * EP;
+#pragma unroll
+        for (int q = 0; q < CPL; ++q) {
+          if (lane + 32 * q < EP) zk[lane + 32 * q] = z[q];
+          sq = fmaf(z[q], z[q], sq);
+        }
+        sq = warp_sum(sq);
+        if (last_it) {
+          float gc[CPL];
+#pragma unroll
+          for (int q = 0; q < CPL; ++q) gc[q] = lane + 32 * q < EP ? gs[k * EP + lane + 32 * q] : 0.f;
+          squash_vjp_lane<NT, CPL>(gc, z, sq, caps + k * EP);
+        } else {
+          const float scale = sq * __frcp_rn(1.f + sq), rs = rsqrtf(sq + kEps);
+#pragma unroll
+          for (int q = 0; q < CPL; ++q) {
+            if (lane + 32 * q < EP) caps[k * EP + lane + 32 * q] = scale * z[q] * rs;
+          }
+        }
+      }
+      __syncthreads();
+      if (!last_it && live) {
+        caps_dot_u<NT, true>(caps, u, lg, K);  // logits += caps u^T
+        __syncwarp();
+      }
+    }
+
+    // du = w_last^T dz has rank K, so the two L-deep products of the
+    // backward factor through K: dS = sum over rows of x^T du = (w_last
+    // x)^T dz and dx = du S^T = w_last^T (dz S^T). Each warp forms its
+    // tile's partial of w_last x (K x D, fp32) at the lane's columns of x;
+    // the warps take dz S^T (K x D) in 16-column chunks of D on the tensor
+    // cores in 3xTF32 (A = dz, its rows past K zero; B = S^T from sfrag
+    // read transposed: column gid of the n-tile pair (c, h) is d = 16 c + 4
+    // (gid % 4) + 2 (gid / 4) + h, so entry (2 c + gid / 4, ke, 4 tig + gid
+    // % 4) holds S at (d, 8 ke + tig) for h = 0 and 1, and the entry 16
+    // lanes on S at (d, 8 ke + tig + 4), both swizzled alike; the hi.hi
+    // products and the two small ones in separate accumulators, added at
+    // the end).
+    if (live) {
+#pragma unroll 1
+      for (int d = lane; d < f.dk; d += 32) {
+#pragma unroll 1
+        for (int k0 = 0; k0 < K; k0 += KC) {
+          float acc[KC] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int r = 0; r < kTile; ++r) {
+            const float4 wv = *reinterpret_cast<const float4*>(ws + r * kp + k0);
+            const float xv = xs[r * st + d];
+            acc[0] = fmaf(wv.x, xv, acc[0]);
+            acc[1] = fmaf(wv.y, xv, acc[1]);
+            acc[2] = fmaf(wv.z, xv, acc[2]);
+            acc[3] = fmaf(wv.w, xv, acc[3]);
+          }
+#pragma unroll
+          for (int kk = 0; kk < KC; ++kk) {
+            if (k0 + kk < K) smem[f.xw + (static_cast<size_t>(warp) * K + k0 + kk) * f.dk + d] = acc[kk];
+          }
+        }
+      }
+    }
+#pragma unroll 1
+    for (int job = warp; job < mts * ((K + 15) / 16); job += W) {
+      const int c = job % mts, k0 = 16 * (job / mts);
+      const float4* ent = sfrag + (2 * c + (gid >> 2)) * NT * 32 + swizzle(4 * tig + (gid & 3));
+      const int ra = k0 + gid, rb = k0 + gid + 8;  // dz's rows in A's rows gid, gid + 8
+      float yh[2][4], yl[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) yh[h][i] = yl[h][i] = 0.f;
+      }
+#pragma unroll
+      for (int ke = 0; ke < NT; ++ke) {
+        uint32_t ah[4], al[4];
+        split(ra < K ? caps[ra * EP + 8 * ke + tig] : 0.f, ah[0], al[0]);
+        split(rb < K ? caps[rb * EP + 8 * ke + tig] : 0.f, ah[1], al[1]);
+        split(ra < K ? caps[ra * EP + 8 * ke + tig + 4] : 0.f, ah[2], al[2]);
+        split(rb < K ? caps[rb * EP + 8 * ke + tig + 4] : 0.f, ah[3], al[3]);
+        const float4 ea = ent[ke * 32], eb = ent[ke * 32 + 16];
+        mma(yl[0], al, __float_as_uint(ea.x), __float_as_uint(eb.x));
+        mma(yl[0], ah, __float_as_uint(ea.z), __float_as_uint(eb.z));
+        mma(yh[0], ah, __float_as_uint(ea.x), __float_as_uint(eb.x));
+        mma(yl[1], al, __float_as_uint(ea.y), __float_as_uint(eb.y));
+        mma(yl[1], ah, __float_as_uint(ea.w), __float_as_uint(eb.w));
+        mma(yh[1], ah, __float_as_uint(ea.y), __float_as_uint(eb.y));
+      }
+      // the lane's outputs: rows ra (0, 1) and rb (2, 3) at columns d (0, 2)
+      // and d + 4 (1, 3) for h = 0, one column on for h = 1
+      const int d = 16 * c + 8 * (tig & 1) + 2 * (tig >> 1);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = i < 2 ? ra : rb;
+        if (row < K) {
+          *reinterpret_cast<float2*>(dzs + row * f.dk + d + 4 * (i & 1)) =
+              make_float2(yh[0][i] + yl[0][i], yh[1][i] + yl[1][i]);
+        }
+      }
+    }
+    __syncthreads();
+
+    // the x and u stages are free: the next row's loads land while this
+    // row's dx, dS and reverse sweep run
+    const int bn = b + G;
+    int last_next = -1;
+    float ms_next = 0.f;
+    if (bn < B) {
+      last_next = last_live(mv);
+      ms_next = step_mask(mv);
+      load_row(bn, last_next);
+      if (bn + G < B) load_mask(bn + G, mv);
+    }
+
+    // dx = w_last^T dzs at the lane's columns of the tile's 16 steps (K
+    // deep, fp32; 0 at a step with w = 0); a dead tile's rows are zeros
+    float* dxb = dx + (static_cast<size_t>(b) * L + t0) * D;
+    const int rows = min(kTile, L - t0);
+    if (live) {
+#pragma unroll 1
+      for (int d = lane; d < D; d += 32) {
+        float y[kTile];
+#pragma unroll
+        for (int r = 0; r < kTile; ++r) y[r] = 0.f;
+#pragma unroll 1
+        for (int k0 = 0; k0 < kp; k0 += 4) {
+          float dz[4];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) dz[kk] = k0 + kk < K ? dzs[(k0 + kk) * f.dk + d] : 0.f;
+#pragma unroll
+          for (int r = 0; r < kTile; ++r) {
+            const float4 wv = *reinterpret_cast<const float4*>(ws + r * kp + k0);
+            y[r] = fmaf(wv.w, dz[3], fmaf(wv.z, dz[2], fmaf(wv.y, dz[1], fmaf(wv.x, dz[0], y[r]))));
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < kTile; ++r) {
+          if (r < rows) dxb[r * D + d] = y[r];
+        }
+      }
+    } else {
+      for (int i = lane; i < rows * D; i += 32) dxb[i] = 0.f;
+    }
+
+    // dS += (w_last x)^T dz, K deep in fp32: a thread owns 4 x 8 blocks of
+    // dS; w_last x is the live warps' partials added in warp order, and each
+    // row's sum is added into the running dS
+    if (nlive > 0) {
+      const int eb_n = EP / 8;
+#pragma unroll 1
+      for (int i = threadIdx.x; i < (f.dk / 4) * eb_n; i += blockDim.x) {
+        const int d0 = 4 * (i / eb_n), e0 = 8 * (i % eb_n);
+        float acc[4][8];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[a][c] = 0.f;
+        }
+#pragma unroll 1
+        for (int k = 0; k < K; ++k) {
+          float4 xw = *reinterpret_cast<const float4*>(xwall + static_cast<size_t>(k) * f.dk + d0);
+#pragma unroll 1
+          for (int w = 1; w < nlive; ++w) {
+            const float4 v = *reinterpret_cast<const float4*>(xwall + (static_cast<size_t>(w) * K + k) * f.dk + d0);
+            xw = make_float4(xw.x + v.x, xw.y + v.y, xw.z + v.z, xw.w + v.w);
+          }
+          const float4 g0 = *reinterpret_cast<const float4*>(caps + k * EP + e0);
+          const float4 g1 = *reinterpret_cast<const float4*>(caps + k * EP + e0 + 4);
+          const float xv[4] = {xw.x, xw.y, xw.z, xw.w};
+          const float gv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+#pragma unroll
+            for (int c = 0; c < 8; ++c) acc[a][c] = fmaf(xv[a], gv[c], acc[a][c]);
+          }
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float4& run = dsr[((d0 + a) * EP + e0) / 4 + h];
+            run = make_float4(run.x + acc[a][4 * h], run.y + acc[a][4 * h + 1], run.z + acc[a][4 * h + 2],
+                              run.w + acc[a][4 * h + 3]);
+          }
+        }
+      }
+    }
+
+    // the reverse sweep for dlogits0 on u's fragments: dw = dz u^T at the
+    // warp's steps, the softmax VJP a step a lane into dlog (ws), and for
+    // the earlier iterations dcaps = dlog u, their squash VJP, dw again
+    if (live) {
+      caps_dot_u<NT, false>(caps, u, dwb, K);
+      __syncwarp();
+      if (lane < kTile) softmax_vjp_step(dwb, ps + (iters - 1) * p_step, ws, kp, K, ms, false);
+      __syncwarp();
+    }
+#pragma unroll 1
+    for (int it = iters - 2; it >= 0; --it) {
+      if (live) steps_times_u<NT, CPL>(ws, kp, uc, wparts, K);
+      __syncthreads();
+#pragma unroll 1
+      for (int k = warp; k < K; k += W) {
+        float dc[CPL], z[CPL], sq = 0.f;
+        sum_partials<NT, CPL>(parts, k, nlive, W, K, dc);
+        const float* zk = zs + (it * K + k) * EP;
+#pragma unroll
+        for (int q = 0; q < CPL; ++q) {
+          z[q] = lane + 32 * q < EP ? zk[lane + 32 * q] : 0.f;
+          sq = fmaf(z[q], z[q], sq);
+        }
+        squash_vjp_lane<NT, CPL>(dc, z, warp_sum(sq), caps + k * EP);
+      }
+      __syncthreads();
+      if (live) {
+        caps_dot_u<NT, false>(caps, u, dwb, K);
+        __syncwarp();
+        if (lane < kTile) softmax_vjp_step(dwb, ps + it * p_step, ws, kp, K, ms, true);
+        __syncwarp();
+      }
+    }
+    if (lane < kTile && t0 + lane < L) {
+      float* o = dl0 + static_cast<size_t>(b) * K * L + t0 + lane;
+      for (int k = 0; k < K; ++k) o[static_cast<size_t>(k) * L] = live ? ws[lane * kp + k] : 0.f;
+    }
+    last = last_next;
+    ms = ms_next;
+  }
+  // the block's partial of dS, once every thread's last update is in
+  __syncthreads();
+  float* part = partials + static_cast<size_t>(blockIdx.x) * D * E;
+  for (int i = threadIdx.x; i < D * E; i += blockDim.x) {
+    const int d = i / E;
+    part[i] = smem[f.ds + static_cast<size_t>(d) * EP + i - d * E];
+  }
+}
+
 using FwdKernel = void (*)(const float*, const float*, const float*, const float*, float*, int, int,
                            int, int, int, int, long);
 
@@ -842,28 +1597,45 @@ FwdKernel fwd_kernel(int E) {
   }
 }
 
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
+using BwdKernel = void (*)(const float*, const float*, const float*, const float*, const float*, float*,
+                           float*, float*, int, int, int, int, int, int, long);
 
-// as many blocks as fit on the card at once, at most B; or a negated error
-template <typename Kernel>
-int resident_blocks(Kernel kernel, size_t smem, int B) {
-  cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  int per_sm = 0, dev = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  const long n = static_cast<long>(per_sm > 0 ? per_sm : 1) * sms;
-  return static_cast<int>(n < B ? n : B);
+BwdKernel bwd_tc_kernel(int E) {
+  switch (fwd_nt(E)) {
+    case 1: return capsule_routing_bwd_tc_kernel<1>;
+    case 2: return capsule_routing_bwd_tc_kernel<2>;
+    case 4: return capsule_routing_bwd_tc_kernel<4>;
+    case 6: return capsule_routing_bwd_tc_kernel<6>;
+    case 8: return capsule_routing_bwd_tc_kernel<8>;
+    case 12: return capsule_routing_bwd_tc_kernel<12>;
+    case 16: return capsule_routing_bwd_tc_kernel<16>;
+    default: return nullptr;
+  }
 }
 
 bool valid(int B, int L, int D, int E, int K, int iters) {
   return B >= 1 && L >= 1 && D >= 1 && E >= 1 && K >= 1 && iters >= 1;
+}
+
+// the backward takes the tensor-core kernel: E and L within its builds and
+// its shared memory within a block's; else the fp32-FMA kernel
+bool bwd_on_tensor_cores(int L, int D, int E, int K, int iters) {
+  return bwd_tc_kernel(E) != nullptr && L <= kTile * kMaxTiles &&
+         bwd_layout(L, D, E, K, iters).total * sizeof(float) <= kMaxSmemBytes;
+}
+
+// The blocks of `threads` threads and `smem` bytes the card holds at once
+// (0: none fits an SM), or a negated cudaError_t. It first lets the kernel
+// use all of a block's shared memory, so that no launch sets an attribute.
+template <typename Kernel>
+int resident_blocks(Kernel kernel, int threads, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
+  int per_sm = 0, dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return per_sm * sms;
 }
 
 }  // namespace
@@ -876,37 +1648,40 @@ size_t capsule_routing_smem_bytes(int L, int D, int E, int K) {
   return fwd_layout(L, D, E, K).total * sizeof(float);
 }
 
-// Dynamic shared memory (bytes) one block of the backward needs.
+// Dynamic shared memory (bytes) one block of the backward's fp32-FMA
+// kernel needs. That kernel takes every shape the tensor-core kernel does
+// not, so the wrapper refuses the shapes whose count passes a block's limit.
 size_t capsule_routing_bwd_smem_bytes(int L, int D, int E, int K, int iters) {
   return bwd_floats(make_dims(L, D, E, K, iters)) * sizeof(float);
 }
 
-// Blocks of the backward's main pass, or a negated cudaError_t. The wrapper
-// sizes the partials buffer (blocks x D x E floats) from it.
-int capsule_routing_bwd_blocks(int B, int L, int D, int E, int K, int iters) {
-  if (!valid(B, L, D, E, K, iters)) return -static_cast<int>(cudaErrorInvalidValue);
-  return resident_blocks(capsule_routing_bwd_kernel,
-                         capsule_routing_bwd_smem_bytes(L, D, E, K, iters), B);
+// The backward's kernel for a shape: 1 the tensor-core kernel, 0 the
+// fp32-FMA one.
+int capsule_routing_bwd_route(int L, int D, int E, int K, int iters) {
+  return valid(1, L, D, E, K, iters) && bwd_on_tensor_cores(L, D, E, K, iters) ? 1 : 0;
+}
+
+// Blocks of the backward's main pass the card holds at once for these
+// widths (the most its grid needs), or a negated cudaError_t. The wrapper
+// asks once a shape and device and sizes the partials buffer (min(B,
+// blocks) x D x E floats) from the answer.
+int capsule_routing_bwd_blocks(int L, int D, int E, int K, int iters) {
+  if (!valid(1, L, D, E, K, iters)) return -static_cast<int>(cudaErrorInvalidValue);
+  if (bwd_on_tensor_cores(L, D, E, K, iters)) {
+    const BwdLayout f = bwd_layout(L, D, E, K, iters);
+    return resident_blocks(bwd_tc_kernel(E), 32 * f.tiles, f.total * sizeof(float));
+  }
+  return resident_blocks(capsule_routing_bwd_fma_kernel, kThreads, capsule_routing_bwd_smem_bytes(L, D, E, K, iters));
 }
 
 // Blocks of the forward the card holds at once for these widths (the
 // most its grid needs), or a negated cudaError_t; 0 for a shape the kernel
 // is not built for (E > 128, L > 128). The wrapper asks once a shape and
-// device; it lets the kernel use all of a block's shared memory first.
+// device.
 int capsule_routing_blocks(int L, int D, int E, int K) {
   const FwdKernel kernel = fwd_kernel(E);
   if (kernel == nullptr || L < 1 || L > kTile * kMaxTiles || D < 1 || K < 1) return 0;
-  const size_t smem = capsule_routing_smem_bytes(L, D, E, K);
-  cudaError_t err = set_smem(kernel, kMaxSmemBytes);
-  int per_sm = 0, dev = 0, sms = 0;
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * fwd_layout(L, D, E, K).tiles,
-                                                        smem);
-  }
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  return per_sm * sms;
+  return resident_blocks(kernel, 32 * fwd_layout(L, D, E, K).tiles, capsule_routing_smem_bytes(L, D, E, K));
 }
 
 // Returns a cudaError_t (0 = launched). x, mask, s and out are contiguous
@@ -928,7 +1703,8 @@ int capsule_routing_forward(const float* x, const float* mask, const float* s, c
 
 // Returns a cudaError_t (0 = both passes launched). The forward's inputs and
 // g (B, K, E), contiguous fp32 device arrays but for logits0 as above;
-// partials holds blocks x D x E floats, blocks from capsule_routing_bwd_blocks.
+// blocks is capsule_routing_bwd_blocks' answer for the shape, the grid
+// min(B, blocks), and partials holds grid x D x E floats.
 int capsule_routing_backward(const float* x, const float* mask, const float* s, const float* l0,
                              long l0_stride, const float* g, float* dx, float* ds, float* dl0,
                              float* partials, int B, int L, int D, int E, int K, int iters,
@@ -937,16 +1713,20 @@ int capsule_routing_backward(const float* x, const float* mask, const float* s, 
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = capsule_routing_bwd_smem_bytes(L, D, E, K, iters);
-  cudaError_t err = set_smem(capsule_routing_bwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  capsule_routing_bwd_kernel<<<blocks, kThreads, smem, st>>>(
-      x, mask, s, l0, g, dx, dl0, partials, B, L, D, E, K, iters, l0_stride);
-  err = cudaGetLastError();
+  const int grid = blocks < B ? blocks : B;
+  if (bwd_on_tensor_cores(L, D, E, K, iters)) {
+    const BwdLayout f = bwd_layout(L, D, E, K, iters);
+    bwd_tc_kernel(E)<<<grid, 32 * f.tiles, f.total * sizeof(float), st>>>(
+        x, mask, s, l0, g, dx, dl0, partials, B, L, D, E, K, iters, l0_stride);
+  } else {
+    capsule_routing_bwd_fma_kernel<<<grid, kThreads, capsule_routing_bwd_smem_bytes(L, D, E, K, iters), st>>>(
+        x, mask, s, l0, g, dx, dl0, partials, B, L, D, E, K, iters, l0_stride);
+  }
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n = D * E;
   capsule_routing_bwd_reduce<<<(n + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0, st>>>(
-      partials, blocks, n, ds);
+      partials, grid, n, ds);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -126,7 +126,8 @@ C_FUNCTIONS = {
         "capsule_routing_smem_bytes": ([_I] * 4, _SIZE),
         "capsule_routing_bwd_smem_bytes": ([_I] * 5, _SIZE),
         "capsule_routing_blocks": ([_I] * 4, _I),
-        "capsule_routing_bwd_blocks": ([_I] * 6, _I),
+        "capsule_routing_bwd_route": ([_I] * 5, _I),
+        "capsule_routing_bwd_blocks": ([_I] * 5, _I),
         "capsule_routing_forward": ([_P] * 4 + [ctypes.c_long, _P] + [_I] * 7 + [_P], _I),
         "capsule_routing_backward": ([_P] * 4 + [ctypes.c_long] + [_P] * 5 + [_I] * 7 + [_P], _I),
     },
@@ -1082,6 +1083,59 @@ def capsule_routing_bwd_plain(
     return db, ds, dl0
 
 
+def capsule_routing_bwd_products(
+    behavior, mask, s, logits0, g, num_iters: int = 3, products: str = "fp32"
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``capsule_routing_bwd_plain``'s function written out as the CUDA
+    kernel computes it: the TPU kernel's recompute and reverse sweep
+    (``tpurec/ops/pallas/kernels.py:816-904``), with du = w_lastᵀ·dz (rank
+    K) never formed: dbehavior = w_lastᵀ·(dz·Sᵀ) and dS = Σ (w_last·x)ᵀ·dz
+    over the rows. The two products on the kernel's tensor cores, u = x·S
+    and dz·Sᵀ, are taken as ``products`` says: ``"fp32"``, ``"3xtf32"``
+    (operands split into TF32 hi and lo, ``hi·hi + hi·lo + lo·hi`` summed in
+    fp32) or ``"1xtf32"`` (one product of the TF32-rounded operands); the
+    rest is fp32, as on the kernel's CUDA cores. It is the kernel's
+    arithmetic on the CPU, for the tests and for ``chip_smoke.py``'s broken
+    single-TF32 version; no path runs it. Returns ``(dbehavior, dS,
+    dlogits0)``."""
+    from tpurec_torch.ops.capsule import squash
+
+    if products not in ("fp32", "3xtf32", "1xtf32"):
+        raise ValueError(f"products must be fp32, 3xtf32 or 1xtf32, not {products!r}")
+
+    def squash_vjp(gc, z):
+        sq = torch.square(z).sum(dim=-1, keepdim=True)
+        rs = torch.rsqrt(sq + 1e-9)
+        a = (sq / (1.0 + sq)) * rs
+        ap = rs / (1.0 + sq) - a / (1.0 + sq) - a / (2.0 * (sq + 1e-9))
+        return a * gc + 2.0 * z * ap * (gc * z).sum(dim=-1, keepdim=True)
+
+    m = mask[:, None, :]
+
+    def softmax_vjp(dw, p):
+        dp = dw * m
+        return p * (dp - (p * dp).sum(dim=1, keepdim=True))
+
+    u = _products(behavior, s, products)  # (B, L, E)
+    neg = -1e9 * (1.0 - m)
+    logits, ps, ws, zs = logits0, [], [], []
+    for it in range(num_iters):
+        p = torch.softmax(logits + neg, dim=1)
+        ws.append(p * m)
+        ps.append(p)
+        zs.append(ws[-1] @ u)
+        if it < num_iters - 1:
+            logits = logits + squash(zs[-1]) @ u.transpose(1, 2)
+    dz = squash_vjp(g, zs[-1])  # x and S's only path: through du = w_lastᵀ dz
+    dlog = softmax_vjp(dz @ u.transpose(1, 2), ps[-1])
+    for it in range(num_iters - 2, -1, -1):
+        dz_i = squash_vjp(dlog @ u, zs[it])
+        dlog = dlog + softmax_vjp(dz_i @ u.transpose(1, 2), ps[it])
+    dx = ws[-1].transpose(1, 2) @ _products(dz, s.t(), products)
+    ds = ((ws[-1] @ behavior).transpose(1, 2) @ dz).sum(dim=0)
+    return dx, ds, dlog
+
+
 def _capsule_args(what: str, behavior, mask, s, logits0, num_iters: int):
     """Checks the shared shapes and types; returns (B, L, D, E, K, the
     contiguous fp32 mask, logits0 as a contiguous (K, L) slice per row and
@@ -1150,6 +1204,37 @@ def _capsule_blocks(lib: ctypes.CDLL, device: torch.device, l: int, d: int, e: i
     return blocks
 
 
+# (device index, L, D, E, K, iterations) -> blocks of the backward the card
+# holds at once
+_CAPSULE_BWD_BLOCKS: Dict[Tuple[int, int, int, int, int, int], int] = {}
+
+
+def _capsule_bwd_blocks(
+    lib: ctypes.CDLL, device: torch.device, l: int, d: int, e: int, k: int, iters: int
+) -> int:
+    """The backward's launch configuration for a shape on a device, found
+    once (the shared-memory check, the route's shared-memory attribute and
+    the occupancy query; the grid and the partials follow from it and B)
+    and then read from a dict. Raises ValueError on a shape it does not
+    take."""
+    key = (device.index, l, d, e, k, iters)
+    blocks = _CAPSULE_BWD_BLOCKS.get(key)
+    if blocks is None:
+        smem = lib.capsule_routing_bwd_smem_bytes(l, d, e, k, iters)
+        if smem > MAX_SMEM_BYTES:
+            raise ValueError(
+                f"capsule_routing_bwd: L={l}, D={d}, E={e}, K={k}, {iters} iterations need "
+                f"{smem} bytes of shared memory per block, more than {MAX_SMEM_BYTES}"
+            )
+        with torch.cuda.device(device):
+            blocks = lib.capsule_routing_bwd_blocks(l, d, e, k, iters)
+        if blocks < 1:
+            _check_launch(lib, -blocks, "capsule_routing_bwd (occupancy query)")
+            raise RuntimeError(f"capsule_routing_bwd: occupancy query gave {blocks} blocks")
+        _CAPSULE_BWD_BLOCKS[key] = blocks
+    return blocks
+
+
 def capsule_routing_fused(
     behavior: torch.Tensor,
     mask: torch.Tensor,
@@ -1208,13 +1293,20 @@ def capsule_routing_bwd_fused(
     """Routing backward: ``(dbehavior (B, L, D), dS (D, E), dlogits0
     (B, K, L))``, fp32, for the forward's inputs and g (B, K, E).
 
-    CPU tensors take ``capsule_routing_bwd_plain``. CUDA tensors launch the
-    kernel of ``csrc/capsule_routing.cu``: it recomputes the forward, keeps
-    each iteration's softmax, weights and z, and makes one reverse sweep;
-    each block writes one partial of dS into a ``torch.empty`` scratch and a
-    second pass adds the partials in a fixed order, so dS is the same bits
-    from run to run. It takes what the forward takes and raises on anything
-    else."""
+    CPU tensors take ``capsule_routing_bwd_plain``. CUDA tensors launch a
+    kernel of ``csrc/capsule_routing.cu``. Where L ≤ ``CAPSULE_MAX_STEPS``,
+    E ≤ ``CAPSULE_MAX_WIDTH`` and its shared memory fits a block, the
+    tensor-core kernel: a warp owns a live 16-step tile of a row and
+    recomputes the forward with u = behavior·S in 3xTF32 in the mma
+    accumulators; dbehavior = w_lastᵀ·(dz·Sᵀ) and dS = Σ (w_last·x)ᵀ·dz are
+    K deep (du = w_lastᵀ·dz has rank K), dz·Sᵀ on the tensor cores in
+    3xTF32, the rest fp32; the reverse sweep runs on u's fragments. Tiles
+    past the row's last step with a nonzero mask come back as zeros.
+    Other shapes take the fp32-FMA kernel. Each block writes one partial of
+    dS into a ``torch.empty`` scratch and a second pass adds the partials in
+    a fixed order, so dS is the same bits from run to run. It takes what the
+    forward takes, and L or E past those limits where the FMA kernel's
+    shared memory fits a block, and raises on anything else."""
     if behavior.device.type == "cpu":
         return capsule_routing_bwd_plain(behavior, mask, s, logits0, g, num_iters)
     _refuse_grad("capsule_routing_bwd", behavior, s, logits0, g)
@@ -1225,12 +1317,7 @@ def capsule_routing_bwd_fused(
     if g.shape != (b, k, e):
         raise ValueError(f"capsule_routing_bwd: g {tuple(g.shape)}, expected {(b, k, e)}")
     lib = _library("capsule_routing")
-    smem = lib.capsule_routing_bwd_smem_bytes(l, d, e, k, num_iters)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"capsule_routing_bwd: L={l}, D={d}, E={e}, K={k}, {num_iters} iterations need "
-            f"{smem} bytes of shared memory per block, more than {MAX_SMEM_BYTES}"
-        )
+    blocks = _capsule_bwd_blocks(lib, behavior.device, l, d, e, k, num_iters)
     f32 = dict(device=behavior.device, dtype=torch.float32)
     db = torch.empty(b, l, d, **f32)
     ds = torch.empty(d, e, **f32)
@@ -1238,12 +1325,8 @@ def capsule_routing_bwd_fused(
     if b == 0:
         return db, ds.zero_(), dl0
     behavior, s, g = behavior.contiguous(), s.contiguous(), g.contiguous()
+    partials = torch.empty(min(blocks, b) * d * e, **f32)
     with torch.cuda.device(behavior.device):
-        blocks = lib.capsule_routing_bwd_blocks(b, l, d, e, k, num_iters)
-        if blocks < 1:
-            _check_launch(lib, -blocks, "capsule_routing_bwd (occupancy query)")
-            raise RuntimeError(f"capsule_routing_bwd: occupancy query gave {blocks} blocks")
-        partials = torch.empty(blocks * d * e, **f32)
         stream = torch.cuda.current_stream(behavior.device).cuda_stream
         err = lib.capsule_routing_backward(
             behavior.data_ptr(), mask.data_ptr(), s.data_ptr(), logits0.data_ptr(), stride,
