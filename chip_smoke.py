@@ -186,9 +186,10 @@ checkout and exits non-zero on the first phase that fails. Phases:
      mask, runs one iteration fewer or takes its products in single TF32
      (``broken_single_tf32``; the kernel computes u = x·S in 3xTF32), and
      a backward that differentiates through the stop-gradient iterations,
-     gives dlogits0 only the last iteration or takes u, dbehavior and dS
-     in single TF32 (``broken_bwd_single_tf32``; the kernel takes them in
-     3xTF32), must read above it; device times, bounds, plain times, the
+     gives dlogits0 only the last iteration or takes its tensor-core
+     products u = x·S and dz·Sᵀ in single TF32 (``broken_bwd_single_tf32``;
+     the kernel takes them in 3xTF32), must read above it; device times,
+     bounds, plain times, the
      per-launch split (``torch.profiler``) and the blocks the card holds at
      once; #7 also at the serving paths' B=1 and B=1024 and #8 at B=1024,
      each beside the launch floor (an empty kernel's time in the same
@@ -2375,8 +2376,8 @@ def check_capsule_kernels(torch, kernels, detail=False):
         again = kernels.capsule_routing_bwd_fused(*args, g, iters)
         r["bwd_same_bits"] = all(torch.equal(x, y) for x, y in zip(got_bwd, again))
         r["bwd"] = routing_bwd_reading(got_bwd, want_bwd)
-        # the backward's three large products in single TF32 (the kernel
-        # takes them in 3xTF32)
+        # the backward's tensor-core products (u = x·S, dz·Sᵀ) in single
+        # TF32 (the kernel takes them in 3xTF32)
         r["broken_bwd_single_tf32"] = routing_bwd_reading(
             kernels.capsule_routing_bwd_products(*args, g, iters, products="1xtf32"), want_bwd)
         if iters > 1:

@@ -240,8 +240,8 @@ def _routing_bwd_reading(got, want):
 @pytest.mark.parametrize("products", ["fp32", "3xtf32", "1xtf32"])
 @pytest.mark.parametrize("b,l,d,e,k,iters", [(256, 64, 64, 64, 4, 3), (33, 50, 48, 40, 3, 3)])
 def test_capsule_routing_bwd_products_emulation(b, l, d, e, k, iters, products):
-    """The backward CUDA kernel's arithmetic: u, dbehavior and dS in fp32,
-    in 3xTF32 (the kernel's tensor cores) and in single TF32, against
+    """The backward CUDA kernel's arithmetic: its tensor-core products u =
+    x·S and dz·Sᵀ in fp32, in 3xTF32 (as the kernel) and in single TF32, against
     ``capsule_routing_bwd_plain`` at the card's limits. fp32 and 3xTF32
     hold them, fp32 also against the Pallas backward in interpret mode;
     single TF32 must miss them, so the check can fail."""

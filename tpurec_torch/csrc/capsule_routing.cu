@@ -92,7 +92,8 @@
 //   live range go through the math, so masks with holes stay exact.
 // - The forward again with its parts (u = x S in 3xTF32 in the
 //   accumulators, z = w u from u's transpose, the warps' partials added in
-//   warp order), keeping each iteration's p at the warp's steps and z.
+//   warp order), keeping each iteration's p at the warp's steps and z; for
+//   K <= 4 a step's softmax stays in registers.
 // - dz = squash'(z_last)^T g by the warp that squashes capsule k. Then
 //   each warp forms its tile's partial of w_last x (K x D) in fp32 from its
 //   x tile, and the warps take dz S^T (K x D) in 16-column chunks on the
@@ -106,7 +107,9 @@
 // - dx = w_last^T (dz S^T) at a warp's own steps and dS += (w_last x)^T dz
 //   (w_last x the warps' partials added in warp order) are K deep, fp32 on
 //   the CUDA cores, each element of the running dS owned by one thread in
-//   shared memory. On the TPU the grid runs in order and accumulates dS in
+//   shared memory. A live tile's dx rows are contiguous in device memory:
+//   they go out from the warp's u stage as one bulk copy (the Tensor
+//   Memory Accelerator), which costs the warp less than a store a row. On the TPU the grid runs in order and accumulates dS in
 //   place (:898-904); here each block writes one partial into a scratch
 //   buffer the wrapper allocates (torch.empty) and a second kernel adds the
 //   partials in block order. No float atomics: the same bits on every call.
@@ -1280,6 +1283,7 @@ __global__ void __launch_bounds__(32 * kMaxTiles) capsule_routing_bwd_tc_kernel(
     const bool live = t0 <= last;
     const int nlive = (last + kTile) / kTile;
     asm volatile("cp.async.wait_all;\n" ::: "memory");
+    if (lane == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");  // the u stage
     __syncwarp();
     if (b == static_cast<int>(blockIdx.x)) __syncthreads();  // S and the zeros in place
 
@@ -1301,7 +1305,24 @@ __global__ void __launch_bounds__(32 * kMaxTiles) capsule_routing_bwd_tc_kernel(
       if (live) {
         // p = softmax over the capsules at the lane's step, w = p m, KC
         // capsules at a time (the capsules past K take -FLT_MAX: p = 0)
-        if (lane < kTile) {
+        if (lane < kTile && kp == KC) {
+          // K <= 4: the same arithmetic in registers
+          float v[KC], mx = -FLT_MAX, sum = 0.f;
+#pragma unroll
+          for (int kk = 0; kk < KC; ++kk) {
+            v[kk] = kk < K ? lg[kk * kTile + lane] + neg : -FLT_MAX;
+            mx = fmaxf(mx, v[kk]);
+          }
+#pragma unroll
+          for (int kk = 0; kk < KC; ++kk) {
+            v[kk] = expf(v[kk] - mx);
+            sum += v[kk];
+          }
+          const float inv = 1.f / sum;
+          const float4 p = make_float4(v[0] * inv, v[1] * inv, v[2] * inv, v[3] * inv);
+          *reinterpret_cast<float4*>(ps + it * p_step + lane * kp) = p;
+          *reinterpret_cast<float4*>(ws + lane * kp) = make_float4(p.x * ms, p.y * ms, p.z * ms, p.w * ms);
+        } else if (lane < kTile) {
           float* wrow = ws + lane * kp;
           float* prow = ps + it * p_step + lane * kp;
           float mx = -FLT_MAX, sum = 0.f;
@@ -1462,6 +1483,7 @@ __global__ void __launch_bounds__(32 * kMaxTiles) capsule_routing_bwd_tc_kernel(
     // deep, fp32; 0 at a step with w = 0); a dead tile's rows are zeros
     float* dxb = dx + (static_cast<size_t>(b) * L + t0) * D;
     const int rows = min(kTile, L - t0);
+    const bool bulk = D % 4 == 0 && D <= sd && reinterpret_cast<uintptr_t>(dx) % 16 == 0;
     if (live) {
 #pragma unroll 1
       for (int d = lane; d < D; d += 32) {
@@ -1481,7 +1503,19 @@ __global__ void __launch_bounds__(32 * kMaxTiles) capsule_routing_bwd_tc_kernel(
         }
 #pragma unroll
         for (int r = 0; r < kTile; ++r) {
-          if (r < rows) dxb[r * D + d] = y[r];
+          if (r < rows) {
+            if (bulk) uts[r * D + d] = y[r]; else dxb[r * D + d] = y[r];
+          }
+        }
+      }
+      if (bulk) {
+        // the tile's rows are contiguous in dx: one bulk copy from the stage
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncwarp();
+        if (lane == 0) {
+          asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+                       "cp.async.bulk.commit_group;\n" ::"l"(dxb), "r"(smem_addr(uts)), "r"(rows * D * 4)
+                       : "memory");
         }
       }
     } else {
@@ -1572,6 +1606,7 @@ __global__ void __launch_bounds__(32 * kMaxTiles) capsule_routing_bwd_tc_kernel(
     last = last_next;
     ms = ms_next;
   }
+  if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   // the block's partial of dS, once every thread's last update is in
   __syncthreads();
   float* part = partials + static_cast<size_t>(blockIdx.x) * D * E;
