@@ -26,11 +26,13 @@
 //   dlogits0 = dlog,   dx = du S^T,   dS = sum over rows of x^T du.
 //
 // What bounds the forward on an H100 (data-sheet rates: 3.35 TB/s, 67
-// TFLOP/s fp32 outside the tensor cores). At the slice's shape (B=8192,
-// L=64, D=E=64, K=4, 3 iterations, lengths L/4..L) a masked step needs no
-// work (w = 0 there), so the function reads x at live steps (~84 MB) and
-// does ~3.6 GFLOP, of which u = x S is ~2.7: ~0.054 ms of fp32 operations
-// against ~0.025 ms of bytes (chip_smoke.py counts both from its mask). On
+// TFLOP/s fp32 outside the tensor cores, 495 TFLOP/s TF32 on them). At the
+// slice's shape (B=8192, L=64, D=E=64, K=4, 3 iterations, lengths L/4..L)
+// a masked step needs no work (w = 0 there), so the function reads x at
+// live steps (~84 MB) and does ~3.6 GFLOP, of which u = x S is ~2.7: in
+// 3xTF32 (three TF32 multiply-adds per fp32 one) ~0.016 ms, the rest in
+// fp32 ~0.014, so ~0.030 ms of operations against ~0.025 ms of bytes
+// (chip_smoke.py counts both from its mask). On
 // the card the kernel is neither: one row's work is a chain of small
 // dependent steps (loads, u, then per iteration a softmax, z, the squash
 // and the logit update, with the block's warps meeting in between), so
@@ -76,13 +78,12 @@
 // What bounds it on an H100: at the slice's shape the function reads x at
 // live steps, g, the mask and logits0 and writes all of dbehavior and
 // dlogits0 (~0.071 ms of bytes at 3.35 TB/s); its operations are the
-// forward's again (u = x S the largest), the reverse sweep and the K-deep
-// products: ~5.5 GFLOP at live steps, ~0.082 ms at the fp32 rate
-// (chip_smoke.py counts both from its mask; counted with L-deep products
-// the bound was ~0.150 ms). As in the forward, what holds the kernel is
-// the row's chain of short dependent steps, with its block barriers, and
-// the rows an SM holds (two blocks of ~107 KB of shared memory). The
-// design:
+// forward's again, the reverse sweep and the K-deep products, ~5.5 GFLOP
+// at live steps: u = x S and dz S^T (~3.0) in 3xTF32 ~0.018 ms, the rest
+// in fp32 ~0.038, so the bytes bound it (chip_smoke.py counts both from
+// its mask). As in the forward, what holds the kernel is the row's chain
+// of short dependent steps, with its block barriers, and the rows an SM
+// holds (two blocks of ~107 KB of shared memory). The design:
 // - The forward's layout: a warp a 16-step tile, a block one row at a
 //   time, blocks walking the rows. Tiles past the row's last live step are
 //   not computed; their dbehavior and dlogits0 rows are written as zeros,
@@ -93,7 +94,8 @@
 // - The forward again with its parts (u = x S in 3xTF32 in the
 //   accumulators, z = w u from u's transpose, the warps' partials added in
 //   warp order), keeping each iteration's p at the warp's steps and z; for
-//   K <= 4 a step's softmax stays in registers.
+//   K <= 4 a step's softmax stays in registers (~1.7 % faster at the
+//   slice's shape than the shared-memory path kept for larger K).
 // - dz = squash'(z_last)^T g by the warp that squashes capsule k. Then
 //   each warp forms its tile's partial of w_last x (K x D) in fp32 from its
 //   x tile, and the warps take dz S^T (K x D) in 16-column chunks on the
@@ -109,10 +111,13 @@
 //   the CUDA cores, each element of the running dS owned by one thread in
 //   shared memory. A live tile's dx rows are contiguous in device memory:
 //   they go out from the warp's u stage as one bulk copy (the Tensor
-//   Memory Accelerator), which costs the warp less than a store a row. On the TPU the grid runs in order and accumulates dS in
-//   place (:898-904); here each block writes one partial into a scratch
-//   buffer the wrapper allocates (torch.empty) and a second kernel adds the
-//   partials in block order. No float atomics: the same bits on every call.
+//   Memory Accelerator), which costs the warp less than a store a row
+//   (~2.3 % of the kernel's time at the slice's shape; a store an element
+//   stays for D % 4 != 0 or dx off a 16-byte boundary). On the TPU the
+//   grid runs in order and accumulates dS in place (:898-904); here each
+//   block writes one partial into a scratch buffer the wrapper allocates
+//   (torch.empty) and a second kernel adds the partials in block order. No
+//   float atomics: the same bits on every call.
 // - Then the reverse sweep for dlogits0 on u's fragments: dw = dz u^T with
 //   the quads' shuffles as the forward's logit update, the softmax VJP a
 //   step a lane, dcaps = dlog u as z = w u. The next row's x, logits0 and g
@@ -874,7 +879,8 @@ __global__ void __maxnreg__(NT <= 8 ? 168 : 255) capsule_routing_kernel(
 // #8, the backward on the tensor cores: a warp a live 16-step tile
 
 // The backward's forward parts on a warp's 16-step tile, as the forward
-// kernel computes them inline (it keeps its own code, as measured): lane =
+// kernel computes them inline (it keeps its own code: calling these cost
+// it 0.6 % on an H100 at the slice's shape): lane =
 // threadIdx.x % 32, gid = lane / 4, tig = lane % 4; EP = 8 NT capsule
 // columns, CPL = columns a lane owns: lane + 32 q.
 
