@@ -13,6 +13,7 @@
     python3 chip_smoke.py --fm-ab DIR  # #1 of the checkout DIR against this one's
     python3 chip_smoke.py --cross     # kernel #2's checks alone (phase 8a's)
     python3 chip_smoke.py --cross-ab DIR  # #2 of the checkout DIR against this one's
+    python3 chip_smoke.py --fm-family # phase 10 alone (the FM family and MatrixCF)
 
 Needs one CUDA card and ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``); ``triton``
 only for ``--fm-ab`` and ``--cross-ab`` against a parent whose #1 and #2
@@ -218,6 +219,34 @@ checkout and exits non-zero on the first phase that fails. Phases:
    - 9d: ``comirec`` ('sa', 'dr') and ``sine`` over the same schema: one
      predict and 5 train steps each (no kernel).
 
+10. the FM family and MatrixCF, random seeded weights, B=8192, bf16 dense
+    compute, fp32 params, bce, Adam lr 1e-3 eps 1e-7: over the phase 5/7 FM
+    schema ``dssm_single`` (D=32, MLP (64, 32)), ``fwfm`` (D=32), ``pnn``
+    inner and outer 'mat' (D=32, P=325, kernel 325×32×32), ``ffm`` and
+    ``onn`` (k=4, libffm's setting on Criteo: a 2,080,128 × 26 × 4 fp32
+    field-aware table, 865 MB) and ``wide_and_deep`` (D=32, on a copy of
+    the schema with 13 continuous columns, Criteo's I1-I13, drawn from the
+    seed); over MovieLens-1M's id space (6,040 users, 3,706 items)
+    ``matrixcf`` (D=16) and ``ncf`` (mf/mlp 16, MLP (64, 32, 16)):
+    - 10a: #9 on FFM's stream (N=212,992 over 2,080,128 rows) at the
+      field-aware width F·k = 104 and at 4 and 1: phase 7a's readings,
+      broken versions, same bits, device time, bound, plain and
+      ``index_add_`` times and per-launch split;
+    - 10b: each model ``export_params`` → ``load_servable`` → ``predict``:
+      finite probabilities, the first 256 rows' logit (MatrixCF's output)
+      against the port on the CPU with the same weights
+      (``FM_FAMILY_RTOL`` of the largest |value|), p50 of 10 after 2
+      warm-ups and a profiler summary; ``ffm`` also ``Servable.rank`` at
+      the rank buckets 8 to 256 against ``predict``'s rows, with p50s;
+    - 10c: each model 10 bf16 dense steps on the seed-1 batch (losses
+      finite and falling, step p50, examples/s, peak memory, a profiler
+      summary); ``ffm`` and ``onn`` also 10 ``fused_adam`` steps (#9 once
+      per table a step) and 10 ``rowwise_adam`` steps (no #9); ``ffm``'s
+      fp32 fused step against its dense step (``ENGINE_*``, which a #9
+      that drops carried runs must fail) and 3 fp32 fused steps card
+      against CPU on 256 rows (``CPU_LOSS_TOL``); ``--fm-family`` runs this
+      phase alone.
+
 TF32 is off for the whole run (``allow_tf32 = False`` for matmul and
 cuDNN), so every fp32 comparison is fp32 on both sides.
 
@@ -228,6 +257,7 @@ The second-to-last line is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -1337,6 +1367,53 @@ def scatter_case(torch, eu, gen, plan, v, d, timing=True):
     return r, grads, got
 
 
+def carry_readings(torch, eu, broken, plan, v, d, grads, r) -> None:
+    """Add to ``r`` the stream's runs that cross a tile and a slice of the
+    kernel at width ``d``, its repeated rows, and the readings of the
+    ``broken`` versions (``broken_scatters``) on it."""
+    if not plan.n:
+        return
+    s = plan.sids
+    start = torch.searchsorted(s, s)
+    pos = torch.arange(plan.n, device="cuda")
+    for unit, rows in (("tile", eu.scatter_tile_rows(d)), ("slice", eu.scatter_slice_rows(d))):
+        r[f"{unit}_rows"] = rows
+        r[f"{unit}_crossing_rows"] = int((pos // rows != start // rows).sum())
+    r["repeated_rows"] = int((s[1:] == s[:-1]).sum())
+    for bname, fn in broken.items():
+        r[bname] = sum_reading(torch, eu, fn(v, d, plan, grads), plan, grads)
+
+
+def scatter_record(torch, eu, plan, v, d, grads, got, r) -> dict:
+    """#9's entry of the kernels line from a timed ``scatter_case``."""
+    plain = lambda: eu.scatter_add_plain(v, plan.sids, grads)  # noqa: E731
+    return dict(
+        name="fused_scatter_add", route="cuda", source="tpurec_torch/csrc/embedding_update.cu",
+        replaces="tpurec/ops/pallas/embedding_update.py:231", shape=[plan.n, v, d],
+        max_abs_err=float((got - plain()).abs().max()), ms=r["ms"],
+        plain_ms=device_ms(torch, plain), bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+        library_ms=r["library_ms"], split_ms=r["split_ms"],
+    )
+
+
+def check_scatter_readings(readings, label="") -> None:
+    """Print #9's readings and fail on any that misses: each case within its
+    limit and the same bits twice; each broken version above it wherever
+    the stream has what it breaks."""
+    print(f"fused_scatter_add{label} readings (error / limit; limit = {SUM_ATOL} + {SUM_RTOL} · Σ|g| "
+          "of the row, fp32 sums in another order):", json.dumps(readings), flush=True)
+    for name, r in readings.items():
+        check(r["same_bits"], f"fused_scatter_add at {name}: two calls gave different bits")
+        check(r["kernel"] <= 1.0, f"fused_scatter_add vs plain at {name}: {r}")
+        for unit, bname in (("tile", "broken_drop_carried"), ("slice", "broken_drop_slice_carried")):
+            if r.get(f"{unit}_crossing_rows"):
+                check(r[bname] > 1.0,
+                      f"the check cannot tell a #9 that drops runs carried past a {unit} at {name}: {r}")
+        if r.get("repeated_rows"):
+            check(r["broken_first_only"] > 1.0,
+                  f"the check cannot tell a #9 that keeps first occurrences at {name}: {r}")
+
+
 SCATTER_SWEEP_D = (1, 4, 8, 16, 32, 64)
 
 
@@ -1388,26 +1465,10 @@ def check_embedding_kernels(torch, eu):
         plan = eu.make_scatter_plan(torch.as_tensor(ids, device="cuda"), v)
         timing = name in ("fm_v", "fm_w", "din")
         r, grads, got = scatter_case(torch, eu, gen, plan, v, d, timing=timing)
-        if plan.n:
-            s = plan.sids
-            start = torch.searchsorted(s, s)
-            pos = torch.arange(plan.n, device="cuda")
-            for unit, rows in (("tile", eu.scatter_tile_rows(d)), ("slice", eu.scatter_slice_rows(d))):
-                r[f"{unit}_rows"] = rows
-                r[f"{unit}_crossing_rows"] = int((pos // rows != start // rows).sum())
-            r["repeated_rows"] = int((s[1:] == s[:-1]).sum())
-            for bname, fn in broken.items():
-                r[bname] = sum_reading(torch, eu, fn(v, d, plan, grads), plan, grads)
+        carry_readings(torch, eu, broken, plan, v, d, grads, r)
         readings[name] = r
         if timing:
-            plain = lambda: eu.scatter_add_plain(v, plan.sids, grads)  # noqa: E731
-            rec = dict(
-                name="fused_scatter_add", route="cuda", source="tpurec_torch/csrc/embedding_update.cu",
-                replaces="tpurec/ops/pallas/embedding_update.py:231", shape=[plan.n, v, d],
-                max_abs_err=float((got - plain()).abs().max()), ms=r["ms"],
-                plain_ms=device_ms(torch, plain), bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                library_ms=r["library_ms"], split_ms=r["split_ms"],
-            )
+            rec = scatter_record(torch, eu, plan, v, d, grads, got, r)
             if name == "din":
                 rec["id0_share"] = float((din_ids == 0).mean())
                 # the dense engine's table gradient on the same stream, with
@@ -1423,18 +1484,7 @@ def check_embedding_kernels(torch, eu):
                     torch, lambda: dense_bwd(grads, spread, v, -1, False))
             records[name] = rec
             print("kernel check:", json.dumps(rec), flush=True)
-    print(f"fused_scatter_add readings (error / limit; limit = {SUM_ATOL} + {SUM_RTOL} · Σ|g| "
-          "of the row, fp32 sums in another order):", json.dumps(readings), flush=True)
-    for name, r in readings.items():
-        check(r["same_bits"], f"fused_scatter_add at {name}: two calls gave different bits")
-        check(r["kernel"] <= 1.0, f"fused_scatter_add vs plain at {name}: {r}")
-        for unit, bname in (("tile", "broken_drop_carried"), ("slice", "broken_drop_slice_carried")):
-            if r.get(f"{unit}_crossing_rows"):
-                check(r[bname] > 1.0,
-                      f"the check cannot tell a #9 that drops runs carried past a {unit} at {name}: {r}")
-        if r.get("repeated_rows"):
-            check(r["broken_first_only"] > 1.0,
-                  f"the check cannot tell a #9 that keeps first occurrences at {name}: {r}")
+    check_scatter_readings(readings)
     check(all(readings[n]["slice_crossing_rows"] for n in ("fm_v", "din", "all_equal"))
           and all(readings[n]["tile_crossing_rows"] for n in ("din", "all_equal")),
           "no run crossed a slice at the FM, DIN or all-equal shape, or a tile at DIN or all-equal")
@@ -2925,6 +2975,252 @@ def run_mind(torch, kernels, workdir, card):
     return launches, ab
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the FM family and MatrixCF
+# The bf16 servables' logit (MatrixCF's output: it has no logit) card
+# against CPU on 256 rows, and ``Servable.rank`` against ``predict``'s rows,
+# at 2^-5 of the largest |value| (bf16 roundings taken in another order, as
+# DCN_LOGIT_RTOL).
+FM_FAMILY_RTOL = 2.0**-5
+FM_FAMILY_STEPS = 10
+FM_FAMILY = {
+    # case: (registry name, params, embedding dim, schema)
+    "dssm_single": ("dssm_single", dict(hidden_dims=[64, 32]), 32, "fm"),
+    "fwfm": ("fwfm", {}, 32, "fm"),
+    "pnn_inner": ("pnn", dict(hidden_dims=[64, 32]), 32, "fm"),
+    "pnn_outer": ("pnn", dict(hidden_dims=[64, 32], product_type="outer", kernel_type="mat"), 32, "fm"),
+    # k = 4: libffm's setting on Criteo's fields (Juan et al., RecSys 2016)
+    "ffm": ("ffm", {}, 4, "fm"),
+    "onn": ("onn", dict(hidden_dims=[64, 32]), 4, "fm"),
+    "wide_and_deep": ("wide_and_deep", dict(hidden_dims=[64, 32]), 32, "fm_continuous"),
+    "matrixcf": ("matrixcf", {}, 16, "ml1m"),
+    "ncf": ("ncf", dict(mf_dim=16, mlp_dim=16, hidden_dims=[64, 32, 16]), 16, "ml1m"),
+}
+# the field-aware models' tables, the (V, F, D) one first
+FA_TABLES = {"ffm": ("v.embedding", "w.w.embedding"), "onn": ("fa.embedding", "emb.embedding")}
+RANK_BUCKETS = (8, 16, 32, 64, 128, 256)
+FM_FAMILY_SCATTER_D = {"ffm_v": 104, "ffm_d4": 4, "ffm_d1": 1}
+
+
+def fm_family_info(schema):
+    """``'fm'``: ``fm_info()``; ``'fm_continuous'``: the same with 13
+    continuous columns (Criteo's I1-I13); ``'ml1m'``: MovieLens-1M's 6,040
+    users and 3,706 items (NCF's data, He et al., WWW 2017)."""
+    from tpurec_torch.data.schema import DataInfo
+
+    if schema == "ml1m":
+        return DataInfo.from_dims(["user_id", "item_id"], [6040, 3706])
+    info = fm_info()
+    if schema == "fm_continuous":
+        info = dataclasses.replace(info, continuous_names=[f"i{k}" for k in range(1, 14)])
+    return info
+
+
+def fm_family_batch(info, batch_size, seed):
+    """``bench_batch`` and each continuous column drawn from the seed as
+    log(1 + x), x exponential (non-negative, as log-scaled counts are)."""
+    batch = bench_batch(info, batch_size, 0, seed=seed)
+    rng = np.random.default_rng(seed + 1000)
+    for c in info.continuous_names:
+        batch[c] = np.log1p(rng.exponential(size=batch_size)).astype(np.float32)
+    return batch
+
+
+def fm_family_config(case, mode="dense", dtype="bfloat16", **train):
+    """bce, Adam lr 1e-3 eps 1e-7 at B=8192; ``mode`` 'dense', 'fused'
+    (fused_adam) or 'sparse' (rowwise_adam)."""
+    from tpurec_torch.config import (
+        EmbeddingConfig, ExperimentConfig, ModelConfig, OptimizerConfig, TrainConfig,
+    )
+
+    name, params, dim, _ = FM_FAMILY[case]
+    emb_opt = dict(dense="adam", fused="fused_adam", sparse="rowwise_adam")[mode]
+    return ExperimentConfig(
+        model=ModelConfig(name=name, params=dict(params), embedding=EmbeddingConfig(dim=dim)),
+        train=TrainConfig(
+            batch_size=TRAIN_BATCH, loss="bce", log_every_steps=0, compute_dtype=dtype,
+            sparse_embedding=mode != "dense",
+            optimizer=OptimizerConfig(learning_rate=1e-3, eps=1e-7, embedding_optimizer=emb_opt),
+            **train,
+        ),
+    )
+
+
+def check_fm_family_scatter(torch, eu):
+    """Kernel #9 on FFM's stream (the FM schema's B=8192 batch: N=212,992
+    ids over 2,080,128 rows) at the field-aware table's width F·k = 104 and
+    at 4 and 1 (phase 10a): the readings, broken versions and timings of
+    phase 7a. Returns {case: record}."""
+    from tpurec_torch.embedding.ops import pad_vocab
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    broken = broken_scatters(torch, eu)
+    info = fm_family_info("fm")
+    v = pad_vocab(info.total_dims)
+    plan = eu.make_scatter_plan(torch.as_tensor(
+        flat_ids(info, fm_family_batch(info, TRAIN_BATCH, seed=1)), device="cuda"), v)
+    readings, records = {}, {}
+    for name, d in FM_FAMILY_SCATTER_D.items():
+        r, grads, got = scatter_case(torch, eu, gen, plan, v, d)
+        carry_readings(torch, eu, broken, plan, v, d, grads, r)
+        readings[name] = r
+        records[name] = scatter_record(torch, eu, plan, v, d, grads, got, r)
+        print("kernel check:", json.dumps(records[name]), flush=True)
+    check_scatter_readings(readings, " (FFM's stream)")
+    check(readings["ffm_v"]["slice_crossing_rows"] > 0, "no run of FFM's stream crossed a slice at D=104")
+    return records
+
+
+def run_fm_family_servable(torch, workdir, card, case, seed):
+    """export → load_servable → predict at B=8192, bf16 compute (phase
+    10b): finite probabilities; the first 256 rows against the port on the
+    CPU with the same weights; predict p50 of 10 after 2 warm-ups and a
+    profiler summary; for ffm ``Servable.rank`` at the rank buckets."""
+    from tpurec_torch.models import build_model
+    from tpurec_torch.serving.export import load_servable
+    from tpurec_torch.train.checkpoint import export_params
+
+    _, _, _, schema = FM_FAMILY[case]
+    info = fm_family_info(schema)
+    config = fm_family_config(case).model
+    config = config.replace(params=dict(config.params, dtype="bfloat16"))
+    export_dir = os.path.join(workdir, f"{case}_export")
+    export_params(
+        export_dir, build_model(config, info, device="cuda", seed=seed).state_dict(),
+        meta={"model": config.name, "model_params": dict(config.params),
+              "embedding": config.embedding.to_dict()},
+    )
+    servable = load_servable(export_dir, info, device="cuda")
+    batch = {k: v for k, v in fm_family_batch(info, TRAIN_BATCH, seed=0).items() if k != "label"}
+    outputs = servable.predict(batch)
+    out = outputs["output"]
+    key = "logit" if "logit" in outputs else "output"
+    ref = outputs[key]
+    scale = FM_FAMILY_RTOL * float(ref.abs().max())
+    rows = {k: v[:256] for k, v in batch.items()}
+    cpu = load_servable(export_dir, info, device="cpu").predict(rows)[key]
+    readings = dict(cpu_256_rows=float((ref[:256].cpu() - cpu).abs().max()) / scale)
+    rank = {}
+    if case == "ffm":
+        for n in RANK_BUCKETS:
+            part = {k: v[:n] for k, v in batch.items()}
+            got = servable.rank(part)
+            times = []
+            for _ in range(6):
+                t0 = time.perf_counter()
+                servable.rank(part).cpu()
+                times.append((time.perf_counter() - t0) * 1e3)
+            rank[n] = dict(p50_ms=statistics.median(times[1:]),
+                           reading=float((got - out[:n]).abs().max()) / scale)
+            readings[f"rank_{n}"] = rank[n]["reading"]
+    times = []
+    for _ in range(12):
+        t0 = time.perf_counter()
+        servable.predict(batch)["output"].cpu()
+        times.append((time.perf_counter() - t0) * 1e3)
+    p50 = statistics.median(times[2:])
+    busy_ms, top_ops = profile_steps(torch, lambda: servable.predict(batch))
+    result = dict(card=card, model=case, batch=TRAIN_BATCH, readings=readings, compared=key,
+                  limit=scale, max_abs=float(ref.abs().max()), std=float(ref.float().std()),
+                  mean_prob=float(out.mean()), predict_p50_ms=p50,
+                  examples_per_s=TRAIN_BATCH / (p50 / 1e3), device_busy_ms=busy_ms,
+                  device_idle_share=1.0 - busy_ms / p50, top_ops_ms=top_ops, rank=rank)
+    print(f"{case} servable (readings: error / limit):", json.dumps(result), flush=True)
+    check(out.shape == (TRAIN_BATCH,) and out.dtype == torch.float32, f"{case}: bad output {out.shape}")
+    check(bool(torch.isfinite(out).all()) and bool(((out >= 0) & (out <= 1)).all()),
+          f"{case}: outputs are not finite probabilities")
+    for name, value in readings.items():
+        check(value <= 1.0, f"{case}: {name} {readings}")
+
+
+def run_fm_family_training(torch, eu, card, case, mode="dense"):
+    """FM_FAMILY_STEPS bf16 steps of one engine on the fixed seed-1 batch
+    (phase 10c): losses finite and falling; step p50, examples/s, peak
+    memory, and (dense) a profiler summary of 3 more steps. Returns (#9's
+    launches in the steps, result)."""
+    from tpurec_torch.ops import kernels
+    from tpurec_torch.train.trainer import Trainer
+
+    info = fm_family_info(FM_FAMILY[case][3])
+    batch = fm_family_batch(info, TRAIN_BATCH, seed=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(fm_family_config(case, mode), info)
+    state = trainer.init_state(batch)
+    dbatch = trainer.device_batch(batch)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    state, metric_state, losses, times = drive_steps(torch, trainer, state, dbatch, steps=FM_FAMILY_STEPS)
+    launches = eu.fused_scatter_add.launches
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 2**30
+    step_ms = statistics.median(times[2:])
+    result = dict(card=card, model=case, engine=mode, batch=TRAIN_BATCH, steps=FM_FAMILY_STEPS,
+                  step_p50_ms=step_ms, step_ms_min=min(times[2:]), step_ms_max=max(times[2:]),
+                  examples_per_s=TRAIN_BATCH / (step_ms / 1e3), first_step_ms=times[0],
+                  peak_mem_gb=peak_gb, loss_first=losses[0], loss_last=losses[-1],
+                  fused_scatter_add_launches=launches)
+    if mode == "dense":
+        def step():
+            nonlocal state, metric_state
+            state, metric_state, _ = trainer.train_step(state, dbatch, metric_state)
+
+        busy_ms, top_ops = profile_steps(torch, step, steps=3)
+        result.update(device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / step_ms,
+                      top_ops_ms=top_ops)
+    print(f"{case} {mode} training:", json.dumps(result), flush=True)
+    check(all(np.isfinite(losses)), f"{case} {mode}: non-finite training loss: {losses}")
+    check(losses[-1] < losses[0], f"{case} {mode}: the loss did not fall in {FM_FAMILY_STEPS} steps: {losses}")
+    return launches, result
+
+
+def fm_family_engine_checks(torch, eu):
+    """FFM's fp32 fused step against its dense step (``fused_vs_dense``),
+    and three fp32 fused steps card against CPU on 256 rows (phase 10c)."""
+    from tpurec_torch.train.trainer import Trainer
+
+    info = fm_family_info("fm")
+    batch = fm_family_batch(info, TRAIN_BATCH, seed=1)
+    fused_vs_dense(torch, eu, lambda m: fm_family_config("ffm", m, "float32"), info, batch,
+                   FA_TABLES["ffm"], "ffm")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = {k: v[:256] for k, v in batch.items()}
+    card_t = Trainer(fm_family_config("ffm", "fused", "float32"), info)
+    cpu_t = Trainer(fm_family_config("ffm", "fused", "float32"), info, device="cpu")
+    card_s, cpu_s = card_t.init_state(rows), cpu_t.init_state(rows)
+    cpu_s.model.load_state_dict({k: v.cpu() for k, v in card_s.model.state_dict().items()})
+    pairs = []
+    for _ in range(3):
+        card_s, _, a = card_t.train_step(card_s, card_t.device_batch(rows), card_t.metrics.init())
+        cpu_s, _, b = cpu_t.train_step(cpu_s, cpu_t.device_batch(rows), cpu_t.metrics.init())
+        pairs.append((float(a["loss"]), float(b["loss"])))
+    print("ffm fused card vs cpu losses (256 rows):", json.dumps(dict(losses=pairs, limit=CPU_LOSS_TOL)),
+          flush=True)
+    check(max(abs(a - b) for a, b in pairs) <= CPU_LOSS_TOL, f"ffm fused: card vs CPU {pairs}")
+
+
+def run_fm_family(torch, eu, workdir, card):
+    """Phase 10: #9 at FFM's widths, every model served and trained, FFM and
+    ONN in the fused and rowwise_adam engines. Returns (#9's records, its
+    launches by path)."""
+    records = check_fm_family_scatter(torch, eu)
+    for seed, case in enumerate(FM_FAMILY):
+        run_fm_family_servable(torch, workdir, card, case, seed)
+        run_fm_family_training(torch, eu, card, case)
+    launches = {}
+    for case in FA_TABLES:
+        fused, _ = run_fm_family_training(torch, eu, card, case, "fused")
+        check(fused == len(FA_TABLES[case]) * FM_FAMILY_STEPS,
+              f"the fused {case} step did not launch #9 once per table a step: {fused}")
+        launches[f"{case}_fused_training"] = fused
+        lazy, _ = run_fm_family_training(torch, eu, card, case, "sparse")
+        check(lazy == 0, f"the rowwise_adam {case} step launched #9 {lazy} times")
+    fm_family_engine_checks(torch, eu)
+    return records, launches
+
+
 def main() -> int:
     import torch
 
@@ -2999,6 +3295,16 @@ def main() -> int:
         kernels.build([name])
         (fm_ab if name == "fm_second_order" else cross_ab)(torch, kernels, sys.argv[2])
         return 0
+    if sys.argv[1:] == ["--fm-family"]:
+        # phase 10 alone: the FM family and MatrixCF (their one kernel is #9)
+        from tpurec_torch.ops import embedding_update as eu
+
+        kernels.build(["embedding_update"])
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR.parent) as workdir:
+            run_fm_family(torch, eu, workdir, smi)
+        print("phase seconds:", json.dumps({"10_fm_family": time.perf_counter() - t}), flush=True)
+        return 0
     if sys.argv[1:] == ["--din-bwd"]:
         # kernel #5 alone: phase 6's kernel checks, with the split and B=1024
         paths = kernels.build(["din_attention_bwd"])
@@ -3042,6 +3348,8 @@ def main() -> int:
         dcn_launches = timed("8bc_dcn_family", run_dcn_family, torch, kernels, workdir, smi)
         capsule_records = timed("9a_capsule_kernels", check_capsule_kernels, torch, kernels)
         mind_launches, _ = timed("9bcd_mind", run_mind, torch, kernels, workdir, smi)
+        fm_family_scatter, fm_family_launches = timed("10_fm_family", run_fm_family, torch, eu,
+                                                      workdir, smi)
     print("phase seconds:", json.dumps(seconds), flush=True)
     # a kernel on several paths: its launches are their sum
     forward_paths = dict(din_serving=serve_launches, din_training=train_launches,
@@ -3052,10 +3360,11 @@ def main() -> int:
     records["din_attention_bwd"]["launches"] = sum(bwd_paths.values())
     records["din_attention_bwd"]["launches_by_path"] = bwd_paths
     scatter_paths = dict(fm_fused_training=fm_scatter_launches,
-                         din_fused_training=din_fused["fused_scatter_add"])
+                         din_fused_training=din_fused["fused_scatter_add"], **fm_family_launches)
     records["fused_scatter_add"] = dict(embedding["fm_v"], launches=sum(scatter_paths.values()),
                                         launches_by_path=scatter_paths,
-                                        other_shapes=dict(fm_w=embedding["fm_w"], din=embedding["din"]))
+                                        other_shapes=dict(fm_w=embedding["fm_w"], din=embedding["din"],
+                                                          **fm_family_scatter))
     # #10 is on no training path, in either package: checked and timed alone
     records["gather_rows_sorted"] = dict(embedding["gather"], launches=0, launches_by_path={})
     for name, rec in dcn_records.items():

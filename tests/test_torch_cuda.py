@@ -488,6 +488,58 @@ def test_fused_scatter_add_kernel_matches_plain(card, n, v, d, skew, outside):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [104, 4])
+def test_fused_scatter_add_on_an_ffm_stream(card, d):
+    """#9 on FFM's stream (26 fields of 80,000 ids, B=8192: N=212,992 ids
+    over 2,080,128 rows, feature-major as the fused engine concatenates
+    them) at the field-aware table's width F·k = 104 and at k = 4: within
+    the limit of ``scatter_add_plain``, two calls the same bits, and a
+    version that loses what runs carry past a slice above the limit."""
+    from tpurec_torch.embedding.ops import pad_vocab
+    from tpurec_torch.ops import embedding_update as eu
+
+    rng = np.random.default_rng(3)
+    ids = np.concatenate([rng.integers(80_000 * f, 80_000 * (f + 1), size=8192) for f in range(26)])
+    v = pad_vocab(26 * 80_000)
+    plan = eu.make_scatter_plan(torch.as_tensor(ids, device=card), v)
+    grads = torch.randn(plan.n, d, device=card, generator=torch.Generator(card).manual_seed(3))
+    got = eu.fused_scatter_add(v, d, plan, grads)
+    again = eu.fused_scatter_add(v, d, plan, grads)
+    assert got.shape == (v, d) and torch.equal(got, again)
+    assert _sum_reading(got, plan, grads) <= 1.0
+    rows = eu.scatter_slice_rows(d)
+    start = torch.searchsorted(plan.sids, plan.sids)
+    keep = torch.arange(plan.n, device=card) // rows == start // rows
+    assert not keep.all()
+    dropped = eu.scatter_add_plain(v, plan.sids[keep], grads[keep])
+    assert _sum_reading(dropped, plan, grads) > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,params,dim", [
+    ("ffm", {}, 4), ("onn", {}, 4), ("pnn", {"product_type": "outer", "kernel_type": "mat"}, 8),
+])
+def test_fm_family_model_on_card_matches_cpu(card, name, params, dim):
+    """FFM's and ONN's field-aware lookups and products and PNN's outer
+    tower on the card against the same weights on the CPU (fp32)."""
+    from tpurec_torch.config import EmbeddingConfig, ModelConfig
+    from tpurec_torch.data.schema import DataInfo
+    from tpurec_torch.models import build_model
+
+    rng = np.random.default_rng(2)
+    info = DataInfo.from_dims([f"f{i}" for i in range(8)], [50] * 8)
+    batch = {f"f{i}": rng.integers(50 * i, 50 * i + 50, size=(64,)) for i in range(8)}
+    config = ModelConfig(name=name, params=params, embedding=EmbeddingConfig(dim=dim))
+    on_card = build_model(config, info, device=card).eval()
+    on_cpu = build_model(config, info, device="cpu").eval()
+    on_cpu.load_state_dict({k: v.cpu() for k, v in on_card.state_dict().items()})
+    with torch.inference_mode():
+        got = on_card({k: torch.as_tensor(v, device=card) for k, v in batch.items()})["logit"]
+        want = on_cpu({k: torch.as_tensor(v) for k, v in batch.items()})["logit"]
+    torch.testing.assert_close(got.cpu(), want, **TOL)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,v,d", [(50_000, 400_000, 32), (1003, 300, 5), (1003, 300, 160),
                                    (3000, 50, 1), (0, 10, 4)])
 def test_gather_rows_kernel_matches_plain(card, n, v, d):

@@ -118,17 +118,17 @@ def step_both(jt, js, pt, ps, data):
     return js, ps, float(plogs["loss"])
 
 
-def assert_state_matches(jt, js, ps):
+def assert_state_matches(jt, js, ps, param_tol=PARAM_TOL):
     """Tables and table optimizer state (without the sacrificial last row)
-    and every dense parameter."""
+    and every dense parameter, the tables and parameters to ``param_tol``."""
     tables = by_name(js.tables)
     dense = by_name(js.params)
     got = {n: p.detach().numpy() for n, p in ps.model.named_parameters()}
     assert set(got) == set(tables) | set(dense)
     for name, want in tables.items():
-        np.testing.assert_allclose(got[name][:-1], want[:-1], atol=PARAM_TOL, rtol=0, err_msg=name)
+        np.testing.assert_allclose(got[name][:-1], want[:-1], atol=param_tol, rtol=0, err_msg=name)
     for name, want in dense.items():
-        np.testing.assert_allclose(got[name], want, atol=PARAM_TOL, rtol=0, err_msg=name)
+        np.testing.assert_allclose(got[name], want, atol=param_tol, rtol=0, err_msg=name)
     jopt = {".".join(p): st for p, st in _flatten(js.table_opt)}
     for name, st in ps.table_opt.items():
         if type(st).__name__ == "HostAdamState":
@@ -146,7 +146,7 @@ def assert_state_matches(jt, js, ps):
             )
 
 
-def run_both(model, jcfg, cfg, steps=3, data=None):
+def run_both(model, jcfg, cfg, steps=3, data=None, param_tol=PARAM_TOL):
     if model == "din":
         jinfo, info, first = din_data()
     else:
@@ -154,7 +154,7 @@ def run_both(model, jcfg, cfg, steps=3, data=None):
     jt, js, pt, ps = pair(jcfg, cfg, jinfo, info, first)
     for b in data or batches(model, steps):
         js, ps, _ = step_both(jt, js, pt, ps, b)
-    assert_state_matches(jt, js, ps)
+    assert_state_matches(jt, js, ps, param_tol)
     return jt, js, pt, ps
 
 

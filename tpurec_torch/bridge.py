@@ -7,6 +7,11 @@ model, an MLP, an attention block). The port keeps flax's module names, so a
 flax path maps to a torch key by joining with dots, with these renames:
 
 - a Dense ``kernel`` (in, out) becomes ``weight`` (out, in), transposed;
+  a ``kernel`` leaf is a Dense kernel when the port module at its path is
+  not one that owns a raw ``kernel`` parameter (PNN's ``OuterProductTower``,
+  whose (P, D, D), (P, D) or (P,) kernel keeps its name and shape; a
+  (P, D) kernel with P == D would load transposed without an error if
+  the shape decided);
 - ``batch_stats`` ``mean``/``var`` become ``running_mean``/``running_var``;
 - tables and the raw parameters keep their names and shapes: the DIN
   attention's ``w1``, ``b1``, ``w2``, ``alpha``; the DCN cross's ``w_{i}``
@@ -14,8 +19,9 @@ flax path maps to a torch key by joining with dots, with these renames:
   SENet-bilinear's ``squeeze_kernel``/``excite_kernel`` (used as
   ``z @ kernel``, so not transposed) and ``squeeze_bias``/``excite_bias``;
   the capsule routing's ``S`` (D, E) and ``W`` (K, L, D, E); SINE's
-  ``interest_pool``; the retrieval models' ``logit_scale``.
-  Only a leaf named exactly ``kernel`` is a Dense kernel.
+  ``interest_pool``; the retrieval models' ``logit_scale``; FwFM's
+  ``pair_weight`` (P,); the ``(V, F, D)`` field-aware tables.
+  Only a leaf named exactly ``kernel`` can be a Dense kernel.
 
 It raises ``KeyError`` on a collection other than those two or a leaf name
 it does not know, and the strict ``load_state_dict`` raises
@@ -49,7 +55,7 @@ from torch import nn
 _PARAM_KEEP = {
     "bias", "w1", "b1", "w2", "alpha", "logit_scale", "logit_bias", "w",
     "squeeze_kernel", "squeeze_bias", "excite_kernel", "excite_bias",
-    "S", "W", "interest_pool",
+    "S", "W", "interest_pool", "pair_weight",
 }
 _INDEXED_KEEP = re.compile(r"(w|b|compress)_\d+")
 _STAT_RENAMES = {"mean": "running_mean", "var": "running_var"}
@@ -64,13 +70,31 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
             yield path, val
 
 
-def _torch_leaf(collection: str, path: Tuple[str, ...], value) -> Tuple[str, np.ndarray]:
+def _owns_raw_kernel(module: Optional[nn.Module], path: Tuple[str, ...]) -> bool:
+    """Whether the port module at ``path[:-1]`` under ``module`` has a
+    parameter named ``kernel`` itself (a Dense has ``weight``)."""
+    if module is None:
+        return False
+    try:
+        owner = module.get_submodule(".".join(path[:-1]))
+    except AttributeError:
+        return False  # no such module: the strict load reports the key
+    return "kernel" in dict(owner.named_parameters(recurse=False))
+
+
+def _torch_leaf(collection: str, path: Tuple[str, ...], value,
+                module: Optional[nn.Module] = None) -> Tuple[str, np.ndarray]:
+    """The port's name and array for the flax leaf at ``path``. ``module``
+    (the port module the tree loads into) tells a raw ``kernel`` from a
+    Dense one; without it every ``kernel`` must be a 2-D Dense kernel."""
     leaf = path[-1]
     arr = np.array(value, dtype=np.float32)  # a writable copy
     if collection == "batch_stats":
         if leaf not in _STAT_RENAMES:
             raise KeyError(f"unmatched batch_stats leaf {'/'.join(path)}")
         return _STAT_RENAMES[leaf], arr
+    if leaf == "kernel" and _owns_raw_kernel(module, path):
+        return leaf, arr
     if leaf == "kernel":
         if arr.ndim != 2:
             raise ValueError(f"{'/'.join(path)}: expected a 2-D Dense kernel, got {arr.shape}")
@@ -90,7 +114,7 @@ def params_from_jax(module: nn.Module, variables: Mapping) -> nn.Module:
     for collection in ("params", "tables", "batch_stats"):
         for path, value in _flatten(variables.get(collection) or {}):
             name, arr = _torch_leaf("batch_stats" if collection == "batch_stats" else "params",
-                                    path, value)
+                                    path, value, module)
             state[".".join(path[:-1] + (name,))] = torch.from_numpy(np.ascontiguousarray(arr))
     module.load_state_dict(state)
     return module
@@ -113,14 +137,15 @@ def _find_adam_state(tree: Any) -> Optional[Any]:
     return None
 
 
-def _moments(tree: Mapping) -> Dict[str, np.ndarray]:
-    """torch key → array for every array leaf of a params-shaped tree (the
-    placeholders of masked-out leaves have no shape and are skipped)."""
+def _moments(tree: Mapping, module: nn.Module) -> Dict[str, np.ndarray]:
+    """torch key → array for every array leaf of a params-shaped tree over
+    ``module`` (the placeholders of masked-out leaves have no shape and are
+    skipped)."""
     out = {}
     for path, value in _flatten(tree):
         if not hasattr(value, "shape"):
             continue
-        name, arr = _torch_leaf("params", path, value)
+        name, arr = _torch_leaf("params", path, value, module)
         out[".".join(path[:-1] + (name,))] = arr
     return out
 
@@ -133,7 +158,7 @@ def opt_state_from_jax(optimizer, module: nn.Module, opt_state: Any):
     adam = _find_adam_state(opt_state)
     if adam is None:
         raise KeyError("no Adam state (count, mu, nu) in the optax state")
-    mu, nu = _moments(adam.mu), _moments(adam.nu)
+    mu, nu = _moments(adam.mu, module), _moments(adam.nu, module)
     count = int(np.asarray(adam.count))
     for group in optimizer.param_groups:
         name, (p,) = group["name"], group["params"]
@@ -149,9 +174,18 @@ def table_opt_from_jax(table_opt: Dict[str, Any], jax_table_opt: Mapping,
                        host_store=None, jax_host_store=None) -> Dict[str, Any]:
     """Copy a JAX ``state.table_opt`` into the port's ``table_opt`` (keyed by
     table parameter name, the flax path joined with dots) in place, and
-    return it. Each table's state must be of the same kind on both sides;
-    a ``HostAdamState`` takes the moments of its JAX slot from
-    ``jax_host_store`` into its slot of ``host_store``."""
+    return it. Each table's state must be of the same kind on both sides,
+    and each array of the same shape ((V, D) or a field-aware (V, F, D)
+    table's; ``ValueError`` otherwise); a ``HostAdamState`` takes the
+    moments of its JAX slot from ``jax_host_store`` into its slot of
+    ``host_store``."""
+
+    def copy(name, dst, src):
+        arr = np.array(src, dtype=np.float32)
+        if tuple(arr.shape) != tuple(dst.shape):
+            raise ValueError(f"{name}: JAX shape {arr.shape}, port shape {tuple(dst.shape)}")
+        dst.copy_(torch.from_numpy(arr).to(dst.dtype))
+
     # each table's state is a NamedTuple, a leaf to ``_flatten``
     leaves = {".".join(path): value for path, value in _flatten(jax_table_opt)}
     if set(leaves) != set(table_opt):
@@ -163,10 +197,9 @@ def table_opt_from_jax(table_opt: Dict[str, Any], jax_table_opt: Mapping,
                 raise TypeError(f"{name}: JAX {type(src).__name__}, port {type(st).__name__}")
             if type(st).__name__ == "HostAdamState":
                 jslot = int(np.asarray(src.slot))
-                host_store._m[st.slot].copy_(torch.from_numpy(np.array(jax_host_store._m[jslot])))
-                host_store._v[st.slot].copy_(torch.from_numpy(np.array(jax_host_store._v[jslot])))
+                copy(f"{name}.m", host_store._m[st.slot], jax_host_store._m[jslot])
+                copy(f"{name}.v", host_store._v[st.slot], jax_host_store._v[jslot])
                 continue
             for field, dst in st._asdict().items():
-                arr = np.array(getattr(src, field), dtype=np.float32)
-                dst.copy_(torch.from_numpy(arr).to(dst.dtype))
+                copy(f"{name}.{field}", dst, getattr(src, field))
     return table_opt

@@ -17,12 +17,18 @@ trainer leaves the tables out of the optimizer and updates them in place
 (the counterpart of the JAX ``'tables'`` collection). The JAX package's
 packed and ``shard_map`` lookups are TPU and mesh features of later slices.
 
+``FieldAwareEmbedding`` (FFM's and ONN's (V_pad, F, D) table) takes part in
+all of this as a table: ``embedding_tables`` and ``sparse_rows`` list it
+beside the ``SharedEmbedding``s, and its rows are (U, F, D) or (N, F, D).
+
 The used-id L2 term: the JAX package ``sow``s ``used_id_l2`` of each lookup
 call into the ``'regularization'`` collection when the trainer makes it
 mutable (``tpurec/embedding/modules.py:183-192``), and sums the collection.
 Here the trainer opens ``record_used_id_l2(model)`` around its forward: it
 hands every ``SharedEmbedding`` of the model one list, and each lookup made
-in training mode appends its term to it.
+in training mode appends its term to it. A ``FieldAwareEmbedding`` records
+none, as its JAX counterpart sows none; the fused engine's ``'permute'``
+term, which sums over every table's rows, does count it there and here.
 """
 
 from __future__ import annotations
@@ -70,9 +76,45 @@ class SharedEmbedding(nn.Module):
         return out if self.dtype is None else out.to(self.dtype)
 
 
-def embedding_tables(model: nn.Module) -> List[SharedEmbedding]:
-    """Every ``SharedEmbedding`` of ``model``, in module order."""
-    return [m for m in model.modules() if isinstance(m, SharedEmbedding)]
+class FieldAwareEmbedding(nn.Module):
+    """(V_pad, F, D) fp32 table ``embedding``: one embedding per (id,
+    target field) pair, FFM's and ONN's layout. A lookup of (..., ) ids gives
+    (..., F, D) in ``dtype`` (None = the table's fp32). Records no used-id
+    L2 term (``tpurec/embedding/modules.py:223-275``)."""
+
+    def __init__(self, vocab_size: int, num_fields: int, dim: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.embedding = nn.Parameter(torch.empty(pad_vocab(vocab_size), num_fields, dim))
+        self.sparse_rows: Optional[torch.Tensor] = None
+        self.sparse_layout = "unique"
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        uniform_(self.embedding, INIT_SCALE, generator)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        rows = self.sparse_rows
+        if rows is not None and self.sparse_layout == "direct":
+            out = contiguous_take(rows, ids)
+        else:
+            table = self.embedding if rows is None else rows
+            out = table[ids]
+        return out if self.dtype is None else out.to(self.dtype)
+
+
+_TABLE_MODULES = (SharedEmbedding, FieldAwareEmbedding)
+
+
+def embedding_tables(model: nn.Module) -> List[nn.Module]:
+    """Every table of ``model`` (``SharedEmbedding`` and
+    ``FieldAwareEmbedding``), in module order."""
+    return [m for m in model.modules() if isinstance(m, _TABLE_MODULES)]
+
+
+def is_table(module: nn.Module) -> bool:
+    """Whether ``module`` is one of ``embedding_tables``' tables."""
+    return isinstance(module, _TABLE_MODULES)
 
 
 @contextlib.contextmanager
@@ -98,7 +140,7 @@ def record_used_id_l2(model: nn.Module):
     """Collect, in the body, the used-id L2 term of every lookup that a
     ``SharedEmbedding`` of ``model`` makes in training mode; yields the list
     the terms are appended to (one per call)."""
-    tables = embedding_tables(model)
+    tables = [m for m in model.modules() if isinstance(m, SharedEmbedding)]
     terms: List[torch.Tensor] = []
     for table in tables:
         table.used_id_l2_terms = terms

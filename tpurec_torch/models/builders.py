@@ -12,6 +12,7 @@ from tpurec_torch.data.schema import DataInfo
 from tpurec_torch.models import dcn as dcn_models
 from tpurec_torch.models import din as din_models
 from tpurec_torch.models import fm as fm_models
+from tpurec_torch.models import matrixcf as cf_models
 from tpurec_torch.models import mind as mind_models
 from tpurec_torch.models.registry import register_model
 
@@ -40,9 +41,31 @@ def _with_continuous(params: dict, info: DataInfo) -> dict:
     return out
 
 
+@register_model("matrixcf")
+def _matrixcf(params: dict, info: DataInfo):
+    # keeps ``embed_dim`` (``build_model`` sets it from config.embedding.dim)
+    p = _with_dtype(params)
+    p.setdefault("vocab_size", info.total_dims)
+    return cf_models.MatrixCF(**p)
+
+
+@register_model("ncf")
+def _ncf(params: dict, info: DataInfo):
+    # its widths are ``mf_dim``/``mlp_dim``: ``embed_dim`` is always dropped
+    p = _with_dtype(params)
+    p.pop("embed_dim", None)
+    p.setdefault("vocab_size", info.total_dims)
+    return cf_models.NCF(**p)
+
+
 @register_model("fm")
 def _fm(params: dict, info: DataInfo):
     return fm_models.FM(**_common(params, info))
+
+
+@register_model("dssm_single")
+def _dssm_single(params: dict, info: DataInfo):
+    return fm_models.DSSMSingleRanking(**_common(params, info))
 
 
 @register_model("dssm_double")
@@ -57,6 +80,31 @@ def _dssm_double(params: dict, info: DataInfo):
 @register_model("deepfm")
 def _deepfm(params: dict, info: DataInfo):
     return fm_models.DeepFM(**_common(params, info))
+
+
+@register_model("wide_and_deep")
+def _wide_and_deep(params: dict, info: DataInfo):
+    return fm_models.WideAndDeep(**_with_continuous(params, info))
+
+
+@register_model("ffm")
+def _ffm(params: dict, info: DataInfo):
+    return fm_models.FFM(**_common(params, info))
+
+
+@register_model("fwfm")
+def _fwfm(params: dict, info: DataInfo):
+    return fm_models.FwFM(**_common(params, info))
+
+
+@register_model("pnn")
+def _pnn(params: dict, info: DataInfo):
+    return fm_models.PNN(**_common(params, info))
+
+
+@register_model("onn")
+def _onn(params: dict, info: DataInfo):
+    return fm_models.ONN(**_common(params, info))
 
 
 @register_model("dcn")

@@ -1,7 +1,12 @@
 """Feature-interaction ops (counterpart of ``tpurec/ops/interactions.py``):
-the FM cross term and the DCN-family modules (DCN vector and matrix cross,
-CIN, SENet, bilinear interactions, SENet-bilinear). The rest of the module's
-ops come with the models that use them. ``emb`` is (B, F, D).
+the FM cross term, the FM family's pair products (pairwise, inner, outer,
+field-aware), ``FwFMInteraction`` and PNN's product towers, and the
+DCN-family modules (DCN vector and matrix cross, CIN, SENet, bilinear
+interactions, SENet-bilinear). The rest of the module's ops come with the
+models that use them. ``emb`` is (B, F, D); pairs are the i<j field pairs
+in ``np.triu_indices`` order, P = F(F−1)/2. The pair products are plain
+tensor math in the embedding's dtype, as in the JAX package (no kernel
+there either).
 
 Four of these run a kernel at inference, as the JAX package dispatches them
 (``TRAIN_WINNERS`` empty, ``tpurec/ops/pallas/kernels.py:61``): the FM cross
@@ -45,6 +50,102 @@ def pair_indices(num_fields: int) -> Tuple[np.ndarray, np.ndarray]:
     """Upper-triangle (i, j) index arrays of all field pairs i<j, in
     ``np.triu_indices`` order."""
     return np.triu_indices(num_fields, k=1)
+
+
+def _pairs(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``pair_indices(x.shape[1])`` made on ``x``'s device (no host copy)."""
+    f = x.shape[1]
+    iu, ju = torch.triu_indices(f, f, offset=1, device=x.device)
+    return iu, ju
+
+
+def pairwise_products(emb: torch.Tensor) -> torch.Tensor:
+    """Elementwise products of all field pairs, (B, F, D) → (B, P, D)."""
+    iu, ju = _pairs(emb)
+    return emb[:, iu, :] * emb[:, ju, :]
+
+
+def inner_products(emb: torch.Tensor) -> torch.Tensor:
+    """Pairwise inner products, (B, F, D) → (B, P): PNN's 'inner' mode."""
+    return pairwise_products(emb).sum(dim=-1)
+
+
+def outer_products(emb: torch.Tensor) -> torch.Tensor:
+    """Pairwise outer products, (B, F, D) → (B, P, D, D): PNN's 'outer'
+    mode materialised."""
+    iu, ju = _pairs(emb)
+    return torch.einsum("bpd,bpe->bpde", emb[:, iu, :], emb[:, ju, :])
+
+
+def field_aware_products(fa_emb: torch.Tensor) -> torch.Tensor:
+    """FFM's pair products from a field-aware (B, F, F, D) embedding, where
+    ``fa_emb[:, i, j]`` is field i's embedding toward field j: (B, P, D),
+    ``v_{i,j} ∘ v_{j,i}`` for each pair i<j (sum it for the FFM logit)."""
+    iu, ju = _pairs(fa_emb)
+    return fa_emb[:, iu, ju, :] * fa_emb[:, ju, iu, :]
+
+
+class FwFMInteraction(nn.Module):
+    """Field-weighted FM: a learned weight per field pair, ``pair_weight``
+    (P,) drawn as ones, on the pairwise inner products; (B, F, D) → (B,)."""
+
+    def __init__(self, num_fields: int):
+        super().__init__()
+        self.pair_weight = nn.Parameter(torch.empty(num_fields * (num_fields - 1) // 2))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        nn.init.ones_(self.pair_weight)
+
+    def forward(self, emb: torch.Tensor) -> torch.Tensor:
+        ip = inner_products(emb)
+        return (ip * self.pair_weight.to(ip.dtype)).sum(dim=-1)
+
+
+class InnerProductTower(nn.Module):
+    """PNN's inner product layer: [flattened embeddings ∥ pairwise inner
+    products], (B, F·D + P)."""
+
+    def forward(self, emb: torch.Tensor) -> torch.Tensor:
+        return torch.cat([emb.reshape(emb.shape[0], -1), inner_products(emb)], dim=-1)
+
+
+class OuterProductTower(nn.Module):
+    """PNN's outer mode with a learned ``kernel`` a pair, which compresses
+    each pair's (D, D) outer product to a number without materialising it:
+    ``'mat'`` (P, D, D) glorot, out_p = l_p·K_p·r_p; ``'vec'`` (P, D)
+    glorot, out_p = Σ_d l_pd K_pd r_pd; ``'num'`` (P,) ones, out_p =
+    K_p·(l_p·r_p). The kernel is cast to the embedding's dtype and the
+    products taken in it. Returns [flattened embeddings ∥ out], (B, F·D + P).
+
+    ``kernel`` is a raw parameter used as written: the bridge loads it
+    untransposed whatever its shape (not as a Dense kernel)."""
+
+    def __init__(self, num_fields: int, dim: int, kernel_type: str = "mat"):
+        super().__init__()
+        p = num_fields * (num_fields - 1) // 2
+        shapes = {"mat": (p, dim, dim), "vec": (p, dim), "num": (p,)}
+        if kernel_type not in shapes:
+            raise ValueError(f"unknown kernel_type {kernel_type!r}")
+        self.kernel_type = kernel_type
+        self.kernel = nn.Parameter(torch.empty(shapes[kernel_type]))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        if self.kernel_type == "num":
+            nn.init.ones_(self.kernel)
+        else:
+            glorot_uniform_(self.kernel, generator)
+
+    def forward(self, emb: torch.Tensor) -> torch.Tensor:
+        iu, ju = _pairs(emb)
+        left, right = emb[:, iu, :], emb[:, ju, :]
+        k = self.kernel.to(emb.dtype)
+        if self.kernel_type == "mat":
+            out = torch.einsum("bpd,pde,bpe->bp", left, k, right)
+        elif self.kernel_type == "vec":
+            out = torch.einsum("bpd,pd,bpd->bp", left, k, right)
+        else:
+            out = torch.einsum("bpd,bpd->bp", left, right) * k
+        return torch.cat([emb.reshape(emb.shape[0], -1), out], dim=-1)
 
 
 class SENet(nn.Module):

@@ -58,8 +58,8 @@ from tpurec_torch.device import DeviceLike, resolve_device
 from tpurec_torch.embedding import sparse as sparse_ops
 from tpurec_torch.embedding.host_offload import HostAdamState, HostAdamStore
 from tpurec_torch.embedding.modules import (
-    SharedEmbedding,
     embedding_tables,
+    is_table,
     record_used_id_l2,
     sparse_rows,
 )
@@ -145,7 +145,7 @@ def _table_names(model: nn.Module) -> List[str]:
     return [
         f"{name}.embedding" if name else "embedding"
         for name, m in model.named_modules()
-        if isinstance(m, SharedEmbedding)
+        if is_table(m)
     ]
 
 
@@ -485,7 +485,8 @@ class Trainer:
         ids (``unique_with_positions``; slot 0 is id 0, repeats go to the
         sacrificial last row), their rows gathered outside autograd, the
         batch's ids rewritten into slots, and a row-sparse update of each
-        table with its (U, D) gradient."""
+        table with its (U, D) gradient ((U, F, D) for a field-aware table;
+        the row-wise optimizers reduce over every trailing axis)."""
         model = state.model.train()
         tables = embedding_tables(model)
         oc = self.config.train.optimizer
@@ -541,7 +542,8 @@ class Trainer:
         ``contiguous_take``. After ``backward()`` each table's per-occurrence
         gradient is permuted into id order and summed into the dense (V, D)
         gradient by kernel #9 (``fused_scatter_add``), and Adam updates every
-        row. ``fused_backward``: ``'permute'`` (the default) counts the
+        row; a field-aware (V, F, D) table and its moments go through both
+        as (V, F·D) views. ``fused_backward``: ``'permute'`` (the default) counts the
         used-id L2 in row space with a first-occurrence mask;
         ``'sort_payload'`` moves it to table space (``G += l2·table`` on
         touched rows, an occurrence count from the kernel); ``'xla_packed'``
