@@ -3101,6 +3101,7 @@ def run_fm_family_servable(torch, workdir, card, case, seed):
     cpu = load_servable(export_dir, info, device="cpu").predict(rows)[key]
     readings = dict(cpu_256_rows=float((ref[:256].cpu() - cpu).abs().max()) / scale)
     rank = {}
+    rank_scale = FM_FAMILY_RTOL * float(out.abs().max())  # rank gives probabilities
     if case == "ffm":
         for n in RANK_BUCKETS:
             part = {k: v[:n] for k, v in batch.items()}
@@ -3111,7 +3112,7 @@ def run_fm_family_servable(torch, workdir, card, case, seed):
                 servable.rank(part).cpu()
                 times.append((time.perf_counter() - t0) * 1e3)
             rank[n] = dict(p50_ms=statistics.median(times[1:]),
-                           reading=float((got - out[:n]).abs().max()) / scale)
+                           reading=float((got - out[:n]).abs().max()) / rank_scale)
             readings[f"rank_{n}"] = rank[n]["reading"]
     times = []
     for _ in range(12):
@@ -3121,7 +3122,7 @@ def run_fm_family_servable(torch, workdir, card, case, seed):
     p50 = statistics.median(times[2:])
     busy_ms, top_ops = profile_steps(torch, lambda: servable.predict(batch))
     result = dict(card=card, model=case, batch=TRAIN_BATCH, readings=readings, compared=key,
-                  limit=scale, max_abs=float(ref.abs().max()), std=float(ref.float().std()),
+                  limit=scale, rank_limit=rank_scale, max_abs=float(ref.abs().max()), std=float(ref.float().std()),
                   mean_prob=float(out.mean()), predict_p50_ms=p50,
                   examples_per_s=TRAIN_BATCH / (p50 / 1e3), device_busy_ms=busy_ms,
                   device_idle_share=1.0 - busy_ms / p50, top_ops_ms=top_ops, rank=rank)

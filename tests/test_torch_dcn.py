@@ -399,7 +399,7 @@ TRAIN_CASES = {
 }
 
 
-def _jax_grads(jt, js, jbatch):
+def _jax_grads(jt, js, jbatch, model):
     """The JAX dense step's loss gradient, traced in the training phase as
     its trainer traces the step (so its modules take the reference math)."""
 
@@ -413,7 +413,7 @@ def _jax_grads(jt, js, jbatch):
 
     set_training_phase(True)
     try:
-        return _by_torch_name(jax.jit(jax.grad(loss_fn))(js.params))
+        return _by_torch_name(jax.jit(jax.grad(loss_fn))(js.params), model)
     finally:
         set_training_phase(False)
 
@@ -440,7 +440,7 @@ def test_train_step_and_evaluate_match_jax(case):
     ps = pt.init_state(data)
     params_from_jax(ps.model, jax.tree.map(np.asarray, {"params": js.params, **js.model_state}))
     jbatch = jt.device_batch(data)
-    want_grads = _jax_grads(jt, js, jbatch)
+    want_grads = _jax_grads(jt, js, jbatch, ps.model)
     js2, _, jlogs = jt.train_step(js, jbatch, jt.metrics.init())
     fused = getattr(tk, f"{kernel}_fused")
     with mock.patch.object(tk, f"{kernel}_fused", side_effect=fused) as spy:
@@ -448,7 +448,7 @@ def test_train_step_and_evaluate_match_jax(case):
         assert spy.call_count == 0
         np.testing.assert_allclose(float(plogs["loss"]), float(jlogs["loss"]), atol=FP32["loss"], rtol=0)
         _assert_grads(ps2.model, want_grads, FP32["grad"])
-        _assert_params(ps2.model, _by_torch_name(js2.params), FP32["param"])
+        _assert_params(ps2.model, _by_torch_name(js2.params, ps2.model), FP32["param"])
         evals = [_batch(b=16, seed=10 + i, label=True) for i in range(2)]
         got = pt.evaluate(ps2, evals)
         assert spy.call_count == 2

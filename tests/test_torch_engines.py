@@ -22,7 +22,6 @@ import pytest
 import torch
 
 from test_torch_engines_fused import (
-    by_name,
     din_data,
     pair,
     run_both,
@@ -30,6 +29,7 @@ from test_torch_engines_fused import (
     step_both,
     tabular_data,
 )
+from test_torch_train import _by_torch_name
 from tpurec.embedding import host_offload as jhost
 from tpurec.embedding import sparse as jsparse
 from tpurec_torch.bridge import params_from_jax, table_opt_from_jax
@@ -186,7 +186,7 @@ def test_bridge_carries_tables_and_table_opt():
         js, _, _ = jt.train_step(js, jt.device_batch(data), jt.metrics.init())
         params_from_jax(ps.model, jax.tree.map(np.asarray, {"params": js.params, "tables": js.tables}))
         table_opt_from_jax(ps.table_opt, js.table_opt, ps.host_store, jt.host_store)
-        for name, want in by_name(js.tables).items():
+        for name, want in _by_torch_name(js.tables, ps.model).items():
             np.testing.assert_array_equal(ps.model.get_parameter(name).detach().numpy(), want)
         st, jst = ps.table_opt["v.embedding"], js.table_opt["v"]["embedding"]
         if opt == "host_adam":
@@ -315,5 +315,5 @@ def test_lazy_engine_trains_in_batch_softmax_like_jax():
         js, ps, _ = step_both(jt, js, pt, ps, data)
     np.testing.assert_allclose(
         ps.model.u_tower.emb.embedding.detach().numpy()[:-1],
-        by_name(js.tables)["u_tower.emb.embedding"][:-1], atol=2e-6, rtol=0,
+        _by_torch_name(js.tables, ps.model)["u_tower.emb.embedding"][:-1], atol=2e-6, rtol=0,
     )

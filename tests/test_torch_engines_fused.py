@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from __graft_entry__ import _tiny_dataset
+from test_torch_train import _by_torch_name
 from tpurec.config import EmbeddingConfig as JEmbeddingConfig
 from tpurec.config import ExperimentConfig as JExperimentConfig
 from tpurec.config import ModelConfig as JModelConfig
@@ -32,7 +33,7 @@ from tpurec.config import TrainConfig as JTrainConfig
 from tpurec.core.mesh import make_mesh
 from tpurec.data.schema import DataInfo as JDataInfo
 from tpurec.train import Trainer as JTrainer
-from tpurec_torch.bridge import _flatten, _torch_leaf, params_from_jax, table_opt_from_jax
+from tpurec_torch.bridge import _flatten, params_from_jax, table_opt_from_jax
 from tpurec_torch.config import ExperimentConfig
 from tpurec_torch.data.schema import DataInfo
 from tpurec_torch.embedding.modules import embedding_tables
@@ -80,15 +81,6 @@ def sparse_configs(name, embedding_optimizer, used_id_l2=0.0, sparse=True, **opt
     return jcfg, ExperimentConfig.from_json(jcfg.to_json())
 
 
-def by_name(tree):
-    """flax tree → {torch key: numpy array}."""
-    out = {}
-    for path, value in _flatten(jax.tree.map(np.asarray, tree)):
-        name, arr = _torch_leaf("params", path, value)
-        out[".".join(path[:-1] + (name,))] = arr
-    return out
-
-
 def pair(jcfg, cfg, jinfo, info, data):
     """(JAX trainer, its state, port trainer, its state from the same weights
     and table optimizer state)."""
@@ -121,8 +113,8 @@ def step_both(jt, js, pt, ps, data):
 def assert_state_matches(jt, js, ps, param_tol=PARAM_TOL):
     """Tables and table optimizer state (without the sacrificial last row)
     and every dense parameter, the tables and parameters to ``param_tol``."""
-    tables = by_name(js.tables)
-    dense = by_name(js.params)
+    tables = _by_torch_name(js.tables, ps.model)
+    dense = _by_torch_name(js.params, ps.model)
     got = {n: p.detach().numpy() for n, p in ps.model.named_parameters()}
     assert set(got) == set(tables) | set(dense)
     for name, want in tables.items():

@@ -38,7 +38,7 @@ from test_torch_engines_fused import (
     sparse_configs,
     tabular_data,
 )
-from test_torch_train import FP32, _assert_grads, _assert_params
+from test_torch_train import FP32, _assert_grads, _assert_params, _by_torch_name
 from tpurec.config import EmbeddingConfig as JEmbeddingConfig
 from tpurec.config import ExperimentConfig as JExperimentConfig
 from tpurec.config import ModelConfig as JModelConfig
@@ -53,7 +53,7 @@ from tpurec.ops import interactions as ji
 from tpurec.ops.pallas.kernels import set_training_phase
 from tpurec.train import Trainer as JTrainer
 from tpurec.train.losses import add_auxiliary as jadd_auxiliary
-from tpurec_torch.bridge import _flatten, _torch_leaf, params_from_jax
+from tpurec_torch.bridge import params_from_jax
 from tpurec_torch.config import EmbeddingConfig, ExperimentConfig, ModelConfig
 from tpurec_torch.data.schema import DataInfo
 from tpurec_torch.embedding.modules import (
@@ -91,16 +91,6 @@ def _redraw(variables, seed, scale=0.3):
 
 def _normal(rng, *shape):
     return rng.normal(size=shape).astype(np.float32)
-
-
-def _by_torch_name(tree, model):
-    """flax params tree → {torch key: numpy array} over the port ``model``
-    (Dense kernels transposed, raw kernels kept)."""
-    out = {}
-    for path, value in _flatten(jax.tree.map(np.asarray, tree)):
-        name, arr = _torch_leaf("params", path, value, model)
-        out[".".join(path[:-1] + (name,))] = arr
-    return out
 
 
 def _bf16_close(got: torch.Tensor, want) -> None:
@@ -174,6 +164,20 @@ def test_towers_match_jax(tower, dtype):
 def test_outer_tower_refuses_unknown_kernel_type():
     with pytest.raises(ValueError, match="kernel_type"):
         ti.OuterProductTower(4, 3, "cube")
+
+
+def test_pair_indices_first_made_in_inference_mode_still_train():
+    """The pair indices are made once a field count and device and reused:
+    made first under ``inference_mode`` (serving), they must still serve a
+    step that autograd records."""
+    emb = torch.from_numpy(_normal(np.random.default_rng(5), 2, 11, 3))
+    with torch.inference_mode():
+        want = ti.inner_products(emb)
+    emb.requires_grad_(True)
+    got = ti.inner_products(emb)
+    got.sum().backward()
+    np.testing.assert_array_equal(got.detach().numpy(), want.numpy())
+    assert emb.grad is not None and emb.grad.shape == emb.shape
 
 
 # --------------------------------------------------------------------------

@@ -465,7 +465,7 @@ def test_sampled_logits_match_jax_given_its_negatives():
 
 # --------------------------------------------------------------------------
 # one dense-engine train step against the JAX Trainer, then evaluate
-def _jax_grads(jt, js, jbatch):
+def _jax_grads(jt, js, jbatch, model):
     def loss_fn(params):
         out, _ = jt.model.apply(
             {"params": params, **js.model_state}, jbatch, train=True,
@@ -477,7 +477,7 @@ def _jax_grads(jt, js, jbatch):
 
     set_training_phase(True)
     try:
-        return _by_torch_name(jax.jit(jax.grad(loss_fn))(js.params))
+        return _by_torch_name(jax.jit(jax.grad(loss_fn))(js.params), model)
     finally:
         set_training_phase(False)
 
@@ -502,14 +502,14 @@ def test_train_step_and_evaluate_match_jax(case):
     ps = pt.init_state(data)
     params_from_jax(ps.model, jax.tree.map(np.asarray, {"params": js.params, **js.model_state}))
     jbatch = jt.device_batch(data)
-    want_grads = _jax_grads(jt, js, jbatch)
+    want_grads = _jax_grads(jt, js, jbatch, ps.model)
     js2, _, jlogs = jt.train_step(js, jbatch, jt.metrics.init())
     with mock.patch.object(tk, "capsule_routing_fused", side_effect=tk.capsule_routing_fused) as spy:
         ps2, _, plogs = pt.train_step(ps, pt.device_batch(data), pt.metrics.init())
         assert spy.call_count == 0
         np.testing.assert_allclose(float(plogs["loss"]), float(jlogs["loss"]), atol=FP32["loss"], rtol=0)
         _assert_grads(ps2.model, want_grads, FP32["grad"])
-        _assert_params(ps2.model, _by_torch_name(js2.params), FP32["param"])
+        _assert_params(ps2.model, _by_torch_name(js2.params, ps2.model), FP32["param"])
         evals = [_batch(b=16, seed=10 + i) for i in range(2)]
         got = pt.evaluate(ps2, evals)
         assert spy.call_count == (2 if name == "mind" else 0)

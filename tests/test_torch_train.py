@@ -74,11 +74,12 @@ def _configs(name, dtype="float32", used_id_l2=0.0, optimizer=None, **train_kw):
     return jcfg, ExperimentConfig.from_json(jcfg.to_json())
 
 
-def _by_torch_name(tree):
-    """flax params tree → {torch key: numpy array} (Dense kernels transposed)."""
+def _by_torch_name(tree, model):
+    """flax params tree → {torch key: numpy array} over the port ``model``
+    (Dense kernels transposed, raw kernels kept)."""
     out = {}
     for path, value in _flatten(jax.tree.map(np.asarray, tree)):
-        name, arr = _torch_leaf("params", path, value)
+        name, arr = _torch_leaf("params", path, value, model)
         out[".".join(path[:-1] + (name,))] = arr
     return out
 
@@ -93,7 +94,7 @@ def _pair(jcfg, cfg, jinfo, info, data):
     return jt, js, pt, ps
 
 
-def _jax_grads(jt, js, jbatch):
+def _jax_grads(jt, js, jbatch, model):
     """The JAX dense train step's loss gradient (its compute_loss, with the
     used-id L2 term), which its jitted step does not return."""
     l2 = jt.config.model.embedding.used_id_l2
@@ -111,7 +112,7 @@ def _jax_grads(jt, js, jbatch):
 
     set_training_phase(True)
     try:
-        return _by_torch_name(jax.grad(loss_fn)(js.params))
+        return _by_torch_name(jax.grad(loss_fn)(js.params), model)
     finally:
         set_training_phase(False)
 
@@ -142,14 +143,14 @@ def _assert_metric_state(jms, pms, atol):
 
 def _step_both(jt, js, pt, ps, data, tol, grads=True):
     jbatch = jt.device_batch(data)
-    want_grads = _jax_grads(jt, js, jbatch) if grads else None
+    want_grads = _jax_grads(jt, js, jbatch, ps.model) if grads else None
     js2, jms, jlogs = jt.train_step(js, jbatch, jt.metrics.init())
     ps2, pms, plogs = pt.train_step(ps, pt.device_batch(data), pt.metrics.init())
     assert ps2.step == int(js2.step)
     np.testing.assert_allclose(float(plogs["loss"]), float(jlogs["loss"]), atol=tol["loss"], rtol=0)
     if grads:
         _assert_grads(ps2.model, want_grads, tol["grad"])
-    _assert_params(ps2.model, _by_torch_name(js2.params), tol["param"])
+    _assert_params(ps2.model, _by_torch_name(js2.params, ps2.model), tol["param"])
     return js2, jms, jlogs, ps2, pms, plogs
 
 

@@ -70,11 +70,9 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
             yield path, val
 
 
-def _owns_raw_kernel(module: Optional[nn.Module], path: Tuple[str, ...]) -> bool:
+def _owns_raw_kernel(module: nn.Module, path: Tuple[str, ...]) -> bool:
     """Whether the port module at ``path[:-1]`` under ``module`` has a
     parameter named ``kernel`` itself (a Dense has ``weight``)."""
-    if module is None:
-        return False
     try:
         owner = module.get_submodule(".".join(path[:-1]))
     except AttributeError:
@@ -83,10 +81,10 @@ def _owns_raw_kernel(module: Optional[nn.Module], path: Tuple[str, ...]) -> bool
 
 
 def _torch_leaf(collection: str, path: Tuple[str, ...], value,
-                module: Optional[nn.Module] = None) -> Tuple[str, np.ndarray]:
-    """The port's name and array for the flax leaf at ``path``. ``module``
-    (the port module the tree loads into) tells a raw ``kernel`` from a
-    Dense one; without it every ``kernel`` must be a 2-D Dense kernel."""
+                module: nn.Module) -> Tuple[str, np.ndarray]:
+    """The port's name and array for the flax leaf at ``path`` of a tree
+    over ``module`` (the port module the tree loads into), which tells a raw
+    ``kernel`` from a Dense one."""
     leaf = path[-1]
     arr = np.array(value, dtype=np.float32)  # a writable copy
     if collection == "batch_stats":

@@ -34,7 +34,7 @@ term, which sums over every table's rows, does count it there and here.
 from __future__ import annotations
 
 import contextlib
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -47,15 +47,20 @@ from tpurec_torch.initializers import uniform_
 INIT_SCALE = 0.05  # tables are drawn from U(-0.05, 0.05), as in the JAX package
 
 
-class SharedEmbedding(nn.Module):
-    """(V_pad, D) fp32 table ``embedding``, V_pad = ``pad_vocab(vocab_size)``;
-    lookups come out in ``dtype`` (None = the table's fp32)."""
+class EmbeddingTable(nn.Module):
+    """fp32 table ``embedding`` of shape (V_pad, *row_shape), V_pad =
+    ``pad_vocab(vocab_size)``, drawn from U(±0.05); a lookup of (...) ids
+    gives (..., *row_shape) in ``dtype`` (None = the table's fp32). The
+    lookup of every table: from the table, or from the rows of an open
+    ``sparse_rows`` in their layout."""
 
-    def __init__(self, vocab_size: int, dim: int, dtype: Optional[torch.dtype] = None):
+    def __init__(self, vocab_size: int, row_shape: Tuple[int, ...],
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dtype = dtype
-        self.embedding = nn.Parameter(torch.empty(pad_vocab(vocab_size), dim))
-        # the list of an open ``record_used_id_l2``, else None
+        self.embedding = nn.Parameter(torch.empty(pad_vocab(vocab_size), *row_shape))
+        # the list of an open ``record_used_id_l2`` (``SharedEmbedding``s
+        # only), else None
         self.used_id_l2_terms: Optional[List[torch.Tensor]] = None
         # the rows of an open ``sparse_rows`` and their layout, else None
         self.sparse_rows: Optional[torch.Tensor] = None
@@ -70,51 +75,34 @@ class SharedEmbedding(nn.Module):
             out = contiguous_take(rows, ids)
         else:
             table = self.embedding if rows is None else rows
-            out = F.embedding(ids, table)
+            out = F.embedding(ids, table.flatten(1)).unflatten(-1, table.shape[1:])
             if self.used_id_l2_terms is not None and self.training:
                 self.used_id_l2_terms.append(used_id_l2(table, ids))
         return out if self.dtype is None else out.to(self.dtype)
 
 
-class FieldAwareEmbedding(nn.Module):
-    """(V_pad, F, D) fp32 table ``embedding``: one embedding per (id,
-    target field) pair, FFM's and ONN's layout. A lookup of (..., ) ids gives
-    (..., F, D) in ``dtype`` (None = the table's fp32). Records no used-id
-    L2 term (``tpurec/embedding/modules.py:223-275``)."""
+class SharedEmbedding(EmbeddingTable):
+    """(V_pad, D) table over the shared id space; its lookups record the
+    used-id L2 term."""
+
+    def __init__(self, vocab_size: int, dim: int, dtype: Optional[torch.dtype] = None):
+        super().__init__(vocab_size, (dim,), dtype)
+
+
+class FieldAwareEmbedding(EmbeddingTable):
+    """(V_pad, F, D) table: one embedding per (id, target field) pair, FFM's
+    and ONN's layout; lookups give (..., F, D). Records no used-id L2 term
+    (``tpurec/embedding/modules.py:223-275``)."""
 
     def __init__(self, vocab_size: int, num_fields: int, dim: int,
                  dtype: Optional[torch.dtype] = None):
-        super().__init__()
-        self.dtype = dtype
-        self.embedding = nn.Parameter(torch.empty(pad_vocab(vocab_size), num_fields, dim))
-        self.sparse_rows: Optional[torch.Tensor] = None
-        self.sparse_layout = "unique"
-
-    def init_weights(self, generator: torch.Generator) -> None:
-        uniform_(self.embedding, INIT_SCALE, generator)
-
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        rows = self.sparse_rows
-        if rows is not None and self.sparse_layout == "direct":
-            out = contiguous_take(rows, ids)
-        else:
-            table = self.embedding if rows is None else rows
-            out = table[ids]
-        return out if self.dtype is None else out.to(self.dtype)
+        super().__init__(vocab_size, (num_fields, dim), dtype)
 
 
-_TABLE_MODULES = (SharedEmbedding, FieldAwareEmbedding)
-
-
-def embedding_tables(model: nn.Module) -> List[nn.Module]:
+def embedding_tables(model: nn.Module) -> List[EmbeddingTable]:
     """Every table of ``model`` (``SharedEmbedding`` and
     ``FieldAwareEmbedding``), in module order."""
-    return [m for m in model.modules() if isinstance(m, _TABLE_MODULES)]
-
-
-def is_table(module: nn.Module) -> bool:
-    """Whether ``module`` is one of ``embedding_tables``' tables."""
-    return isinstance(module, _TABLE_MODULES)
+    return [m for m in model.modules() if isinstance(m, EmbeddingTable)]
 
 
 @contextlib.contextmanager

@@ -22,6 +22,7 @@ the plain version for CPU ones), cast back.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -52,11 +53,17 @@ def pair_indices(num_fields: int) -> Tuple[np.ndarray, np.ndarray]:
     return np.triu_indices(num_fields, k=1)
 
 
+@functools.lru_cache(maxsize=None)
+def _pair_indices_on(num_fields: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    iu, ju = pair_indices(num_fields)
+    with torch.inference_mode(False):  # usable in and out of inference mode
+        return torch.as_tensor(iu, device=device), torch.as_tensor(ju, device=device)
+
+
 def _pairs(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``pair_indices(x.shape[1])`` made on ``x``'s device (no host copy)."""
-    f = x.shape[1]
-    iu, ju = torch.triu_indices(f, f, offset=1, device=x.device)
-    return iu, ju
+    """``pair_indices(x.shape[1])`` on ``x``'s device, copied there once a
+    field count and device, then reused."""
+    return _pair_indices_on(x.shape[1], x.device)
 
 
 def pairwise_products(emb: torch.Tensor) -> torch.Tensor:

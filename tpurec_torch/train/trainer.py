@@ -58,8 +58,8 @@ from tpurec_torch.device import DeviceLike, resolve_device
 from tpurec_torch.embedding import sparse as sparse_ops
 from tpurec_torch.embedding.host_offload import HostAdamState, HostAdamStore
 from tpurec_torch.embedding.modules import (
+    EmbeddingTable,
     embedding_tables,
-    is_table,
     record_used_id_l2,
     sparse_rows,
 )
@@ -145,7 +145,7 @@ def _table_names(model: nn.Module) -> List[str]:
     return [
         f"{name}.embedding" if name else "embedding"
         for name, m in model.named_modules()
-        if is_table(m)
+        if isinstance(m, EmbeddingTable)
     ]
 
 
