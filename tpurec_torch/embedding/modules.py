@@ -75,7 +75,10 @@ class EmbeddingTable(nn.Module):
             out = contiguous_take(rows, ids)
         else:
             table = self.embedding if rows is None else rows
-            out = F.embedding(ids, table.flatten(1)).unflatten(-1, table.shape[1:])
+            # a (V, F, D) table is indexed: on the H100 its backward
+            # (``index_put_``) took less device time than
+            # ``embedding_dense_backward`` over the (V, F·D) view (PERF.md §5)
+            out = F.embedding(ids, table) if table.dim() == 2 else table[ids]
             if self.used_id_l2_terms is not None and self.training:
                 self.used_id_l2_terms.append(used_id_l2(table, ids))
         return out if self.dtype is None else out.to(self.dtype)
