@@ -14,6 +14,7 @@
     python3 chip_smoke.py --cross     # kernel #2's checks alone (phase 8a's)
     python3 chip_smoke.py --cross-ab DIR  # #2 of the checkout DIR against this one's
     python3 chip_smoke.py --fm-family # phase 10 alone (the FM family and MatrixCF)
+    python3 chip_smoke.py --dcn-rest  # phase 11 alone (the rest of the DCN family)
 
 Needs one CUDA card and ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``); ``triton``
 only for ``--fm-ab`` and ``--cross-ab`` against a parent whose #1 and #2
@@ -246,6 +247,26 @@ checkout and exits non-zero on the first phase that fails. Phases:
       that drops carried runs must fail) and 3 fp32 fused steps card
       against CPU on 256 rows (``CPU_LOSS_TOL``); ``--fm-family`` runs this
       phase alone.
+
+11. the rest of the DCN family, random seeded weights, B=8192, bf16 dense
+    compute, fp32 params, bce, Adam lr 1e-3 eps 1e-7, over phase 10's
+    ``wide_and_deep`` schema (26 fields of 80,000 ids, 2,080,128 rows, 13
+    continuous columns): ``nfm``, ``fnn``, ``deep_crossing`` (3 blocks,
+    residual 64), ``ccpm`` ((4, 4) filters, widths (6, 5)), ``fgcnn``
+    (the registry's defaults) and ``afm`` (attention 16) at D=32, MLP
+    (64, 32) where the model has one; ``autoint`` at its paper's Criteo
+    setting (D=16, 3 layers of 2 heads of 32; Song et al., CIKM 2019):
+    - 11a: each model ``export_params`` → ``load_servable`` → ``predict``
+      as phase 10b (the first 256 rows against the CPU port); ``autoint``
+      also ``Servable.rank`` at the rank buckets 8 to 256;
+    - 11b: each model 10 bf16 dense steps as phase 10c, with a profiler
+      summary; ``nfm`` also 10 ``fused_adam`` steps (#9 once per table a
+      step, D=32 and D=1);
+    - 11c: #9's launches in one NFM fused step recorded and held to the
+      plain version on their own stream and gradients (phase 7a's readings,
+      broken versions, same bits, timings), then NFM's fp32 fused step
+      against its dense step (``fused_vs_dense``); ``--dcn-rest`` runs
+      this phase alone.
 
 TF32 is off for the whole run (``allow_tf32 = False`` for matmul and
 cuDNN), so every fp32 comparison is fp32 on both sides.
@@ -1345,13 +1366,15 @@ def kernel_split(torch, fn, calls=10) -> dict:
     }
 
 
-def scatter_case(torch, eu, gen, plan, v, d, timing=True):
+def scatter_case(torch, eu, gen, plan, v, d, timing=True, grads=None):
     """Kernel #9 on one stream: its reading against the plain version, two
     calls the same bits and, with ``timing``, its device time beside
     ``index_add_``'s (torch.zeros + index_add_, the same function in one
-    PyTorch call each), the bound and the per-launch split. Returns (reading,
-    grads, G)."""
-    grads = torch.randn(plan.n, d, device="cuda", generator=gen)
+    PyTorch call each), the bound and the per-launch split. The gradients
+    are ``grads`` (a train step's own) or drawn from ``gen``. Returns
+    (reading, grads, G)."""
+    if grads is None:
+        grads = torch.randn(plan.n, d, device="cuda", generator=gen)
     got = eu.fused_scatter_add(v, d, plan, grads)
     again = eu.fused_scatter_add(v, d, plan, grads)
     r = dict(n=plan.n, rows=v, d=d, same_bits=bool(torch.equal(got, again)))
@@ -3027,13 +3050,17 @@ def fm_family_batch(info, batch_size, seed):
 
 
 def fm_family_config(case, mode="dense", dtype="bfloat16", **train):
+    name, params, dim, _ = FM_FAMILY[case]
+    return experiment_config(name, params, dim, mode, dtype, **train)
+
+
+def experiment_config(name, params, dim, mode="dense", dtype="bfloat16", **train):
     """bce, Adam lr 1e-3 eps 1e-7 at B=8192; ``mode`` 'dense', 'fused'
     (fused_adam) or 'sparse' (rowwise_adam)."""
     from tpurec_torch.config import (
         EmbeddingConfig, ExperimentConfig, ModelConfig, OptimizerConfig, TrainConfig,
     )
 
-    name, params, dim, _ = FM_FAMILY[case]
     emb_opt = dict(dense="adam", fused="fused_adam", sparse="rowwise_adam")[mode]
     return ExperimentConfig(
         model=ModelConfig(name=name, params=dict(params), embedding=EmbeddingConfig(dim=dim)),
@@ -3073,16 +3100,22 @@ def check_fm_family_scatter(torch, eu):
 
 def run_fm_family_servable(torch, workdir, card, case, seed):
     """export → load_servable → predict at B=8192, bf16 compute (phase
-    10b): finite probabilities; the first 256 rows against the port on the
-    CPU with the same weights; predict p50 of 10 after 2 warm-ups and a
-    profiler summary; for ffm ``Servable.rank`` at the rank buckets."""
+    10b); ffm also ``Servable.rank`` at the rank buckets."""
+    config = fm_family_config(case).model
+    run_servable(torch, workdir, card, case, config, fm_family_info(FM_FAMILY[case][3]), seed,
+                 rank=case == "ffm")
+
+
+def run_servable(torch, workdir, card, case, config, info, seed, rank=False):
+    """export → load_servable → predict at B=8192, bf16 compute: finite
+    probabilities; the first 256 rows against the port on the CPU with the
+    same weights; predict p50 of 10 after 2 warm-ups and a profiler summary;
+    with ``rank`` also ``Servable.rank`` at the rank buckets against
+    ``predict``'s probabilities. Returns the result."""
     from tpurec_torch.models import build_model
     from tpurec_torch.serving.export import load_servable
     from tpurec_torch.train.checkpoint import export_params
 
-    _, _, _, schema = FM_FAMILY[case]
-    info = fm_family_info(schema)
-    config = fm_family_config(case).model
     config = config.replace(params=dict(config.params, dtype="bfloat16"))
     export_dir = os.path.join(workdir, f"{case}_export")
     export_params(
@@ -3100,9 +3133,9 @@ def run_fm_family_servable(torch, workdir, card, case, seed):
     rows = {k: v[:256] for k, v in batch.items()}
     cpu = load_servable(export_dir, info, device="cpu").predict(rows)[key]
     readings = dict(cpu_256_rows=float((ref[:256].cpu() - cpu).abs().max()) / scale)
-    rank = {}
+    ranks = {}
     rank_scale = FM_FAMILY_RTOL * float(out.abs().max())  # rank gives probabilities
-    if case == "ffm":
+    if rank:
         for n in RANK_BUCKETS:
             part = {k: v[:n] for k, v in batch.items()}
             got = servable.rank(part)
@@ -3111,9 +3144,9 @@ def run_fm_family_servable(torch, workdir, card, case, seed):
                 t0 = time.perf_counter()
                 servable.rank(part).cpu()
                 times.append((time.perf_counter() - t0) * 1e3)
-            rank[n] = dict(p50_ms=statistics.median(times[1:]),
-                           reading=float((got - out[:n]).abs().max()) / rank_scale)
-            readings[f"rank_{n}"] = rank[n]["reading"]
+            ranks[n] = dict(p50_ms=statistics.median(times[1:]),
+                            reading=float((got - out[:n]).abs().max()) / rank_scale)
+            readings[f"rank_{n}"] = ranks[n]["reading"]
     times = []
     for _ in range(12):
         t0 = time.perf_counter()
@@ -3125,30 +3158,37 @@ def run_fm_family_servable(torch, workdir, card, case, seed):
                   limit=scale, rank_limit=rank_scale, max_abs=float(ref.abs().max()), std=float(ref.float().std()),
                   mean_prob=float(out.mean()), predict_p50_ms=p50,
                   examples_per_s=TRAIN_BATCH / (p50 / 1e3), device_busy_ms=busy_ms,
-                  device_idle_share=1.0 - busy_ms / p50, top_ops_ms=top_ops, rank=rank)
+                  device_idle_share=1.0 - busy_ms / p50, top_ops_ms=top_ops, rank=ranks)
     print(f"{case} servable (readings: error / limit):", json.dumps(result), flush=True)
     check(out.shape == (TRAIN_BATCH,) and out.dtype == torch.float32, f"{case}: bad output {out.shape}")
     check(bool(torch.isfinite(out).all()) and bool(((out >= 0) & (out <= 1)).all()),
           f"{case}: outputs are not finite probabilities")
     for name, value in readings.items():
         check(value <= 1.0, f"{case}: {name} {readings}")
+    return result
 
 
 def run_fm_family_training(torch, eu, card, case, mode="dense"):
-    """FM_FAMILY_STEPS bf16 steps of one engine on the fixed seed-1 batch
-    (phase 10c): losses finite and falling; step p50, examples/s, peak
-    memory, and (dense) a profiler summary of 3 more steps. Returns (#9's
+    """FM_FAMILY_STEPS bf16 steps of one engine (phase 10c). Returns (#9's
     launches in the steps, result)."""
+    return run_training(torch, eu, card, case, fm_family_config(case, mode),
+                        fm_family_info(FM_FAMILY[case][3]), mode)
+
+
+def run_training(torch, eu, card, case, config, info, mode="dense"):
+    """FM_FAMILY_STEPS steps of ``config`` on the fixed seed-1 batch:
+    losses finite and falling; step p50, examples/s, peak memory, and a
+    profiler summary of 3 more steps. Returns (#9's launches in the steps,
+    result)."""
     from tpurec_torch.ops import kernels
     from tpurec_torch.train.trainer import Trainer
 
-    info = fm_family_info(FM_FAMILY[case][3])
     batch = fm_family_batch(info, TRAIN_BATCH, seed=1)
     gc.collect()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    trainer = Trainer(fm_family_config(case, mode), info)
+    trainer = Trainer(config, info)
     state = trainer.init_state(batch)
     dbatch = trainer.device_batch(batch)
     torch.cuda.synchronize()
@@ -3162,14 +3202,14 @@ def run_fm_family_training(torch, eu, card, case, mode="dense"):
                   examples_per_s=TRAIN_BATCH / (step_ms / 1e3), first_step_ms=times[0],
                   peak_mem_gb=peak_gb, loss_first=losses[0], loss_last=losses[-1],
                   fused_scatter_add_launches=launches)
-    if mode == "dense":
-        def step():
-            nonlocal state, metric_state
-            state, metric_state, _ = trainer.train_step(state, dbatch, metric_state)
 
-        busy_ms, top_ops = profile_steps(torch, step, steps=3)
-        result.update(device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / step_ms,
-                      top_ops_ms=top_ops)
+    def step():
+        nonlocal state, metric_state
+        state, metric_state, _ = trainer.train_step(state, dbatch, metric_state)
+
+    busy_ms, top_ops = profile_steps(torch, step, steps=3)
+    result.update(device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / step_ms,
+                  top_ops_ms=top_ops)
     print(f"{case} {mode} training:", json.dumps(result), flush=True)
     check(all(np.isfinite(losses)), f"{case} {mode}: non-finite training loss: {losses}")
     check(losses[-1] < losses[0], f"{case} {mode}: the loss did not fall in {FM_FAMILY_STEPS} steps: {losses}")
@@ -3220,6 +3260,91 @@ def run_fm_family(torch, eu, workdir, card):
         check(lazy == 0, f"the rowwise_adam {case} step launched #9 {lazy} times")
     fm_family_engine_checks(torch, eu)
     return records, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the rest of the DCN family (NFM, DeepCrossing, FNN, CCPM, FGCNN,
+# AFM, AutoInt)
+DCN_REST = {
+    # case: (registry name, params, embedding dim)
+    "nfm": ("nfm", dict(hidden_dims=[64, 32]), 32),
+    "fnn": ("fnn", dict(hidden_dims=[64, 32]), 32),
+    "deep_crossing": ("deep_crossing", dict(num_blocks=3, residual_dim=64), 32),
+    "ccpm": ("ccpm", dict(hidden_dims=[64, 32], num_filters=[4, 4], kernel_widths=[6, 5]), 32),
+    "fgcnn": ("fgcnn", dict(hidden_dims=[64, 32]), 32),
+    "afm": ("afm", dict(attention_dim=16), 32),
+    # AutoInt's Criteo setting (Song et al., CIKM 2019): d=16, 3 interacting
+    # layers of 2 heads, attention size 32
+    "autoint": ("autoint", dict(num_attention_layers=3, num_heads=2, head_dim=32), 16),
+}
+NFM_TABLES = ("emb.embedding", "w.w.embedding")
+
+
+def dcn_rest_config(case, mode="dense", dtype="bfloat16"):
+    name, params, dim = DCN_REST[case]
+    return experiment_config(name, params, dim, mode, dtype)
+
+
+def check_nfm_scatter(torch, eu, info):
+    """Kernel #9 on NFM's own stream (phase 11c): one bf16 fused step with
+    each launch's inputs and output recorded, then each held to the plain
+    version (``check_scatter_readings``' limits, broken versions above
+    them, the same bits twice) and timed beside ``index_add_`` and its
+    bound. Returns {table: record}."""
+    from tpurec_torch.train.trainer import Trainer
+
+    calls = []
+    fused = eu.fused_scatter_add
+
+    def recorded(table_rows, d, plan, grads_sorted):
+        out = fused(table_rows, d, plan, grads_sorted)
+        calls.append((table_rows, d, plan, grads_sorted.reshape(plan.n, d).clone(), out.clone()))
+        return out
+
+    # the wrapper adds its launch to the count of the name it is bound to in
+    # the module, here the recorder's
+    recorded.launches = 0
+    batch = fm_family_batch(info, TRAIN_BATCH, seed=1)
+    trainer = Trainer(dcn_rest_config("nfm", "fused"), info)
+    state = trainer.init_state(batch)
+    with mock.patch.object(eu, "fused_scatter_add", recorded):
+        trainer.train_step(state, trainer.device_batch(batch), trainer.metrics.init())
+        torch.cuda.synchronize()
+    check(len(calls) == 2, f"NFM's fused step called #9 {len(calls)} times, not once per table")
+    broken = broken_scatters(torch, eu)
+    readings, records = {}, {}
+    for table, (v, d, plan, grads, got) in zip(("nfm_emb", "nfm_w"), calls):
+        r, _, again = scatter_case(torch, eu, None, plan, v, d, grads=grads)
+        r["same_bits_as_step"] = bool(torch.equal(got, again))
+        r["same_bits"] = r["same_bits"] and r["same_bits_as_step"]
+        carry_readings(torch, eu, broken, plan, v, d, grads, r)
+        readings[table] = r
+        records[table] = scatter_record(torch, eu, plan, v, d, grads, got, r)
+        print("kernel check:", json.dumps(records[table]), flush=True)
+    check_scatter_readings(readings, " (NFM's stream)")
+    check([r["d"] for r in readings.values()] == [32, 1], f"NFM's #9 widths: {readings}")
+    return records
+
+
+def run_dcn_rest(torch, eu, workdir, card):
+    """Phase 11: each model served and trained dense over the FM schema with
+    13 continuous columns; autoint also ranked; NFM in the fused engine
+    (#9 twice a step), #9 on its stream, its fp32 fused step against its
+    dense step. Returns (#9's records on NFM's stream, its launches)."""
+    info = fm_family_info("fm_continuous")
+    for seed, case in enumerate(DCN_REST):
+        run_servable(torch, workdir, card, case, dcn_rest_config(case).model, info, seed,
+                     rank=case == "autoint")
+        run_training(torch, eu, card, case, dcn_rest_config(case), info)
+    fused, _ = run_training(torch, eu, card, "nfm", dcn_rest_config("nfm", "fused"), info, "fused")
+    check(fused == len(NFM_TABLES) * FM_FAMILY_STEPS,
+          f"the fused nfm step did not launch #9 once per table a step: {fused}")
+    records = check_nfm_scatter(torch, eu, info)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fused_vs_dense(torch, eu, lambda m: dcn_rest_config("nfm", m, "float32"), info,
+                   fm_family_batch(info, TRAIN_BATCH, seed=1), NFM_TABLES, "nfm")
+    return records, {"nfm_fused_training": fused}
 
 
 def main() -> int:
@@ -3306,6 +3431,16 @@ def main() -> int:
             run_fm_family(torch, eu, workdir, smi)
         print("phase seconds:", json.dumps({"10_fm_family": time.perf_counter() - t}), flush=True)
         return 0
+    if sys.argv[1:] == ["--dcn-rest"]:
+        # phase 11 alone: the rest of the DCN family (its one kernel is #9)
+        from tpurec_torch.ops import embedding_update as eu
+
+        kernels.build(["embedding_update"])
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR.parent) as workdir:
+            run_dcn_rest(torch, eu, workdir, smi)
+        print("phase seconds:", json.dumps({"11_dcn_rest": time.perf_counter() - t}), flush=True)
+        return 0
     if sys.argv[1:] == ["--din-bwd"]:
         # kernel #5 alone: phase 6's kernel checks, with the split and B=1024
         paths = kernels.build(["din_attention_bwd"])
@@ -3351,6 +3486,7 @@ def main() -> int:
         mind_launches, _ = timed("9bcd_mind", run_mind, torch, kernels, workdir, smi)
         fm_family_scatter, fm_family_launches = timed("10_fm_family", run_fm_family, torch, eu,
                                                       workdir, smi)
+        nfm_scatter, dcn_rest_launches = timed("11_dcn_rest", run_dcn_rest, torch, eu, workdir, smi)
     print("phase seconds:", json.dumps(seconds), flush=True)
     # a kernel on several paths: its launches are their sum
     forward_paths = dict(din_serving=serve_launches, din_training=train_launches,
@@ -3361,11 +3497,12 @@ def main() -> int:
     records["din_attention_bwd"]["launches"] = sum(bwd_paths.values())
     records["din_attention_bwd"]["launches_by_path"] = bwd_paths
     scatter_paths = dict(fm_fused_training=fm_scatter_launches,
-                         din_fused_training=din_fused["fused_scatter_add"], **fm_family_launches)
+                         din_fused_training=din_fused["fused_scatter_add"], **fm_family_launches,
+                         **dcn_rest_launches)
     records["fused_scatter_add"] = dict(embedding["fm_v"], launches=sum(scatter_paths.values()),
                                         launches_by_path=scatter_paths,
                                         other_shapes=dict(fm_w=embedding["fm_w"], din=embedding["din"],
-                                                          **fm_family_scatter))
+                                                          **fm_family_scatter, **nfm_scatter))
     # #10 is on no training path, in either package: checked and timed alone
     records["gather_rows_sorted"] = dict(embedding["gather"], launches=0, launches_by_path={})
     for name, rec in dcn_records.items():

@@ -1097,3 +1097,119 @@ def test_retrieval_model_on_card_matches_cpu(card, name, params):
     out["output"].sum().backward()
     torch.cuda.synchronize()
     assert counts() == before
+
+
+# --------------------------------------------------------------------------
+# the rest of the DCN family (no kernel of its own; NFM's fused step runs #9)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv_and_k_max_pool_on_card_match_cpu(card, dtype):
+    """``Conv`` (cuDNN, widths 6 and 7) and ``k_max_pool`` on the card
+    against the CPU: the conv to ``TOL`` in fp32 and to 2^-7 relative in
+    bf16 (one rounding of the output); k-max values and, among ties (a
+    coarse grid), their gradient equal, as both sort stably."""
+    from tpurec_torch.ops import conv
+
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(5)
+    for width, c_in in ((6, 1), (7, 3)):
+        module = conv.Conv(c_in, 4, width)
+        module.init_weights(gen)
+        x = torch.randn(64, 13, 8, c_in, generator=gen).to(dt)
+        want = module(x)
+        got = module.to(card)(x.to(card))
+        tol = TOL if dtype == "float32" else dict(atol=1e-2, rtol=2.0**-7)
+        torch.testing.assert_close(got.cpu().float(), want.float(), **tol)
+    x = (torch.round(torch.randn(64, 13, 8, 4, generator=gen) * 2) / 2 + 0.25).to(dt)
+    w = torch.randn(64, 5, 8, 4, generator=gen)
+    grads = []
+    for device in ("cpu", card):
+        xd = x.detach().to(device).requires_grad_()
+        out = conv.k_max_pool(xd, 5, dim=1)
+        (out.float() * w.to(device)).sum().backward()
+        grads.append((out.detach().cpu(), xd.grad.cpu()))
+    assert torch.equal(grads[0][0], grads[1][0]) and torch.equal(grads[0][1], grads[1][1])
+
+
+def _dcn_rest_schema(rng, b=64):
+    """8 fields of 50 ids and 3 continuous columns, and a ``b``-row batch."""
+    from tpurec_torch.data.schema import DataInfo
+
+    names = [f"f{i}" for i in range(8)]
+    info = DataInfo.from_dims(names, [50] * 8, continuous_names=["c0", "c1", "c2"])
+    batch = {n: rng.integers(50 * i, 50 * i + 50, size=(b,)) for i, n in enumerate(names)}
+    for c in info.continuous_names:
+        batch[c] = rng.normal(size=(b,)).astype(np.float32)
+    batch["label"] = rng.integers(0, 2, size=(b,)).astype(np.float32)
+    return info, batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,params,dim", [
+    ("nfm", {}, 8), ("deep_crossing", {}, 8), ("fnn", {}, 8), ("ccpm", {}, 8), ("fgcnn", {}, 8),
+    ("afm", {}, 8), ("autoint", {"num_attention_layers": 3, "num_heads": 2, "head_dim": 32}, 16),
+])
+def test_dcn_rest_model_on_card_matches_cpu(card, name, params, dim):
+    """NFM, DeepCrossing, FNN, CCPM, FGCNN, AFM and AutoInt (fp32) on the
+    card against the same weights on the CPU, NFM with running statistics
+    of its own: no kernel is launched."""
+    from tpurec_torch.config import EmbeddingConfig, ModelConfig
+    from tpurec_torch.models import build_model
+    from tpurec_torch.ops import embedding_update as eu
+    from tpurec_torch.ops import kernels
+
+    info, batch = _dcn_rest_schema(np.random.default_rng(7))
+    batch.pop("label")
+    config = ModelConfig(name=name, params=params, embedding=EmbeddingConfig(dim=dim))
+    on_card = build_model(config, info, device=card).eval()
+    if name == "nfm":
+        on_card.bn.running_mean.uniform_(-0.01, 0.01)
+        on_card.bn.running_var.uniform_(1e-3, 2e-3)
+    on_cpu = build_model(config, info, device="cpu").eval()
+    on_cpu.load_state_dict({k: v.cpu() for k, v in on_card.state_dict().items()})
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        got = on_card({k: torch.as_tensor(v, device=card) for k, v in batch.items()})["logit"]
+        want = on_cpu({k: torch.as_tensor(v) for k, v in batch.items()})["logit"]
+    torch.cuda.synchronize()
+    assert kernels.fm_second_order_fused.launches == 0 and eu.fused_scatter_add.launches == 0
+    torch.testing.assert_close(got.cpu(), want, **TOL)
+
+
+@pytest.mark.cuda
+def test_nfm_fused_step_on_card_matches_cpu(card):
+    """Three fp32 steps of NFM in the fused engine on the card (#9 twice a
+    step, D=8 and D=1) against the same steps on the CPU: the loss of each
+    (1e-5), the tables (2e-6) and the BatchNorm's running statistics after
+    them (1e-6)."""
+    from tpurec_torch.config import ExperimentConfig
+    from tpurec_torch.ops import embedding_update as eu
+    from tpurec_torch.train.trainer import Trainer
+
+    info, _ = _dcn_rest_schema(np.random.default_rng(0))
+    config = ExperimentConfig.from_dict(dict(
+        model=dict(name="nfm", embedding=dict(dim=8)),
+        train=dict(compute_dtype="float32", log_every_steps=0, sparse_embedding=True,
+                   optimizer=dict(embedding_optimizer="fused_adam")),
+    ))
+    trainers = [Trainer(config, info, device=card), Trainer(config, info, device="cpu")]
+    first = _dcn_rest_schema(np.random.default_rng(10), 256)[1]
+    states = [t.init_state(first) for t in trainers]
+    states[1].model.load_state_dict({k: v.cpu() for k, v in states[0].model.state_dict().items()})
+    before = eu.fused_scatter_add.launches
+    for i in range(3):
+        batch = _dcn_rest_schema(np.random.default_rng(10 + i), 256)[1]
+        losses = []
+        for j, (t, s) in enumerate(zip(trainers, states)):
+            states[j], _, logs = t.train_step(s, t.device_batch(batch), t.metrics.init())
+            losses.append(float(logs["loss"]))
+        assert abs(losses[0] - losses[1]) <= 1e-5, losses
+    torch.cuda.synchronize()
+    assert eu.fused_scatter_add.launches - before == 6
+    for name in ("emb.embedding", "w.w.embedding"):
+        got = states[0].model.get_parameter(name).detach().cpu()[:-1]
+        want = states[1].model.get_parameter(name).detach()[:-1]
+        torch.testing.assert_close(got, want, atol=2e-6, rtol=0, msg=name)
+    for buf in ("running_mean", "running_var"):
+        torch.testing.assert_close(getattr(states[0].model.bn, buf).cpu(), getattr(states[1].model.bn, buf),
+                                   atol=1e-6, rtol=0, msg=buf)

@@ -83,7 +83,12 @@ def _run_both(jmodel, variables, model, batch):
     return got, want
 
 
-MODELS = ["din", "deepfm", "fm", "dssm_double"]
+MODELS = ["din", "deepfm", "fm", "dssm_double", "nfm", "deep_crossing", "fnn", "ccpm", "fgcnn", "afm",
+          "autoint"]
+# models whose every flax leaf is a Dense kernel, a table or a raw parameter
+# kept as it is (NFM's batch_stats and CCPM's/FGCNN's conv kernels are
+# checked by tests/test_torch_dcn_rest.py)
+SHAPE_MODELS = [m for m in MODELS if m not in ("nfm", "ccpm", "fgcnn")]
 
 
 @pytest.mark.parametrize("name", MODELS)
@@ -129,7 +134,7 @@ def test_pad_vocab_matches_jax(vocab, n_model):
     assert pad_vocab(vocab, n_model) > vocab and pad_vocab(vocab, n_model) % (128 * n_model) == 0
 
 
-@pytest.mark.parametrize("name", MODELS)
+@pytest.mark.parametrize("name", SHAPE_MODELS)
 def test_param_shapes_match_jax(name):
     """Every flax leaf has a port param of the same shape (Dense kernels
     transposed) and nothing is left over on either side."""

@@ -11,7 +11,8 @@ flax path maps to a torch key by joining with dots, with these renames:
   not one that owns a raw ``kernel`` parameter (PNN's ``OuterProductTower``,
   whose (P, D, D), (P, D) or (P,) kernel keeps its name and shape; a
   (P, D) kernel with P == D would load transposed without an error if
-  the shape decided);
+  the shape decided; the ``Conv`` of CCPM and FGCNN, whose
+  (width, 1, C_in, C_out) kernel keeps flax's layout);
 - ``batch_stats`` ``mean``/``var`` become ``running_mean``/``running_var``;
 - tables and the raw parameters keep their names and shapes: the DIN
   attention's ``w1``, ``b1``, ``w2``, ``alpha``; the DCN cross's ``w_{i}``
@@ -20,7 +21,9 @@ flax path maps to a torch key by joining with dots, with these renames:
   ``z @ kernel``, so not transposed) and ``squeeze_bias``/``excite_bias``;
   the capsule routing's ``S`` (D, E) and ``W`` (K, L, D, E); SINE's
   ``interest_pool``; the retrieval models' ``logit_scale``; FwFM's
-  ``pair_weight`` (P,); the ``(V, F, D)`` field-aware tables.
+  ``pair_weight`` (P,); the ``(V, F, D)`` field-aware tables; the
+  ``scale`` (and ``bias``) of the port's ``BatchNorm`` and ``LayerNorm``,
+  which keep flax's names; AutoInt's ``cont_emb`` (C, D).
   Only a leaf named exactly ``kernel`` can be a Dense kernel.
 
 It raises ``KeyError`` on a collection other than those two or a leaf name
@@ -55,7 +58,7 @@ from torch import nn
 _PARAM_KEEP = {
     "bias", "w1", "b1", "w2", "alpha", "logit_scale", "logit_bias", "w",
     "squeeze_kernel", "squeeze_bias", "excite_kernel", "excite_bias",
-    "S", "W", "interest_pool", "pair_weight",
+    "S", "W", "interest_pool", "pair_weight", "scale", "cont_emb",
 }
 _INDEXED_KEEP = re.compile(r"(w|b|compress)_\d+")
 _STAT_RENAMES = {"mean": "running_mean", "var": "running_var"}

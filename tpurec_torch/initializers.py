@@ -9,6 +9,7 @@ for the same seed: tests move weights across with ``tpurec_torch.bridge``.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -30,10 +31,13 @@ def glorot_uniform_(t: torch.Tensor, generator: torch.Generator) -> None:
     uniform_(t, math.sqrt(6.0 / (receptive * (t.shape[-1] + t.shape[-2]))), generator)
 
 
-def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
-    """flax ``Dense``'s default kernel init on an (out, in) weight:
-    truncated normal over [-2σ, 2σ] with variance 1/fan_in."""
-    std = math.sqrt(1.0 / weight.shape[1]) / 0.87962566103423978
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator,
+                  fan_in: Optional[int] = None) -> None:
+    """flax ``lecun_normal``: truncated normal over [-2σ, 2σ] with variance
+    1/fan_in. ``fan_in`` defaults to an (out, in) Dense weight's; a flax
+    conv kernel (w, 1, C_in, C_out) passes its w·C_in."""
+    fan_in = weight.shape[1] if fan_in is None else fan_in
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     with torch.no_grad():
         nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 

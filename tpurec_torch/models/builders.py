@@ -117,9 +117,44 @@ def _xdeepfm(params: dict, info: DataInfo):
     return dcn_models.XDeepFM(**_with_continuous(params, info))
 
 
+@register_model("nfm")
+def _nfm(params: dict, info: DataInfo):
+    return dcn_models.NFM(**_with_continuous(params, info))
+
+
+@register_model("deep_crossing")
+def _deep_crossing(params: dict, info: DataInfo):
+    return dcn_models.DeepCrossing(**_with_continuous(params, info))
+
+
+@register_model("fnn")
+def _fnn(params: dict, info: DataInfo):
+    return dcn_models.FNN(**_with_continuous(params, info))
+
+
+@register_model("ccpm")
+def _ccpm(params: dict, info: DataInfo):
+    return dcn_models.CCPMModel(**_with_continuous(params, info))
+
+
+@register_model("fgcnn")
+def _fgcnn(params: dict, info: DataInfo):
+    return dcn_models.FGCNNModel(**_with_continuous(params, info))
+
+
+@register_model("afm")
+def _afm(params: dict, info: DataInfo):
+    return dcn_models.AFM(**_with_continuous(params, info))
+
+
 @register_model("fibinet")
 def _fibinet(params: dict, info: DataInfo):
     return dcn_models.FiBiNet(**_with_continuous(params, info))
+
+
+@register_model("autoint")
+def _autoint(params: dict, info: DataInfo):
+    return dcn_models.AutoInt(**_with_continuous(params, info))
 
 
 def _seq_params(params: dict, info: DataInfo) -> dict:

@@ -1,17 +1,94 @@
-"""DIN target attention (counterpart of ``DinTargetAttention`` in
-``tpurec/ops/attention.py``). ``MultiHeadAttention`` comes with the models
-that use it."""
+"""Attention ops (counterpart of ``tpurec/ops/attention.py``): masked
+scaled-dot multi-head attention (AutoInt's field self-attention, and the
+sequence models' encoders later) and DIN's target attention.
+
+Masks are 1 = keep; a masked logit becomes −1e9 and the softmax runs in
+fp32. The JAX package's ``MultiHeadAttention`` shards its projections over
+a ``'model'`` mesh axis; the port runs on one device (ROADMAP slice 7).
+"""
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
 from tpurec_torch.initializers import glorot_uniform_
 from tpurec_torch.ops import kernels
-from tpurec_torch.ops.mlp import MLP
+from tpurec_torch.ops.mlp import MLP, Dense, LayerNorm
+
+_NEG_INF = -1e9
+
+
+def scaled_dot_attention(
+    q: torch.Tensor,  # (B, H, Lq, Dh)
+    k: torch.Tensor,  # (B, H, Lk, Dh)
+    v: torch.Tensor,  # (B, H, Lk, Dv)
+    mask: Optional[torch.Tensor] = None,  # broadcastable to (B, H, Lq, Lk); 1 = keep
+) -> torch.Tensor:
+    """softmax(q·kᵀ/√Dh)·v with the JAX package's roundings: the logits
+    in q's dtype, then fp32 times the fp32 scale; the softmax in fp32; its
+    weights in v's dtype for the second product. Written as two products,
+    not ``F.scaled_dot_product_attention``, whose fused kernels round
+    elsewhere."""
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(q.shape[-1])))  # JAX's fp32 value
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k).to(torch.float32) * scale
+    if mask is not None:
+        logits = torch.where(mask.to(torch.bool), logits, _NEG_INF)
+    weights = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", weights.to(v.dtype), v)
+
+
+def expand_mask(mask: Optional[torch.Tensor], q_len: int, k_len: int) -> Optional[torch.Tensor]:
+    """A (B, Lk) key mask or a (B, Lq, Lk) pair mask as (B, 1, Lq, Lk)."""
+    if mask is None:
+        return None
+    if mask.dim() == 2:
+        mask = mask[:, None, :] * mask.new_ones((1, q_len, 1))
+    return mask[:, None, :, :]
+
+
+class MultiHeadAttention(nn.Module):
+    """Masked multi-head attention of (B, Lq, D) queries over (B, Lk,
+    ``kv_dim``) keys and values (the queries themselves when ``kv`` is
+    None): ``q``/``k``/``v`` projections to ``num_heads`` × ``head_dim``
+    without bias, ``scaled_dot_attention``, the ``out`` projection back to
+    D, the residual and ``ln`` (``LayerNorm``); all in ``dtype``. (The JAX
+    module's ``out_dim``, ``use_residual=False``, ``use_layer_norm=False``
+    and dropout come with the first ported model that sets them.)"""
+
+    def __init__(self, dim: int, num_heads: int, head_dim: int, kv_dim: Optional[int] = None,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        kv_dim = dim if kv_dim is None else kv_dim
+        self.num_heads, self.head_dim = num_heads, head_dim
+        width = num_heads * head_dim
+        self.q = Dense(dim, width, dtype, use_bias=False)
+        self.k = Dense(kv_dim, width, dtype, use_bias=False)
+        self.v = Dense(kv_dim, width, dtype, use_bias=False)
+        self.out = Dense(width, dim, dtype)
+        self.ln = LayerNorm(dim, dtype)
+
+    def forward(
+        self,
+        q: torch.Tensor,  # (B, Lq, D)
+        kv: Optional[torch.Tensor] = None,  # (B, Lk, kv_dim)
+        mask: Optional[torch.Tensor] = None,  # (B, Lk) or (B, Lq, Lk)
+    ) -> torch.Tensor:
+        kv = q if kv is None else kv
+        b, lq, _ = q.shape
+        lk = kv.shape[1]
+        h, dh = self.num_heads, self.head_dim
+
+        def heads(x, proj, length):
+            return proj(x).reshape(b, length, h, dh).transpose(1, 2)
+
+        out = scaled_dot_attention(heads(q, self.q, lq), heads(kv, self.k, lk),
+                                   heads(kv, self.v, lk), expand_mask(mask, lq, lk))
+        out = self.out(out.transpose(1, 2).reshape(b, lq, h * dh))
+        return self.ln(out + q)
 
 
 class DinTargetAttention(nn.Module):

@@ -1,9 +1,9 @@
 """Feature-interaction ops (counterpart of ``tpurec/ops/interactions.py``):
-the FM cross term, the FM family's pair products (pairwise, inner, outer,
-field-aware), ``FwFMInteraction`` and PNN's product towers, and the
-DCN-family modules (DCN vector and matrix cross, CIN, SENet, bilinear
-interactions, SENet-bilinear). The rest of the module's ops come with the
-models that use them. ``emb`` is (B, F, D); pairs are the i<j field pairs
+the FM cross term and NFM's bi-interaction, the FM family's pair products
+(pairwise, inner, outer, field-aware), ``FwFMInteraction``,
+``AFMInteraction`` and PNN's product towers, and the DCN-family modules
+(DCN vector and matrix cross, CIN, SENet, bilinear interactions,
+SENet-bilinear). ``emb`` is (B, F, D); pairs are the i<j field pairs
 in ``np.triu_indices`` order, P = F(F−1)/2. The pair products are plain
 tensor math in the embedding's dtype, as in the JAX package (no kernel
 there either).
@@ -34,14 +34,21 @@ from tpurec_torch.ops import kernels
 from tpurec_torch.ops.mlp import Dense
 
 
-def fm_second_order(emb: torch.Tensor, training: bool = False) -> torch.Tensor:
+def fm_second_order(emb: torch.Tensor, training: bool = False,
+                    reduce_dim: bool = True) -> torch.Tensor:
     """FM 2nd-order cross, (B, F, D) → (B,): 0.5·Σ_d[(Σ_f v_f)² − Σ_f v_f²].
 
     ``training`` is the calling module's ``training`` mode (``tpurec/ops/
     interactions.py:44-48``). Training: the plain math in the embedding's
     dtype. Otherwise ``kernels.fm_second_order_fused`` in fp32, cast back to
-    the embedding dtype. (The JAX op's ``reduce_dim=False`` bi-interaction
-    form comes with NFM.)"""
+    the embedding dtype.
+
+    ``reduce_dim=False``: the (B, D) bi-interaction vector before the sum
+    over d (NFM's and FGCNN's pooling), the plain math in the embedding's
+    dtype in every mode; the JAX package never dispatches its kernel
+    there either."""
+    if not reduce_dim:
+        return 0.5 * (torch.square(emb.sum(dim=1)) - torch.square(emb).sum(dim=1))
     if training:
         return kernels.fm_second_order_plain(emb)
     return kernels.fm_second_order_fused(emb.to(torch.float32)).to(emb.dtype)
@@ -106,6 +113,23 @@ class FwFMInteraction(nn.Module):
     def forward(self, emb: torch.Tensor) -> torch.Tensor:
         ip = inner_products(emb)
         return (ip * self.pair_weight.to(ip.dtype)).sum(dim=-1)
+
+
+class AFMInteraction(nn.Module):
+    """Attentional FM's pooling, (B, F, D) → (B, D): the pairwise products
+    through ``proj`` (D → ``attention_dim``), relu and ``score`` (→ 1, no
+    bias), a softmax over the P pairs, then the products summed with those
+    weights. Computed in the module's ``dtype`` (the embedding's when None)."""
+
+    def __init__(self, dim: int, attention_dim: int = 16, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.proj = Dense(dim, attention_dim, dtype)
+        self.score = Dense(attention_dim, 1, dtype, use_bias=False)
+
+    def forward(self, emb: torch.Tensor) -> torch.Tensor:
+        products = pairwise_products(emb)
+        a = torch.softmax(self.score(torch.relu(self.proj(products))), dim=1)
+        return (a * products).sum(dim=1)
 
 
 class InnerProductTower(nn.Module):

@@ -1,5 +1,6 @@
 """Dense tower building blocks: ``Dense``, ``MLP``, ``PReLU`` and ``Dice``
-(counterpart of ``tpurec/ops/mlp.py``).
+(counterpart of ``tpurec/ops/mlp.py``), and flax's ``BatchNorm`` and
+``LayerNorm``.
 
 Parameters are fp32; matmuls run in the module's compute ``dtype`` (bf16 in
 production, as the JAX package's trainer sets it). Normalisation statistics
@@ -60,24 +61,38 @@ class Dense(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm(use_scale=False, use_bias=False, epsilon=1e-9,
-    momentum=0.99)`` over every axis but the last, as ``Dice`` uses it;
-    ``running_mean``/``running_var`` are flax's ``batch_stats`` ``mean``/
-    ``var``. Statistics are computed in fp32.
+    """flax ``nn.BatchNorm(momentum=0.99)`` over every axis but the last:
+    ``scale`` (ones) and ``bias`` (zeros) when ``use_scale``/``use_bias``,
+    ``epsilon`` 1e-5 by default (``Dice`` takes neither and 1e-9). Its
+    ``running_mean``/``running_var`` are flax's ``batch_stats``
+    ``mean``/``var``. Statistics and the normalisation are computed in fp32.
 
     In training mode it normalises with the batch's mean and its *biased*
     variance (flax's E[x²] − E[x]², clipped at 0) and updates the running
     statistics itself, ``r = 0.99·r + 0.01·batch``, with that same biased
     variance (``F.batch_norm`` would update ``running_var`` with the unbiased
-    one). In eval mode it normalises with the running statistics."""
+    one). In eval mode it normalises with the running statistics.
+
+    The output dtype is flax's with ``dtype=None``: the promotion of the
+    input's and the fp32 parameters' types (fp32 for a bf16 input), or the
+    input's when there are no parameters."""
 
     momentum = 0.99  # flax convention: the weight of the running value
-    epsilon = 1e-9
 
-    def __init__(self, num_features: int):
+    def __init__(self, num_features: int, use_scale: bool = True, use_bias: bool = True,
+                 epsilon: float = 1e-5):
         super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.empty(num_features)) if use_scale else None
+        self.bias = nn.Parameter(torch.empty(num_features)) if use_bias else None
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        if self.scale is not None:
+            nn.init.ones_(self.scale)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         flat = x.reshape(-1, x.shape[-1]).float()
@@ -93,8 +108,45 @@ class BatchNorm(nn.Module):
                 )
         else:
             mean, var = self.running_mean, self.running_var
-        y = (flat - mean) * torch.rsqrt(var + self.epsilon)
-        return y.reshape(x.shape).to(x.dtype)
+        y = _normalize(flat, mean, var, self.epsilon, self.scale, self.bias)
+        has_params = self.scale is not None or self.bias is not None
+        return y.reshape(x.shape).to(torch.promote_types(x.dtype, torch.float32) if has_params else x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` over the last axis: epsilon 1e-6 (not torch's
+    1e-5), ``scale`` (ones) and ``bias`` (zeros); the mean and the variance
+    (E[x²] − E[x]², clipped at 0) in fp32 whatever the input's dtype, the
+    normalisation in fp32, the result in ``dtype`` (None: the promotion of
+    the input's type and fp32)."""
+
+    epsilon = 1e-6
+
+    def __init__(self, num_features: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.empty(num_features))
+        self.bias = nn.Parameter(torch.empty(num_features))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        nn.init.ones_(self.scale)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = (torch.square(x32).mean(dim=-1, keepdim=True) - torch.square(mean)).clamp_min(0.0)
+        y = _normalize(x32, mean, var, self.epsilon, self.scale, self.bias)
+        return y.to(self.dtype or torch.promote_types(x.dtype, torch.float32))
+
+
+def _normalize(x, mean, var, epsilon, scale, bias):
+    """flax's ``_normalize`` in fp32: (x − mean)·(rsqrt(var + ε)·scale) + bias."""
+    mul = torch.rsqrt(var + epsilon)
+    if scale is not None:
+        mul = mul * scale
+    y = (x - mean) * mul
+    return y if bias is None else y + bias
 
 
 class PReLU(nn.Module):
@@ -119,7 +171,7 @@ class Dice(nn.Module):
     def __init__(self, num_features: int):
         super().__init__()
         self.alpha = nn.Parameter(torch.empty(num_features))
-        self.bn = BatchNorm(num_features)
+        self.bn = BatchNorm(num_features, use_scale=False, use_bias=False, epsilon=1e-9)
 
     def init_weights(self, generator: torch.Generator) -> None:
         nn.init.zeros_(self.alpha)
