@@ -6,6 +6,7 @@
     python3 chip_smoke.py --din       # kernel #4's checks alone (phase 3's)
     python3 chip_smoke.py --din-ab DIR  # #4 of the checkout DIR against this one's
     python3 chip_smoke.py --din-bwd   # kernel #5's checks alone (phase 6's)
+    python3 chip_smoke.py --din-bwd-ab DIR  # #5 of the checkout DIR against this one's
     python3 chip_smoke.py --capsule   # kernels #7/#8's checks alone (phase 9a's)
     python3 chip_smoke.py --capsule-bwd-ab DIR  # #8 of the checkout DIR against this one's
     python3 chip_smoke.py --cin       # kernel #3's checks alone (phase 8a's)
@@ -15,6 +16,7 @@
     python3 chip_smoke.py --cross-ab DIR  # #2 of the checkout DIR against this one's
     python3 chip_smoke.py --fm-family # phase 10 alone (the FM family and MatrixCF)
     python3 chip_smoke.py --dcn-rest  # phase 11 alone (the rest of the DCN family)
+    python3 chip_smoke.py --cli       # phase 12 alone (raw files to serving through the CLI)
 
 Needs one CUDA card and ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``); ``triton``
 only for ``--fm-ab`` and ``--cross-ab`` against a parent whose #1 and #2
@@ -74,7 +76,9 @@ checkout and exits non-zero on the first phase that fails. Phases:
    top-20, rank over 20 and 200 candidates, rank from_retrieval, 200
    sequential requests each (p95 has ten samples beyond it), each checked
    for shape and score order, with its p50 and p95 latency. The FM kernel
-   must have run.
+   must have run. The warm index build and the retrieve/online path are
+   then timed in turns with ``top_k`` and with ``torch.topk``
+   (``topk_turns``).
 
 6. DIN training at full width (``bench.py:38-64`` with ``bench.py:230-266``'s
    dense trainer: the phase 4 schema and widths, bf16 dense compute, fp32
@@ -218,7 +222,8 @@ checkout and exits non-zero on the first phase that fails. Phases:
      module's training math; ``run`` → ``restore`` → ``export`` →
      ``load_servable``, whose predict must equal ``Trainer.infer``;
    - 9d: ``comirec`` ('sa', 'dr') and ``sine`` over the same schema: one
-     predict and 5 train steps each (no kernel).
+     predict and 5 train steps each (no kernel); SINE's step then in turns
+     with its prototype pick's ``top_k`` and with ``torch.topk``.
 
 10. the FM family and MatrixCF, random seeded weights, B=8192, bf16 dense
     compute, fp32 params, bce, Adam lr 1e-3 eps 1e-7: over the phase 5/7 FM
@@ -268,6 +273,39 @@ checkout and exits non-zero on the first phase that fails. Phases:
       against its dense step (``fused_vs_dense``); ``--dcn-rest`` runs
       this phase alone.
 
+12. from raw files to serving through ``tpurec_torch.cli.main`` with
+    ``TPUREC_PLATFORM`` unset (every model step on the card), in a
+    temporary directory; ``--cli`` runs this phase alone:
+    - the native recordio codec built (``g++``) and in use; ``synth`` and
+      ``datagen`` of the tabular family (1M events), each stage's seconds;
+    - ``train`` (B=8192, bf16, D=32, the registry's widths, one epoch,
+      with a workdir) of deepfm on the dense and the fused engine (#9 once
+      per table a step, so twice; #1 once per ``evaluate`` batch) and
+      dssm_double (no kernel), each step timed (host clock, synchronised)
+      and the eval AUC above 0.6, deepfm's dense and fused eval loss and
+      AUC within ``CLI_ENGINE_TOL``; #9 on the fused run's first batch
+      (``check_step_scatter``: 5 x 8192 ids, D=1 then D=32), held to the
+      plain version with its broken versions and timed; ``index --topk
+      20`` of the dssm_double export on the card and on the CPU: the same
+      slates, scores within 6-decimal rounding, tied items (the same three
+      tags) in ``lax.top_k``'s order; ``top_k`` against ``torch.topk`` in
+      the index's top-k over 5,000 x 20,000 (in turns) and alone at each
+      caller's shape (phases 5 and 9d time the index build, the online
+      path and SINE's step in turns with each);
+    - ``serve`` of the deepfm export (retrieve/kv, rank 20, rank 200) and
+      of the dssm_double export (retrieve/online, rank from_retrieval;
+      a ranker has no tower), both over the index on ``--port 0``, 200
+      requests a path after 5 warm-ups, p50/p95; #1 once per deepfm rank
+      request; the served ranker on the test shard's first 256 rows
+      against ``load_servable(..., device="cpu")`` (``FM_FAMILY_RTOL``);
+      #1 held to its plain version at the tabular F=5 (phase 3's checks);
+    - the sequence family (100k events, ``--max-seq-length 64``) and DIN
+      trained two epochs (two aligned series: #4 and #5 at key width 64):
+      #5 once a step, #4 once a step and once an eval batch, the eval loss
+      falling; #4 and #5 held to their plain versions at (8192, 64, 64, 36)
+      with phase 3's and phase 6's readings, broken versions and times.
+    Phase 12's checks sit under ``other_shapes`` of each kernel's entry.
+
 TF32 is off for the whole run (``allow_tf32 = False`` for matmul and
 cuDNN), so every fp32 comparison is fp32 on both sides.
 
@@ -286,6 +324,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.request
 import warnings
@@ -428,17 +467,22 @@ def din_bound(args):
     return (*bound(nbytes, ops), live)
 
 
-def check_din_forward(torch, kernels, detail=False):
+DIN_SHAPE = (8192, 64, 32, 36)  # B, L, D, H of phase 4's servable and phase 6's step
+
+
+def check_din_forward(torch, kernels, detail=False, shape=DIN_SHAPE):
     """Kernel #4 against its plain version (phase 3): the serving shape with
     and without PReLU slopes, ragged shapes, a mask with holes, both sides of
     the tensor-core kernel's H limit; a forward that ignores the mask, drops
     the slopes or takes lin in single TF32 must read above the limit; two
     calls the same bits; device time at B=8192, 4096, 1024 and 1, the bound
     and the plain version's time. ``detail`` (``--din``) adds the launch
-    floor and the blocks, warps and shared memory of the launch."""
+    floor and the blocks, warps and shared memory of the launch. Another
+    ``shape`` (phase 12's key width 64) takes the readings, the broken
+    versions, the same bits and the times at that shape alone."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     lib = kernels._library("din_attention")
-    b, l, d, h = 8192, 64, 32, 36
+    b, l, d, h = shape
     args = din_inputs(torch, gen, b, l, d, h)
     relu = args[:6] + [None]
     want = kernels.din_attention_plain(*args)
@@ -453,28 +497,30 @@ def check_din_forward(torch, kernels, detail=False):
     readings["broken_mask_ignored"] = din_reading(kernels.din_attention_plain(*no_mask), want)
     readings["broken_alpha_dropped"] = din_reading(kernels.din_attention_plain(*relu), want)
     readings["broken_single_tf32"] = din_reading(kernels.din_attention_unfolded(*args, products="1xtf32"), want)
+    serving = shape == DIN_SHAPE
     # ragged: B that is no multiple of the grid, L = 1 and 33, D = 8/16/64,
     # H = 7, H = 128 (the widest tensor-core build) and 129, 200 (the fp32
     # kernel)
-    for shape in ((1003, 64, 32, 36), (37, 1, 32, 36), (300, 33, 32, 36), (300, 64, 8, 36),
+    for other in ((1003, 64, 32, 36), (37, 1, 32, 36), (300, 33, 32, 36), (300, 64, 8, 36),
                   (300, 64, 16, 36), (300, 48, 64, 36), (257, 33, 16, 7), (300, 64, 32, 128),
-                  (300, 64, 32, 129), (300, 64, 32, 200)):
-        a = din_inputs(torch, gen, *shape)
-        readings["x".join(map(str, shape))] = din_reading(
+                  (300, 64, 32, 129), (300, 64, 32, 200)) if serving else ():
+        a = din_inputs(torch, gen, *other)
+        readings["x".join(map(str, other))] = din_reading(
             kernels.din_attention_fused(*a), kernels.din_attention_plain(*a)
         )
-    # a mask with holes (not a prefix), a row whose only live step is the
-    # last, and an all-zero row
-    a = din_inputs(torch, gen, 1003, 64, 32, 36)
-    a[2] = holey_mask(torch, gen, a[2])
-    readings["mask_with_holes"] = din_reading(kernels.din_attention_fused(*a), kernels.din_attention_plain(*a))
-    print("din forward readings (error / limit):", json.dumps(readings), flush=True)
+    if serving:
+        # a mask with holes (not a prefix), a row whose only live step is
+        # the last, and an all-zero row
+        a = din_inputs(torch, gen, 1003, 64, 32, 36)
+        a[2] = holey_mask(torch, gen, a[2])
+        readings["mask_with_holes"] = din_reading(kernels.din_attention_fused(*a), kernels.din_attention_plain(*a))
+    print(f"din forward readings at {list(shape)} (error / limit):", json.dumps(readings), flush=True)
     for name, r in readings.items():
         worst = max(r.values())
         if name.startswith("broken"):
             check(worst > 1.0, f"the forward check cannot tell a {name} forward from a sound one")
         else:
-            check(worst <= 1.0, f"din forward kernel vs plain at {name}: {r}")
+            check(worst <= 1.0, f"din forward kernel vs plain at {name} {list(shape)}: {r}")
     check(lib.din_attention_route(32, 128) == 1 and lib.din_attention_route(32, 129) == 0,
           "din forward: H = 128 must take the tensor-core kernel, H = 129 the fp32 one")
 
@@ -488,7 +534,7 @@ def check_din_forward(torch, kernels, detail=False):
         plain_ms=device_ms(torch, lambda: kernels.din_attention_plain(*args)),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None, same_bits=same,
     )
-    for rows in (4096, 1024, 1):
+    for rows in (4096, 1024, 1) if serving else ():
         small = [x[:rows] if x.dim() and x.shape[0] == b else x for x in args]
         rec[f"b{rows}_ms"] = device_ms(torch, lambda: kernels.din_attention_fused(*small))
         rec[f"b{rows}_bound_ms"] = din_bound(small)[0]
@@ -546,6 +592,34 @@ def din_ab(torch, kernels, parent_dir):
                    lambda got, a: max_err(torch, got, kernels.din_attention_plain(*a)))
 
 
+def din_bwd_ab(torch, kernels, parent_dir):
+    """Kernel #5 of the checkout at ``parent_dir`` against this one's on the
+    same inputs in one process: parent, change, change, parent, each at
+    phase 6's (8192, 64, 32, 36) and phase 12's key width 64, its readings
+    against the plain version (printed; this tree's must pass) and its
+    device time."""
+    parent = parent_kernels(parent_dir)
+    parent.build(["din_attention_bwd"])
+    cases = {}
+    for b, l, d, h in (DIN_SHAPE, (8192, 64, 64, 36)):
+        # each case draws as ``check_din_backward`` does at its shape
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        args = din_inputs(torch, gen, b, l, d, h)
+        cot = [torch.randn(b, d, device="cuda", generator=gen), torch.randn(b, l, device="cuda", generator=gen)]
+        cases[f"d{d}"] = (args + cot, kernels.din_attention_bwd_plain(*args, *cot))
+    runs = []
+    for label, mod in (("parent", parent), ("change", kernels), ("change", kernels), ("parent", parent)):
+        run = dict(tree=label)
+        for key, (a, want) in cases.items():
+            reading = bwd_reading(mod.din_attention_bwd_fused(*a), want)
+            run[key] = dict(reading=reading, ms=device_ms(torch, lambda: mod.din_attention_bwd_fused(*a)))
+            if label == "change":
+                check(max(reading.values()) <= 1.0, f"din backward at {key}: {reading}")
+        runs.append(run)
+        print("din backward a/b:", json.dumps(run), flush=True)
+    return runs
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 FM_SHAPE = (26, 32)  # deepfm's F and D over the FM schema (phase 5)
@@ -596,8 +670,9 @@ def ptxas_resources(path, *kernel_names) -> dict:
     return {name: next((v for k, v in found.items() if name in k), None) for name in kernel_names}
 
 
-def check_fm(torch, kernels, detail=False):
+def check_fm(torch, kernels, detail=False, shape=FM_SHAPE):
     """Kernel #1 against its plain version (phase 3) at deepfm's F=26, D=32
+    (or ``shape``: phase 12's F=5 tabular fields)
     and B = 8192, 256, 32 and 8 (``FM_BATCHES``), and at B=8192 with an
     input 4 bytes off a 16-byte boundary (4-byte loads), at ``KERNEL_TOL``;
     a term that drops the last field or squares after summing over columns
@@ -609,7 +684,7 @@ def check_fm(torch, kernels, detail=False):
     registers and spills. Returns the B=8192 record with the others under
     ``other_shapes``."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    f, d = FM_SHAPE
+    f, d = shape
     floor_ms = launch_floor_ms(torch)
     readings, other, record = {}, {}, None
     for b in FM_BATCHES:
@@ -809,11 +884,60 @@ def run_din_servable(torch, kernels, workdir, card):
 
 # ---------------------------------------------------------------------------
 # phase 5: HTTP retrieve / rank over the FM schema
+def http_latency(port, paths, uids):
+    """POST /predict on ``port`` for each of ``paths`` ({name: (the request
+    for a user id, a check of (user id, response))}): 5 warm-ups (the first
+    launches, the allocator), then one request per user id, each checked;
+    {name: p50 and p95 ms}."""
+    url = f"http://127.0.0.1:{port}/predict"
+
+    def post(payload):
+        req = urllib.request.Request(
+            url, data=json.dumps(payload).encode(), headers={"Content-Type": "application/json"}
+        )
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            body = json.loads(resp.read())
+        return body, (time.perf_counter() - t) * 1e3
+
+    latency = {}
+    for name, (make, verify) in paths.items():
+        for uid in uids[:5]:
+            post(make(uid))
+        times = []
+        for uid in uids:
+            body, ms = post(make(uid))
+            check("error" not in body, f"{name}: {body}")
+            verify(uid, body)
+            times.append(ms)
+        latency[name] = dict(p50_ms=statistics.median(times), p95_ms=float(np.percentile(times, 95)))
+    return latency
+
+
+TOPK_TURNS = ("torch_topk", "top_k", "top_k", "torch_topk")
+
+
+def topk_turns(torch, modules, fn) -> dict:
+    """``fn()`` in turns with ``top_k`` (``lax.top_k``'s order) and with
+    ``torch.topk`` (no order among ties, the call before the repair) bound
+    as ``top_k`` in each of ``modules``: {"top_k": [...], "torch_topk":
+    [...]} of its results in ``TOPK_TURNS`` order."""
+    out = dict(top_k=[], torch_topk=[])
+    for name in TOPK_TURNS:
+        with contextlib.ExitStack() as stack:
+            if name == "torch_topk":
+                for m in modules:
+                    stack.enter_context(mock.patch.object(m, "top_k", lambda x, k: torch.topk(x, k, dim=-1)))
+            out[name].append(fn())
+    return out
+
+
 def run_http(torch, kernels, workdir, card, n_requests=200):
     from tpurec_torch.config import EmbeddingConfig, ModelConfig
     from tpurec_torch.data.schema import DataInfo
     from tpurec_torch.models import build_model
     from tpurec_torch.serving import DictKVStore, OfflineIndexer
+    from tpurec_torch.serving import indexer, server as server_mod
     from tpurec_torch.serving.export import Servable
     from tpurec_torch.serving.server import RecommendService, serve_background
 
@@ -834,14 +958,24 @@ def run_http(torch, kernels, workdir, card, n_requests=200):
 
     user_profile = profiles("u", 5000, info.user_features)
     item_profile = profiles("i", 2500, info.item_features)
+    def build_index(kv, out="index"):
+        return OfflineIndexer(
+            towers.user_tower, towers.item_tower, user_profile, item_profile,
+            info.user_features, info.item_features, batch_size=1024, device="cuda",
+        ).run(os.path.join(workdir, out), kv_store=kv, topk=20)
+
+    def build_seconds():
+        t = time.perf_counter()
+        build_index(DictKVStore(), "index_topk_turns")
+        return time.perf_counter() - t
+
     kv = DictKVStore()
     t0 = time.perf_counter()
-    index = OfflineIndexer(
-        towers.user_tower, towers.item_tower, user_profile, item_profile,
-        info.user_features, info.item_features, batch_size=1024, device="cuda",
-    ).run(os.path.join(workdir, "index"), kv_store=kv, topk=20)
+    index = build_index(kv)
     index_s = time.perf_counter() - t0
     check(len(kv) == 5000, f"KV store holds {len(kv)} users")
+    # the warm build's seconds with the repaired top-k and with torch.topk
+    index_turns = topk_turns(torch, (indexer,), build_seconds)
     service = RecommendService(
         user_tower=towers.user_tower, ranker=ranker.rank, user_profile=user_profile,
         item_profile=item_profile, user_feature_names=info.user_features,
@@ -849,17 +983,6 @@ def run_http(torch, kernels, workdir, card, n_requests=200):
         item_embeddings=index["item_embeddings"], device="cuda",
     )
     server = serve_background(service, port=0)
-    url = f"http://127.0.0.1:{server.server_address[1]}/predict"
-
-    def post(payload):
-        req = urllib.request.Request(
-            url, data=json.dumps(payload).encode(), headers={"Content-Type": "application/json"}
-        )
-        t = time.perf_counter()
-        with urllib.request.urlopen(req, timeout=60) as resp:
-            body = json.loads(resp.read())
-        return body, (time.perf_counter() - t) * 1e3
-
     uids = rng.choice(list(user_profile), size=n_requests, replace=False).tolist()
     iids = list(item_profile)
 
@@ -892,26 +1015,20 @@ def run_http(torch, kernels, workdir, card, n_requests=200):
                                            "topk": 20}, rank_check(20)),
     }
     kernels.reset_launch_counts()
-    latency = {}
     try:
-        for name, (make, verify) in paths.items():
-            for uid in uids[:5]:  # warm-up: the first launches, the allocator
-                post(make(uid))
-            times = []
-            for uid in uids:
-                body, ms = post(make(uid))
-                check("error" not in body, f"{name}: {body}")
-                verify(uid, body)
-                times.append(ms)
-            latency[name] = dict(p50_ms=statistics.median(times), p95_ms=float(np.percentile(times, 95)))
+        latency = http_latency(server.server_address[1], paths, uids)
+        torch.cuda.synchronize()
+        launches = kernels.fm_second_order_fused.launches
+        online = {"retrieve_online_top20": paths["retrieve_online_top20"]}
+        online_turns = topk_turns(torch, (server_mod,), lambda: http_latency(
+            server.server_address[1], online, uids)["retrieve_online_top20"])
     finally:
         server.shutdown()
         server.server_close()
-    torch.cuda.synchronize()
-    launches = kernels.fm_second_order_fused.launches
     check(launches > 0, "the rank path did not launch the FM kernel")
     result = dict(card=card, fm_launches=launches, index_build_s=index_s, requests_per_path=n_requests,
-                  latency=latency)
+                  latency=latency, top_k_against_torch_topk=dict(
+                      turns=TOPK_TURNS, index_build_s=index_turns, retrieve_online_top20=online_turns))
     print("http serving:", json.dumps(result), flush=True)
     return launches, result
 
@@ -944,8 +1061,10 @@ def bwd_reading(got, want) -> dict:
     }
 
 
-def check_din_backward(torch, kernels):
-    """The DIN backward kernel against its plain version (phase 6)."""
+def check_din_backward(torch, kernels, shape=DIN_SHAPE):
+    """The DIN backward kernel against its plain version (phase 6). Another
+    ``shape`` (phase 12's key width 64) takes the readings, the broken
+    versions, the same bits and the times at that shape alone."""
     gen = torch.Generator(device="cuda").manual_seed(1)
 
     def case(b, l, d, h):
@@ -954,7 +1073,8 @@ def check_din_backward(torch, kernels):
                torch.randn(b, l, device="cuda", generator=gen)]
         return args, cot
 
-    b, l, d, h = TRAIN_BATCH, 64, 32, 36
+    b, l, d, h = shape
+    serving = shape == DIN_SHAPE
     args, cot = case(b, l, d, h)
     relu = args[:6] + [torch.zeros_like(args[6])]
     no_mask = args[:2] + [torch.ones_like(args[2])] + args[3:]
@@ -974,29 +1094,30 @@ def check_din_backward(torch, kernels):
     )
     # ragged: B that is no multiple of the grid, L = 1, D = 8/16/64, H that
     # is no multiple of 4
-    for shape in ((1003, 64, 32, 36), (37, 1, 32, 36), (300, 64, 8, 36), (300, 64, 16, 36),
-                  (300, 48, 64, 36), (257, 33, 16, 7)):
-        a, c = case(*shape)
-        readings["x".join(map(str, shape))] = bwd_reading(
+    for other in ((1003, 64, 32, 36), (37, 1, 32, 36), (300, 64, 8, 36), (300, 64, 16, 36),
+                  (300, 48, 64, 36), (257, 33, 16, 7)) if serving else ():
+        a, c = case(*other)
+        readings["x".join(map(str, other))] = bwd_reading(
             kernels.din_attention_bwd_fused(*a, *c), kernels.din_attention_bwd_plain(*a, *c)
         )
-    # a mask with holes (not a prefix), a row whose only live step is the
-    # last, and an all-zero row
-    a, c = case(1003, 64, 32, 36)
-    a[2] = (torch.rand(a[2].shape, device="cuda", generator=gen) < 0.5).float()
-    a[2][1] = 0.0
-    a[2][2] = 0.0
-    a[2][2, -1] = 1.0
-    readings["mask_with_holes"] = bwd_reading(
-        kernels.din_attention_bwd_fused(*a, *c), kernels.din_attention_bwd_plain(*a, *c)
-    )
-    print("din backward readings (error / limit):", json.dumps(readings), flush=True)
+    if serving:
+        # a mask with holes (not a prefix), a row whose only live step is
+        # the last, and an all-zero row
+        a, c = case(1003, 64, 32, 36)
+        a[2] = (torch.rand(a[2].shape, device="cuda", generator=gen) < 0.5).float()
+        a[2][1] = 0.0
+        a[2][2] = 0.0
+        a[2][2, -1] = 1.0
+        readings["mask_with_holes"] = bwd_reading(
+            kernels.din_attention_bwd_fused(*a, *c), kernels.din_attention_bwd_plain(*a, *c)
+        )
+    print(f"din backward readings at {list(shape)} (error / limit):", json.dumps(readings), flush=True)
     for name, r in readings.items():
         worst = max(r.values())
         if name.startswith("broken"):
             check(worst > 1.0, f"the backward check cannot tell a {name} backward from a sound one")
         else:
-            check(worst <= 1.0, f"din backward kernel vs plain at {name}: {r}")
+            check(worst <= 1.0, f"din backward kernel vs plain at {name} {list(shape)}: {r}")
 
     # What this run's mask needs: a masked step has s = 0 and dlin = 0, so its
     # dkeys row is 0 and it adds nothing to the sums. Bytes: q, mask, w1, b1,
@@ -1096,7 +1217,6 @@ def profile_steps(torch, step, steps=5):
     busy time per step (the sum of its kernels, copies and fills) and the
     eight operators whose kernels take most of it, in ms per step, with the
     DIN attention kernels (#4, #5) beside them as ``kernel <name>``."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1104,6 +1224,14 @@ def profile_steps(torch, step, steps=5):
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
+    return profile_summary(prof, steps)
+
+
+def profile_summary(prof, steps):
+    """(device busy ms a step, the top operators' ms a step) of a finished
+    ``torch.profiler`` run over ``steps`` calls (``profile_steps``)."""
+    from torch.autograd import DeviceType
+
     averages = prof.key_averages()
     busy = sum(e.self_device_time_total for e in averages if e.device_type == DeviceType.CUDA)
     ops = sorted(
@@ -2822,16 +2950,6 @@ def run_mind_serving(torch, kernels, workdir, card):
         key_prefix="MIND", device="cuda",
     )
     server = serve_background(service, port=0)
-    url = f"http://127.0.0.1:{server.server_address[1]}/predict"
-
-    def post(payload):
-        req = urllib.request.Request(
-            url, data=json.dumps(payload).encode(), headers={"Content-Type": "application/json"}
-        )
-        t = time.perf_counter()
-        with urllib.request.urlopen(req, timeout=60) as resp:
-            body = json.loads(resp.read())
-        return body, (time.perf_counter() - t) * 1e3
 
     def descending(result):
         scores = list(result.values())
@@ -2854,25 +2972,19 @@ def run_mind_serving(torch, kernels, workdir, card):
         check(items[0] == first or abs(r["result"][items[0]] - plain[first]) <= 2.0**-20,
               "the diverse slate's first pick is not the plain top-1")
 
+    def retrieve(**extra):
+        return lambda uid: dict(user_id=uid, type="retrieve", **extra)
+
     paths = {
-        "retrieve_kv": (dict(source="kv"), lambda uid, r: check(descending(r["result"]), "retrieve/kv shape")),
-        "retrieve_online_top20": (dict(topk=20), online_check),
-        "retrieve_online_diverse": (dict(topk=20, diversity_weight=10.0), diverse_check),
+        "retrieve_kv": (retrieve(source="kv"),
+                        lambda uid, r: check(descending(r["result"]), "retrieve/kv shape")),
+        "retrieve_online_top20": (retrieve(topk=20), online_check),
+        "retrieve_online_diverse": (retrieve(topk=20, diversity_weight=10.0), diverse_check),
     }
     uids = rng.choice(list(user_profile), size=MIND_REQUESTS, replace=False).tolist()
-    latency = {}
     kernels.reset_launch_counts()
     try:
-        for name, (extra, verify) in paths.items():
-            for uid in uids[:5]:
-                post(dict(user_id=uid, type="retrieve", **extra))
-            times = []
-            for uid in uids:
-                body, ms = post(dict(user_id=uid, type="retrieve", **extra))
-                check("error" not in body, f"{name}: {body}")
-                verify(uid, body)
-                times.append(ms)
-            latency[name] = dict(p50_ms=statistics.median(times), p95_ms=float(np.percentile(times, 95)))
+        latency = http_latency(server.server_address[1], paths, uids)
     finally:
         server.shutdown()
         server.server_close()
@@ -2963,7 +3075,9 @@ def run_mind_training(torch, kernels, workdir, card):
 def run_retrieval_family(torch, kernels, card):
     """ComiRec (sa, dr) and SINE over the MIND schema: one bf16 predict at
     B=8192 and 5 bf16 train steps each (phase 9d). No kernel: they show the
-    modules run on the card."""
+    modules run on the card. SINE's step is also timed in turns with its
+    prototype pick's ``top_k`` and with ``torch.topk``."""
+    from tpurec_torch.models import mind as mind_module
     from tpurec_torch.serving.export import Servable
     from tpurec_torch.train.trainer import Trainer
 
@@ -2984,6 +3098,17 @@ def run_retrieval_family(torch, kernels, card):
         check(finite and out["user_embedding"].shape == (TRAIN_BATCH, 64), f"{label} predict: {results[label]}")
         check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"{label} training: {losses}")
         check(launches == (0, 0), f"{label} launched (#7, #8) {launches}")
+        if label == "sine":
+            # its prototype pick's top-k, repaired and torch.topk: 5 steps a turn
+            held = [state]
+
+            def step_p50():
+                held[0], _, _, t = drive_steps(torch, trainer, held[0], trainer.device_batch(batch), steps=5)
+                return statistics.median(t[1:])
+
+            results[label]["step_ms_top_k_against_torch_topk"] = dict(
+                turns=TOPK_TURNS, **topk_turns(torch, (mind_module,), step_p50))
+            del held
         del trainer, state
     print("multi-interest family:", json.dumps(dict(card=card, batch=TRAIN_BATCH, models=results)), flush=True)
     return results
@@ -3285,14 +3410,13 @@ def dcn_rest_config(case, mode="dense", dtype="bfloat16"):
     return experiment_config(name, params, dim, mode, dtype)
 
 
-def check_nfm_scatter(torch, eu, info):
-    """Kernel #9 on NFM's own stream (phase 11c): one bf16 fused step with
-    each launch's inputs and output recorded, then each held to the plain
-    version (``check_scatter_readings``' limits, broken versions above
-    them, the same bits twice) and timed beside ``index_add_`` and its
-    bound. Returns {table: record}."""
-    from tpurec_torch.train.trainer import Trainer
-
+def check_step_scatter(torch, eu, trainer, batch, tables, widths):
+    """Kernel #9 on a model's own stream: one fused step of ``trainer`` on
+    ``batch`` with each launch's inputs and output recorded, then each held
+    to the plain version (``check_scatter_readings``' limits, broken
+    versions above them, the same bits twice) and timed beside
+    ``index_add_`` and its bound. ``tables`` names the launches in their
+    order, ``widths`` their D. Returns {table: record}."""
     calls = []
     fused = eu.fused_scatter_add
 
@@ -3304,16 +3428,15 @@ def check_nfm_scatter(torch, eu, info):
     # the wrapper adds its launch to the count of the name it is bound to in
     # the module, here the recorder's
     recorded.launches = 0
-    batch = fm_family_batch(info, TRAIN_BATCH, seed=1)
-    trainer = Trainer(dcn_rest_config("nfm", "fused"), info)
     state = trainer.init_state(batch)
     with mock.patch.object(eu, "fused_scatter_add", recorded):
         trainer.train_step(state, trainer.device_batch(batch), trainer.metrics.init())
         torch.cuda.synchronize()
-    check(len(calls) == 2, f"NFM's fused step called #9 {len(calls)} times, not once per table")
+    check(len(calls) == len(tables), f"{tables}: the fused step called #9 {len(calls)} times, "
+                                     "not once per table")
     broken = broken_scatters(torch, eu)
     readings, records = {}, {}
-    for table, (v, d, plan, grads, got) in zip(("nfm_emb", "nfm_w"), calls):
+    for table, (v, d, plan, grads, got) in zip(tables, calls):
         r, _, again = scatter_case(torch, eu, None, plan, v, d, grads=grads)
         r["same_bits_as_step"] = bool(torch.equal(got, again))
         r["same_bits"] = r["same_bits"] and r["same_bits_as_step"]
@@ -3321,9 +3444,19 @@ def check_nfm_scatter(torch, eu, info):
         readings[table] = r
         records[table] = scatter_record(torch, eu, plan, v, d, grads, got, r)
         print("kernel check:", json.dumps(records[table]), flush=True)
-    check_scatter_readings(readings, " (NFM's stream)")
-    check([r["d"] for r in readings.values()] == [32, 1], f"NFM's #9 widths: {readings}")
+    check_scatter_readings(readings, f" ({', '.join(tables)})")
+    check([r["d"] for r in readings.values()] == list(widths), f"#9's widths on {tables}: {readings}")
     return records
+
+
+def check_nfm_scatter(torch, eu, info):
+    """Kernel #9 on NFM's own stream (phase 11c): ``check_step_scatter`` of
+    one bf16 fused step. Returns {table: record}."""
+    from tpurec_torch.train.trainer import Trainer
+
+    batch = fm_family_batch(info, TRAIN_BATCH, seed=1)
+    trainer = Trainer(dcn_rest_config("nfm", "fused"), info)
+    return check_step_scatter(torch, eu, trainer, batch, ("nfm_emb", "nfm_w"), (32, 1))
 
 
 def run_dcn_rest(torch, eu, workdir, card):
@@ -3345,6 +3478,393 @@ def run_dcn_rest(torch, eu, workdir, card):
     fused_vs_dense(torch, eu, lambda m: dcn_rest_config("nfm", m, "float32"), info,
                    fm_family_batch(info, TRAIN_BATCH, seed=1), NFM_TABLES, "nfm")
     return records, {"nfm_fused_training": fused}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: from raw files to serving through the port's own command line
+CLI_TABULAR_EVENTS = 1_000_000
+CLI_SEQUENCE_EVENTS = 100_000
+CLI_SEQ_LEN = 64
+CLI_REQUESTS = 200
+CLI_KV_TOL = 2e-6  # the KV store's scores carry 6 decimals: one rounding apart
+# deepfm dense against fused after one bf16 epoch: the two engines take the
+# same Adam, so eval loss and AUC end within this of each other
+CLI_ENGINE_TOL = 1e-3
+TOPK_SHAPE = (5000, 20000, 32)  # phase 9's index: users, items, D
+
+
+def cli_config(path, name, fused=False, epochs=1):
+    """An ``ExperimentConfig`` file for ``cli train``: the registry's widths
+    at D=32, B=8192, bf16 compute, fp32 params, bce, Adam lr 1e-3 eps 1e-7;
+    ``fused`` takes the fused engine (``fused_adam``)."""
+    cfg = {
+        "model": {"name": name, "embedding": {"dim": 32}},
+        "train": {"batch_size": TRAIN_BATCH, "epochs": epochs, "loss": "bce",
+                  "compute_dtype": "bfloat16", "log_every_steps": 0, "sparse_embedding": fused,
+                  "optimizer": {"learning_rate": 1e-3, "eps": 1e-7,
+                                "embedding_optimizer": "fused_adam" if fused else "adam"}},
+    }
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+CLI_PROFILED_STEPS = range(4, 7)  # steps 4-6 of a run go through torch.profiler
+
+
+@contextlib.contextmanager
+def trainer_clock(torch):
+    """While ``cli train`` runs: each ``Trainer.train_step`` on the host
+    clock, synchronised before and after (ms), but ``CLI_PROFILED_STEPS``,
+    which ``torch.profiler`` records instead (device busy ms a step and the
+    top operators); and the ``eval_step`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpurec_torch.train.trainer import Trainer
+
+    record = dict(step_ms=[], eval_batches=0, steps=0)
+    train_step, eval_step = Trainer.train_step, Trainer.eval_step
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def timed(self, *args, **kw):
+        i = record["steps"]
+        record["steps"] += 1
+        torch.cuda.synchronize()
+        if i in CLI_PROFILED_STEPS:
+            if i == CLI_PROFILED_STEPS[0]:
+                prof.__enter__()
+            out = train_step(self, *args, **kw)
+            if i == CLI_PROFILED_STEPS[-1]:
+                torch.cuda.synchronize()
+                prof.__exit__(None, None, None)
+                record["busy_ms"], record["top_ops_ms"] = profile_summary(prof, len(CLI_PROFILED_STEPS))
+            return out
+        t = time.perf_counter()
+        out = train_step(self, *args, **kw)
+        torch.cuda.synchronize()
+        record["step_ms"].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def counted(self, *args, **kw):
+        record["eval_batches"] += 1
+        return eval_step(self, *args, **kw)
+
+    with mock.patch.object(Trainer, "train_step", timed), mock.patch.object(Trainer, "eval_step", counted):
+        yield record
+
+
+def path_launches(kernels, eu) -> dict:
+    """The launches of the kernels on the CLI's paths since the last reset."""
+    return dict(fm_second_order=kernels.fm_second_order_fused.launches,
+                din_attention=kernels.din_attention_fused.launches,
+                din_attention_bwd=kernels.din_attention_bwd_fused.launches,
+                fused_scatter_add=eu.fused_scatter_add.launches)
+
+
+def cli_train(torch, kernels, eu, card, label, argv):
+    """``cli train`` with the launches counted from 0 and the steps timed.
+    Returns the result: steps, eval batches, step p50 (the timed steps from
+    the third on) and examples/s, the profiled steps' device busy time,
+    idle share and top operators, the command's seconds, the last epoch's
+    train and eval metrics and the launches."""
+    from tpurec_torch import cli
+
+    workdir = argv[argv.index("--workdir") + 1]
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    with trainer_clock(torch) as record:
+        cli.main(argv)
+    seconds = time.perf_counter() - t
+    torch.cuda.synchronize()
+    launches = path_launches(kernels, eu)
+    with open(os.path.join(workdir, "report.json")) as f:
+        history = json.load(f)["history"]
+    last = history[-1]
+    steps = record["step_ms"]
+    p50 = statistics.median(steps[2:])
+    result = dict(card=card, run=label, seconds=seconds, steps=record["steps"],
+                  eval_batches=record["eval_batches"], step_p50_ms=p50,
+                  step_ms_min=min(steps[2:]), step_ms_max=max(steps[2:]), first_step_ms=steps[0],
+                  examples_per_s=TRAIN_BATCH / (p50 / 1e3), device_busy_ms=record["busy_ms"],
+                  device_idle_share=1.0 - record["busy_ms"] / p50, top_ops_ms=record["top_ops_ms"],
+                  train=last["train"], eval=last["eval"],
+                  eval_loss_by_epoch=[h["eval"]["loss"] for h in history], launches=launches)
+    print(f"cli train {label}:", json.dumps(result), flush=True)
+    check(all(np.isfinite(v) for h in history for v in h["eval"].values()), f"{label}: {history}")
+    return result
+
+
+def read_slates(path):
+    with open(path) as f:
+        return {k: (v.split("\t")[0].split(","), np.asarray(v.split("\t")[1].split(","), float))
+                for k, v in json.load(f).items()}
+
+
+def compare_slates(card_kv, cpu_kv, item_profile) -> dict:
+    """The card's index against the CPU's: the same users, each slate's
+    scores within ``CLI_KV_TOL`` position by position; in both, items with
+    the same features (exact ties) in ascending item order, as
+    ``lax.top_k`` orders them; and the same items but where two distinct
+    items' scores lie within the rounding of the two devices."""
+    order = {iid: j for j, iid in enumerate(item_profile)}
+    feats = {iid: tuple(f) for iid, f in item_profile.items()}
+    check(list(card_kv) == list(cpu_kv), "the card's and the CPU's index hold other users")
+    tied = near = 0
+    worst = 0.0
+    for key, (pi, ps) in cpu_kv.items():
+        ci, cs = card_kv[key]
+        worst = max(worst, float(np.abs(cs - ps).max()))
+        for items in (ci, pi):
+            for a, b in zip(items, items[1:]):
+                if feats[a] == feats[b]:
+                    check(order[a] < order[b], f"{key}: tied items {a}, {b} out of lax.top_k's order")
+        tied += sum(feats[a] == feats[b] for a, b in zip(ci, ci[1:]))
+        for p, (a, b) in enumerate(zip(ci, pi)):
+            if a == b:
+                continue
+            check(feats[a] != feats[b], f"{key}: tied items {a}, {b} in another order")
+            if b in ci:
+                gap = abs(cs[p] - cs[ci.index(b)])
+            else:  # the CPU's last item is the card's 21st
+                gap = 0.0 if p == len(ci) - 1 else np.inf
+            check(gap <= CLI_KV_TOL, f"{key}: {a} against {b} at {p}, {gap} apart on the card")
+            near += 1
+    check(worst <= CLI_KV_TOL, f"index scores card against CPU: {worst} > {CLI_KV_TOL}")
+    check(tied > 0, "no slate holds two tied items: the tie order went unchecked")
+    return dict(users=len(cpu_kv), max_abs_score_diff=worst, tied_adjacent_pairs=tied,
+                near_tie_positions=near)
+
+
+def topk_ab(torch, card) -> dict:
+    """The index's top-k: ``exact_topk`` over phase 9's 5,000 users x 20,000
+    items (D=32, random seeded embeddings) with ``top_k`` (``lax.top_k``'s
+    order) and with ``torch.topk``: one warm-up call each, then in turns
+    (``TOPK_TURNS``); and the device time of each op alone at each caller's
+    shape: the indexer's (4096, 20000) batch, ``retrieve_online``'s one
+    row over phase 9's 20,000 and phase 5's 2,500 items, and SINE's
+    prototype pick (B=8192 over its 32 prototypes, k=4)."""
+    from tpurec_torch.ops.topk import top_k
+    from tpurec_torch.serving import indexer
+
+    u, n, d = TOPK_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    users = torch.randn(u, d, generator=gen, device="cuda").cpu().numpy()
+    items = torch.randn(n, d, generator=gen, device="cuda").cpu().numpy()
+    scores = indexer.l2_normalize(torch.as_tensor(users[:4096], device="cuda")) @ \
+        indexer.l2_normalize(torch.as_tensor(items, device="cuda")).T
+    callers = {"index_4096x20000_k20": (scores, 20), "online_20000_k20": (scores[0], 20),
+               "online_2500_k20": (scores[0, :2500], 20),
+               "sine_pick_8192x32_k4": (torch.randn(TRAIN_BATCH, 32, generator=gen, device="cuda"), 4)}
+    ms = {name: dict(top_k=device_ms(torch, lambda: top_k(x, k)),
+                     torch_topk=device_ms(torch, lambda: torch.topk(x, k)))
+          for name, (x, k) in callers.items()}
+    outs = {}
+
+    def timed():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = indexer.exact_topk(users, items, 20, device="cuda")
+        outs.setdefault("top_k" if indexer.top_k is top_k else "torch_topk", out)
+        return time.perf_counter() - t
+
+    topk_turns(torch, (indexer,), timed)  # warms both up
+    seconds = topk_turns(torch, (indexer,), timed)
+    # random scores barely tie: the two give the same slates
+    check(np.array_equal(outs["top_k"][1], outs["torch_topk"][1]), "top_k and torch.topk disagree")
+    result = dict(card=card, shape=dict(users=u, items=n, dim=d, k=20, batch=4096),
+                  device_ms=ms, exact_topk_s=seconds, turns=TOPK_TURNS)
+    print("index top-k (lax.top_k's order against torch.topk):", json.dumps(result), flush=True)
+    return result
+
+
+def run_cli(torch, kernels, eu, workdir, card):
+    """Phase 12: ``tpurec_torch.cli.main`` from raw files to serving, with
+    ``TPUREC_PLATFORM`` unset (everything on the card). Each kernel of the
+    path is held to its plain version at the path's shapes: #9 on the first
+    batch of the fused deepfm run (its own step's stream and gradients), #1
+    at the tabular F, #4 and #5 at DIN's key width over the two series.
+    Returns each kernel's launches by path, those checks' records by kernel
+    and the top-k timings."""
+    from tpurec_torch import cli
+    from tpurec_torch.config import ExperimentConfig
+    from tpurec_torch.data import crc32c, native
+    from tpurec_torch.data.loader import ArrayLoader, decode_columnar, load_columnar, shard_paths
+    from tpurec_torch.data.schema import DataInfo
+    from tpurec_torch.serving.export import load_servable
+    from tpurec_torch.train.trainer import Trainer
+
+    with mock.patch.dict(os.environ):
+        os.environ.pop("TPUREC_PLATFORM", None)
+        check(cli.platform_device() == "cuda", "TPUREC_PLATFORM unset must mean the card")
+        t = time.perf_counter()
+        crc32c.build_library()  # raises with the compiler's output if it cannot build
+        build_s = time.perf_counter() - t
+        check(native.native_available(), "the native recordio codec is not in use")
+        sizes = dict(tabular_events=CLI_TABULAR_EVENTS, sequence_events=CLI_SEQUENCE_EVENTS,
+                     seq_len=CLI_SEQ_LEN, batch=TRAIN_BATCH, dim=32, requests_per_path=CLI_REQUESTS)
+        print("cli sizes:", json.dumps(sizes), f"(native codec in use; librecordio built in "
+              f"{build_s:.2f} s)", flush=True)
+        d = {k: os.path.join(workdir, f"cli_{k}") for k in (
+            "raw", "data", "deepfm", "deepfm_fused", "dssm", "index", "index_cpu", "seq_raw",
+            "seq_data", "din")}
+        stages = {}
+
+        def stage(name, argv):
+            t = time.perf_counter()
+            cli.main(argv)
+            stages[name] = time.perf_counter() - t
+
+        stage("synth_tabular", ["synth", "--family", "tabular", "--out", d["raw"],
+                                "--n-events", str(CLI_TABULAR_EVENTS)])
+        stage("datagen_tabular", ["datagen", "--family", "tabular", "--raw", d["raw"], "--out", d["data"]])
+        info = DataInfo.load(d["data"])
+        runs, configs = {}, {}
+        for label, name, fused in (("deepfm", "deepfm", False), ("deepfm_fused", "deepfm", True),
+                                   ("dssm", "dssm_double", False)):
+            configs[label] = cli_config(os.path.join(workdir, f"cli_{label}.json"), name, fused=fused)
+            runs[label] = cli_train(torch, kernels, eu, card, label, [
+                "train", "--config", configs[label], "--data", d["data"], "--workdir", d[label]])
+            stages[f"train_{label}"] = runs[label]["seconds"]
+            check(runs[label]["eval"]["auc"] > 0.6, f"{label}: eval AUC {runs[label]['eval']} after an epoch")
+        for label in ("deepfm", "deepfm_fused"):
+            r = runs[label]
+            check(r["launches"]["fused_scatter_add"] == (2 * r["steps"] if label == "deepfm_fused" else 0),
+                  f"{label}: #9 launched {r['launches']['fused_scatter_add']} times in {r['steps']} steps")
+            check(r["launches"]["fm_second_order"] == r["eval_batches"],
+                  f"{label}: #1 launched {r['launches']['fm_second_order']} times in "
+                  f"{r['eval_batches']} eval batches (and none in training)")
+        check(not any(runs["dssm"]["launches"].values()), f"dssm_double: {runs['dssm']['launches']}")
+        engines = {k: abs(runs["deepfm"]["eval"][k] - runs["deepfm_fused"]["eval"][k]) for k in ("loss", "auc")}
+        print("cli deepfm dense against fused, eval:", json.dumps(dict(engines, limit=CLI_ENGINE_TOL)), flush=True)
+        check(max(engines.values()) <= CLI_ENGINE_TOL, f"deepfm dense and fused end apart: {engines}")
+        # #9 on the fused run's own stream: its first batch, a fresh state
+        with open(configs["deepfm_fused"]) as f:
+            cfg = ExperimentConfig.from_json(f.read())
+        first = next(iter(ArrayLoader(load_columnar(shard_paths(d["data"], "train")), TRAIN_BATCH,
+                                      seed=cfg.train.seed)))
+        scatter = check_step_scatter(torch, eu, Trainer(cfg, info, device="cuda"), first,
+                                     ("cli_deepfm_w", "cli_deepfm_v"), (1, 32))
+        dssm_export, deepfm_export = (os.path.join(d[k], "export") for k in ("dssm", "deepfm"))
+        kernels.reset_launch_counts()
+        stage("index", ["index", "--export", dssm_export, "--data", d["data"], "--out", d["index"],
+                        "--topk", "20"])
+        with mock.patch.dict(os.environ, {"TPUREC_PLATFORM": "cpu"}):
+            stage("index_cpu", ["index", "--export", dssm_export, "--data", d["data"],
+                                "--out", d["index_cpu"], "--topk", "20"])
+        with open(os.path.join(d["data"], "item_profile.json")) as f:
+            item_profile = json.load(f)
+        with open(os.path.join(d["data"], "user_profile.json")) as f:
+            user_profile = json.load(f)
+        slates = compare_slates(read_slates(os.path.join(d["index"], "kv_store.json")),
+                                read_slates(os.path.join(d["index_cpu"], "kv_store.json")), item_profile)
+        print("cli index, card against CPU:", json.dumps(dict(card=card, **slates)), flush=True)
+        topk = topk_ab(torch, card)
+
+        # serving: the deepfm ranker and the dssm_double towers, each an export
+        # served by ``cli serve`` over the same index (a ranker has no tower
+        # for online retrieval, in either package)
+        servers = {}
+        for label, export in (("deepfm", deepfm_export), ("dssm", dssm_export)):
+            servers[label] = cli.build_server(cli.parse_args([
+                "serve", "--export", export, "--data", d["data"], "--index", d["index"], "--port", "0"]))
+        threads = [threading.Thread(target=s.serve_forever, daemon=True) for s in servers.values()]
+        for th in threads:
+            th.start()
+        rng = np.random.default_rng(0)
+        uids = rng.choice(list(user_profile), size=CLI_REQUESTS, replace=False).tolist()
+        iids = list(item_profile)
+
+        def descending(n):
+            def verify(uid, body):
+                scores = list(body["result"].values())
+                check(len(scores) == n and scores == sorted(scores, reverse=True), f"{uid}: {body}")
+            return verify
+
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        try:
+            latency = http_latency(servers["deepfm"].server_address[1], {
+                "retrieve_kv": (lambda u: {"user_id": u, "type": "retrieve", "source": "kv"},
+                                descending(20)),
+                "rank_20": (lambda u: {"user_id": u, "type": "rank",
+                                       "item_ids": rng.choice(iids, 20, replace=False).tolist()},
+                            descending(20)),
+                "rank_200": (lambda u: {"user_id": u, "type": "rank",
+                                        "item_ids": rng.choice(iids, 200, replace=False).tolist()},
+                             descending(200)),
+            }, uids)
+            torch.cuda.synchronize()
+            rank_launches = kernels.fm_second_order_fused.launches
+            latency.update(http_latency(servers["dssm"].server_address[1], {
+                "retrieve_online_top20": (lambda u: {"user_id": u, "type": "retrieve", "topk": 20},
+                                          descending(20)),
+                "rank_from_retrieval": (lambda u: {"user_id": u, "type": "rank", "from_retrieval": True,
+                                                   "topk": 20}, descending(20)),
+            }, uids))
+            stages["serve_requests"] = time.perf_counter() - t
+            torch.cuda.synchronize()
+            serve_launches = path_launches(kernels, eu)
+            # card against CPU: the served ranker on the test shard's first 256 rows
+            test = decode_columnar(shard_paths(d["data"], "test")[:1])
+            rows = {n: test[n][:256] for n in info.feature_names}
+            got = servers["deepfm"].RequestHandlerClass.service.ranker(rows).float().cpu()
+            want = load_servable(deepfm_export, info, device="cpu").rank(rows).float()
+        finally:
+            for s in servers.values():
+                s.shutdown()
+                s.server_close()
+            for th in threads:
+                th.join(timeout=30)
+        n_rank = 2 * (CLI_REQUESTS + 5)
+        check(rank_launches == n_rank == serve_launches["fm_second_order"],
+              f"#1 launched {rank_launches} times for {n_rank} deepfm rank requests "
+              f"({serve_launches['fm_second_order']} after the dssm_double requests)")
+        rank_limit = FM_FAMILY_RTOL * float(got.abs().max())
+        rank_reading = float((got - want).abs().max()) / rank_limit
+        serving = dict(card=card, latency=latency, launches=serve_launches, rank_requests=n_rank,
+                       rank_cpu_256_rows=rank_reading, rank_limit=rank_limit)
+        print("cli serve (reading: error / limit):", json.dumps(serving), flush=True)
+        check(rank_reading <= 1.0, f"served deepfm rank card against CPU: {rank_reading}")
+        fm = check_fm(torch, kernels, shape=(len(info.feature_names), 32))
+
+        stage("synth_sequence", ["synth", "--family", "sequence", "--out", d["seq_raw"],
+                                 "--n-events", str(CLI_SEQUENCE_EVENTS)])
+        stage("datagen_sequence", ["datagen", "--family", "sequence", "--raw", d["seq_raw"],
+                                   "--out", d["seq_data"], "--max-seq-length", str(CLI_SEQ_LEN)])
+        config = cli_config(os.path.join(workdir, "cli_din.json"), "din", epochs=2)
+        din = cli_train(torch, kernels, eu, card, "din", [
+            "train", "--config", config, "--data", d["seq_data"], "--workdir", d["din"]])
+        stages["train_din"] = din["seconds"]
+        losses = din["eval_loss_by_epoch"]
+        check(losses[-1] < losses[0], f"din: the eval loss did not fall over two epochs: {losses}")
+        check(din["launches"]["din_attention_bwd"] == din["steps"],
+              f"din: #5 launched {din['launches']['din_attention_bwd']} times in {din['steps']} steps")
+        check(din["launches"]["din_attention"] == din["steps"] + din["eval_batches"],
+              f"din: #4 launched {din['launches']['din_attention']} times in {din['steps']} steps "
+              f"and {din['eval_batches']} eval batches")
+        # DIN's keys are its series' embeddings side by side
+        din_shape = (TRAIN_BATCH, CLI_SEQ_LEN, 32 * len(DataInfo.load(d["seq_data"]).sequence_names), 36)
+        din_fwd = check_din_forward(torch, kernels, shape=din_shape)
+        din_bwd = check_din_backward(torch, kernels, shape=din_shape)
+    print("cli stage seconds:", json.dumps(dict(card=card, **stages)), flush=True)
+    launches = dict(
+        fm_second_order=dict(cli_deepfm_evaluate=runs["deepfm"]["launches"]["fm_second_order"]
+                             + runs["deepfm_fused"]["launches"]["fm_second_order"],
+                             cli_serve_rank=serve_launches["fm_second_order"]),
+        din_attention=dict(cli_din_training=din["launches"]["din_attention"]),
+        din_attention_bwd=dict(cli_din_training=din["launches"]["din_attention_bwd"]),
+        fused_scatter_add=dict(cli_deepfm_fused_training=runs["deepfm_fused"]["launches"]["fused_scatter_add"]),
+    )
+    key = "x".join(map(str, din_shape))
+    checks = dict(fm_second_order={f"cli_f{len(info.feature_names)}": fm},
+                  din_attention={f"cli_din_{key}": din_fwd}, din_attention_bwd={f"cli_din_{key}": din_bwd},
+                  fused_scatter_add=scatter)
+    return launches, checks, topk
+
+
+def ok_line(torch) -> dict:
+    return {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                   "count": torch.cuda.device_count()}}
 
 
 def main() -> int:
@@ -3441,6 +3961,27 @@ def main() -> int:
             run_dcn_rest(torch, eu, workdir, smi)
         print("phase seconds:", json.dumps({"11_dcn_rest": time.perf_counter() - t}), flush=True)
         return 0
+    if sys.argv[1:] == ["--cli"]:
+        # phase 12 alone: the CLI journey (its kernels are #1, #4, #5 and #9)
+        from tpurec_torch.ops import embedding_update as eu
+
+        t = time.perf_counter()
+        kernels.build(["fm_second_order", "din_attention", "din_attention_bwd", "embedding_update"])
+        print(f"built in {time.perf_counter() - t:.1f} s", flush=True)
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR.parent) as workdir:
+            cli_launches, cli_checks, _ = run_cli(torch, kernels, eu, workdir, smi)
+        print("phase seconds:", json.dumps({"12_cli": time.perf_counter() - t}), flush=True)
+        print(json.dumps({"card": smi, "cli_launches_by_path": cli_launches, "cli_checks": cli_checks}),
+              flush=True)
+        print(json.dumps(ok_line(torch)), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--din-bwd-ab"] and len(sys.argv) == 3:
+        # kernel #5 of another checkout (a git archive of the parent commit)
+        # against this one's, alternating
+        kernels.build(["din_attention_bwd"])
+        din_bwd_ab(torch, kernels, sys.argv[2])
+        return 0
     if sys.argv[1:] == ["--din-bwd"]:
         # kernel #5 alone: phase 6's kernel checks, with the split and B=1024
         paths = kernels.build(["din_attention_bwd"])
@@ -3487,22 +4028,31 @@ def main() -> int:
         fm_family_scatter, fm_family_launches = timed("10_fm_family", run_fm_family, torch, eu,
                                                       workdir, smi)
         nfm_scatter, dcn_rest_launches = timed("11_dcn_rest", run_dcn_rest, torch, eu, workdir, smi)
+        cli_launches, cli_checks, _ = timed("12_cli", run_cli, torch, kernels, eu, workdir, smi)
     print("phase seconds:", json.dumps(seconds), flush=True)
     # a kernel on several paths: its launches are their sum
+    fm_paths = dict(http_rank=records["fm_second_order"]["launches"], **cli_launches["fm_second_order"])
+    records["fm_second_order"]["launches"] = sum(fm_paths.values())
+    records["fm_second_order"]["launches_by_path"] = fm_paths
+    # phase 12's checks at its own shapes sit beside each kernel's others
+    for name in ("fm_second_order", "din_attention", "din_attention_bwd"):
+        records[name].setdefault("other_shapes", {}).update(cli_checks[name])
     forward_paths = dict(din_serving=serve_launches, din_training=train_launches,
-                         din_fused_training=din_fused["din_attention"])
+                         din_fused_training=din_fused["din_attention"], **cli_launches["din_attention"])
     records["din_attention"]["launches"] = sum(forward_paths.values())
     records["din_attention"]["launches_by_path"] = forward_paths
-    bwd_paths = dict(din_training=bwd_launches, din_fused_training=din_fused["din_attention_bwd"])
+    bwd_paths = dict(din_training=bwd_launches, din_fused_training=din_fused["din_attention_bwd"],
+                     **cli_launches["din_attention_bwd"])
     records["din_attention_bwd"]["launches"] = sum(bwd_paths.values())
     records["din_attention_bwd"]["launches_by_path"] = bwd_paths
     scatter_paths = dict(fm_fused_training=fm_scatter_launches,
                          din_fused_training=din_fused["fused_scatter_add"], **fm_family_launches,
-                         **dcn_rest_launches)
+                         **dcn_rest_launches, **cli_launches["fused_scatter_add"])
     records["fused_scatter_add"] = dict(embedding["fm_v"], launches=sum(scatter_paths.values()),
                                         launches_by_path=scatter_paths,
                                         other_shapes=dict(fm_w=embedding["fm_w"], din=embedding["din"],
-                                                          **fm_family_scatter, **nfm_scatter))
+                                                          **fm_family_scatter, **nfm_scatter,
+                                                          **cli_checks["fused_scatter_add"]))
     # #10 is on no training path, in either package: checked and timed alone
     records["gather_rows_sorted"] = dict(embedding["gather"], launches=0, launches_by_path={})
     for name, rec in dcn_records.items():
@@ -3517,11 +4067,7 @@ def main() -> int:
                                           launches_by_path=dict(mind_train_steps=0))
 
     print(json.dumps({"card": smi, "kernels": list(records.values())}), flush=True)
-    print(json.dumps({
-        "ok": True,
-        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                   "count": torch.cuda.device_count()},
-    }), flush=True)
+    print(json.dumps(ok_line(torch)), flush=True)
     return 0
 
 

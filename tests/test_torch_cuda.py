@@ -193,6 +193,38 @@ def test_din_attention_bwd_kernel_matches_plain(card, b, l, d, h, with_alpha, ho
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64])
+def test_din_attention_bwd_kernel_takes_the_kinks_side(card, d):
+    """Where lin = (the activation unit's pre-activation) lies a hair from
+    PReLU's kink, the slope's side decides a whole g·w2·(1 − alpha) of dkeys
+    and dq. Each of the 36 columns gets one live step at ±1e-6 from the
+    kink (b1 shifted so); the kernel's gradients must equal the plain
+    version's in fp64 there (fp32's rounding of lin is ~1e-7)."""
+    from tpurec_torch.ops import kernels
+
+    b, l, h = 512, 64, 36
+    args = _din_args(card, b, l, d, h, True, seed=7)
+    q, k, m, w1, b1 = [t.double() for t in args[:5]]
+    lin = k @ (w1[2 * d:3 * d] - w1[d:2 * d]) + (q[:, None] * k) @ w1[3 * d:] \
+        + (q @ (w1[:d] + w1[d:2 * d]))[:, None] + b1
+    live = m.nonzero().cpu().numpy()
+    rng = np.random.default_rng(8)
+    for col, (r, s) in enumerate(live[rng.choice(len(live), size=h, replace=False)]):
+        b1[col] -= lin[r, s, col] - (1e-6 if col % 2 else -1e-6)
+    args[4] = b1.float()
+    gen = torch.Generator(card).manual_seed(9)
+    grads = [torch.randn(b, d, device=card, generator=gen), torch.randn(b, l, device=card, generator=gen)]
+    got = kernels.din_attention_bwd_fused(*args, *grads)
+    want = [w.float() for w in kernels.din_attention_bwd_plain(
+        *[t.double() for t in args], *[g.double() for g in grads])]
+    names = ("dq", "dkeys", "dw1", "db1", "dw2", "dalpha")
+    for name, g, w in zip(names[:2], got[:2], want[:2]):
+        torch.testing.assert_close(g, w, **TOL, msg=name)
+    for name, g, w in zip(names[2:], got[2:], want[2:]):
+        _assert_close_scaled(g, w, what=name)
+
+
+@pytest.mark.cuda
 def test_din_attention_autograd_on_card_matches_cpu(card):
     """``DinAttention`` on the card (both kernels) against the same inputs on
     the CPU (the plain versions)."""
@@ -1213,3 +1245,18 @@ def test_nfm_fused_step_on_card_matches_cpu(card):
     for buf in ("running_mean", "running_var"):
         torch.testing.assert_close(getattr(states[0].model.bn, buf).cpu(), getattr(states[1].model.bn, buf),
                                    atol=1e-6, rtol=0, msg=buf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(300,), (7, 5, 40), (64, 20000)])
+def test_top_k_tie_order_on_the_card_equals_the_cpu(card, shape):
+    """``top_k`` keeps ``lax.top_k``'s order (the lower index first among
+    equal values) on the card as on the CPU, where the tests hold it to JAX;
+    the (64, 20000) case is a slice of the index build's shape."""
+    from tpurec_torch.ops.topk import top_k
+
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, 6, size=shape).astype(np.float32))
+    for k in (1, 5, 20):
+        want_v, want_i = top_k(x, k)
+        got_v, got_i = top_k(x.to(card), k)
+        assert torch.equal(got_i.cpu(), want_i) and torch.equal(got_v.cpu(), want_v), k

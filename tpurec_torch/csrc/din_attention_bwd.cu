@@ -60,6 +60,19 @@
 //   in another operand layout.
 // - The next tile's keys, mask and gs are loaded into registers while this
 //   tile computes, and the next row's first tile and q, gp with the last.
+// - The kink. 3xTF32 products with the tensor cores' truncating fp32
+//   accumulation leave lin ~2^-18 |k| |W_eff| off, eight times fp32's
+//   error, so where lin lies that close to 0 PReLU's slope can take the
+//   other side from an fp32 reference: at key width 64 and B=8192 a row or
+//   two a batch, each off by a whole g w2 (1 - alpha) in dkeys and dq. An
+//   x = lin + c within 2^-14 max_l |k_l| |W_eff[:, h]| + 2^-16 (sum_d
+//   |q_d w_q[d, h]| + |b1[h]|) of 0 (max over the tile's 16 steps; some
+//   1e-4 of the elements) is taken again in fp64 from the keys tile and the
+//   block's fp32 weights, x = b1 + sum_d k_d (w_k + q_d w_p) + q_d w_q: the
+//   slope then agrees with any fp32 evaluation but where fp32's own
+//   rounding crosses the kink. The lanes vote once a tile and the flagged
+//   x go through one fp64 loop; the test and the branch cost the common
+//   path time (PERF.md, the kernel table's #5).
 // - Even work: pass 2 cuts the rows into contiguous ranges of equal work,
 //   one a warp (live tiles per row vary 1 to 4 at the training shape; a
 //   grid-stride walk left the slowest warp well above the mean).
@@ -80,6 +93,9 @@ namespace {
 constexpr int kMaxWarps = 8;
 constexpr int kReduceThreads = 256;
 constexpr int kMaxSmemBytes = 232448;  // Hopper's per-block limit (227 KB)
+// the kink's margin: 2^-14 of |k| |W_eff[:, h]|, 2^-16 of c's absolute sum
+constexpr float kKinkK = 6.103515625e-05f;
+constexpr float kKinkC = 1.52587890625e-05f;
 
 // n-tiles of 8 columns the kernel is built for: H is padded up to the next
 __host__ __device__ inline int nt_for(int H) {
@@ -101,10 +117,12 @@ __host__ __device__ inline int nt_for(int H) {
 //   acc: the running a, k and p in C-fragment order, [3][DM/16][NT][32][4]
 //   c, and the block's db1, dw2, dalpha (Hp each)
 //   q, gp (D each); g, mask of the tile (16 each)
+//   |W_eff[:, h]| and sum_d |q_d w_q[d, h]| + |b1[h]| (Hp each), the kink's
+//   margin
 __host__ __device__ constexpr int pad16(int d) { return (d + 15) & ~15; }
 __host__ __device__ constexpr int const_floats(int D, int Hp) { return 3 * D * Hp + 2 * pad16(D) * Hp + 3 * Hp; }
 __host__ __device__ constexpr int warp_floats(int D, int Hp) {
-  return 16 * (D + 4) + 16 * (Hp + 4) + 2 * D * Hp + 3 * pad16(D) * Hp + 4 * Hp + 2 * D + 32;
+  return 16 * (D + 4) + 16 * (Hp + 4) + 2 * D * Hp + 3 * pad16(D) * Hp + 4 * Hp + 2 * D + 32 + 2 * Hp;
 }
 
 // x = hi + lo, both TF32. hi is x rounded to nearest, ties away from zero
@@ -141,6 +159,23 @@ __device__ __forceinline__ float warp_sum_rows(float v) {  // over gid (lane bit
 __device__ __forceinline__ float quad_sum(float v) {  // over tig (lane bits 0-1)
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// x = lin + c of step s (a row of the keys tile) and column h in fp64, from
+// the block's fp32 w_k, w_p (wkp) and w_q (wqf), the same fp32 values the
+// unfolded weights take: for a lane whose x lies near PReLU's kink.
+template <int D, int NT>
+__device__ __forceinline__ float exact_x(const float* kt_s, const float* q_s, const float* wkp, const float* wqf,
+                                         float b1h, int s, int h) {
+  double x = b1h;
+#pragma unroll 1
+  for (int d = 0; d < D; ++d) {
+    const int i = ((d >> 3) * NT + (h >> 3)) * 32 + ((h & 7) << 2) + (d & 3), e = (d >> 2) & 1;
+    const double k = kt_s[s * (D + 4) + d], q = q_s[d];
+    x += k * (static_cast<double>(wkp[4 * i + e]) + q * static_cast<double>(wkp[4 * i + 2 + e])) +
+         q * static_cast<double>(wqf[2 * i + e]);
+  }
+  return static_cast<float>(x);
 }
 
 // Pass 3, the main pass: a warp a row at a time over its range of rows.
@@ -191,6 +226,8 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) din_attention_bwd_kernel(
   float* gp_s = q_s + D;
   float* g_s = gp_s + D;
   float* m_s = g_s + 16;
+  float* wn_s = m_s + 16;
+  float* ca_s = wn_s + Hp;
 
   // this warp's rows
   const int r0 = __ldg(starts + blockIdx.x * warps + warp), r1 = __ldg(starts + blockIdx.x * warps + warp + 1);
@@ -288,9 +325,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) din_attention_bwd_kernel(
     // the row's W_eff = w_k + diag(q) w_p in TF32 parts, and c = q.w_q + b1
     // (lane sums over d = 8 kt + tig (+4), then over tig)
     if (tiles > 0) {
-      float cq[NT];
+      float cq[NT], ca[NT], wn[NT];
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) cq[nt] = 0.f;
+      for (int nt = 0; nt < NT; ++nt) cq[nt] = ca[nt] = wn[nt] = 0.f;
 #pragma unroll
       for (int kt = 0; kt < KT; ++kt) {
         const float qa = q_s[8 * kt + tig], qb = q_s[8 * kt + tig + 4];
@@ -300,17 +337,25 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) din_attention_bwd_kernel(
           const float4 w = reinterpret_cast<const float4*>(wkp)[i];
           const float2 wq = reinterpret_cast<const float2*>(wqf)[i];
           uint32_t h0, l0, h1, l1;
-          split(fmaf(qa, w.z, w.x), h0, l0);
-          split(fmaf(qb, w.w, w.y), h1, l1);
+          const float e0 = fmaf(qa, w.z, w.x), e1 = fmaf(qb, w.w, w.y);
+          split(e0, h0, l0);
+          split(e1, h1, l1);
           reinterpret_cast<float4*>(weff)[i] =
               make_float4(__uint_as_float(h0), __uint_as_float(h1), __uint_as_float(l0), __uint_as_float(l1));
           cq[nt] = fmaf(qa, wq.x, fmaf(qb, wq.y, cq[nt]));
+          ca[nt] += fabsf(qa * wq.x) + fabsf(qb * wq.y);
+          wn[nt] = fmaf(e0, e0, fmaf(e1, e1, wn[nt]));
         }
       }
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        const float c = quad_sum(cq[nt]);
-        if (tig == 0) c_s[8 * nt + gid] = c + b1_s[8 * nt + gid];
+        const float c = quad_sum(cq[nt]), a = quad_sum(ca[nt]), n = quad_sum(wn[nt]);
+        if (tig == 0) {
+          const int h = 8 * nt + gid;
+          c_s[h] = c + b1_s[h];
+          ca_s[h] = a + fabsf(b1_s[h]);
+          wn_s[h] = sqrtf(n);
+        }
       }
     }
     // M = sum_l k_l (x) dlin_l over the row, in C fragments (rows d, columns h)
@@ -343,17 +388,24 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) din_attention_bwd_kernel(
       } else if (row + 1 < r1) {
         fetch_row(row + 1);
       }
-      {  // g = (gs + gp.k) mask: two lanes a step
+      float kmax;  // 2^-14 of the tile's largest |k_l|
+      {  // g = (gs + gp.k) mask and |k|: two lanes a step
         const int r = lane >> 1, half = lane & 1;
         const float4* kr = reinterpret_cast<const float4*>(kt_s + r * SK + half * (D / 2));
         const float4* gp4 = reinterpret_cast<const float4*>(gp_s + half * (D / 2));
-        float dot = 0.f;
+        float dot = 0.f, sq = 0.f;
 #pragma unroll
         for (int v = 0; v < D / 8; ++v) {
           const float4 k = kr[v], p = gp4[v];
           dot = fmaf(p.w, k.w, fmaf(p.z, k.z, fmaf(p.y, k.y, fmaf(p.x, k.x, dot))));
+          sq = fmaf(k.w, k.w, fmaf(k.z, k.z, fmaf(k.y, k.y, fmaf(k.x, k.x, sq))));
         }
         dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+        sq += __shfl_xor_sync(0xffffffffu, sq, 1);
+        sq = fmaxf(sq, __shfl_xor_sync(0xffffffffu, sq, 2));
+        sq = fmaxf(sq, __shfl_xor_sync(0xffffffffu, sq, 4));
+        sq = fmaxf(sq, __shfl_xor_sync(0xffffffffu, sq, 8));
+        kmax = kKinkK * sqrtf(fmaxf(sq, __shfl_xor_sync(0xffffffffu, sq, 16)));
         __syncwarp();
         if (!half) g_s[r] = (g_s[r] + dot) * m_s[r];
       }
@@ -383,23 +435,60 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) din_attention_bwd_kernel(
         }
       }
       __syncwarp();
+      // x = lin + c in place; a lane flags the x near the kink (bit 4 nt +
+      // 2 r + cc) and, where any lane has one, the warp takes those in fp64
+      uint64_t near = 0;  // 4 NT <= 64 bits
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float2 c2 = *reinterpret_cast<const float2*>(c_s + 8 * nt + 2 * tig);
+        const float2 wn2 = *reinterpret_cast<const float2*>(wn_s + 8 * nt + 2 * tig);
+        const float2 ca2 = *reinterpret_cast<const float2*>(ca_s + 8 * nt + 2 * tig);
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const float c = cc ? c2.y : c2.x, wnh = cc ? wn2.y : wn2.x, cah = kKinkC * (cc ? ca2.y : ca2.x);
+          const float tau = 8 * nt + 2 * tig + cc < H ? fmaf(kmax, wnh, cah) : -1.f;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float& x = lin[nt][2 * r + cc];
+            x += c;
+            if (fabsf(x) <= tau) near |= 1ull << (4 * nt + 2 * r + cc);
+          }
+        }
+      }
+      if (__any_sync(0xffffffffu, near != 0)) {
+        // each flagged x in fp64 into the dlin tile at its place (free until
+        // the activation writes it; a lane's places are its own), then back
+        for (uint64_t m = near; m != 0; m &= m - 1) {
+          const int b = __ffsll(static_cast<long long>(m)) - 1, e = b & 3;
+          const int h = 8 * (b >> 2) + 2 * tig + (e & 1), st = gid + 8 * (e >> 1);
+          dl_s[st * SD + h] = exact_x<D, NT>(kt_s, q_s, wkp, wqf, b1_s[h], st, h);
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (near & (1ull << (4 * nt + e))) {
+              lin[nt][e] = dl_s[(gid + 8 * (e >> 1)) * SD + 8 * nt + 2 * tig + (e & 1)];
+            }
+          }
+        }
+      }
       // the activation in registers: dlin to the dlin tile, the score, and
       // this lane's column sums (reduced once a row, or once a block)
       const float g0 = g_s[gid], g1 = g_s[gid + 8];
       float s0 = 0.f, s1 = 0.f;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        const float2 c2 = *reinterpret_cast<const float2*>(c_s + 8 * nt + 2 * tig);
         const float2 w2v = *reinterpret_cast<const float2*>(w2_s + 8 * nt + 2 * tig);
         const float2 a2 = *reinterpret_cast<const float2*>(al_s + 8 * nt + 2 * tig);
 #pragma unroll
         for (int cc = 0; cc < 2; ++cc) {
           const int h = 8 * nt + 2 * tig + cc;
-          const float c = cc ? c2.y : c2.x, w = cc ? w2v.y : w2v.x, a = cc ? a2.y : a2.x;
+          const float w = cc ? w2v.y : w2v.x, a = cc ? a2.y : a2.x;
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
             const float g = r ? g1 : g0;
-            const float x = lin[nt][2 * r + cc] + c;
+            const float x = lin[nt][2 * r + cc];
             const float neg = fminf(x, 0.f);
             const float hv = fmaxf(x, 0.f) + a * neg;
             const float slope = x > 0.f ? 1.f : (x < 0.f ? a : 0.f);

@@ -1,8 +1,9 @@
 """Feature-space schema: the shared offset-encoded id space (counterpart of
 ``tpurec/data/schema.py``, same files and JSON layout).
 
-- ``data_info.json`` = [feature_dims, feature_offsets, total_dims]
-- ``schema.json``    = every ``DataInfo`` field
+- ``data_info.json``    = [feature_dims, feature_offsets, total_dims]
+- ``schema.json``       = every ``DataInfo`` field
+- ``feature_dict.json`` = {column: {raw_value: encoded_id}} (``FeatureEncoder``)
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ import dataclasses
 import json
 import os
 from dataclasses import dataclass, field
-from typing import List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 
 @dataclass
@@ -73,3 +74,47 @@ class DataInfo:
 
     def offset_of(self, name: str) -> int:
         return self.feature_offsets[self.feature_names.index(name)]
+
+    def dim_of(self, name: str) -> int:
+        return self.feature_dims[self.feature_names.index(name)]
+
+
+class FeatureEncoder:
+    """Label-encoder with the global offset scheme: ``fit`` gives each column
+    ids in the sorted order of ``str(value)`` (so "10" sorts before "2"),
+    then lays the columns out with cumulative offsets, which ``recorder``
+    holds (the layout of ``feature_dict.json``)."""
+
+    def __init__(self, columns: Sequence[str]):
+        self.columns = list(columns)
+        self.recorder: Dict[str, Dict[str, int]] = {}
+        self.info: Optional[DataInfo] = None
+
+    def fit(self, values_per_column: Dict[str, Sequence]) -> DataInfo:
+        dims = []
+        self.recorder = {}
+        for col in self.columns:
+            uniques = sorted({str(v) for v in values_per_column[col]})
+            dims.append(len(uniques))
+            self.recorder[col] = {v: i for i, v in enumerate(uniques)}
+        self.info = DataInfo.from_dims(self.columns, dims)
+        # fold the offsets into the recorder (the global id space)
+        for col, offset in zip(self.columns, self.info.feature_offsets):
+            self.recorder[col] = {v: i + offset for v, i in self.recorder[col].items()}
+        return self.info
+
+    def encode(self, column: str, value) -> int:
+        return self.recorder[column][str(value)]
+
+    def save(self, output_dir: str) -> None:
+        os.makedirs(output_dir, exist_ok=True)
+        with open(os.path.join(output_dir, "feature_dict.json"), "w") as f:
+            json.dump(self.recorder, f)
+
+    @staticmethod
+    def load(output_dir: str) -> "FeatureEncoder":
+        with open(os.path.join(output_dir, "feature_dict.json")) as f:
+            recorder = json.load(f)
+        enc = FeatureEncoder(list(recorder))
+        enc.recorder = recorder
+        return enc

@@ -32,6 +32,7 @@ from tpurec_torch.models.base import Inputs, Outputs, embed_series, stack_ids
 from tpurec_torch.ops.capsule import CapsuleRouting, LabelAwareAttention
 from tpurec_torch.ops.mlp import MLP, Dense
 from tpurec_torch.ops.sequence import sinusoidal_positions
+from tpurec_torch.ops.topk import top_k
 
 
 @contextlib.contextmanager
@@ -324,7 +325,7 @@ class SINE(_RetrievalBase):
         w_mask = mask[..., None].to(behavior.dtype)
         summary = (behavior * w_mask).sum(dim=1) / w_mask.sum(dim=1).clamp_min(1.0)
         act = summary.to(f32) @ pool.to(f32).T
-        topk_val, topk_idx = torch.topk(act, self.num_active, dim=-1)
+        topk_val, topk_idx = top_k(act, self.num_active)
         active = pool[topk_idx] * torch.sigmoid(topk_val)[..., None].to(pool.dtype)  # (B, K, D)
         assign = torch.einsum("bld,bkd->blk", behavior.to(f32), active.to(f32))
         p_lk = torch.softmax(torch.where(live[:, :, None], assign, -1e9), dim=-1)

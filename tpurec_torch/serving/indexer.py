@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from tpurec_torch.device import DeviceLike, resolve_device
+from tpurec_torch.ops.topk import top_k
 from tpurec_torch.serving.kvstore import DictKVStore
 
 
@@ -32,7 +33,8 @@ def exact_topk(
     device: DeviceLike = "cuda",
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Exact cosine (or inner-product) top-k: one fp32 matmul and
-    ``torch.topk`` per query batch on ``device``. Returns
+    ``top_k`` (the lower index first among equal scores, as ``lax.top_k``)
+    per query batch on ``device``. Returns
     (indices (Q, k), scores (Q, k)) as numpy."""
     dev = resolve_device(device)
     corpus = torch.as_tensor(np.asarray(corpus), dtype=torch.float32, device=dev)
@@ -48,7 +50,7 @@ def exact_topk(
             )
             if normalize:
                 q = l2_normalize(q)
-            vals, idx = torch.topk(q @ corpus.T, k, dim=1)
+            vals, idx = top_k(q @ corpus.T, k)
             all_idx.append(idx.cpu().numpy())
             all_val.append(vals.cpu().numpy())
     return np.concatenate(all_idx), np.concatenate(all_val)

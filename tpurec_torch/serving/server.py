@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from tpurec_torch.device import DeviceLike, resolve_device
+from tpurec_torch.ops.topk import top_k
 from tpurec_torch.serving.diversity import greedy_slates
 from tpurec_torch.serving.indexer import l2_normalize
 from tpurec_torch.serving.kvstore import DictKVStore
@@ -108,7 +109,7 @@ class RecommendService:
                 idx, vals = greedy_slates(scores[None], self._cats, topk, diversity_weight)
                 idx, vals = idx[0], vals[0]
             else:
-                vals, idx = torch.topk(scores.max(dim=0).values, topk)
+                vals, idx = top_k(scores.max(dim=0).values, topk)
         idx, vals = idx.cpu().numpy(), vals.cpu().numpy()
         return {self.item_ids[j]: float(s) for j, s in zip(idx, vals)}
 
