@@ -17,6 +17,7 @@
     python3 chip_smoke.py --fm-family # phase 10 alone (the FM family and MatrixCF)
     python3 chip_smoke.py --dcn-rest  # phase 11 alone (the rest of the DCN family)
     python3 chip_smoke.py --cli       # phase 12 alone (raw files to serving through the CLI)
+    python3 chip_smoke.py --multitask # phase 13 alone (the multi-task and personalization families)
 
 Needs one CUDA card and ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``); ``triton``
 only for ``--fm-ab`` and ``--cross-ab`` against a parent whose #1 and #2
@@ -305,6 +306,27 @@ checkout and exits non-zero on the first phase that fails. Phases:
       falling; #4 and #5 held to their plain versions at (8192, 64, 64, 36)
       with phase 3's and phase 6's readings, broken versions and times.
     Phase 12's checks sit under ``other_shapes`` of each kernel's entry.
+
+13. the multi-task and personalization families, random seeded weights,
+    B=8192, D=32, bf16 dense compute, fp32 params, Adam lr 1e-3 eps 1e-7,
+    at the registry's widths (4 experts of (64, 32), towers (32,), PLE and
+    FDN 2 levels of 2 experts a task), over phase 10's ``wide_and_deep``
+    schema (2,080,128 rows, 13 continuous columns) with multi-task labels
+    drawn from the seed (``multitask_batch``); ``--multitask`` runs this
+    phase alone:
+    - 13a: mmoe, esmm, ple, poso_mmoe, pepnet (``multi_task``), esm2,
+      escm2, fdn (``model_loss``) and poso_mlp, poso_mha (``bce``) 10
+      dense steps each as phase 10c (no launch of #9), then
+      ``Trainer.infer`` at B=8192 (p50 of 20; finite probabilities) and
+      ``evaluate`` over two batches;
+    - 13b: mmoe and poso_mmoe 10 ``fused_adam`` steps (#9 once a step: one
+      table; POSO's second lookup of the gate field adds no ids), #9 on
+      each model's own stream (``check_step_scatter``), the fp32 fused step
+      against the dense one (``fused_vs_dense``);
+    - 13c: ``cli synth``/``datagen --family impression`` (200,000 events),
+      ``cli train`` of mmoe and escm2 (lr 1e-2, two epochs) with export:
+      both AUCs above 0.5, their gap to ``oracle.npz``'s ceilings and the
+      stage seconds recorded.
 
 TF32 is off for the whole run (``allow_tf32 = False`` for matmul and
 cuDNN), so every fp32 comparison is fp32 on both sides.
@@ -3180,17 +3202,19 @@ def fm_family_config(case, mode="dense", dtype="bfloat16", **train):
 
 
 def experiment_config(name, params, dim, mode="dense", dtype="bfloat16", **train):
-    """bce, Adam lr 1e-3 eps 1e-7 at B=8192; ``mode`` 'dense', 'fused'
-    (fused_adam) or 'sparse' (rowwise_adam)."""
+    """bce (unless ``train`` sets ``loss``), Adam lr 1e-3 eps 1e-7 at
+    B=8192; ``mode`` 'dense', 'fused' (fused_adam) or 'sparse'
+    (rowwise_adam)."""
     from tpurec_torch.config import (
         EmbeddingConfig, ExperimentConfig, ModelConfig, OptimizerConfig, TrainConfig,
     )
 
     emb_opt = dict(dense="adam", fused="fused_adam", sparse="rowwise_adam")[mode]
+    train.setdefault("loss", "bce")
     return ExperimentConfig(
         model=ModelConfig(name=name, params=dict(params), embedding=EmbeddingConfig(dim=dim)),
         train=TrainConfig(
-            batch_size=TRAIN_BATCH, loss="bce", log_every_steps=0, compute_dtype=dtype,
+            batch_size=TRAIN_BATCH, log_every_steps=0, compute_dtype=dtype,
             sparse_embedding=mode != "dense",
             optimizer=OptimizerConfig(learning_rate=1e-3, eps=1e-7, embedding_optimizer=emb_opt),
             **train,
@@ -3300,15 +3324,17 @@ def run_fm_family_training(torch, eu, card, case, mode="dense"):
                         fm_family_info(FM_FAMILY[case][3]), mode)
 
 
-def run_training(torch, eu, card, case, config, info, mode="dense"):
-    """FM_FAMILY_STEPS steps of ``config`` on the fixed seed-1 batch:
-    losses finite and falling; step p50, examples/s, peak memory, and a
-    profiler summary of 3 more steps. Returns (#9's launches in the steps,
-    result)."""
+def run_training(torch, eu, card, case, config, info, mode="dense", batch=None, extra=None):
+    """FM_FAMILY_STEPS steps of ``config`` on a fixed batch (the seed-1
+    ``fm_family_batch`` unless ``batch`` is given): losses finite and
+    falling; step p50, examples/s, peak memory, and a profiler summary of 3
+    more steps; ``extra(trainer, state)`` adds its dict to the result.
+    Returns (#9's launches in the steps, result)."""
     from tpurec_torch.ops import kernels
     from tpurec_torch.train.trainer import Trainer
 
-    batch = fm_family_batch(info, TRAIN_BATCH, seed=1)
+    if batch is None:
+        batch = fm_family_batch(info, TRAIN_BATCH, seed=1)
     gc.collect()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
@@ -3335,6 +3361,8 @@ def run_training(torch, eu, card, case, config, info, mode="dense"):
     busy_ms, top_ops = profile_steps(torch, step, steps=3)
     result.update(device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / step_ms,
                   top_ops_ms=top_ops)
+    if extra is not None:
+        result.update(extra(trainer, state))
     print(f"{case} {mode} training:", json.dumps(result), flush=True)
     check(all(np.isfinite(losses)), f"{case} {mode}: non-finite training loss: {losses}")
     check(losses[-1] < losses[0], f"{case} {mode}: the loss did not fall in {FM_FAMILY_STEPS} steps: {losses}")
@@ -3862,6 +3890,180 @@ def run_cli(torch, kernels, eu, workdir, card):
     return launches, checks, topk
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the multi-task and personalization families
+MULTITASK = {
+    # case: (registry name, loss); the registry's widths at D=32: 4 experts
+    # of (64, 32), towers (32,), PLE and FDN 2 levels of 2 experts a task
+    "mmoe": ("mmoe", "multi_task"),
+    "esmm": ("esmm", "multi_task"),
+    "ple": ("ple", "multi_task"),
+    "esm2": ("esm2", "model_loss"),
+    "escm2": ("escm2", "model_loss"),
+    "fdn": ("fdn", "model_loss"),
+    "poso_mlp": ("poso_mlp", "bce"),
+    "poso_mha": ("poso_mha", "bce"),
+    "poso_mmoe": ("poso_mmoe", "multi_task"),
+    "pepnet": ("pepnet", "multi_task"),
+}
+MT_FUSED = ("mmoe", "poso_mmoe")
+MT_TABLES = ("emb.embedding",)
+MT_INFER_RUNS = 22  # Trainer.infer p50 over the last 20
+MT_CLI_EVENTS = 200_000
+# the impression runs of ``cli train``: at lr 1e-3 an epoch of ~20 B=8192
+# steps leaves both AUCs near 0.5, so lr 1e-2 over two epochs
+MT_CLI_EPOCHS = 2
+MT_CLI_RUNS = {"mmoe": "multi_task", "escm2": "model_loss"}
+
+
+def multitask_config(case, mode="dense", dtype="bfloat16"):
+    """The case's registry model at D=32 with its loss; ``model_loss``
+    models report ``ctr_auc``/``cvr_auc``."""
+    name, loss = MULTITASK[case]
+    metrics = ("ctr_auc", "cvr_auc") if loss == "model_loss" else ()
+    return experiment_config(name, {}, 32, mode, dtype, loss=loss, metrics=metrics)
+
+
+def multitask_batch(info, batch_size, seed):
+    """``fm_family_batch`` with the multi-task labels drawn from the seed: a
+    click ``ctr`` (p 0.3), a conversion ``cvr`` only where ``ctr`` = 1
+    (p 0.3), and the chain as ``make_impression_log_raw(full_chain=True)``
+    labels it: given a click exactly one of {cart, collect, none}, the
+    order (= ``cvr``) below it and the payment below the order (p 0.7)."""
+    batch = fm_family_batch(info, batch_size, seed)
+    rng = np.random.default_rng(seed + 2000)
+    click = rng.random(batch_size) < 0.3
+    branch = rng.integers(0, 3, size=batch_size)
+    order = click & (rng.random(batch_size) < 0.3)
+    pay = order & (rng.random(batch_size) < 0.7)
+    labels = dict(ctr=click, cvr=order, click=click, cart=click & (branch == 0),
+                  collect=click & (branch == 1), none=click & (branch == 2), order=order, pay=pay)
+    batch.update({k: v.astype(np.float32) for k, v in labels.items()})
+    return batch
+
+
+def multitask_extra(case, batch, eval_batches):
+    """After a model's training steps: ``Trainer.infer`` at B=8192 (eval
+    mode; p50 of the last 20 of ``MT_INFER_RUNS``, host clock, the copy to
+    the card and back included) with every ``*_output`` a finite
+    probability, and ``evaluate`` over ``eval_batches`` with finite metrics
+    and its selection metric (mean AUC for two tasks)."""
+
+    def extra(trainer, state):
+        times = []
+        for _ in range(MT_INFER_RUNS):
+            t0 = time.perf_counter()
+            outputs = trainer.infer(state, batch)
+            times.append((time.perf_counter() - t0) * 1e3)
+        probs = {k: v for k, v in outputs.items() if k.endswith("output")}
+        check(bool(probs) and all(v.shape == (TRAIN_BATCH,) and bool(np.isfinite(v).all())
+                                  and bool(((v >= 0) & (v <= 1)).all()) for v in probs.values()),
+              f"{case}: infer outputs are not finite probabilities: {sorted(probs)}")
+        evaluation = trainer.evaluate(state, eval_batches)
+        check(all(np.isfinite(v) for v in evaluation.values()), f"{case}: evaluate {evaluation}")
+        p50 = statistics.median(times[2:])
+        return dict(infer_p50_ms=p50, infer_examples_per_s=TRAIN_BATCH / (p50 / 1e3),
+                    infer_outputs=sorted(probs), evaluate=evaluation,
+                    selection_metric=trainer._selection_metric(evaluation))
+
+    return extra
+
+
+def run_multitask_fused(torch, eu, card, info, batch):
+    """Phase 13b: mmoe and poso_mmoe ``FM_FAMILY_STEPS`` bf16 steps on the
+    fused engine (#9 once per table a step), #9 on each model's own stream
+    (``check_step_scatter``), and each model's fp32 fused step against its
+    dense step (``fused_vs_dense``). Returns (#9's records, launches by
+    path)."""
+    from tpurec_torch.train.trainer import Trainer
+
+    records, launches = {}, {}
+    for case in MT_FUSED:
+        fused, _ = run_training(torch, eu, card, case, multitask_config(case, "fused"), info, "fused",
+                                batch=batch)
+        check(fused == len(MT_TABLES) * FM_FAMILY_STEPS,
+              f"the fused {case} step did not launch #9 once per table a step: {fused}")
+        launches[f"{case}_fused_training"] = fused
+        records.update(check_step_scatter(torch, eu, Trainer(multitask_config(case, "fused"), info), batch,
+                                          (f"{case}_emb",), (32,)))
+        gc.collect()
+        torch.cuda.empty_cache()
+        fused_vs_dense(torch, eu, lambda m, c=case: multitask_config(c, m, "float32"), info, batch,
+                       MT_TABLES, case)
+    return records, launches
+
+
+def multitask_cli_config(path, name, loss):
+    """An ``ExperimentConfig`` file for the impression runs: the registry's
+    widths at D=32, B=8192, bf16 compute, fp32 params, Adam lr 1e-2 eps
+    1e-7, ``MT_CLI_EPOCHS`` epochs; ``model_loss`` reports the two AUCs."""
+    train = {"batch_size": TRAIN_BATCH, "epochs": MT_CLI_EPOCHS, "loss": loss,
+             "compute_dtype": "bfloat16", "log_every_steps": 0,
+             "optimizer": {"learning_rate": 1e-2, "eps": 1e-7}}
+    if loss == "model_loss":
+        train["metrics"] = ["ctr_auc", "cvr_auc"]
+    with open(path, "w") as f:
+        json.dump({"model": {"name": name, "embedding": {"dim": 32}}, "train": train}, f)
+    return path
+
+
+def run_multitask_cli(torch, kernels, eu, workdir, card):
+    """Phase 13c: ``cli synth`` and ``datagen`` of the impression family
+    (``MT_CLI_EVENTS`` events), then ``cli train`` of mmoe (multi_task) and
+    escm2 (model_loss) with export, every step on the card: both AUCs above
+    0.5, no kernel launched (the dense engine), each AUC's gap to the
+    generator's Bayes ceiling (``oracle.npz``) and the stage seconds
+    recorded. Returns the stage seconds."""
+    from tpurec_torch import cli
+
+    with mock.patch.dict(os.environ):
+        os.environ.pop("TPUREC_PLATFORM", None)
+        raw, data = os.path.join(workdir, "mt_raw"), os.path.join(workdir, "mt_data")
+        stages, runs = {}, {}
+        for name, argv in (
+            ("synth_impression", ["synth", "--family", "impression", "--out", raw,
+                                  "--n-events", str(MT_CLI_EVENTS)]),
+            ("datagen_impression", ["datagen", "--family", "impression", "--raw", raw, "--out", data]),
+        ):
+            t = time.perf_counter()
+            cli.main(argv)
+            stages[name] = time.perf_counter() - t
+        oracle = {k: float(v) for k, v in np.load(os.path.join(raw, "oracle.npz")).items()}
+        for name, loss in MT_CLI_RUNS.items():
+            config = multitask_cli_config(os.path.join(workdir, f"mt_{name}.json"), name, loss)
+            run_dir = os.path.join(workdir, f"mt_{name}")
+            r = cli_train(torch, kernels, eu, card, f"impression_{name}",
+                          ["train", "--config", config, "--data", data, "--workdir", run_dir])
+            stages[f"train_{name}"] = r["seconds"]
+            check(os.path.exists(os.path.join(run_dir, "export", "params.pt")), f"{name}: no export")
+            check(not any(r["launches"].values()), f"{name}: dense impression run launched {r['launches']}")
+            for k in ("ctr_auc", "cvr_auc"):
+                check(r["eval"][k] > 0.5, f"impression {name}: eval {k} {r['eval'][k]}")
+            runs[name] = dict(eval=r["eval"], gap_to_oracle={
+                k: oracle[f"oracle_{k}"] - r["eval"][k] for k in ("ctr_auc", "cvr_auc")})
+    print("cli impression:", json.dumps(dict(card=card, events=MT_CLI_EVENTS, epochs=MT_CLI_EPOCHS,
+                                             oracle=oracle, runs=runs, stages=stages)), flush=True)
+    return stages
+
+
+def run_multitask(torch, kernels, eu, workdir, card):
+    """Phase 13: the ten models dense over the FM schema with 13 continuous
+    columns (``FM_FAMILY_STEPS`` bf16 steps each, then ``Trainer.infer`` and
+    ``evaluate``), mmoe and poso_mmoe fused (#9), and the impression
+    family's CLI journey. Returns (#9's records on the two streams, its
+    launches by path)."""
+    info = fm_family_info("fm_continuous")
+    batch = multitask_batch(info, TRAIN_BATCH, seed=1)
+    evals = [multitask_batch(info, TRAIN_BATCH, seed=2 + i) for i in range(2)]
+    for case in MULTITASK:
+        launches, _ = run_training(torch, eu, card, case, multitask_config(case), info, batch=batch,
+                                   extra=multitask_extra(case, batch, evals))
+        check(launches == 0, f"the dense {case} step launched #9 {launches} times")
+    records, launches = run_multitask_fused(torch, eu, card, info, batch)
+    run_multitask_cli(torch, kernels, eu, workdir, card)
+    return records, launches
+
+
 def ok_line(torch) -> dict:
     return {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                    "count": torch.cuda.device_count()}}
@@ -3976,6 +4178,22 @@ def main() -> int:
               flush=True)
         print(json.dumps(ok_line(torch)), flush=True)
         return 0
+    if sys.argv[1:] == ["--multitask"]:
+        # phase 13 alone: the multi-task and personalization families (their
+        # one kernel is #9)
+        from tpurec_torch.ops import embedding_update as eu
+
+        t = time.perf_counter()
+        kernels.build(["embedding_update"])
+        print(f"built in {time.perf_counter() - t:.1f} s", flush=True)
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR.parent) as workdir:
+            mt_scatter, mt_launches = run_multitask(torch, kernels, eu, workdir, smi)
+        print("phase seconds:", json.dumps({"13_multitask": time.perf_counter() - t}), flush=True)
+        print(json.dumps({"card": smi, "fused_scatter_add_launches_by_path": mt_launches,
+                          "fused_scatter_add_checks": mt_scatter}), flush=True)
+        print(json.dumps(ok_line(torch)), flush=True)
+        return 0
     if sys.argv[1:2] == ["--din-bwd-ab"] and len(sys.argv) == 3:
         # kernel #5 of another checkout (a git archive of the parent commit)
         # against this one's, alternating
@@ -4029,6 +4247,7 @@ def main() -> int:
                                                       workdir, smi)
         nfm_scatter, dcn_rest_launches = timed("11_dcn_rest", run_dcn_rest, torch, eu, workdir, smi)
         cli_launches, cli_checks, _ = timed("12_cli", run_cli, torch, kernels, eu, workdir, smi)
+        mt_scatter, mt_launches = timed("13_multitask", run_multitask, torch, kernels, eu, workdir, smi)
     print("phase seconds:", json.dumps(seconds), flush=True)
     # a kernel on several paths: its launches are their sum
     fm_paths = dict(http_rank=records["fm_second_order"]["launches"], **cli_launches["fm_second_order"])
@@ -4047,12 +4266,13 @@ def main() -> int:
     records["din_attention_bwd"]["launches_by_path"] = bwd_paths
     scatter_paths = dict(fm_fused_training=fm_scatter_launches,
                          din_fused_training=din_fused["fused_scatter_add"], **fm_family_launches,
-                         **dcn_rest_launches, **cli_launches["fused_scatter_add"])
+                         **dcn_rest_launches, **cli_launches["fused_scatter_add"], **mt_launches)
     records["fused_scatter_add"] = dict(embedding["fm_v"], launches=sum(scatter_paths.values()),
                                         launches_by_path=scatter_paths,
                                         other_shapes=dict(fm_w=embedding["fm_w"], din=embedding["din"],
                                                           **fm_family_scatter, **nfm_scatter,
-                                                          **cli_checks["fused_scatter_add"]))
+                                                          **cli_checks["fused_scatter_add"],
+                                                          **mt_scatter))
     # #10 is on no training path, in either package: checked and timed alone
     records["gather_rows_sorted"] = dict(embedding["gather"], launches=0, launches_by_path={})
     for name, rec in dcn_records.items():

@@ -1260,3 +1260,87 @@ def test_top_k_tie_order_on_the_card_equals_the_cpu(card, shape):
         want_v, want_i = top_k(x, k)
         got_v, got_i = top_k(x.to(card), k)
         assert torch.equal(got_i.cpu(), want_i) and torch.equal(got_v.cpu(), want_v), k
+
+
+# --------------------------------------------------------------------------
+# the multi-task and personalization families
+def _multitask_schema(rng, b=64):
+    """8 fields of 50 ids, one continuous column, and a ``b``-row batch with
+    the click ``ctr``, the conversion ``cvr`` (only given a click) and
+    ``label``."""
+    from tpurec_torch.data.schema import DataInfo
+
+    names = [f"f{i}" for i in range(8)]
+    info = DataInfo.from_dims(names, [50] * 8, continuous_names=["c0"])
+    batch = {n: rng.integers(50 * i, 50 * i + 50, size=(b,)) for i, n in enumerate(names)}
+    batch["c0"] = rng.normal(size=(b,)).astype(np.float32)
+    ctr = (rng.random(b) < 0.5).astype(np.float32)
+    batch.update(ctr=ctr, label=ctr, cvr=ctr * (rng.random(b) < 0.5).astype(np.float32))
+    return info, batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,params", [
+    ("mmoe", {}), ("esmm", {}), ("ple", {}), ("esm2", {}), ("escm2", {}),
+    ("escm2", {"counterfact_mode": "dr"}), ("fdn", {}), ("poso_mlp", {}), ("poso_mha", {}),
+    ("poso_mmoe", {}), ("pepnet", {}),
+])
+def test_multitask_model_on_card_matches_cpu(card, name, params):
+    """Every output of each multi-task and personalization model (the
+    in-model losses included) in eval mode on the card against the same
+    weights on the CPU (fp32); no kernel is launched."""
+    from tpurec_torch.config import EmbeddingConfig, ModelConfig
+    from tpurec_torch.models import build_model
+    from tpurec_torch.ops import embedding_update as eu
+    from tpurec_torch.ops import kernels
+
+    info, batch = _multitask_schema(np.random.default_rng(8))
+    config = ModelConfig(name=name, params=params, embedding=EmbeddingConfig(dim=8))
+    on_card = build_model(config, info, device=card).eval()
+    on_cpu = build_model(config, info, device="cpu").eval()
+    on_cpu.load_state_dict({k: v.cpu() for k, v in on_card.state_dict().items()})
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        got = on_card({k: torch.as_tensor(v, device=card) for k, v in batch.items()})
+        want = on_cpu({k: torch.as_tensor(v) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert eu.fused_scatter_add.launches == 0
+    assert set(got) == set(want)
+    for key in want:
+        torch.testing.assert_close(got[key].cpu(), want[key], **TOL, msg=key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mmoe", "poso_mmoe"])
+def test_multitask_fused_step_on_card_matches_cpu(card, name):
+    """Three fp32 ``multi_task`` steps of mmoe and poso_mmoe (whose gate
+    field is looked up twice) in the fused engine on the card (#9 once a
+    step: one table) against the same steps on the CPU: the loss of each
+    (1e-5) and the table after them (2e-6)."""
+    from tpurec_torch.config import ExperimentConfig
+    from tpurec_torch.ops import embedding_update as eu
+    from tpurec_torch.train.trainer import Trainer
+
+    info, _ = _multitask_schema(np.random.default_rng(0))
+    config = ExperimentConfig.from_dict(dict(
+        model=dict(name=name, embedding=dict(dim=8)),
+        train=dict(compute_dtype="float32", log_every_steps=0, loss="multi_task",
+                   sparse_embedding=True, optimizer=dict(embedding_optimizer="fused_adam")),
+    ))
+    trainers = [Trainer(config, info, device=card), Trainer(config, info, device="cpu")]
+    first = _multitask_schema(np.random.default_rng(10), 256)[1]
+    states = [t.init_state(first) for t in trainers]
+    states[1].model.load_state_dict({k: v.cpu() for k, v in states[0].model.state_dict().items()})
+    before = eu.fused_scatter_add.launches
+    for i in range(3):
+        batch = _multitask_schema(np.random.default_rng(10 + i), 256)[1]
+        losses = []
+        for j, (t, s) in enumerate(zip(trainers, states)):
+            states[j], _, logs = t.train_step(s, t.device_batch(batch), t.metrics.init())
+            losses.append(float(logs["loss"]))
+        assert abs(losses[0] - losses[1]) <= 1e-5, losses
+    torch.cuda.synchronize()
+    assert eu.fused_scatter_add.launches - before == 3
+    got = states[0].model.emb.embedding.detach().cpu()[:-1]
+    want = states[1].model.emb.embedding.detach()[:-1]
+    torch.testing.assert_close(got, want, atol=2e-6, rtol=0)

@@ -23,7 +23,11 @@ flax path maps to a torch key by joining with dots, with these renames:
   ``interest_pool``; the retrieval models' ``logit_scale``; FwFM's
   ``pair_weight`` (P,); the ``(V, F, D)`` field-aware tables; the
   ``scale`` (and ``bias``) of the port's ``BatchNorm`` and ``LayerNorm``,
-  which keep flax's names; AutoInt's ``cont_emb`` (C, D).
+  which keep flax's names; AutoInt's ``cont_emb`` (C, D); the expert
+  banks' ``w_{i}`` (E, in, out) and ``b_{i}``; and FDN's auxiliary heads
+  ``L{level}_{task}_aux_w`` (E, H) and ``_aux_b`` (E,), which keep their
+  names only where the port module at their path owns a parameter so
+  named (as a raw ``kernel``).
   Only a leaf named exactly ``kernel`` can be a Dense kernel.
 
 It raises ``KeyError`` on a collection other than those two or a leaf name
@@ -61,6 +65,8 @@ _PARAM_KEEP = {
     "S", "W", "interest_pool", "pair_weight", "scale", "cont_emb",
 }
 _INDEXED_KEEP = re.compile(r"(w|b|compress)_\d+")
+# FDN's per-expert auxiliary heads, raw parameters at the model's root
+_AUX_HEAD = re.compile(r"L\d+_.+_aux_[wb]")
 _STAT_RENAMES = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -73,14 +79,15 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
             yield path, val
 
 
-def _owns_raw_kernel(module: nn.Module, path: Tuple[str, ...]) -> bool:
+def _owns_raw(module: nn.Module, path: Tuple[str, ...]) -> bool:
     """Whether the port module at ``path[:-1]`` under ``module`` has a
-    parameter named ``kernel`` itself (a Dense has ``weight``)."""
+    parameter named ``path[-1]`` itself (a Dense has ``weight``, not
+    ``kernel``)."""
     try:
         owner = module.get_submodule(".".join(path[:-1]))
     except AttributeError:
         return False  # no such module: the strict load reports the key
-    return "kernel" in dict(owner.named_parameters(recurse=False))
+    return path[-1] in dict(owner.named_parameters(recurse=False))
 
 
 def _torch_leaf(collection: str, path: Tuple[str, ...], value,
@@ -94,7 +101,7 @@ def _torch_leaf(collection: str, path: Tuple[str, ...], value,
         if leaf not in _STAT_RENAMES:
             raise KeyError(f"unmatched batch_stats leaf {'/'.join(path)}")
         return _STAT_RENAMES[leaf], arr
-    if leaf == "kernel" and _owns_raw_kernel(module, path):
+    if (leaf == "kernel" or _AUX_HEAD.fullmatch(leaf)) and _owns_raw(module, path):
         return leaf, arr
     if leaf == "kernel":
         if arr.ndim != 2:

@@ -14,6 +14,8 @@ from tpurec_torch.models import din as din_models
 from tpurec_torch.models import fm as fm_models
 from tpurec_torch.models import matrixcf as cf_models
 from tpurec_torch.models import mind as mind_models
+from tpurec_torch.models import multitask as mt_models
+from tpurec_torch.models import poso as poso_models
 from tpurec_torch.models.registry import register_model
 
 
@@ -155,6 +157,56 @@ def _fibinet(params: dict, info: DataInfo):
 @register_model("autoint")
 def _autoint(params: dict, info: DataInfo):
     return dcn_models.AutoInt(**_with_continuous(params, info))
+
+
+@register_model("mmoe")
+def _mmoe(params: dict, info: DataInfo):
+    return mt_models.MMOE(**_with_continuous(params, info))
+
+
+@register_model("esmm")
+def _esmm(params: dict, info: DataInfo):
+    return mt_models.ESMM(**_with_continuous(params, info))
+
+
+@register_model("ple")
+def _ple(params: dict, info: DataInfo):
+    return mt_models.PLE(**_with_continuous(params, info))
+
+
+@register_model("esm2")
+def _esm2(params: dict, info: DataInfo):
+    return mt_models.ESM2(**_with_continuous(params, info))
+
+
+@register_model("escm2")
+def _escm2(params: dict, info: DataInfo):
+    return mt_models.ESCM2(**_with_continuous(params, info))
+
+
+@register_model("fdn")
+def _fdn(params: dict, info: DataInfo):
+    return mt_models.FDN(**_with_continuous(params, info))
+
+
+@register_model("poso_mlp")
+def _poso_mlp(params: dict, info: DataInfo):
+    return poso_models.PosoMLPModel(**_common(params, info))
+
+
+@register_model("poso_mha")
+def _poso_mha(params: dict, info: DataInfo):
+    return poso_models.PosoMHAModel(**_common(params, info))
+
+
+@register_model("poso_mmoe")
+def _poso_mmoe(params: dict, info: DataInfo):
+    return poso_models.PosoMMOEModel(**_common(params, info))
+
+
+@register_model("pepnet")
+def _pepnet(params: dict, info: DataInfo):
+    return poso_models.PEPNet(**_common(params, info))
 
 
 def _seq_params(params: dict, info: DataInfo) -> dict:
