@@ -18,6 +18,7 @@
     python3 chip_smoke.py --dcn-rest  # phase 11 alone (the rest of the DCN family)
     python3 chip_smoke.py --cli       # phase 12 alone (raw files to serving through the CLI)
     python3 chip_smoke.py --multitask # phase 13 alone (the multi-task and personalization families)
+    python3 chip_smoke.py --sequence  # phase 14 alone (DIEN, DSIN, SDM and the FiBiNET++ family)
 
 Needs one CUDA card and ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``); ``triton``
 only for ``--fm-ab`` and ``--cross-ab`` against a parent whose #1 and #2
@@ -327,6 +328,40 @@ checkout and exits non-zero on the first phase that fails. Phases:
       ``cli train`` of mmoe and escm2 (lr 1e-2, two epochs) with export:
       both AUCs above 0.5, their gap to ``oracle.npz``'s ceilings and the
       stage seconds recorded.
+
+14. the recurrent sequence models and the FiBiNET++ family, random seeded
+    weights, B=8192, bf16 dense compute, fp32 params, Adam lr 1e-3 eps
+    1e-7; ``--sequence`` runs this phase alone:
+    - 14a: DIEN ('augru') and DSIN (4 sessions of 16 steps: the registry's
+      5 does not divide L=64) at phase 6's DIN configuration (21,504 rows,
+      L=64, D=32, attention H=36, MLP (200, 80)) on phase 6's batch plus a
+      seeded ``neg_history`` (``sequence_batch``): each served as phase 10b
+      (#4 once a predict for DIEN, twice for DSIN) and trained
+      ``FM_FAMILY_STEPS`` dense steps as phase 10c (#4 and #5 once per
+      attention a step), then ``evaluate`` over two batches (#4 once per
+      attention a batch);
+    - 14b: DIEN in the fused engine (#9 once a step over a stream of B × 131
+      ids: the profile, the query, the history and ``neg_history``), #9 on
+      that stream (``check_step_scatter``), DIEN's fp32 fused step against
+      its dense step (``fused_vs_dense``), and #4 and #5 held to their plain
+      versions on DIEN's and DSIN's own inputs and cotangents recorded in
+      one bf16 step (``check_step_attention``: phase 3's and 6's readings,
+      broken versions and same bits; DIEN's #5 gets gp = 0, DSIN's runs at
+      L = 4 sessions, and DSIN's also with a session mask with holes), each
+      timed beside its plain version and its bound;
+    - 14c: SDM (``short_len`` 10, 2 LSTM layers, 2 heads) over phase 9's
+      MIND schema and recipe (``normalize_logits``): ``FM_FAMILY_STEPS``
+      bf16 dense steps, ``Servable.predict`` p50 and the offline index over
+      5,000 users × 20,000 items; no kernel runs;
+    - 14d: fibinet_pp, masknet (serial, parallel) and contextnet
+      (pointwise, singlelayer) over phase 10's ``wide_and_deep`` schema at
+      the registry's widths, D=32: served as phase 10b and trained as phase
+      10c with an ``evaluate`` pass; no kernel runs;
+    - 14e: ``cli synth``/``datagen --family sequence`` (100,000 events,
+      L=64) and ``cli train`` of DIEN, two epochs with export: #4 and #5 at
+      key width 64, the eval AUC above 0.5.
+    Phase 14's checks sit under ``other_shapes`` of #4, #5 and #9, its
+    launches under their ``launches_by_path``.
 
 TF32 is off for the whole run (``allow_tf32 = False`` for matmul and
 cuDNN), so every fp32 comparison is fp32 on both sides.
@@ -1083,6 +1118,24 @@ def bwd_reading(got, want) -> dict:
     }
 
 
+def din_bwd_bound(args):
+    """What this run's mask needs (ms, by, the bytes-only ms, live steps): a
+    masked step has s = 0 and dlin = 0, so its dkeys row is 0 and it adds
+    nothing to the sums. Bytes: q, mask, w1, b1, w2, alpha, gp read, keys
+    and gs read at live steps, dq, all of dkeys, dw1, db1, dw2, dalpha
+    written. Operations of the fold algorithm: per row the fold (2 D·H
+    FMAs), dq and the running sums (4 D·H); per live step lin, dkeys and M
+    (3 D·H) and gp·k (D), ~8 per column for the activation. The tensor
+    cores lift the operations limit, so the bytes-only bound is returned
+    beside it."""
+    b, l, d = args[1].shape
+    h = args[3].shape[1]
+    live = int(args[2].sum())
+    nbytes = 4 * (3 * b * d + live * d + b * l * d + b * l + live + 2 * (4 * d * h + 3 * h))
+    ops = 2 * (3 * live * d * h + 6 * b * d * h + live * d) + 8 * live * h
+    return (*bound(nbytes, ops), nbytes / HBM_BYTES_PER_S * 1e3, live)
+
+
 def check_din_backward(torch, kernels, shape=DIN_SHAPE):
     """The DIN backward kernel against its plain version (phase 6). Another
     ``shape`` (phase 12's key width 64) takes the readings, the broken
@@ -1141,18 +1194,7 @@ def check_din_backward(torch, kernels, shape=DIN_SHAPE):
         else:
             check(worst <= 1.0, f"din backward kernel vs plain at {name} {list(shape)}: {r}")
 
-    # What this run's mask needs: a masked step has s = 0 and dlin = 0, so its
-    # dkeys row is 0 and it adds nothing to the sums. Bytes: q, mask, w1, b1,
-    # w2, alpha, gp read, keys and gs read at live steps, dq, all of dkeys,
-    # dw1, db1, dw2, dalpha written. Operations of the fold algorithm: per row
-    # the fold (2 D·H FMAs), dq and the running sums (4 D·H); per live step
-    # lin, dkeys and M (3 D·H) and gp·k (D), ~8 per column for the activation.
-    # The tensor cores lift the operations limit, so the bytes-only bound is
-    # printed beside it.
-    live = int(args[2].sum())
-    nbytes = 4 * (3 * b * d + live * d + b * l * d + b * l + live + 2 * (4 * d * h + 3 * h))
-    ops = 2 * (3 * live * d * h + 6 * b * d * h + live * d) + 8 * live * h
-    bound_ms, bound_by = bound(nbytes, ops)
+    bound_ms, bound_by, bytes_ms, live = din_bwd_bound(args)
     again = kernels.din_attention_bwd_fused(*args, *cot)
     same = all(torch.equal(x, y) for x, y in zip(kernels.din_attention_bwd_fused(*args, *cot), again))
     small = [x[:1024] if x.dim() and x.shape[0] == b else x for x in args]
@@ -1162,7 +1204,7 @@ def check_din_backward(torch, kernels, shape=DIN_SHAPE):
         replaces="tpurec/ops/pallas/kernels.py:484", shape=[b, l, d, h], live_steps=live, max_abs_err=err,
         ms=device_ms(torch, lambda: kernels.din_attention_bwd_fused(*args, *cot)),
         plain_ms=device_ms(torch, lambda: kernels.din_attention_bwd_plain(*args, *cot)),
-        bound_ms=bound_ms, bound_by=bound_by, bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        bound_ms=bound_ms, bound_by=bound_by, bytes_bound_ms=bytes_ms,
         library_ms=None, same_bits=same,
         split_ms=kernel_split(torch, lambda: kernels.din_attention_bwd_fused(*args, *cot)),
         b1024_ms=device_ms(torch, lambda: kernels.din_attention_bwd_fused(*small, *small_cot)),
@@ -3255,13 +3297,17 @@ def run_fm_family_servable(torch, workdir, card, case, seed):
                  rank=case == "ffm")
 
 
-def run_servable(torch, workdir, card, case, config, info, seed, rank=False):
-    """export → load_servable → predict at B=8192, bf16 compute: finite
+def run_servable(torch, workdir, card, case, config, info, seed, rank=False, batch=None):
+    """export → load_servable → predict at B=8192, bf16 compute (on the
+    seed-0 ``fm_family_batch`` unless ``batch`` is given): finite
     probabilities; the first 256 rows against the port on the CPU with the
-    same weights; predict p50 of 10 after 2 warm-ups and a profiler summary;
-    with ``rank`` also ``Servable.rank`` at the rank buckets against
-    ``predict``'s probabilities. Returns the result."""
+    same weights; the kernels the first predict launched; predict p50 of 10
+    after 2 warm-ups and a profiler summary; with ``rank`` also
+    ``Servable.rank`` at the rank buckets against ``predict``'s
+    probabilities. Returns the result."""
     from tpurec_torch.models import build_model
+    from tpurec_torch.ops import embedding_update as eu
+    from tpurec_torch.ops import kernels
     from tpurec_torch.serving.export import load_servable
     from tpurec_torch.train.checkpoint import export_params
 
@@ -3273,8 +3319,14 @@ def run_servable(torch, workdir, card, case, config, info, seed, rank=False):
               "embedding": config.embedding.to_dict()},
     )
     servable = load_servable(export_dir, info, device="cuda")
-    batch = {k: v for k, v in fm_family_batch(info, TRAIN_BATCH, seed=0).items() if k != "label"}
+    if batch is None:
+        batch = fm_family_batch(info, TRAIN_BATCH, seed=0)
+    batch = {k: v for k, v in batch.items() if k != "label"}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
     outputs = servable.predict(batch)
+    torch.cuda.synchronize()
+    launches = path_launches(kernels, eu)
     out = outputs["output"]
     key = "logit" if "logit" in outputs else "output"
     ref = outputs[key]
@@ -3304,7 +3356,7 @@ def run_servable(torch, workdir, card, case, config, info, seed, rank=False):
     p50 = statistics.median(times[2:])
     busy_ms, top_ops = profile_steps(torch, lambda: servable.predict(batch))
     result = dict(card=card, model=case, batch=TRAIN_BATCH, readings=readings, compared=key,
-                  limit=scale, rank_limit=rank_scale, max_abs=float(ref.abs().max()), std=float(ref.float().std()),
+                  launches=launches, limit=scale, rank_limit=rank_scale, max_abs=float(ref.abs().max()), std=float(ref.float().std()),
                   mean_prob=float(out.mean()), predict_p50_ms=p50,
                   examples_per_s=TRAIN_BATCH / (p50 / 1e3), device_busy_ms=busy_ms,
                   device_idle_share=1.0 - busy_ms / p50, top_ops_ms=top_ops, rank=ranks)
@@ -3328,8 +3380,9 @@ def run_training(torch, eu, card, case, config, info, mode="dense", batch=None, 
     """FM_FAMILY_STEPS steps of ``config`` on a fixed batch (the seed-1
     ``fm_family_batch`` unless ``batch`` is given): losses finite and
     falling; step p50, examples/s, peak memory, and a profiler summary of 3
-    more steps; ``extra(trainer, state)`` adds its dict to the result.
-    Returns (#9's launches in the steps, result)."""
+    more steps; ``extra(trainer, state)`` adds its dict to the result; the
+    result's ``launches`` holds every counted kernel's launches in the
+    steps. Returns (#9's launches in the steps, result)."""
     from tpurec_torch.ops import kernels
     from tpurec_torch.train.trainer import Trainer
 
@@ -3345,14 +3398,15 @@ def run_training(torch, eu, card, case, config, info, mode="dense", batch=None, 
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     state, metric_state, losses, times = drive_steps(torch, trainer, state, dbatch, steps=FM_FAMILY_STEPS)
-    launches = eu.fused_scatter_add.launches
+    counts = path_launches(kernels, eu)
+    launches = counts["fused_scatter_add"]
     peak_gb = (torch.cuda.max_memory_allocated() - base) / 2**30
     step_ms = statistics.median(times[2:])
     result = dict(card=card, model=case, engine=mode, batch=TRAIN_BATCH, steps=FM_FAMILY_STEPS,
                   step_p50_ms=step_ms, step_ms_min=min(times[2:]), step_ms_max=max(times[2:]),
                   examples_per_s=TRAIN_BATCH / (step_ms / 1e3), first_step_ms=times[0],
                   peak_mem_gb=peak_gb, loss_first=losses[0], loss_last=losses[-1],
-                  fused_scatter_add_launches=launches)
+                  fused_scatter_add_launches=launches, launches=counts)
 
     def step():
         nonlocal state, metric_state
@@ -4064,6 +4118,443 @@ def run_multitask(torch, kernels, eu, workdir, card):
     return records, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the recurrent sequence models (DIEN, DSIN, SDM) and the FiBiNET++
+# family (FiBiNET++, MaskNet, ContextNet)
+SEQUENCE = {
+    # case: (registry name, params); DIN's widths (attention H=36, MLP
+    # (200, 80)); DSIN at 4 sessions of 16 steps (the registry's 5 does not
+    # divide L=64)
+    "dien": ("dien", dict(DIN_FEATURES)),
+    "dsin": ("dsin", dict(DIN_FEATURES, num_sessions=4)),
+}
+# DIN attentions a forward runs: #4 launches a forward, #5 a backward
+SEQ_ATTENTIONS = {"dien": 1, "dsin": 2}
+SDM_PARAMS = dict(short_len=10, lstm_layers=2, num_heads=2, normalize_logits=True)
+FIBINETPP = {
+    # case: (registry name, params); the registry's widths at D=32
+    "fibinet_pp": ("fibinet_pp", {}),
+    "masknet_serial": ("masknet", dict(mode="serial")),
+    "masknet_parallel": ("masknet", dict(mode="parallel")),
+    "contextnet_pointwise": ("contextnet", dict(block_mode="pointwise")),
+    "contextnet_singlelayer": ("contextnet", dict(block_mode="singlelayer")),
+}
+SEQ_EVAL_BATCHES = 2
+
+
+def sequence_batch(info, batch_size, seed):
+    """``bench_batch`` (``bench.py:75-87``) plus ``neg_history``, DIEN's
+    sampled negative series, drawn the same way from its own seed and 0
+    where the history is padded."""
+    batch = bench_batch(info, batch_size, 64, seed=seed)
+    rng = np.random.default_rng(seed + 3000)
+    neg = rng.integers(1, info.total_dims // 2, size=batch["history"].shape)
+    batch["neg_history"] = np.where(batch["history"] != 0, neg, 0)
+    return batch
+
+
+def sequence_config(case, mode="dense", dtype="bfloat16"):
+    name, params = SEQUENCE[case]
+    return experiment_config(name, params, 32, mode, dtype)
+
+
+def evaluate_extra(torch, case, eval_batches):
+    """After a model's training steps: ``evaluate`` over ``eval_batches``,
+    every metric finite, and the kernels it launched."""
+    from tpurec_torch.ops import embedding_update as eu
+    from tpurec_torch.ops import kernels
+
+    def extra(trainer, state):
+        kernels.reset_launch_counts()
+        evaluation = trainer.evaluate(state, eval_batches)
+        torch.cuda.synchronize()
+        check(all(np.isfinite(v) for v in evaluation.values()), f"{case}: evaluate {evaluation}")
+        return dict(evaluate=evaluation, evaluate_launches=path_launches(kernels, eu))
+
+    return extra
+
+
+def recorded_attention(kernels):
+    """Recorders for #4 and #5 bound in their module's place: each call's
+    inputs (and cotangents) and outputs, copied, in two lists."""
+    fwd, bwd = kernels.din_attention_fused, kernels.din_attention_bwd_fused
+    calls = dict(fwd=[], bwd=[])
+
+    def copies(ts):
+        return [None if t is None else t.detach().clone() for t in ts]
+
+    def fwd_rec(*args):
+        out = fwd(*args)
+        calls["fwd"].append((copies(args), copies(out)))
+        return out
+
+    def bwd_rec(*args):
+        out = bwd(*args)
+        calls["bwd"].append((copies(args), copies(out)))
+        return out
+
+    # the wrappers add their launches to the count of the names they are
+    # bound to in the module, here the recorders'
+    fwd_rec.launches = bwd_rec.launches = 0
+    return fwd_rec, bwd_rec, calls
+
+
+def attention_fwd_case(torch, kernels, args, out=None) -> tuple:
+    """#4 on ``args`` against its plain version: (readings, record). The
+    readings are phase 3's (error / limit), with the broken versions (mask
+    ignored, slopes dropped, lin in single TF32) and the same bits twice (and
+    as ``out``, the launch recorded on the path, when given)."""
+    b, l, d = args[1].shape
+    h = args[3].shape[1]
+    got = kernels.din_attention_fused(*args)
+    want = kernels.din_attention_plain(*args)
+    relu = args[:6] + [None]
+    no_mask = args[:2] + [torch.ones_like(args[2])] + args[3:]
+    r = dict(kernel=max(din_reading(got, want).values()),
+             broken_mask_ignored=max(din_reading(kernels.din_attention_plain(*no_mask), want).values()),
+             broken_alpha_dropped=max(din_reading(kernels.din_attention_plain(*relu), want).values()),
+             broken_single_tf32=max(din_reading(
+                 kernels.din_attention_unfolded(*args, products="1xtf32"), want).values()))
+    again = kernels.din_attention_fused(*args)
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    if out is not None:
+        same = same and all(torch.equal(x, y) for x, y in zip(got, out))
+    r["same_bits"] = same
+    bound_ms, bound_by, live = din_bound(args)
+    rec = dict(name="din_attention", shape=[b, l, d, h], live_steps=live,
+               max_abs_err=max(float((g - w).abs().max()) for g, w in zip(got, want)),
+               ms=device_ms(torch, lambda: kernels.din_attention_fused(*args)),
+               plain_ms=device_ms(torch, lambda: kernels.din_attention_plain(*args)),
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=None, readings=r)
+    return r, rec
+
+
+def attention_bwd_case(torch, kernels, args, out=None) -> tuple:
+    """#5 on ``args`` (the forward's inputs, then gp and gs) against its
+    plain version: (readings, record), phase 6's readings, broken versions
+    and same bits (on ``args``, and against ``out``, the launch recorded on
+    the path, when given).
+
+    A model's cotangents are those of a mean over B rows, ~1e-5 and below,
+    where ``KERNEL_TOL``'s atol would pass anything for dq and dkeys. The
+    backward is linear in (gp, gs), so the readings take both scaled by one
+    power of two (exact in floating point) to a largest |value| in [0.5, 1),
+    as phase 6's random ones are: the scaled launch's errors are the
+    recorded launch's, relative to its scale. ``mask_can_matter`` says
+    whether a backward that ignores the mask could differ here at all: with
+    gp = 0 and gs = 0 at every masked step (DIEN's: its scores go through a
+    softmax over the live steps) it computes the same gradients.
+
+    The reference is the plain version in fp64, rounded to fp32: at a live
+    step whose pre-activation lies within fp32's rounding of PReLU's kink
+    (|lin| ~1e-9; one such element in ~10^7 is a few in a model's step)
+    the fp32 plain version takes the other slope, while the kernel takes
+    such lin in fp64 (the kink repair). ``plain_fp32`` reads the fp32 plain
+    version against the same reference."""
+    b, l, d = args[1].shape
+    h = args[3].shape[1]
+    gp, gs = args[7], args[8]
+    top = max(float(gp.abs().max()), float(gs.abs().max()))
+    scale = 2.0 ** -(np.frexp(top)[1]) if top > 0 else 1.0
+    scaled = args[:7] + [gp * scale, gs * scale]
+    q, k, m, w1, b1, w2, alpha, sgp, sgs = scaled
+    got = kernels.din_attention_bwd_fused(*scaled)
+    want = [w.float() for w in kernels.din_attention_bwd_plain(*[a.double() for a in scaled])]
+    worst = lambda x: max(bwd_reading(x, want).values())  # noqa: E731
+    r = dict(kernel=worst(got), plain_fp32=worst(kernels.din_attention_bwd_plain(*scaled)),
+             broken_mask_ignored=worst(kernels.din_attention_bwd_plain(q, k, torch.ones_like(m), *scaled[3:])),
+             broken_alpha_dropped=worst(kernels.din_attention_bwd_plain(*scaled[:6], torch.zeros_like(alpha),
+                                                                        sgp, sgs)),
+             broken_single_tf32=worst(kernels.din_attention_bwd_unfolded(*scaled, products="1xtf32")))
+    r["cotangent_scale"] = scale
+    r["mask_can_matter"] = bool(gp.any()) or bool((gs * (1 - m)).any())
+    r["gp_zero"], r["gs_zero"] = not bool(gp.any()), not bool(gs.any())
+    first = kernels.din_attention_bwd_fused(*args)
+    same = all(torch.equal(x, y) for x, y in zip(first, kernels.din_attention_bwd_fused(*args)))
+    if out is not None:
+        same = same and all(torch.equal(x, y) for x, y in zip(first, out))
+    r["same_bits"] = same
+    want = [w.float() for w in kernels.din_attention_bwd_plain(*[a.double() for a in args])]
+    bound_ms, bound_by, bytes_ms, live = din_bwd_bound(args)
+    rec = dict(name="din_attention_bwd", shape=[b, l, d, h], live_steps=live,
+               max_abs_err=max(float((g - w).abs().max()) for g, w in zip(first, want)),
+               ms=device_ms(torch, lambda: kernels.din_attention_bwd_fused(*args)),
+               plain_ms=device_ms(torch, lambda: kernels.din_attention_bwd_plain(*args)),
+               bound_ms=bound_ms, bound_by=bound_by, bytes_bound_ms=bytes_ms, library_ms=None, readings=r)
+    return r, rec
+
+
+def check_attention_readings(readings, label) -> None:
+    """Every case within its limit and the same bits; the versions that
+    ignore the mask (where the mask can matter) or drop the slopes above
+    it, and the backward's single-TF32 products too. The forward's
+    single-TF32 lin is printed, not required: a model's keys are small
+    (DIEN's are GRU states in (-1, 1)), and lin's single-TF32 error there
+    can lie within ``KERNEL_TOL``."""
+    print(f"din attention on {label}'s own inputs (error / limit):", json.dumps(readings), flush=True)
+    for name, r in readings.items():
+        check(r["kernel"] <= 1.0, f"{label}: #4/#5 against the plain version at {name}: {r}")
+        check(r["same_bits"], f"{label}: #4/#5 at {name}: two calls gave different bits")
+        broken = ["broken_alpha_dropped"]
+        if r.get("mask_can_matter", True):
+            broken.append("broken_mask_ignored")
+        if name.endswith("_bwd"):
+            broken.append("broken_single_tf32")
+        for version in broken:
+            check(r[version] > 1.0, f"{label}: the check cannot tell a {version} version at {name}: {r}")
+
+
+def check_step_attention(torch, kernels, info, case, batch):
+    """Kernels #4 and #5 on a model's own inputs and cotangents (phase 14b):
+    one bf16 dense step of ``case`` with each launch recorded, then each
+    launch held to its plain version (``attention_*_case``); DSIN's also
+    with a session mask with holes, an all-zero row and a row live at its
+    last session only. Returns {name: record}."""
+    from tpurec_torch.train.trainer import Trainer
+
+    trainer = Trainer(sequence_config(case), info)
+    state = trainer.init_state(batch)
+    fwd_rec, bwd_rec, calls = recorded_attention(kernels)
+    with mock.patch.object(kernels, "din_attention_fused", fwd_rec), \
+            mock.patch.object(kernels, "din_attention_bwd_fused", bwd_rec):
+        trainer.train_step(state, trainer.device_batch(batch), trainer.metrics.init())
+        torch.cuda.synchronize()
+    del trainer, state
+    n = SEQ_ATTENTIONS[case]
+    check(len(calls["fwd"]) == len(calls["bwd"]) == n,
+          f"{case}: the step launched #4 {len(calls['fwd'])} and #5 {len(calls['bwd'])} times, not {n}")
+    names = ["att"] if case == "dien" else ["att_interest", "att_evolved"]
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    readings, records = {}, {}
+    for name, (args, out) in zip(names, calls["fwd"]):
+        key = f"{case}_{name}"
+        readings[key], records[key] = attention_fwd_case(torch, kernels, args, out)
+        # the backward of this attention: the call whose keys are its keys
+        bwd = [c for c in calls["bwd"] if torch.equal(c[0][1], args[1])]
+        check(len(bwd) == 1, f"{key}: {len(bwd)} backward launches on its keys")
+        bargs, bout = bwd[0]
+        readings[f"{key}_bwd"], records[f"{key}_bwd"] = attention_bwd_case(torch, kernels, bargs, bout)
+        if case == "dsin":
+            holes = holey_mask(torch, gen, args[2])
+            readings[f"{key}_holes"], _ = attention_fwd_case(torch, kernels, args[:2] + [holes] + args[3:])
+            readings[f"{key}_holes_bwd"], _ = attention_bwd_case(torch, kernels,
+                                                                 bargs[:2] + [holes] + bargs[3:])
+        for k in (key, f"{key}_bwd"):
+            print("kernel check:", json.dumps(records[k]), flush=True)
+    check_attention_readings(readings, case)
+    if case == "dien":
+        r = readings["dien_att_bwd"]
+        check(r["gp_zero"] and not r["gs_zero"], f"dien: #5 did not get gp = 0 and a nonzero gs: {r}")
+    return records
+
+
+def run_sequence_models(torch, kernels, eu, workdir, card):
+    """Phase 14a/14b: DIEN and DSIN served and trained dense at DIN's width,
+    DIEN in the fused engine, #9 on its stream, the fp32 fused step against
+    the dense one, #4 and #5 on both models' own inputs. Returns (records by
+    kernel, launches by kernel and path)."""
+    from tpurec_torch.train.trainer import Trainer
+
+    info = din_info()
+    batch = sequence_batch(info, TRAIN_BATCH, seed=1)
+    evals = [sequence_batch(info, TRAIN_BATCH, seed=2 + i) for i in range(SEQ_EVAL_BATCHES)]
+    launches = dict(din_attention={}, din_attention_bwd={}, fused_scatter_add={})
+    for seed, case in enumerate(SEQUENCE):
+        n = SEQ_ATTENTIONS[case]
+        served = run_servable(torch, workdir, card, case, sequence_config(case).model, info, seed,
+                              batch=sequence_batch(info, TRAIN_BATCH, seed=0))
+        check(served["launches"]["din_attention"] == n, f"{case} predict launched {served['launches']}")
+        launches["din_attention"][f"{case}_serving"] = served["launches"]["din_attention"]
+        _, trained = run_training(torch, eu, card, case, sequence_config(case), info, batch=batch,
+                                  extra=evaluate_extra(torch, case, evals))
+        counts, ev = trained["launches"], trained["evaluate_launches"]
+        want = dict(din_attention=n * FM_FAMILY_STEPS, din_attention_bwd=n * FM_FAMILY_STEPS)
+        check(all(counts[k] == v for k, v in want.items()) and counts["fused_scatter_add"] == 0,
+              f"{case} dense steps launched {counts}, expected {want}")
+        check(ev["din_attention"] == n * SEQ_EVAL_BATCHES, f"{case} evaluate launched {ev}")
+        launches["din_attention"][f"{case}_training"] = counts["din_attention"]
+        launches["din_attention"][f"{case}_evaluate"] = ev["din_attention"]
+        launches["din_attention_bwd"][f"{case}_training"] = counts["din_attention_bwd"]
+    # DIEN in the fused engine: #9 once a step over its one table
+    fused, trained = run_training(torch, eu, card, "dien", sequence_config("dien", "fused"), info, "fused",
+                                  batch=batch)
+    counts = trained["launches"]
+    check(counts["fused_scatter_add"] == FM_FAMILY_STEPS and counts["din_attention"] == FM_FAMILY_STEPS
+          and counts["din_attention_bwd"] == FM_FAMILY_STEPS, f"the fused dien steps launched {counts}")
+    for name in launches:
+        launches[name]["dien_fused_training"] = counts[name]
+    records = dict(fused_scatter_add=check_step_scatter(
+        torch, eu, Trainer(sequence_config("dien", "fused"), info), batch, ("dien_emb",), (32,)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    fused_vs_dense(torch, eu, lambda m: sequence_config("dien", m, "float32"), info, batch,
+                   ("emb.embedding",), "dien")
+    gc.collect()
+    torch.cuda.empty_cache()
+    attention = {}
+    for case in SEQUENCE:
+        attention.update(check_step_attention(torch, kernels, info, case, batch))
+    records["din_attention"] = {k: v for k, v in attention.items() if v["name"] == "din_attention"}
+    records["din_attention_bwd"] = {k: v for k, v in attention.items() if v["name"] == "din_attention_bwd"}
+    return records, launches
+
+
+def run_sdm(torch, kernels, eu, workdir, card):
+    """Phase 14c: SDM over phase 9's MIND schema (two series, D=32, so
+    behavior steps of 64; ``normalize_logits``), ``short_len`` 10, 2 LSTM
+    layers, 2 heads: ``FM_FAMILY_STEPS`` bf16 dense in-batch-softmax steps,
+    ``Servable.predict`` p50 at B=8192, and the offline index over phase 9's
+    5,000 users and 20,000 items with SDM's user and item towers. No kernel
+    runs: SDM has no DIN attention, capsule routing or fused lookup."""
+    from tpurec_torch.serving import DictKVStore, OfflineIndexer
+    from tpurec_torch.serving.export import Servable
+
+    info = mind_info()
+    batch = mind_batch(info, TRAIN_BATCH, seed=1)
+    config = mind_train_config("bfloat16", "sdm", SDM_PARAMS)
+    item_off, tag_off = info.offset_of("item_id"), info.offset_of("item_tag")
+
+    def extra(trainer, state):
+        servable = Servable(state.model)
+        kernels.reset_launch_counts()
+        outputs = servable.predict(batch)
+        check(outputs["user_embedding"].shape == (TRAIN_BATCH, 64)
+              and all(bool(torch.isfinite(v.float()).all()) for v in outputs.values()),
+              f"sdm predict: {[(k, tuple(v.shape)) for k, v in outputs.items()]}")
+        times = []
+        for _ in range(12):
+            t0 = time.perf_counter()
+            servable.predict(batch)["user_embedding"].cpu()
+            times.append((time.perf_counter() - t0) * 1e3)
+        p50 = statistics.median(times[2:])
+        busy_ms, top_ops = profile_steps(torch, lambda: servable.predict(batch), steps=3)
+        ub = mind_batch(info, MIND_USERS, seed=5)
+        user_profile = {f"u{j}": [int(ub["user_tag"][j]), ub["history"][j].tolist(),
+                                  ub["history_tags"][j].tolist()] for j in range(MIND_USERS)}
+        tags = np.random.default_rng(1).integers(0, 500, size=MIND_ITEMS)
+        item_profile = {f"i{j}": [item_off + j, tag_off + int(tags[j])] for j in range(MIND_ITEMS)}
+
+        def filled(part, extra_cols):
+            b = next(iter(part.values())).shape[0]
+            out = dict(part)
+            for name, (value, width) in extra_cols.items():
+                out[name] = torch.full((b, width) if width else (b,), value, device="cuda")
+            return out
+
+        # the user tower is predict's user embedding with a dummy target, the
+        # item tower predict's item embedding with a dummy history
+        def user_tower(part):
+            return servable.predict(filled(part, dict(item_id=(item_off, 0), item_tag=(tag_off, 0))))[
+                "user_embedding"]
+
+        def item_tower(part):
+            return servable.predict(filled(part, dict(user_tag=(0, 0), history=(item_off, 64),
+                                                      history_tags=(tag_off, 64))))["item_embedding"]
+
+        indexer = OfflineIndexer(user_tower, item_tower, user_profile, item_profile,
+                                 ["user_tag", "history", "history_tags"], ["item_id", "item_tag"],
+                                 batch_size=1024, device="cuda")
+        kv = DictKVStore()
+        t0 = time.perf_counter()
+        indexer.run(os.path.join(workdir, "sdm_index"), kv_store=kv, topk=20, key_prefix="SDM")
+        index_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        slate = kv.get("SDM_u0").split("\t")[0].split(",")
+        check(len(kv) == MIND_USERS and len(slate) == 20, f"sdm index: {len(kv)} users, slate {slate}")
+        return dict(predict_p50_ms=p50, predict_examples_per_s=TRAIN_BATCH / (p50 / 1e3),
+                    predict_busy_ms=busy_ms, predict_idle_share=1.0 - busy_ms / p50, predict_top_ops_ms=top_ops,
+                    index_seconds=index_s, index_users=len(kv), index_items=MIND_ITEMS,
+                    predict_and_index_launches=path_launches(kernels, eu))
+
+    _, result = run_training(torch, eu, card, "sdm", config, info, batch=batch, extra=extra)
+    counts = {**result["launches"], **result["predict_and_index_launches"]}
+    check(not any(result["launches"].values()) and not any(result["predict_and_index_launches"].values()),
+          f"sdm launched {counts}")
+    return result
+
+
+def run_fibinetpp(torch, eu, workdir, card):
+    """Phase 14d: FiBiNET++, MaskNet (serial, parallel) and ContextNet
+    (pointwise, singlelayer) over phase 10's ``wide_and_deep`` schema
+    (2,080,128 rows, 13 continuous columns) at the registry's widths, D=32:
+    each served (export → load_servable → predict, the first 256 rows
+    against the CPU, p50) and trained ``FM_FAMILY_STEPS`` bf16 dense steps
+    with an ``evaluate`` pass. No kernel runs."""
+    info = fm_family_info("fm_continuous")
+    evals = [fm_family_batch(info, TRAIN_BATCH, seed=2 + i) for i in range(SEQ_EVAL_BATCHES)]
+    for seed, (case, (name, params)) in enumerate(FIBINETPP.items()):
+        served = run_servable(torch, workdir, card, case, experiment_config(name, params, 32).model, info, seed)
+        _, trained = run_training(torch, eu, card, case, experiment_config(name, params, 32), info,
+                                  extra=evaluate_extra(torch, case, evals))
+        counts = dict(serving=served["launches"], training=trained["launches"],
+                      evaluate=trained["evaluate_launches"])
+        check(not any(v for c in counts.values() for v in c.values()), f"{case} launched {counts}")
+
+
+def run_sequence_cli(torch, kernels, eu, workdir, card):
+    """Phase 14e: ``cli synth``/``datagen --family sequence`` (phase 12's
+    100,000 events, L=64; ``datagen`` writes each series' ``neg_<series>``)
+    and ``cli train`` of DIEN for two epochs with export (bf16, D=32, the
+    registry's widths): #4 and #5 at the key width of the two series side by
+    side (64), #5 once a step, #4 once a step and once an eval batch, the
+    eval AUC above 0.5. Returns (its launches by kernel, its result)."""
+    from tpurec_torch import cli
+
+    with mock.patch.dict(os.environ):
+        os.environ.pop("TPUREC_PLATFORM", None)
+        raw, data = os.path.join(workdir, "dien_raw"), os.path.join(workdir, "dien_data")
+        stages = {}
+        for name, argv in (
+            ("synth_sequence", ["synth", "--family", "sequence", "--out", raw,
+                                "--n-events", str(CLI_SEQUENCE_EVENTS)]),
+            ("datagen_sequence", ["datagen", "--family", "sequence", "--raw", raw, "--out", data,
+                                  "--max-seq-length", str(CLI_SEQ_LEN)]),
+        ):
+            t = time.perf_counter()
+            cli.main(argv)
+            stages[name] = time.perf_counter() - t
+        config = cli_config(os.path.join(workdir, "cli_dien.json"), "dien", epochs=2)
+        run_dir = os.path.join(workdir, "cli_dien")
+        r = cli_train(torch, kernels, eu, card, "dien",
+                      ["train", "--config", config, "--data", data, "--workdir", run_dir])
+    stages["train_dien"] = r["seconds"]
+    print("cli dien stage seconds:", json.dumps(dict(card=card, **stages)), flush=True)
+    check(os.path.exists(os.path.join(run_dir, "export", "params.pt")), "dien: no export")
+    check(r["eval"]["auc"] > 0.5, f"dien through the CLI: eval AUC {r['eval']}")
+    check(r["launches"]["din_attention_bwd"] == r["steps"],
+          f"dien: #5 launched {r['launches']['din_attention_bwd']} times in {r['steps']} steps")
+    check(r["launches"]["din_attention"] == r["steps"] + r["eval_batches"],
+          f"dien: #4 launched {r['launches']['din_attention']} times in {r['steps']} steps "
+          f"and {r['eval_batches']} eval batches")
+    check(r["launches"]["fused_scatter_add"] == 0, f"dien dense run launched {r['launches']}")
+    return dict(din_attention=dict(cli_dien_training=r["launches"]["din_attention"]),
+                din_attention_bwd=dict(cli_dien_training=r["launches"]["din_attention_bwd"])), r
+
+
+def run_sequence(torch, kernels, eu, workdir, card):
+    """Phase 14: DIEN and DSIN (with #4, #5 and, fused, #9 on their own
+    inputs), SDM, the FiBiNET++ family and DIEN through the CLI. Returns
+    (records by kernel and shape, launches by kernel and path, seconds by
+    part)."""
+    seconds = {}
+    t = time.perf_counter()
+    records, launches = run_sequence_models(torch, kernels, eu, workdir, card)
+    seconds["14ab_dien_dsin"] = time.perf_counter() - t
+    t = time.perf_counter()
+    run_sdm(torch, kernels, eu, workdir, card)
+    seconds["14c_sdm"] = time.perf_counter() - t
+    t = time.perf_counter()
+    run_fibinetpp(torch, eu, workdir, card)
+    seconds["14d_fibinetpp"] = time.perf_counter() - t
+    t = time.perf_counter()
+    cli_launches, _ = run_sequence_cli(torch, kernels, eu, workdir, card)
+    seconds["14e_cli_dien"] = time.perf_counter() - t
+    for name, paths in cli_launches.items():
+        launches[name].update(paths)
+    print("phase 14 seconds:", json.dumps(seconds), flush=True)
+    return records, launches, seconds
+
+
 def ok_line(torch) -> dict:
     return {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                    "count": torch.cuda.device_count()}}
@@ -4194,6 +4685,22 @@ def main() -> int:
                           "fused_scatter_add_checks": mt_scatter}), flush=True)
         print(json.dumps(ok_line(torch)), flush=True)
         return 0
+    if sys.argv[1:] == ["--sequence"]:
+        # phase 14 alone: the recurrent sequence models and the FiBiNET++
+        # family (their kernels are #4, #5 and #9)
+        from tpurec_torch.ops import embedding_update as eu
+
+        t = time.perf_counter()
+        kernels.build(["din_attention", "din_attention_bwd", "embedding_update"])
+        print(f"built in {time.perf_counter() - t:.1f} s", flush=True)
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR.parent) as workdir:
+            seq_records, seq_launches, _ = run_sequence(torch, kernels, eu, workdir, smi)
+        print("phase seconds:", json.dumps({"14_sequence": time.perf_counter() - t}), flush=True)
+        print(json.dumps({"card": smi, "sequence_launches_by_path": seq_launches,
+                          "sequence_checks": seq_records}), flush=True)
+        print(json.dumps(ok_line(torch)), flush=True)
+        return 0
     if sys.argv[1:2] == ["--din-bwd-ab"] and len(sys.argv) == 3:
         # kernel #5 of another checkout (a git archive of the parent commit)
         # against this one's, alternating
@@ -4248,31 +4755,36 @@ def main() -> int:
         nfm_scatter, dcn_rest_launches = timed("11_dcn_rest", run_dcn_rest, torch, eu, workdir, smi)
         cli_launches, cli_checks, _ = timed("12_cli", run_cli, torch, kernels, eu, workdir, smi)
         mt_scatter, mt_launches = timed("13_multitask", run_multitask, torch, kernels, eu, workdir, smi)
+        seq_records, seq_launches, _ = timed("14_sequence", run_sequence, torch, kernels, eu, workdir, smi)
     print("phase seconds:", json.dumps(seconds), flush=True)
     # a kernel on several paths: its launches are their sum
     fm_paths = dict(http_rank=records["fm_second_order"]["launches"], **cli_launches["fm_second_order"])
     records["fm_second_order"]["launches"] = sum(fm_paths.values())
     records["fm_second_order"]["launches_by_path"] = fm_paths
-    # phase 12's checks at its own shapes sit beside each kernel's others
+    # phase 12's and 14's checks at their own shapes sit beside each kernel's others
     for name in ("fm_second_order", "din_attention", "din_attention_bwd"):
         records[name].setdefault("other_shapes", {}).update(cli_checks[name])
+    for name in ("din_attention", "din_attention_bwd"):
+        records[name]["other_shapes"].update(seq_records[name])
     forward_paths = dict(din_serving=serve_launches, din_training=train_launches,
-                         din_fused_training=din_fused["din_attention"], **cli_launches["din_attention"])
+                         din_fused_training=din_fused["din_attention"], **cli_launches["din_attention"],
+                         **seq_launches["din_attention"])
     records["din_attention"]["launches"] = sum(forward_paths.values())
     records["din_attention"]["launches_by_path"] = forward_paths
     bwd_paths = dict(din_training=bwd_launches, din_fused_training=din_fused["din_attention_bwd"],
-                     **cli_launches["din_attention_bwd"])
+                     **cli_launches["din_attention_bwd"], **seq_launches["din_attention_bwd"])
     records["din_attention_bwd"]["launches"] = sum(bwd_paths.values())
     records["din_attention_bwd"]["launches_by_path"] = bwd_paths
     scatter_paths = dict(fm_fused_training=fm_scatter_launches,
                          din_fused_training=din_fused["fused_scatter_add"], **fm_family_launches,
-                         **dcn_rest_launches, **cli_launches["fused_scatter_add"], **mt_launches)
+                         **dcn_rest_launches, **cli_launches["fused_scatter_add"], **mt_launches,
+                         **seq_launches["fused_scatter_add"])
     records["fused_scatter_add"] = dict(embedding["fm_v"], launches=sum(scatter_paths.values()),
                                         launches_by_path=scatter_paths,
                                         other_shapes=dict(fm_w=embedding["fm_w"], din=embedding["din"],
                                                           **fm_family_scatter, **nfm_scatter,
                                                           **cli_checks["fused_scatter_add"],
-                                                          **mt_scatter))
+                                                          **mt_scatter, **seq_records["fused_scatter_add"]))
     # #10 is on no training path, in either package: checked and timed alone
     records["gather_rows_sorted"] = dict(embedding["gather"], launches=0, launches_by_path={})
     for name, rec in dcn_records.items():

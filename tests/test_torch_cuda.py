@@ -1344,3 +1344,144 @@ def test_multitask_fused_step_on_card_matches_cpu(card, name):
     got = states[0].model.emb.embedding.detach().cpu()[:-1]
     want = states[1].model.emb.embedding.detach()[:-1]
     torch.testing.assert_close(got, want, atol=2e-6, rtol=0)
+
+
+# --------------------------------------------------------------------------
+# the recurrent sequence models and the FiBiNET++ family
+def _sequence_schema(rng, b=64, l=16):
+    """Three profile fields and two aligned series of ``l`` steps (item ids
+    and their tags) with holes, row 0 with no live step, and each series'
+    sampled negatives (``neg_<series>``); a ``b``-row batch with ``label``."""
+    from tpurec_torch.data.schema import DataInfo
+
+    info = DataInfo.from_dims(
+        ["user_tag", "item_id", "item_tag"], [20, 60, 12],
+        sequence_names=["history", "history_tags"], sequence_query_features=["item_id", "item_tag"],
+        user_features=["user_tag"], item_features=["item_id", "item_tag"],
+        max_seq_length=l, padding_index=0,
+    )
+    span = dict(zip(info.feature_names, zip(info.feature_offsets, info.feature_dims)))
+    batch = {n: rng.integers(o, o + d, size=(b,)) for n, (o, d) in span.items()}
+    live = rng.random((b, l)) < 0.7
+    live[0] = False
+    for series, query in zip(info.sequence_names, info.sequence_query_features):
+        o, d = span[query]
+        batch[series] = np.where(live, rng.integers(o, o + d, size=(b, l)), 0)
+        batch[f"neg_{series}"] = np.where(live, rng.integers(o, o + d, size=(b, l)), 0)
+    batch["label"] = rng.integers(0, 2, size=(b,)).astype(np.float32)
+    return info, batch
+
+
+SEQUENCE_CARD_MODELS = [
+    ("dien", {}, 1), ("dien", {"gru_mode": "agru"}, 1), ("dien", {"gru_mode": "aigru"}, 1),
+    ("dsin", {"num_sessions": 4}, 2), ("sdm", {}, 0),
+    ("fibinet_pp", {}, 0), ("masknet", {"mode": "serial"}, 0), ("masknet", {"mode": "parallel"}, 0),
+    ("contextnet", {"block_mode": "pointwise"}, 0), ("contextnet", {"block_mode": "singlelayer"}, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,params,attentions", SEQUENCE_CARD_MODELS)
+def test_sequence_model_on_card_matches_cpu(card, name, params, attentions):
+    """DIEN (each evolution mode), DSIN, SDM and the FiBiNET++ family (fp32,
+    eval mode) on the card against the same weights on the CPU, every
+    output; DIEN and DSIN launch #4 once per attention, the others no
+    kernel."""
+    from tpurec_torch.config import EmbeddingConfig, ModelConfig
+    from tpurec_torch.models import build_model
+    from tpurec_torch.ops import embedding_update as eu
+    from tpurec_torch.ops import kernels
+
+    if name in ("dien", "dsin", "sdm"):
+        info, batch = _sequence_schema(np.random.default_rng(9))
+    else:
+        info, batch = _multitask_schema(np.random.default_rng(9))
+    batch.pop("label")
+    config = ModelConfig(name=name, params=params, embedding=EmbeddingConfig(dim=8))
+    on_card = build_model(config, info, device=card).eval()
+    if hasattr(on_card, "cat_bn"):  # running statistics of its own
+        on_card.cat_bn.running_mean.uniform_(-0.1, 0.1)
+        on_card.cat_bn.running_var.uniform_(0.5, 1.5)
+    on_cpu = build_model(config, info, device="cpu").eval()
+    on_cpu.load_state_dict({k: v.cpu() for k, v in on_card.state_dict().items()})
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        got = on_card({k: torch.as_tensor(v, device=card) for k, v in batch.items()})
+        want = on_cpu({k: torch.as_tensor(v) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert kernels.din_attention_fused.launches == attentions and eu.fused_scatter_add.launches == 0
+    assert set(got) == set(want)
+    for key in want:
+        torch.testing.assert_close(got[key].cpu(), want[key], **TOL, msg=lambda m, k=key: f"{k}: {m}")
+
+
+@pytest.mark.cuda
+def test_dien_fused_step_on_card_matches_cpu(card):
+    """Three fp32 DIEN steps with the sampled negative series in the fused
+    engine on the card (#9 once a step over the profile, query, history and
+    negative ids; #4 and #5 once a step, #5 with gp = 0) against the same
+    steps on the CPU: the loss of each (1e-5) and the table after them
+    (2e-6)."""
+    from tpurec_torch.config import ExperimentConfig
+    from tpurec_torch.ops import embedding_update as eu
+    from tpurec_torch.ops import kernels
+    from tpurec_torch.train.trainer import Trainer
+
+    info, _ = _sequence_schema(np.random.default_rng(0))
+    config = ExperimentConfig.from_dict(dict(
+        model=dict(name="dien", embedding=dict(dim=8)),
+        train=dict(compute_dtype="float32", log_every_steps=0, sparse_embedding=True,
+                   optimizer=dict(embedding_optimizer="fused_adam")),
+    ))
+    trainers = [Trainer(config, info, device=card), Trainer(config, info, device="cpu")]
+    first = _sequence_schema(np.random.default_rng(10), 256)[1]
+    states = [t.init_state(first) for t in trainers]
+    states[1].model.load_state_dict({k: v.cpu() for k, v in states[0].model.state_dict().items()})
+    kernels.reset_launch_counts()
+    for i in range(3):
+        batch = _sequence_schema(np.random.default_rng(10 + i), 256)[1]
+        losses = []
+        for j, (t, s) in enumerate(zip(trainers, states)):
+            states[j], _, logs = t.train_step(s, t.device_batch(batch), t.metrics.init())
+            losses.append(float(logs["loss"]))
+        assert abs(losses[0] - losses[1]) <= 1e-5, losses
+    torch.cuda.synchronize()
+    assert eu.fused_scatter_add.launches == 3
+    assert kernels.din_attention_fused.launches == kernels.din_attention_bwd_fused.launches == 3
+    got = states[0].model.emb.embedding.detach().cpu()[:-1]
+    want = states[1].model.emb.embedding.detach()[:-1]
+    torch.testing.assert_close(got, want, atol=2e-6, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [64, 4])
+def test_din_attention_bwd_kernel_with_zero_pooled_cotangent(card, l):
+    """#5 as DIEN runs it: gp = 0 and gs the gradient of a loss through the
+    softmax of the scores over the live steps (so 0 at masked steps), at
+    DIEN's (8192, 64, 32, 36) and DSIN's session shape (8192, 4, 32, 36)
+    with a mask with holes; gs scaled to a largest |value| of 1. The
+    reference is the plain version in fp64: over 8192 × 64 × 36
+    pre-activations some lie within fp32's rounding of PReLU's kink, where
+    the fp32 plain version takes the other slope and the kernel, which
+    takes lin there in fp64, does not."""
+    from tpurec_torch.ops import kernels
+
+    b, d, h = 8192, 32, 36
+    args = _din_args(card, b, l, d, h, True, seed=11, holes=True)
+    _, scores = kernels.din_attention_plain(*args)
+    scores = scores.detach().requires_grad_(True)
+    live = args[2].bool()
+    weights = torch.softmax(torch.where(live, scores, -1e9), dim=-1) * live.any(dim=-1, keepdim=True)
+    target = torch.randn(b, l, device=card, generator=torch.Generator(card).manual_seed(12))
+    (gs,) = torch.autograd.grad((weights * target).sum(), scores)
+    gs = gs / gs.abs().max()
+    gp = torch.zeros(b, d, device=card)
+    assert not gs[~live].any() and gs.abs().sum() > 0
+    got = kernels.din_attention_bwd_fused(*args, gp, gs)
+    want = [w.float() for w in kernels.din_attention_bwd_plain(*[a.double() for a in args + [gp, gs]])]
+    names = ("dq", "dkeys", "dw1", "db1", "dw2", "dalpha")
+    for name, g, w in zip(names[:2], got[:2], want[:2]):
+        torch.testing.assert_close(g, w, **TOL, msg=lambda m, n=name: f"{n}: {m}")
+    for name, g, w in zip(names[2:], got[2:], want[2:]):
+        _assert_close_scaled(g, w, what=name)
+    assert all(torch.equal(x, y) for x, y in zip(got, kernels.din_attention_bwd_fused(*args, gp, gs)))

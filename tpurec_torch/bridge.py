@@ -24,11 +24,20 @@ flax path maps to a torch key by joining with dots, with these renames:
   ``pair_weight`` (P,); the ``(V, F, D)`` field-aware tables; the
   ``scale`` (and ``bias``) of the port's ``BatchNorm`` and ``LayerNorm``,
   which keep flax's names; AutoInt's ``cont_emb`` (C, D); the expert
-  banks' ``w_{i}`` (E, in, out) and ``b_{i}``; and FDN's auxiliary heads
+  banks' ``w_{i}`` (E, in, out) and ``b_{i}``; DSIN's ``bias_sess``,
+  ``bias_pos`` and ``bias_dim``; the learned position table's ``pos``;
+  FiBiNET++'s ``bilinear_w`` (D, D), ContextNet's ``ctx_proj`` (F, A, D)
+  and ``ffn_w_{i}`` (F, D, D) (all used as ``x @ w``, so not transposed);
+  and FDN's auxiliary heads
   ``L{level}_{task}_aux_w`` (E, H) and ``_aux_b`` (E,), which keep their
   names only where the port module at their path owns a parameter so
   named (as a raw ``kernel``).
   Only a leaf named exactly ``kernel`` can be a Dense kernel.
+- the recurrent cells' per-gate layers are Dense layers under the cell's
+  path (``cell/ir``, ``layer_0/hf``...) and load by the Dense rule: flax's
+  ``GRUCell`` has a bias on ``ir``, ``iz``, ``in`` and ``hn`` and none on
+  ``hr`` and ``hz``; ``OptimizedLSTMCell`` has none on ``ii``…``io`` and
+  one on ``hi``…``ho``.
 
 It raises ``KeyError`` on a collection other than those two or a leaf name
 it does not know, and the strict ``load_state_dict`` raises
@@ -63,8 +72,9 @@ _PARAM_KEEP = {
     "bias", "w1", "b1", "w2", "alpha", "logit_scale", "logit_bias", "w",
     "squeeze_kernel", "squeeze_bias", "excite_kernel", "excite_bias",
     "S", "W", "interest_pool", "pair_weight", "scale", "cont_emb",
+    "bias_sess", "bias_pos", "bias_dim", "pos", "bilinear_w", "ctx_proj",
 }
-_INDEXED_KEEP = re.compile(r"(w|b|compress)_\d+")
+_INDEXED_KEEP = re.compile(r"(w|b|compress|ffn_w)_\d+")
 # FDN's per-expert auxiliary heads, raw parameters at the model's root
 _AUX_HEAD = re.compile(r"L\d+_.+_aux_[wb]")
 _STAT_RENAMES = {"mean": "running_mean", "var": "running_var"}

@@ -42,6 +42,15 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator,
         nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
+def orthogonal_(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """flax ``orthogonal()`` (the recurrent cells' ``recurrent_kernel_init``):
+    a normal matrix's QR factor with the signs of R's diagonal folded in, so
+    the draw is uniform over the orthogonal matrices. A square (H, H)
+    kernel is orthogonal in either layout."""
+    with torch.no_grad():
+        nn.init.orthogonal_(weight, generator=generator)
+
+
 # --------------------------------------------------------------------------
 # JAX's threefry normals, for the constants the JAX package draws from a
 # fixed key inside a module (MIND's routing-logit init, ``jax.random.normal(

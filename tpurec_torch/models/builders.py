@@ -11,6 +11,7 @@ import torch
 from tpurec_torch.data.schema import DataInfo
 from tpurec_torch.models import dcn as dcn_models
 from tpurec_torch.models import din as din_models
+from tpurec_torch.models import fibinetpp as fpp_models
 from tpurec_torch.models import fm as fm_models
 from tpurec_torch.models import matrixcf as cf_models
 from tpurec_torch.models import mind as mind_models
@@ -226,6 +227,19 @@ def _din(params: dict, info: DataInfo):
     return din_models.DIN(**_seq_params(params, info))
 
 
+@register_model("dien")
+def _dien(params: dict, info: DataInfo):
+    return din_models.DIEN(**_seq_params(params, info))
+
+
+@register_model("dsin")
+def _dsin(params: dict, info: DataInfo):
+    # its position bias is sized by L, which flax reads off the first batch
+    p = _seq_params(params, info)
+    p.setdefault("max_seq_length", info.max_seq_length)
+    return din_models.DSIN(**p)
+
+
 def _retrieval_params(params: dict, info: DataInfo) -> dict:
     """The multi-interest models' common params, and each query feature's
     [offset, offset + dim) range in the shared id space for the sampled
@@ -255,6 +269,11 @@ def _mind(params: dict, info: DataInfo):
     return mind_models.MIND(**_retrieval_params(params, info))
 
 
+@register_model("sdm")
+def _sdm(params: dict, info: DataInfo):
+    return mind_models.SDM(**_retrieval_params(params, info))
+
+
 @register_model("comirec")
 def _comirec(params: dict, info: DataInfo):
     p = _retrieval_params(params, info)
@@ -265,3 +284,18 @@ def _comirec(params: dict, info: DataInfo):
 @register_model("sine")
 def _sine(params: dict, info: DataInfo):
     return mind_models.SINE(**_retrieval_params(params, info))
+
+
+@register_model("fibinet_pp")
+def _fibinet_pp(params: dict, info: DataInfo):
+    return fpp_models.FiBiNetPlusPlus(**_with_continuous(params, info))
+
+
+@register_model("masknet")
+def _masknet(params: dict, info: DataInfo):
+    return fpp_models.MaskNet(**_with_continuous(params, info))
+
+
+@register_model("contextnet")
+def _contextnet(params: dict, info: DataInfo):
+    return fpp_models.ContextNet(**_with_continuous(params, info))

@@ -1,14 +1,14 @@
 """Multi-interest retrieval (counterpart of ``tpurec/models/mind.py``): MIND,
-ComiRec ('sa' and 'dr') and SINE. SDM comes with the sequence slice (it
-needs ``MaskedLSTM``, ``MultiHeadAttention`` and ``gather_steps``).
+SDM, ComiRec ('sa' and 'dr') and SINE.
 
 Each model maps a behavior history (and a profile) to one or more interest
 vectors and scores the candidate item by inner product; training uses
 ``in_batch_softmax``. Outputs carry ``user_embedding``, ``item_embedding``
 and, where the model has them, ``interest_capsules`` (the offline indexer's
 multi-interest tower) and ``capsule_mask``. Child modules keep the flax
-names (``emb``, ``routing``, ``capsule_mlp``, ``w1``, ``w2``,
-``intent_proj``), so weights map across by path.
+names (``emb``, ``routing``, ``capsule_mlp``, ``short_lstm``,
+``short_mha``, ``w1``, ``w2``, ``intent_proj``...), so weights map across
+by path.
 
 Sampled-softmax negatives (``num_sampled_negatives``) are drawn in training
 mode from the generator ``sampling_generator(model, generator)`` hands the
@@ -22,6 +22,7 @@ from __future__ import annotations
 import contextlib
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -29,9 +30,11 @@ from torch import nn
 from tpurec_torch.embedding.modules import SharedEmbedding
 from tpurec_torch.initializers import glorot_uniform_
 from tpurec_torch.models.base import Inputs, Outputs, embed_series, stack_ids
+from tpurec_torch.ops.attention import MultiHeadAttention
 from tpurec_torch.ops.capsule import CapsuleRouting, LabelAwareAttention
+from tpurec_torch.ops.hashing import gather_steps
 from tpurec_torch.ops.mlp import MLP, Dense
-from tpurec_torch.ops.sequence import sinusoidal_positions
+from tpurec_torch.ops.sequence import MaskedLSTM, sinusoidal_positions
 from tpurec_torch.ops.topk import top_k
 
 
@@ -222,6 +225,72 @@ class MIND(_RetrievalBase):
             "item_embedding": target,
             "interest_capsules": capsules,
             "capsule_mask": cap_mask,
+            "output": _dot(user_vec, target),
+        }
+        return self._finalize(out, inputs)
+
+
+def _attn_pool(user_q: torch.Tensor, x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Scaled dot-product pooling of x (B, L, D) by the user query (B, D):
+    fp32 logits times JAX's fp32 1/√D, a softmax over the live steps (0 for
+    a row with none), the weights in x's dtype for the sum."""
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(x.shape[-1])))
+    logits = torch.einsum("bld,bd->bl", x.to(torch.float32), user_q.to(torch.float32)) * scale
+    logits = torch.where(m.bool(), logits, -1e9)
+    w = torch.softmax(logits, dim=-1) * (m.sum(dim=-1, keepdim=True) > 0)
+    return torch.einsum("bl,bld->bd", w.to(x.dtype), x)
+
+
+class SDM(_RetrievalBase):
+    """Sequential deep matching: a short-term channel (the last
+    ``short_len`` live steps of the concat-embedded history through
+    ``short_lstm``, ``lstm_layers`` stacked LSTMs, then ``short_mha`` under
+    the valid×valid mask, pooled by ``user_to_short``'s query) and a
+    long-term channel (each series pooled by ``user_to_long``'s query, then
+    ``long_proj``), fused by the gate σ(``gate_user``(u) + ``gate_long``(p) +
+    ``gate_short``(s)): user = (1 − g)·p + g·s. Needs user features."""
+
+    def __init__(self, *args, short_len: int = 10, num_heads: int = 2, lstm_layers: int = 2, **kw):
+        super().__init__(*args, **kw)
+        if not self.user_features:
+            raise ValueError("SDM needs user features for its channel queries")
+        d, e = self.behavior_dim, self.embed_dim
+        self.short_len = short_len
+        profile = len(self.user_features) * e
+        self.user_to_short = Dense(profile, d, self.dtype)
+        self.user_to_long = Dense(profile, e, self.dtype)
+        self.short_lstm = MaskedLSTM(d, d, num_layers=lstm_layers, dtype=self.dtype)
+        self.short_mha = MultiHeadAttention(d, num_heads, max(1, d // num_heads), dtype=self.dtype)
+        self.long_proj = Dense(len(self.sequence_features) * e, d, self.dtype)
+        self.gate_user = Dense(d, d, self.dtype)
+        self.gate_long = Dense(d, d, self.dtype)
+        self.gate_short = Dense(d, d, self.dtype)
+
+    def forward(self, inputs: Inputs) -> Outputs:
+        behavior, mask = self._behavior(inputs)
+        l = behavior.shape[1]
+        profile = self._profile_vec(inputs)
+        user_short = torch.tanh(self.user_to_short(profile))
+        user_long = torch.tanh(self.user_to_long(profile))
+        # the last s live steps (histories are oldest first, tail-padded)
+        s = min(self.short_len, l)
+        lengths = mask.sum(dim=-1, keepdim=True)
+        win_pos = lengths - s + torch.arange(s, device=mask.device)[None, :]
+        win_mask = (win_pos >= 0).to(mask.dtype)
+        short_seq = gather_steps(behavior, win_pos.clamp(0, l - 1).to(torch.int64))
+        short_seq = short_seq * win_mask[..., None].to(short_seq.dtype)
+        states = self.short_lstm(short_seq, win_mask)
+        rect = win_mask[:, :, None] * win_mask[:, None, :]
+        states = self.short_mha(states, mask=rect)
+        s_t = _attn_pool(user_short, states, win_mask)
+        pooled = [_attn_pool(user_long, self.emb(inputs[n]), mask) for n in self.sequence_features]
+        p_t = torch.tanh(self.long_proj(torch.cat(pooled, dim=-1)))
+        gate = torch.sigmoid(self.gate_user(user_short) + self.gate_long(p_t) + self.gate_short(s_t))
+        user_vec = (1.0 - gate) * p_t + gate * s_t
+        target = self._target(inputs)
+        out: Outputs = {
+            "user_embedding": user_vec,
+            "item_embedding": target,
             "output": _dot(user_vec, target),
         }
         return self._finalize(out, inputs)

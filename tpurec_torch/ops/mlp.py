@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpurec_torch.initializers import glorot_uniform_, lecun_normal_
+from tpurec_torch.initializers import glorot_uniform_, lecun_normal_, orthogonal_
 
 
 def _compute_dtype(x: torch.Tensor, param: torch.Tensor, dtype: Optional[torch.dtype]):
@@ -28,7 +28,9 @@ def _compute_dtype(x: torch.Tensor, param: torch.Tensor, dtype: Optional[torch.d
 class Dense(nn.Module):
     """flax ``nn.Dense``: ``weight`` is (out, in) like ``nn.Linear`` (the flax
     kernel transposed), bias zeros (none with ``use_bias=False``); inputs,
-    weight and bias are cast to the compute dtype before the product."""
+    weight and bias are cast to the compute dtype before the product.
+    ``kernel_init`` is lecun normal (flax's default), glorot uniform, or
+    orthogonal (the recurrent cells' hidden-state kernels)."""
 
     def __init__(
         self,
@@ -39,7 +41,7 @@ class Dense(nn.Module):
         use_bias: bool = True,
     ):
         super().__init__()
-        if kernel_init not in ("lecun_normal", "glorot_uniform"):
+        if kernel_init not in ("lecun_normal", "glorot_uniform", "orthogonal"):
             raise ValueError(f"unknown kernel_init {kernel_init!r}")
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.empty(out_features)) if use_bias else None
@@ -49,6 +51,8 @@ class Dense(nn.Module):
     def init_weights(self, generator: torch.Generator) -> None:
         if self.kernel_init == "glorot_uniform":
             glorot_uniform_(self.weight, generator)
+        elif self.kernel_init == "orthogonal":
+            orthogonal_(self.weight, generator)
         else:
             lecun_normal_(self.weight, generator)
         if self.bias is not None:
@@ -73,16 +77,19 @@ class BatchNorm(nn.Module):
     variance (``F.batch_norm`` would update ``running_var`` with the unbiased
     one). In eval mode it normalises with the running statistics.
 
-    The output dtype is flax's with ``dtype=None``: the promotion of the
-    input's and the fp32 parameters' types (fp32 for a bf16 input), or the
-    input's when there are no parameters."""
+    The output dtype is flax's: ``dtype`` when it is set (FiBiNET++'s
+    ``cat_bn``; the statistics and the normalisation stay fp32), else the
+    promotion of the input's and the fp32 parameters' types (fp32 for a
+    bf16 input; NFM's ``bn``), or the input's when there are no
+    parameters."""
 
     momentum = 0.99  # flax convention: the weight of the running value
 
     def __init__(self, num_features: int, use_scale: bool = True, use_bias: bool = True,
-                 epsilon: float = 1e-5):
+                 epsilon: float = 1e-5, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.epsilon = epsilon
+        self.dtype = dtype
         self.scale = nn.Parameter(torch.empty(num_features)) if use_scale else None
         self.bias = nn.Parameter(torch.empty(num_features)) if use_bias else None
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -109,6 +116,8 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         y = _normalize(flat, mean, var, self.epsilon, self.scale, self.bias)
+        if self.dtype is not None:
+            return y.reshape(x.shape).to(self.dtype)
         has_params = self.scale is not None or self.bias is not None
         return y.reshape(x.shape).to(torch.promote_types(x.dtype, torch.float32) if has_params else x.dtype)
 
