@@ -19,6 +19,7 @@
     python3 chip_smoke.py --cli       # phase 12 alone (raw files to serving through the CLI)
     python3 chip_smoke.py --multitask # phase 13 alone (the multi-task and personalization families)
     python3 chip_smoke.py --sequence  # phase 14 alone (DIEN, DSIN, SDM and the FiBiNET++ family)
+    python3 chip_smoke.py --long-seq  # phase 15 alone (SIM, CAN, ETA, DMR, DMT, FinalMLP, SDIM)
 
 Needs one CUDA card and ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``); ``triton``
 only for ``--fm-ab`` and ``--cross-ab`` against a parent whose #1 and #2
@@ -361,6 +362,40 @@ checkout and exits non-zero on the first phase that fails. Phases:
       L=64) and ``cli train`` of DIEN, two epochs with export: #4 and #5 at
       key width 64, the eval AUC above 0.5.
     Phase 14's checks sit under ``other_shapes`` of #4, #5 and #9, its
+    launches under their ``launches_by_path``.
+
+15. the long-sequence and DMR families at the registry's widths, random
+    seeded weights, B=8192, D=32, bf16 dense compute, fp32 params, Adam lr
+    1e-3 eps 1e-7; ``--long-seq`` runs this phase alone:
+    - 15a: sim, can, eta (with its LSH self-attention), dmr and sdim over
+      phase 6's DIN schema (21,504 rows, L=64, ``bench_batch``'s lengths in
+      [L/4, L]) and dmt over phase 9's two aligned series: each served as
+      phase 10b, its 256 rows against the CPU through
+      ``long_seq_compare`` (the SimHash bits recorded on both devices: a
+      flip only within ``SIGN_MARGIN`` of 0, at most ``MAX_FLIPPED_ROWS``
+      rows left out; ``topk_indices`` equal, every float output within
+      ``FM_FAMILY_RTOL`` of its largest |value|), then ``FM_FAMILY_STEPS``
+      dense steps (``gsu_esu``, ``bce``, ``multi_task``) with an
+      ``evaluate`` pass; finalmlp the same over phase 10's
+      ``wide_and_deep`` schema; no kernel runs;
+    - 15b: DIEN 3 steps, exported, grafted under sim's and can's ``trunk``
+      (``init_subtree_from_export``) and frozen: #4 once a step, #5 never,
+      the trunk unchanged; both served with the trunk (#4 once a predict)
+      and trained unfrozen (#4 and #5 once a step, #4 once an eval batch),
+      #4 and #5 held on their own recorded inputs and cotangents
+      (``check_step_attention``, gp = 0);
+    - 15c: can, sim with its trunk and eta in the fused engine (#9 once per
+      table a step: CAN's induction table at width 4·D + 24 = 152, SIM's
+      nested ``trunk/emb``), #9 on those two streams
+      (``check_step_scatter``) and their fp32 fused steps against their
+      dense ones (``fused_vs_dense``);
+    - 15d: sim, eta (no LSH self-attention: its mask would be 32 GB) and
+      sdim over a 1,024-step history: served against the CPU and
+      trained as 15a, with peak memory;
+    - 15e: a ``SketchStore`` with SDIM's own projections filled with 256
+      users' history embeddings from the card: its ``query`` against the
+      fp32 model's ``long_term_interest`` (``SKETCH_ATOL``).
+    Phase 15's checks sit under ``other_shapes`` of #4, #5 and #9, its
     launches under their ``launches_by_path``.
 
 TF32 is off for the whole run (``allow_tf32 = False`` for matmul and
@@ -1583,18 +1618,22 @@ def scatter_case(torch, eu, gen, plan, v, d, timing=True, grads=None):
 
 
 def carry_readings(torch, eu, broken, plan, v, d, grads, r) -> None:
-    """Add to ``r`` the stream's runs that cross a tile and a slice of the
-    kernel at width ``d``, its repeated rows, and the readings of the
-    ``broken`` versions (``broken_scatters``) on it."""
+    """Add to ``r`` the stream's rows with a nonzero gradient that a run
+    carries past a tile and a slice of the kernel at width ``d``, its
+    repeated rows with a nonzero gradient (a row of zeros is the same
+    whether it is summed or dropped: CAN's induction table gets gradient
+    only at the query ids' positions), and the readings of the ``broken``
+    versions (``broken_scatters``) on it."""
     if not plan.n:
         return
     s = plan.sids
     start = torch.searchsorted(s, s)
     pos = torch.arange(plan.n, device="cuda")
+    live = (grads.reshape(plan.n, d) != 0).any(dim=-1)
     for unit, rows in (("tile", eu.scatter_tile_rows(d)), ("slice", eu.scatter_slice_rows(d))):
         r[f"{unit}_rows"] = rows
-        r[f"{unit}_crossing_rows"] = int((pos // rows != start // rows).sum())
-    r["repeated_rows"] = int((s[1:] == s[:-1]).sum())
+        r[f"{unit}_crossing_rows"] = int(((pos // rows != start // rows) & live).sum())
+    r["repeated_rows"] = int(((s[1:] == s[:-1]) & live[1:]).sum())
     for bname, fn in broken.items():
         r[bname] = sum_reading(torch, eu, fn(v, d, plan, grads), plan, grads)
 
@@ -3297,11 +3336,13 @@ def run_fm_family_servable(torch, workdir, card, case, seed):
                  rank=case == "ffm")
 
 
-def run_servable(torch, workdir, card, case, config, info, seed, rank=False, batch=None):
+def run_servable(torch, workdir, card, case, config, info, seed, rank=False, batch=None, cpu_check=None):
     """export → load_servable → predict at B=8192, bf16 compute (on the
     seed-0 ``fm_family_batch`` unless ``batch`` is given): finite
     probabilities; the first 256 rows against the port on the CPU with the
-    same weights; the kernels the first predict launched; predict p50 of 10
+    same weights (``cpu_check(card servable, CPU servable, rows, scale)``
+    gives (readings, details) in place of the logit's reading when it is
+    given); the kernels the first predict launched; predict p50 of 10
     after 2 warm-ups and a profiler summary; with ``rank`` also
     ``Servable.rank`` at the rank buckets against ``predict``'s
     probabilities. Returns the result."""
@@ -3327,13 +3368,21 @@ def run_servable(torch, workdir, card, case, config, info, seed, rank=False, bat
     outputs = servable.predict(batch)
     torch.cuda.synchronize()
     launches = path_launches(kernels, eu)
-    out = outputs["output"]
-    key = "logit" if "logit" in outputs else "output"
+    # a multi-task model's first task stands for it (``ctr_output``, ``ctr_logit``)
+    prob_key = "output" if "output" in outputs else min(k for k in outputs if k.endswith("output"))
+    out = outputs[prob_key]
+    key = prob_key[: -len("output")] + "logit"
+    key = key if key in outputs else prob_key
     ref = outputs[key]
     scale = FM_FAMILY_RTOL * float(ref.abs().max())
     rows = {k: v[:256] for k, v in batch.items()}
-    cpu = load_servable(export_dir, info, device="cpu").predict(rows)[key]
-    readings = dict(cpu_256_rows=float((ref[:256].cpu() - cpu).abs().max()) / scale)
+    cpu_servable = load_servable(export_dir, info, device="cpu")
+    details = {}
+    if cpu_check is None:
+        cpu = cpu_servable.predict(rows)[key]
+        readings = dict(cpu_256_rows=float((ref[:256].cpu() - cpu).abs().max()) / scale)
+    else:
+        readings, details = cpu_check(servable, cpu_servable, rows, scale)
     ranks = {}
     rank_scale = FM_FAMILY_RTOL * float(out.abs().max())  # rank gives probabilities
     if rank:
@@ -3351,7 +3400,7 @@ def run_servable(torch, workdir, card, case, config, info, seed, rank=False, bat
     times = []
     for _ in range(12):
         t0 = time.perf_counter()
-        servable.predict(batch)["output"].cpu()
+        servable.predict(batch)[prob_key].cpu()
         times.append((time.perf_counter() - t0) * 1e3)
     p50 = statistics.median(times[2:])
     busy_ms, top_ops = profile_steps(torch, lambda: servable.predict(batch))
@@ -3359,7 +3408,7 @@ def run_servable(torch, workdir, card, case, config, info, seed, rank=False, bat
                   launches=launches, limit=scale, rank_limit=rank_scale, max_abs=float(ref.abs().max()), std=float(ref.float().std()),
                   mean_prob=float(out.mean()), predict_p50_ms=p50,
                   examples_per_s=TRAIN_BATCH / (p50 / 1e3), device_busy_ms=busy_ms,
-                  device_idle_share=1.0 - busy_ms / p50, top_ops_ms=top_ops, rank=ranks)
+                  device_idle_share=1.0 - busy_ms / p50, top_ops_ms=top_ops, rank=ranks, cpu_compare=details)
     print(f"{case} servable (readings: error / limit):", json.dumps(result), flush=True)
     check(out.shape == (TRAIN_BATCH,) and out.dtype == torch.float32, f"{case}: bad output {out.shape}")
     check(bool(torch.isfinite(out).all()) and bool(((out >= 0) & (out <= 1)).all()),
@@ -3492,13 +3541,15 @@ def dcn_rest_config(case, mode="dense", dtype="bfloat16"):
     return experiment_config(name, params, dim, mode, dtype)
 
 
-def check_step_scatter(torch, eu, trainer, batch, tables, widths):
+def check_step_scatter(torch, eu, trainer, batch, tables, widths, carried=()):
     """Kernel #9 on a model's own stream: one fused step of ``trainer`` on
     ``batch`` with each launch's inputs and output recorded, then each held
     to the plain version (``check_scatter_readings``' limits, broken
     versions above them, the same bits twice) and timed beside
     ``index_add_`` and its bound. ``tables`` names the launches in their
-    order, ``widths`` their D. Returns {table: record}."""
+    order, ``widths`` their D; each table in ``carried`` must have rows
+    with a nonzero gradient carried past a slice and repeated, so that
+    the broken versions are held there. Returns {table: record}."""
     calls = []
     fused = eu.fused_scatter_add
 
@@ -3528,6 +3579,10 @@ def check_step_scatter(torch, eu, trainer, batch, tables, widths):
         print("kernel check:", json.dumps(records[table]), flush=True)
     check_scatter_readings(readings, f" ({', '.join(tables)})")
     check([r["d"] for r in readings.values()] == list(widths), f"#9's widths on {tables}: {readings}")
+    for table in carried:
+        r = readings[table]
+        check(r["slice_crossing_rows"] > 0 and r["repeated_rows"] > 0,
+              f"no run with a nonzero gradient crossed a slice or repeated on {table}: {r}")
     return records
 
 
@@ -4304,15 +4359,20 @@ def check_attention_readings(readings, label) -> None:
             check(r[version] > 1.0, f"{label}: the check cannot tell a {version} version at {name}: {r}")
 
 
-def check_step_attention(torch, kernels, info, case, batch):
+def check_step_attention(torch, kernels, info, case, batch, config=None, names=None):
     """Kernels #4 and #5 on a model's own inputs and cotangents (phase 14b):
-    one bf16 dense step of ``case`` with each launch recorded, then each
-    launch held to its plain version (``attention_*_case``); DSIN's also
-    with a session mask with holes, an all-zero row and a row live at its
-    last session only. Returns {name: record}."""
+    one bf16 dense step of ``case`` (``sequence_config(case)`` unless
+    ``config`` is given; its DIN attentions ``names`` in launch order) with
+    each launch recorded, then each launch held to its plain version
+    (``attention_*_case``); DSIN's also with a session mask with holes, an
+    all-zero row and a row live at its last session only. A DIEN
+    attention (its scores only, so #5 gets gp = 0) is one named ``att``.
+    Returns {name: record}."""
     from tpurec_torch.train.trainer import Trainer
 
-    trainer = Trainer(sequence_config(case), info)
+    if names is None:
+        names = ["att"] if case == "dien" else ["att_interest", "att_evolved"]
+    trainer = Trainer(config or sequence_config(case), info)
     state = trainer.init_state(batch)
     fwd_rec, bwd_rec, calls = recorded_attention(kernels)
     with mock.patch.object(kernels, "din_attention_fused", fwd_rec), \
@@ -4320,10 +4380,9 @@ def check_step_attention(torch, kernels, info, case, batch):
         trainer.train_step(state, trainer.device_batch(batch), trainer.metrics.init())
         torch.cuda.synchronize()
     del trainer, state
-    n = SEQ_ATTENTIONS[case]
+    n = len(names)
     check(len(calls["fwd"]) == len(calls["bwd"]) == n,
           f"{case}: the step launched #4 {len(calls['fwd'])} and #5 {len(calls['bwd'])} times, not {n}")
-    names = ["att"] if case == "dien" else ["att_interest", "att_evolved"]
     gen = torch.Generator(device="cuda").manual_seed(14)
     readings, records = {}, {}
     for name, (args, out) in zip(names, calls["fwd"]):
@@ -4342,9 +4401,9 @@ def check_step_attention(torch, kernels, info, case, batch):
         for k in (key, f"{key}_bwd"):
             print("kernel check:", json.dumps(records[k]), flush=True)
     check_attention_readings(readings, case)
-    if case == "dien":
-        r = readings["dien_att_bwd"]
-        check(r["gp_zero"] and not r["gs_zero"], f"dien: #5 did not get gp = 0 and a nonzero gs: {r}")
+    if names[-1].split(".")[-1] == "att":
+        r = readings[f"{case}_{names[-1]}_bwd"]
+        check(r["gp_zero"] and not r["gs_zero"], f"{case}: #5 did not get gp = 0 and a nonzero gs: {r}")
     return records
 
 
@@ -4555,6 +4614,373 @@ def run_sequence(torch, kernels, eu, workdir, card):
     return records, launches, seconds
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the long-sequence and DMR families (SIM, CAN, ETA, DMR, DMT,
+# FinalMLP, SDIM)
+LONG_SEQ = {
+    # case: (registry name, params, loss); the registry's widths over phase
+    # 6's DIN schema, DMT over phase 9's two aligned series; ETA with its LSH
+    # self-attention (at L = 64 only: its (B, L, L) mask is 32 GB at 1,024)
+    "sim": ("sim", dict(DIN_FEATURES), "gsu_esu"),
+    "can": ("can", dict(DIN_FEATURES), "gsu_esu"),
+    "eta": ("eta", dict(DIN_FEATURES, lsh_self_attention=True), "gsu_esu"),
+    "dmr": ("dmr", dict(DIN_FEATURES), "bce"),
+    "sdim": ("sdim", dict(DIN_FEATURES), "gsu_esu"),
+    "dmt": ("dmt", {}, "multi_task"),
+}
+# the fused engine's cases: (model params, #9's launches in a step by table,
+# their widths, the tables ``check_step_scatter`` and ``fused_vs_dense``
+# read, or None for neither, the launches whose broken versions must be held)
+LONG_SEQ_FUSED = {
+    "can": ({}, ("can_emb", "can_induction"), (32, 152), ("emb.embedding", "induction_emb_item_id.embedding"),
+            ("can_induction",)),
+    "sim_trunk": (dict(use_dien_trunk=True), ("sim_emb", "sim_trunk_emb"), (32, 32),
+                  ("emb.embedding", "trunk.emb.embedding"), ()),
+    "eta": ({}, ("eta_emb",), (32,), None, ()),
+}
+LONG_HISTORY = 1024  # top-16 of 1,024 steps, what the search stages are for
+LONG_HISTORY_CASES = {"sim": {}, "eta": dict(lsh_self_attention=False), "sdim": {}}
+# a SimHash bit may differ card against CPU only where its product lies this
+# close to 0 on the CPU (fp32 sums in two orders); rows with such a flip are
+# left out of the comparison, at most MAX_FLIPPED_ROWS of the 256
+SIGN_MARGIN = 1e-5
+MAX_FLIPPED_ROWS = 2
+SKETCH_USERS = 256
+SKETCH_ATOL = 1e-6  # the store's fp32 sum-then-divide against the pool's weighted sum
+
+
+def long_seq_config(case, mode="dense", dtype="bfloat16", freeze=(), **params):
+    name, base, loss = LONG_SEQ[case]
+    return experiment_config(name, dict(base, **params), 32, mode, dtype, loss=loss,
+                             freeze_prefixes=tuple(freeze))
+
+
+def long_seq_data(case, seq_len=64):
+    """(schema, batch maker ``make(size, seed)``): DIN's schema with a
+    ``seq_len``-step history and ``bench_batch``'s lengths in [L/4, L], or
+    for DMT phase 9's MIND schema and batch with seeded ``ctr``/``cvr``."""
+    if case != "dmt":
+        info = dataclasses.replace(din_info(), max_seq_length=seq_len)
+        return info, lambda size, seed: bench_batch(info, size, seq_len, seed=seed)
+    info = mind_info()
+
+    def make(size, seed):
+        batch = mind_batch(info, size, seed)
+        rng = np.random.default_rng(seed + 4000)
+        batch["ctr"] = (rng.random(size) < 0.3).astype(np.float32)
+        batch["cvr"] = (batch["ctr"] * (rng.random(size) < 0.3)).astype(np.float32)
+        return batch
+
+    return info, make
+
+
+def recorded_bits(fn):
+    """Run ``fn()`` with the port's ``simhash_bits`` recorded where the
+    models call it: (its result, each call's (x, projection, bits))."""
+    from tpurec_torch.ops import hashing
+
+    simhash = hashing.simhash_bits
+    calls = []
+
+    def recorded(x, projection):
+        bits = simhash(x, projection)
+        calls.append((x, projection, bits))
+        return bits
+
+    with mock.patch.object(hashing, "simhash_bits", recorded), \
+            mock.patch("tpurec_torch.models.sim.simhash_bits", recorded):
+        return fn(), calls
+
+
+def bit_flips(torch, card_calls, cpu_calls) -> dict:
+    """One forward's SimHash bits on the card against the CPU's: the flips,
+    each of which must be a product within ``SIGN_MARGIN`` of 0 on the CPU
+    (in fp64), the batch rows they touch, the smallest |x·p| on the CPU."""
+    check(len(card_calls) == len(cpu_calls), f"{len(card_calls)} SimHash calls on the card, "
+                                             f"{len(cpu_calls)} on the CPU")
+    flips, rows, smallest, widest = 0, set(), None, 0.0
+    for (_, _, got), (x, proj, want) in zip(card_calls, cpu_calls):
+        products = torch.einsum("...d,db->...b", x.double(), proj.double()).abs()
+        low = float(products.min())
+        smallest = low if smallest is None else min(smallest, low)
+        flipped = got.cpu() != want
+        if flipped.any():
+            flips += int(flipped.sum())
+            widest = max(widest, float(products[flipped].max()))
+            rows |= set(flipped.reshape(flipped.shape[0], -1).any(dim=-1).nonzero()[:, 0].tolist())
+    out = dict(calls=len(cpu_calls), bits=sum(c[2].numel() for c in cpu_calls), flips=flips,
+               flipped_rows=sorted(rows), smallest_cpu_product=smallest, widest_flipped_product=widest,
+               margin=SIGN_MARGIN)
+    check(widest < SIGN_MARGIN, f"a SimHash bit flipped card against CPU beyond the margin: {out}")
+    check(len(rows) <= MAX_FLIPPED_ROWS, f"SimHash flips on more than {MAX_FLIPPED_ROWS} rows: {out}")
+    return out
+
+
+def long_seq_compare(torch):
+    """``run_servable``'s ``cpu_check`` for this phase: the 256 rows'
+    predict on the card and on the CPU with their SimHash bits recorded
+    (``bit_flips``); on the rows without a flip every float output within
+    ``FM_FAMILY_RTOL`` of its largest |value| and ``topk_indices`` equal."""
+
+    def compare(servable, cpu_servable, rows, _scale):
+        card_out, card_calls = recorded_bits(lambda: servable.predict(rows))
+        cpu_out, cpu_calls = recorded_bits(lambda: cpu_servable.predict(rows))
+        flips = bit_flips(torch, card_calls, cpu_calls)
+        keep = torch.ones(next(iter(rows.values())).shape[0], dtype=torch.bool)
+        keep[flips["flipped_rows"]] = False
+        readings = {}
+        for key, want in cpu_out.items():
+            got, want = card_out[key].cpu()[keep], want[keep]
+            if key == "topk_indices":
+                readings[key] = 0.0 if torch.equal(got, want) else float("inf")
+            else:
+                limit = FM_FAMILY_RTOL * max(float(want.float().abs().max()), 1e-30)
+                readings[key] = float((got.float() - want.float()).abs().max()) / limit
+        return readings, dict(simhash=flips, rows_compared=int(keep.sum()))
+
+    return compare
+
+
+def run_long_seq_models(torch, eu, workdir, card):
+    """Phase 15a: sim, can, eta, dmr, sdim and dmt served (export →
+    load_servable → predict, the 256 rows against the CPU with
+    ``long_seq_compare``, p50) and trained ``FM_FAMILY_STEPS`` bf16 dense
+    steps with an ``evaluate`` pass; finalmlp over phase 10's
+    ``wide_and_deep`` schema the same way (its logit against the CPU). No
+    kernel runs: without the DIEN trunk these models have no DIN attention,
+    and the dense engine no #9."""
+    for seed, case in enumerate(LONG_SEQ):
+        info, make = long_seq_data(case)
+        served = run_servable(torch, workdir, card, case, long_seq_config(case).model, info, seed,
+                              batch=make(TRAIN_BATCH, 0), cpu_check=long_seq_compare(torch))
+        evals = [make(TRAIN_BATCH, 2 + i) for i in range(SEQ_EVAL_BATCHES)]
+        _, trained = run_training(torch, eu, card, case, long_seq_config(case), info, batch=make(TRAIN_BATCH, 1),
+                                  extra=evaluate_extra(torch, case, evals))
+        counts = dict(serving=served["launches"], training=trained["launches"],
+                      evaluate=trained["evaluate_launches"])
+        check(not any(v for c in counts.values() for v in c.values()), f"{case} launched {counts}")
+    info = fm_family_info("fm_continuous")
+    config = experiment_config("finalmlp", {}, 32)
+    served = run_servable(torch, workdir, card, "finalmlp", config.model, info, len(LONG_SEQ))
+    evals = [fm_family_batch(info, TRAIN_BATCH, seed=2 + i) for i in range(SEQ_EVAL_BATCHES)]
+    _, trained = run_training(torch, eu, card, "finalmlp", config, info, extra=evaluate_extra(torch, "finalmlp", evals))
+    counts = dict(serving=served["launches"], training=trained["launches"], evaluate=trained["evaluate_launches"])
+    check(not any(v for c in counts.values() for v in c.values()), f"finalmlp launched {counts}")
+
+
+def run_dien_trunk(torch, kernels, eu, workdir, card):
+    """Phase 15b, ``tests/test_freeze_compose.py``'s recipe at DIN's width:
+    DIEN takes 3 bf16 steps and is exported; sim and can with
+    ``use_dien_trunk`` graft it under ``trunk`` (``init_subtree_from_export``)
+    and take ``FM_FAMILY_STEPS`` steps with ``freeze_prefixes=('trunk',)``:
+    #4 once a step, #5 never, the trunk's parameters the export's bytes.
+    Then both served with the trunk (#4 once a predict) and trained
+    unfrozen (#4 and #5 once a step, #4 once an eval batch), and #4 and #5
+    held to their plain versions on each model's own recorded inputs and
+    cotangents (``check_step_attention``; #5 gets gp = 0). Returns
+    (records by kernel, launches by kernel and path)."""
+    from tpurec_torch.train.trainer import Trainer
+
+    info, make = long_seq_data("sim")
+    batch = make(TRAIN_BATCH, 1)
+    dien = Trainer(sequence_config("dien"), info)
+    state = dien.init_state(batch)
+    dbatch = dien.device_batch(batch)
+    for _ in range(3):
+        state, _, _ = dien.train_step(state, dbatch, dien.metrics.init())
+    export_dir = os.path.join(workdir, "dien_trunk_export")
+    dien.export(state, export_dir)
+    exported = {k: v.detach().clone() for k, v in state.model.named_parameters()}
+    del dien, state, dbatch
+    launches = dict(din_attention={}, din_attention_bwd={})
+    for case in ("sim", "can"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(long_seq_config(case, freeze=("trunk",), use_dien_trunk=True), info)
+        state = trainer.init_subtree_from_export(trainer.init_state(batch), export_dir, "trunk")
+        check(all(torch.equal(v, exported[k]) for k, v in state.model.trunk.named_parameters()),
+              f"{case}: the grafted trunk is not the export")
+        dbatch = trainer.device_batch(batch)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        state, _, losses, times = drive_steps(torch, trainer, state, dbatch, steps=FM_FAMILY_STEPS)
+        counts = path_launches(kernels, eu)
+        moved = [k for k, v in state.model.trunk.named_parameters() if not torch.equal(v, exported[k])]
+        step_ms = statistics.median(times[2:])
+        print(f"{case} frozen dien trunk training:", json.dumps(dict(
+            card=card, model=case, batch=TRAIN_BATCH, steps=FM_FAMILY_STEPS, step_p50_ms=step_ms,
+            step_ms_min=min(times[2:]), step_ms_max=max(times[2:]), examples_per_s=TRAIN_BATCH / (step_ms / 1e3),
+            peak_mem_gb=(torch.cuda.max_memory_allocated() - base) / 2**30, loss_first=losses[0], loss_last=losses[-1],
+            launches=counts, trunk_moved=moved)), flush=True)
+        check(counts["din_attention"] == FM_FAMILY_STEPS and counts["din_attention_bwd"] == 0
+              and counts["fused_scatter_add"] == 0, f"{case} with the frozen trunk launched {counts}")
+        check(not moved, f"{case}: frozen trunk parameters moved: {moved}")
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"{case} frozen trunk losses {losses}")
+        for name in launches:
+            launches[name][f"{case}_frozen_trunk_training"] = counts[name]
+        del trainer, state, dbatch
+    evals = [make(TRAIN_BATCH, 2 + i) for i in range(SEQ_EVAL_BATCHES)]
+    records = {}
+    for seed, case in enumerate(("sim", "can")):
+        config = long_seq_config(case, use_dien_trunk=True)
+        served = run_servable(torch, workdir, card, f"{case}_trunk", config.model, info, 30 + seed,
+                              batch=make(TRAIN_BATCH, 0), cpu_check=long_seq_compare(torch))
+        check(served["launches"]["din_attention"] == 1, f"{case} with the trunk: predict launched {served['launches']}")
+        _, trained = run_training(torch, eu, card, f"{case}_trunk", config, info, batch=batch,
+                                  extra=evaluate_extra(torch, f"{case}_trunk", evals))
+        counts, ev = trained["launches"], trained["evaluate_launches"]
+        check(counts["din_attention"] == counts["din_attention_bwd"] == FM_FAMILY_STEPS
+              and counts["fused_scatter_add"] == 0, f"{case} with the trunk: dense steps launched {counts}")
+        check(ev["din_attention"] == SEQ_EVAL_BATCHES, f"{case} with the trunk: evaluate launched {ev}")
+        launches["din_attention"].update({f"{case}_trunk_serving": 1, f"{case}_trunk_training": FM_FAMILY_STEPS,
+                                          f"{case}_trunk_evaluate": ev["din_attention"]})
+        launches["din_attention_bwd"][f"{case}_trunk_training"] = FM_FAMILY_STEPS
+        gc.collect()
+        torch.cuda.empty_cache()
+        records.update(check_step_attention(torch, kernels, info, case, batch, config=config, names=["trunk.att"]))
+    by_kernel = {name: {k: v for k, v in records.items() if v["name"] == name}
+                 for name in ("din_attention", "din_attention_bwd")}
+    return by_kernel, launches
+
+
+def run_long_seq_fused(torch, kernels, eu, card):
+    """Phase 15c: can, sim with its DIEN trunk and eta ``FM_FAMILY_STEPS``
+    bf16 steps in the fused engine (#9 once per table a step: CAN's
+    induction table is 152 wide, SIM's trunk has a table of its own; the
+    trunk's #4 and #5 once a step); #9 held to its plain version on CAN's
+    and SIM's own streams (``check_step_scatter``), and their fp32 fused
+    steps against their dense ones (``fused_vs_dense``). Returns (#9's
+    records, launches by kernel and path)."""
+    from tpurec_torch.train.trainer import Trainer
+
+    info, make = long_seq_data("sim")
+    batch = make(TRAIN_BATCH, 1)
+    records = {}
+    launches = dict(din_attention={}, din_attention_bwd={}, fused_scatter_add={})
+    for case, (params, tables, widths, checked, carried) in LONG_SEQ_FUSED.items():
+        base = case.split("_")[0]
+        config = long_seq_config(base, "fused", **params)
+        fused, trained = run_training(torch, eu, card, case, config, info, "fused", batch=batch)
+        counts = trained["launches"]
+        attentions = FM_FAMILY_STEPS if params.get("use_dien_trunk") else 0
+        check(fused == len(tables) * FM_FAMILY_STEPS and counts["din_attention"] == attentions
+              and counts["din_attention_bwd"] == attentions, f"the fused {case} steps launched {counts}")
+        launches["fused_scatter_add"][f"{case}_fused_training"] = fused
+        if attentions:
+            for name in ("din_attention", "din_attention_bwd"):
+                launches[name][f"{case}_fused_training"] = counts[name]
+        if checked:
+            records.update(check_step_scatter(torch, eu, Trainer(config, info), batch, tables, widths, carried))
+            gc.collect()
+            torch.cuda.empty_cache()
+            fused_vs_dense(torch, eu, lambda m, b=base, p=params: long_seq_config(b, m, "float32", **p), info,
+                           batch, checked, case)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return records, launches
+
+
+def run_long_history(torch, eu, workdir, card):
+    """Phase 15d: sim, eta (no LSH self-attention) and sdim over a
+    ``LONG_HISTORY``-step history: served as 15a (the 256 rows against the
+    CPU), ``FM_FAMILY_STEPS`` bf16 dense steps with their peak memory. No
+    kernel runs."""
+    for seed, (case, params) in enumerate(LONG_HISTORY_CASES.items()):
+        info, make = long_seq_data(case, LONG_HISTORY)
+        config = long_seq_config(case, **params)
+        label = f"{case}_l{LONG_HISTORY}"
+        served = run_servable(torch, workdir, card, label, config.model, info, 40 + seed,
+                              batch=make(TRAIN_BATCH, 0), cpu_check=long_seq_compare(torch))
+        _, trained = run_training(torch, eu, card, label, config, info, batch=make(TRAIN_BATCH, 1))
+        counts = dict(serving=served["launches"], training=trained["launches"])
+        check(not any(v for c in counts.values() for v in c.values()), f"{label} launched {counts}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def check_sketch_store(torch, card):
+    """Phase 15e: a ``SketchStore`` with SDIM's own projections, filled with
+    the card's history embeddings of ``SKETCH_USERS`` users (their valid
+    steps) of an fp32 SDIM at DIN's width; its ``query`` with each user's
+    target embedding against the model's ``long_term_interest`` for those
+    rows (``SKETCH_ATOL``). The store takes its buckets in numpy: a user
+    whose bits there differ from the card's forward is left out and
+    counted, each such bit a product within ``SIGN_MARGIN`` of 0."""
+    from tpurec_torch.models import build_model
+    from tpurec_torch.serving.sketch_store import SketchStore
+
+    info, make = long_seq_data("sdim")
+    model = build_model(long_seq_config("sdim").model, info, device="cuda", seed=5).eval()
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in make(SKETCH_USERS, 6).items() if k != "label"}
+    with torch.inference_mode():
+        out, calls = recorded_bits(lambda: model(batch))
+        keys = model.emb(batch["history"]).float().cpu().numpy()
+        query = model.emb(batch["item_id"]).float().cpu().numpy()
+    want = out["long_term_interest"].cpu().numpy()
+    live = batch["history"].cpu().numpy() != 0
+    proj = model.hash_projections.cpu().numpy()
+    # the forward hashes the keys, then the query, in each group in turn
+    check(len(calls) == 2 * proj.shape[0], f"sdim: {len(calls)} SimHash calls for {proj.shape[0]} groups")
+    flipped, widest = set(), 0.0
+    for g in range(proj.shape[0]):
+        for x, (_, _, card_bits) in ((keys, calls[2 * g]), (query, calls[2 * g + 1])):
+            products = x.astype(np.float64) @ proj[g].astype(np.float64)
+            differ = ((x @ proj[g] > 0) != card_bits.cpu().numpy().astype(bool))
+            if x.ndim == 3:
+                differ &= live[..., None]
+            if differ.any():
+                widest = max(widest, float(np.abs(products[differ]).max()))
+                flipped |= set(np.nonzero(differ.reshape(SKETCH_USERS, -1).any(axis=-1))[0].tolist())
+    store = SketchStore(proj)
+    errs = []
+    for u in range(SKETCH_USERS):
+        if u in flipped:
+            continue
+        store.update(f"u{u}", keys[u][live[u]])
+        errs.append(float(np.abs(store.query(f"u{u}", query[u]) - want[u]).max()))
+    result = dict(card=card, users=SKETCH_USERS, groups=proj.shape[0], bits=proj.shape[2],
+                  flipped_users=sorted(flipped), widest_flipped_product=widest, margin=SIGN_MARGIN,
+                  compared=len(errs), max_abs_err=max(errs), limit=SKETCH_ATOL,
+                  mean_abs_interest=float(np.abs(want).mean()))
+    print("sdim sketch store against long_term_interest:", json.dumps(result), flush=True)
+    check(widest < SIGN_MARGIN and len(flipped) <= MAX_FLIPPED_ROWS and max(errs) <= SKETCH_ATOL,
+          f"sketch store: {result}")
+    return result
+
+
+def run_long_seq(torch, kernels, eu, workdir, card):
+    """Phase 15: the seven models served and trained (15a), the DIEN trunk
+    grafted, frozen and unfrozen with #4 and #5 on its own inputs (15b), the
+    fused engine with #9 on CAN's and SIM's streams (15c), a 1,024-step
+    history (15d) and the sketch store (15e). Returns (records by kernel
+    and shape, launches by kernel and path, seconds by part)."""
+    seconds = {}
+    records = dict(din_attention={}, din_attention_bwd={}, fused_scatter_add={})
+    launches = dict(din_attention={}, din_attention_bwd={}, fused_scatter_add={})
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    part("15a_models", run_long_seq_models, torch, eu, workdir, card)
+    trunk_records, trunk_launches = part("15b_dien_trunk", run_dien_trunk, torch, kernels, eu, workdir, card)
+    fused_records, fused_launches = part("15c_fused", run_long_seq_fused, torch, kernels, eu, card)
+    part("15d_long_history", run_long_history, torch, eu, workdir, card)
+    part("15e_sketch_store", check_sketch_store, torch, card)
+    for name in ("din_attention", "din_attention_bwd"):
+        records[name].update(trunk_records[name])
+    records["fused_scatter_add"].update(fused_records)
+    for source in (trunk_launches, fused_launches):
+        for name, paths in source.items():
+            launches[name].update(paths)
+    print("phase 15 seconds:", json.dumps(seconds), flush=True)
+    return records, launches, seconds
+
+
 def ok_line(torch) -> dict:
     return {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                    "count": torch.cuda.device_count()}}
@@ -4701,6 +5127,22 @@ def main() -> int:
                           "sequence_checks": seq_records}), flush=True)
         print(json.dumps(ok_line(torch)), flush=True)
         return 0
+    if sys.argv[1:] == ["--long-seq"]:
+        # phase 15 alone: the long-sequence and DMR families (their kernels
+        # are #4, #5 and #9)
+        from tpurec_torch.ops import embedding_update as eu
+
+        t = time.perf_counter()
+        kernels.build(["din_attention", "din_attention_bwd", "embedding_update"])
+        print(f"built in {time.perf_counter() - t:.1f} s", flush=True)
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR.parent) as workdir:
+            ls_records, ls_launches, _ = run_long_seq(torch, kernels, eu, workdir, smi)
+        print("phase seconds:", json.dumps({"15_long_seq": time.perf_counter() - t}), flush=True)
+        print(json.dumps({"card": smi, "long_seq_launches_by_path": ls_launches,
+                          "long_seq_checks": ls_records}), flush=True)
+        print(json.dumps(ok_line(torch)), flush=True)
+        return 0
     if sys.argv[1:2] == ["--din-bwd-ab"] and len(sys.argv) == 3:
         # kernel #5 of another checkout (a git archive of the parent commit)
         # against this one's, alternating
@@ -4756,35 +5198,39 @@ def main() -> int:
         cli_launches, cli_checks, _ = timed("12_cli", run_cli, torch, kernels, eu, workdir, smi)
         mt_scatter, mt_launches = timed("13_multitask", run_multitask, torch, kernels, eu, workdir, smi)
         seq_records, seq_launches, _ = timed("14_sequence", run_sequence, torch, kernels, eu, workdir, smi)
+        ls_records, ls_launches, _ = timed("15_long_seq", run_long_seq, torch, kernels, eu, workdir, smi)
     print("phase seconds:", json.dumps(seconds), flush=True)
     # a kernel on several paths: its launches are their sum
     fm_paths = dict(http_rank=records["fm_second_order"]["launches"], **cli_launches["fm_second_order"])
     records["fm_second_order"]["launches"] = sum(fm_paths.values())
     records["fm_second_order"]["launches_by_path"] = fm_paths
-    # phase 12's and 14's checks at their own shapes sit beside each kernel's others
+    # phase 12's, 14's and 15's checks at their own shapes sit beside each kernel's others
     for name in ("fm_second_order", "din_attention", "din_attention_bwd"):
         records[name].setdefault("other_shapes", {}).update(cli_checks[name])
     for name in ("din_attention", "din_attention_bwd"):
         records[name]["other_shapes"].update(seq_records[name])
+        records[name]["other_shapes"].update(ls_records[name])
     forward_paths = dict(din_serving=serve_launches, din_training=train_launches,
                          din_fused_training=din_fused["din_attention"], **cli_launches["din_attention"],
-                         **seq_launches["din_attention"])
+                         **seq_launches["din_attention"], **ls_launches["din_attention"])
     records["din_attention"]["launches"] = sum(forward_paths.values())
     records["din_attention"]["launches_by_path"] = forward_paths
     bwd_paths = dict(din_training=bwd_launches, din_fused_training=din_fused["din_attention_bwd"],
-                     **cli_launches["din_attention_bwd"], **seq_launches["din_attention_bwd"])
+                     **cli_launches["din_attention_bwd"], **seq_launches["din_attention_bwd"],
+                     **ls_launches["din_attention_bwd"])
     records["din_attention_bwd"]["launches"] = sum(bwd_paths.values())
     records["din_attention_bwd"]["launches_by_path"] = bwd_paths
     scatter_paths = dict(fm_fused_training=fm_scatter_launches,
                          din_fused_training=din_fused["fused_scatter_add"], **fm_family_launches,
                          **dcn_rest_launches, **cli_launches["fused_scatter_add"], **mt_launches,
-                         **seq_launches["fused_scatter_add"])
+                         **seq_launches["fused_scatter_add"], **ls_launches["fused_scatter_add"])
     records["fused_scatter_add"] = dict(embedding["fm_v"], launches=sum(scatter_paths.values()),
                                         launches_by_path=scatter_paths,
                                         other_shapes=dict(fm_w=embedding["fm_w"], din=embedding["din"],
                                                           **fm_family_scatter, **nfm_scatter,
                                                           **cli_checks["fused_scatter_add"],
-                                                          **mt_scatter, **seq_records["fused_scatter_add"]))
+                                                          **mt_scatter, **seq_records["fused_scatter_add"],
+                                                          **ls_records["fused_scatter_add"]))
     # #10 is on no training path, in either package: checked and timed alone
     records["gather_rows_sorted"] = dict(embedding["gather"], launches=0, launches_by_path={})
     for name, rec in dcn_records.items():

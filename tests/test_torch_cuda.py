@@ -1485,3 +1485,201 @@ def test_din_attention_bwd_kernel_with_zero_pooled_cotangent(card, l):
     for name, g, w in zip(names[2:], got[2:], want[2:]):
         _assert_close_scaled(g, w, what=name)
     assert all(torch.equal(x, y) for x, y in zip(got, kernels.din_attention_bwd_fused(*args, gp, gs)))
+
+
+# --------------------------------------------------------------------------
+# the long-sequence and DMR families: the hashing ops, #9 at CAN's widths
+SIGN_MARGIN = 1e-5  # as the CPU tests': |x·p| beyond fp32 rounding of the products
+
+
+def _recorded_bits(fn):
+    """Run ``fn()`` with the port's ``simhash_bits`` recorded where the
+    models call it: (its result, each call's (x, projection, bits) on the
+    CPU, in call order)."""
+    from unittest import mock
+
+    from tpurec_torch.ops import hashing
+
+    simhash = hashing.simhash_bits
+    calls = []
+
+    def recorded(x, projection):
+        bits = simhash(x, projection)
+        calls.append((x.detach().cpu(), projection.cpu(), bits.cpu()))
+        return bits
+
+    with mock.patch.object(hashing, "simhash_bits", recorded), \
+            mock.patch("tpurec_torch.models.sim.simhash_bits", recorded):
+        out = fn()
+    return out, calls
+
+
+def _flipped_rows(card_calls, cpu_calls):
+    """The batch rows (axis 0 of every hashed tensor) where a card bit
+    differs from the CPU's; every such flip must be a product within
+    ``SIGN_MARGIN`` of 0 (an fp32 sum in another order). Returns (rows,
+    number of flipped bits)."""
+    assert len(card_calls) == len(cpu_calls)
+    rows, flips = set(), 0
+    for (_, _, got), (x, proj, want) in zip(card_calls, cpu_calls):
+        flipped = got != want
+        if flipped.any():
+            products = torch.einsum("...d,db->...b", x.double(), proj.double()).abs()
+            assert (products[flipped] < SIGN_MARGIN).all(), products[flipped]
+            flips += int(flipped.sum())
+            rows |= set(flipped.reshape(flipped.shape[0], -1).any(dim=-1).nonzero()[:, 0].tolist())
+    return rows, flips
+
+
+@pytest.mark.cuda
+def test_hashing_ops_on_card_match_cpu(card):
+    """SimHash bits, bucket ids, Hamming similarities and the top-k picks
+    (integer scores: ties everywhere, an empty row) equal the CPU's where
+    every product lies beyond ``SIGN_MARGIN`` (asserted on the CPU);
+    ``lsh_attention`` and ``sketch_pool`` to ``TOL``."""
+    from tpurec_torch.ops import hashing
+
+    rng = np.random.default_rng(21)
+    x = rng.normal(size=(64, 40, 16)).astype(np.float32)
+    proj = rng.normal(size=(16, 12)).astype(np.float32)
+    groups = rng.normal(size=(4, 16, 3)).astype(np.float32)
+    mask = (rng.random((64, 40)) < 0.7).astype(np.float32)
+    mask[0] = 0.0
+    products = np.abs(np.einsum("bld,dn->bln", x.astype(np.float64), proj))
+    assert products.min() > SIGN_MARGIN
+    assert np.abs(np.einsum("bld,gdn->bgln", x.astype(np.float64), groups)).min() > SIGN_MARGIN
+    cpu = [torch.tensor(a) for a in (x, proj, groups, mask)]
+    dev = [t.to(card) for t in cpu]
+    for fn in (hashing.simhash_bits, hashing.lsh_bucket_ids):
+        assert torch.equal(fn(dev[0], dev[1]).cpu(), fn(cpu[0], cpu[1]))
+    bits = [hashing.simhash_bits(t[0], t[1]) for t in (dev, cpu)]
+    sim = [hashing.hamming_similarity(b[:, 0], b) for b in bits]
+    assert torch.equal(sim[0].cpu(), sim[1])
+    for k in (1, 5, 16, 40):
+        got = hashing.topk_select(sim[0].float(), dev[3], k)
+        want = hashing.topk_select(sim[1].float(), cpu[3], k)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), k
+    torch.testing.assert_close(hashing.lsh_attention(dev[0], dev[0], dev[1][:, :4], dev[3]).cpu(),
+                               hashing.lsh_attention(cpu[0], cpu[0], cpu[1][:, :4], cpu[3]), **TOL)
+    torch.testing.assert_close(hashing.sketch_pool(dev[0], dev[3], dev[2], dev[0][:, 0]).cpu(),
+                               hashing.sketch_pool(cpu[0], cpu[3], cpu[2], cpu[0][:, 0]), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [152, 56])
+def test_fused_scatter_add_at_the_co_action_widths(card, d):
+    """#9 at CAN's induction-table widths (4·D + 24 at D = 32 and 8) on a
+    fused step's stream (B = 2048 rows of 3 profile ids, 2 query ids and two
+    64-step series over DIN's 21,504 rows, sequences column-major, a share
+    padded with id 0): within the limit of ``scatter_add_plain``, two calls
+    the same bits, and a version that loses what runs carry past a slice
+    above the limit."""
+    from tpurec_torch.ops import embedding_update as eu
+
+    rng = np.random.default_rng(5)
+    b, l, v = 2048, 64, 21_504
+    cols = [rng.integers(1, v, size=b) for _ in range(5)]
+    for _ in range(2):
+        series = np.where(rng.random((b, l)) < 0.3, 0, rng.integers(1, v, size=(b, l)))
+        cols.append(series.T.reshape(-1))
+    plan = eu.make_scatter_plan(torch.as_tensor(np.concatenate(cols), device=card), v)
+    grads = torch.randn(plan.n, d, device=card, generator=torch.Generator(card).manual_seed(5))
+    got = eu.fused_scatter_add(v, d, plan, grads)
+    again = eu.fused_scatter_add(v, d, plan, grads)
+    assert got.shape == (v, d) and torch.equal(got, again)
+    assert _sum_reading(got, plan, grads) <= 1.0
+    rows = eu.scatter_slice_rows(d)
+    start = torch.searchsorted(plan.sids, plan.sids)
+    keep = torch.arange(plan.n, device=card) // rows == start // rows
+    assert not keep.all()
+    dropped = eu.scatter_add_plain(v, plan.sids[keep], grads[keep])
+    assert _sum_reading(dropped, plan, grads) > 1.0
+
+
+LONG_SEQ_CARD_MODELS = [
+    ("sim", {"topk": 5}, 0), ("sim", {"topk": 5, "use_dien_trunk": True}, 1),
+    ("can", {}, 0), ("can", {"use_dien_trunk": True}, 1),
+    ("eta", {"topk": 5, "short_len": 4}, 0),
+    ("eta", {"topk": 5, "short_len": 4, "lsh_self_attention": True}, 0),
+    ("dmr", {}, 0), ("dmt", {}, 0), ("dmt", {"bias_features": ["user_tag"]}, 0),
+    ("finalmlp", {}, 0), ("sdim", {"n_hash_bits": 3, "short_len": 5}, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,params,attentions", LONG_SEQ_CARD_MODELS)
+def test_long_seq_model_on_card_matches_cpu(card, name, params, attentions):
+    """SIM, CAN (each with and without the DIEN trunk), ETA (with and
+    without the LSH self-attention), DMR, DMT, FinalMLP and SDIM (fp32, eval
+    mode) on the card against the same weights on the CPU: every SimHash bit
+    equal to the CPU's unless its product lies within ``SIGN_MARGIN`` of 0
+    (``_flipped_rows``), and on every row without such a flip every output
+    to ``TOL``, ``topk_indices`` exactly; the DIEN trunk launches #4 once."""
+    from tpurec_torch.config import EmbeddingConfig, ModelConfig
+    from tpurec_torch.models import build_model
+    from tpurec_torch.ops import embedding_update as eu
+    from tpurec_torch.ops import kernels
+
+    if name == "finalmlp":
+        info, batch = _multitask_schema(np.random.default_rng(9))
+    else:
+        info, batch = _sequence_schema(np.random.default_rng(9))
+    batch.pop("label")
+    config = ModelConfig(name=name, params=params, embedding=EmbeddingConfig(dim=8))
+    on_card = build_model(config, info, device=card).eval()
+    on_cpu = build_model(config, info, device="cpu").eval()
+    on_cpu.load_state_dict({k: v.cpu() for k, v in on_card.state_dict().items()})
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        got, card_bits = _recorded_bits(
+            lambda: on_card({k: torch.as_tensor(v, device=card) for k, v in batch.items()}))
+        want, cpu_bits = _recorded_bits(lambda: on_cpu({k: torch.as_tensor(v) for k, v in batch.items()}))
+    torch.cuda.synchronize()
+    assert kernels.din_attention_fused.launches == attentions and eu.fused_scatter_add.launches == 0
+    assert bool(cpu_bits) == (name in ("eta", "sdim"))
+    flipped, _ = _flipped_rows(card_bits, cpu_bits)
+    keep = torch.tensor([r not in flipped for r in range(next(iter(batch.values())).shape[0])])
+    assert keep.sum() >= keep.numel() - 2, sorted(flipped)
+    assert set(got) == set(want)
+    for key in want:
+        g, w = got[key].cpu()[keep], want[key][keep]
+        if key == "topk_indices":
+            assert torch.equal(g, w)
+        else:
+            torch.testing.assert_close(g, w, **TOL, msg=lambda m, k=key: f"{k}: {m}")
+
+
+@pytest.mark.cuda
+def test_can_fused_step_on_card_matches_cpu(card):
+    """Three fp32 CAN steps (``gsu_esu``) in the fused engine on the card
+    (#9 once per table a step: ``emb`` and the two induction tables, 56
+    wide at D = 8) against the same steps on the CPU: the loss of each
+    (1e-5) and the tables after them (2e-6)."""
+    from tpurec_torch.config import ExperimentConfig
+    from tpurec_torch.ops import embedding_update as eu
+    from tpurec_torch.train.trainer import Trainer
+
+    info, _ = _sequence_schema(np.random.default_rng(0))
+    config = ExperimentConfig.from_dict(dict(
+        model=dict(name="can", embedding=dict(dim=8)),
+        train=dict(compute_dtype="float32", log_every_steps=0, loss="gsu_esu", sparse_embedding=True,
+                   optimizer=dict(embedding_optimizer="fused_adam")),
+    ))
+    trainers = [Trainer(config, info, device=card), Trainer(config, info, device="cpu")]
+    first = _sequence_schema(np.random.default_rng(10), 256)[1]
+    states = [t.init_state(first) for t in trainers]
+    states[1].model.load_state_dict({k: v.cpu() for k, v in states[0].model.state_dict().items()})
+    before = eu.fused_scatter_add.launches
+    for i in range(3):
+        batch = _sequence_schema(np.random.default_rng(10 + i), 256)[1]
+        losses = []
+        for j, (t, s) in enumerate(zip(trainers, states)):
+            states[j], _, logs = t.train_step(s, t.device_batch(batch), t.metrics.init())
+            losses.append(float(logs["loss"]))
+        assert abs(losses[0] - losses[1]) <= 1e-5, losses
+    torch.cuda.synchronize()
+    assert eu.fused_scatter_add.launches - before == 9
+    for name in ("emb.embedding", "induction_emb_item_id.embedding", "induction_emb_item_tag.embedding"):
+        got = states[0].model.get_parameter(name).detach().cpu()[:-1]
+        want = states[1].model.get_parameter(name).detach()[:-1]
+        torch.testing.assert_close(got, want, atol=2e-6, rtol=0, msg=lambda m, n=name: f"{n}: {m}")

@@ -141,15 +141,23 @@ def _assert_metric_state(jms, pms, atol):
             )
 
 
-def _step_both(jt, js, pt, ps, data, tol, grads=True):
+def _step_both(jt, js, pt, ps, data, tol, grads=True, frozen=()):
+    """One step of both trainers: the loss, the gradients (``grads``) and
+    the parameters after it. The ``frozen`` parameters take no gradient in
+    the port (as none reaches them in tpurec's compiled step, where XLA
+    drops it): their ``.grad`` must stay None, whatever ``jax.grad`` of the
+    whole loss gives them."""
     jbatch = jt.device_batch(data)
     want_grads = _jax_grads(jt, js, jbatch, ps.model) if grads else None
+    if grads and frozen:
+        want_grads = {k: np.zeros_like(v) if k in frozen else v for k, v in want_grads.items()}
     js2, jms, jlogs = jt.train_step(js, jbatch, jt.metrics.init())
     ps2, pms, plogs = pt.train_step(ps, pt.device_batch(data), pt.metrics.init())
     assert ps2.step == int(js2.step)
     np.testing.assert_allclose(float(plogs["loss"]), float(jlogs["loss"]), atol=tol["loss"], rtol=0)
     if grads:
         _assert_grads(ps2.model, want_grads, tol["grad"])
+        assert all(ps2.model.get_parameter(n).grad is None for n in frozen)
     _assert_params(ps2.model, _by_torch_name(js2.params, ps2.model), tol["param"])
     return js2, jms, jlogs, ps2, pms, plogs
 
@@ -228,7 +236,7 @@ def test_optimizer_chain_matches_jax(variant):
     frozen = {n: p.detach().clone() for n, p in ps.model.named_parameters() if n.startswith("deep.")}
     tol = dict(FP32, param=spec.get("param_atol", FP32["param"]))
     for i in range(3):
-        js, _, jlogs, ps, _, plogs = _step_both(jt, js, pt, ps, data, tol, grads=i == 0)
+        js, _, jlogs, ps, _, plogs = _step_both(jt, js, pt, ps, data, tol, grads=i == 0, frozen=tuple(frozen))
     if variant == "used_id_l2":
         np.testing.assert_allclose(float(plogs["used_id_l2"]), float(jlogs["used_id_l2"]), rtol=1e-5)
     if variant == "freeze":

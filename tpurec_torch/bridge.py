@@ -27,7 +27,8 @@ flax path maps to a torch key by joining with dots, with these renames:
   banks' ``w_{i}`` (E, in, out) and ``b_{i}``; DSIN's ``bias_sess``,
   ``bias_pos`` and ``bias_dim``; the learned position table's ``pos``;
   FiBiNET++'s ``bilinear_w`` (D, D), ContextNet's ``ctx_proj`` (F, A, D)
-  and ``ffn_w_{i}`` (F, D, D) (all used as ``x @ w``, so not transposed);
+  and ``ffn_w_{i}`` (F, D, D), FinalMLP's bilinear ``w12`` (h, d1, d2)
+  (all used as ``x @ w``, so not transposed);
   and FDN's auxiliary heads
   ``L{level}_{task}_aux_w`` (E, H) and ``_aux_b`` (E,), which keep their
   names only where the port module at their path owns a parameter so
@@ -39,8 +40,13 @@ flax path maps to a torch key by joining with dots, with these renames:
   ``hr`` and ``hz``; ``OptimizedLSTMCell`` has none on ``ii``…``io`` and
   one on ``hi``…``ho``.
 
-It raises ``KeyError`` on a collection other than those two or a leaf name
-it does not know, and the strict ``load_state_dict`` raises
+- the ``constants`` collection (ETA's ``hash_proj`` and ``lsh_self_proj``,
+  SDIM's ``hash_projections``: fixed random projections that flax keeps
+  beside the params) loads into the port's persistent buffers of the same
+  names, exactly.
+
+It raises ``KeyError`` on a collection other than these or a leaf name it
+does not know, and the strict ``load_state_dict`` raises
 ``RuntimeError`` on any key of either side left unmatched and on any shape
 that differs.
 
@@ -72,7 +78,7 @@ _PARAM_KEEP = {
     "bias", "w1", "b1", "w2", "alpha", "logit_scale", "logit_bias", "w",
     "squeeze_kernel", "squeeze_bias", "excite_kernel", "excite_bias",
     "S", "W", "interest_pool", "pair_weight", "scale", "cont_emb",
-    "bias_sess", "bias_pos", "bias_dim", "pos", "bilinear_w", "ctx_proj",
+    "bias_sess", "bias_pos", "bias_dim", "pos", "bilinear_w", "ctx_proj", "w12",
 }
 _INDEXED_KEEP = re.compile(r"(w|b|compress|ffn_w)_\d+")
 # FDN's per-expert auxiliary heads, raw parameters at the model's root
@@ -125,14 +131,17 @@ def _torch_leaf(collection: str, path: Tuple[str, ...], value,
 def params_from_jax(module: nn.Module, variables: Mapping) -> nn.Module:
     """Load the flax ``variables`` into ``module`` (strict; copied to the
     module's device) and return it."""
-    extra = set(variables) - {"params", "batch_stats", "tables"}
+    extra = set(variables) - {"params", "batch_stats", "tables", "constants"}
     if extra:
         raise KeyError(f"unmatched collections {sorted(extra)}")
     state: Dict[str, torch.Tensor] = {}
-    for collection in ("params", "tables", "batch_stats"):
+    for collection in ("params", "tables", "batch_stats", "constants"):
         for path, value in _flatten(variables.get(collection) or {}):
-            name, arr = _torch_leaf("batch_stats" if collection == "batch_stats" else "params",
-                                    path, value, module)
+            if collection == "constants":
+                name, arr = path[-1], np.array(value, dtype=np.float32)
+            else:
+                name, arr = _torch_leaf("batch_stats" if collection == "batch_stats" else "params",
+                                        path, value, module)
             state[".".join(path[:-1] + (name,))] = torch.from_numpy(np.ascontiguousarray(arr))
     module.load_state_dict(state)
     return module

@@ -11,12 +11,14 @@ import torch
 from tpurec_torch.data.schema import DataInfo
 from tpurec_torch.models import dcn as dcn_models
 from tpurec_torch.models import din as din_models
+from tpurec_torch.models import dmr as dmr_models
 from tpurec_torch.models import fibinetpp as fpp_models
 from tpurec_torch.models import fm as fm_models
 from tpurec_torch.models import matrixcf as cf_models
 from tpurec_torch.models import mind as mind_models
 from tpurec_torch.models import multitask as mt_models
 from tpurec_torch.models import poso as poso_models
+from tpurec_torch.models import sim as sim_models
 from tpurec_torch.models.registry import register_model
 
 
@@ -299,3 +301,45 @@ def _masknet(params: dict, info: DataInfo):
 @register_model("contextnet")
 def _contextnet(params: dict, info: DataInfo):
     return fpp_models.ContextNet(**_with_continuous(params, info))
+
+
+# ------------------------------------------------------ long-sequence ranking
+@register_model("sim")
+def _sim(params: dict, info: DataInfo):
+    return sim_models.SIM(**_seq_params(params, info))
+
+
+@register_model("can")
+def _can(params: dict, info: DataInfo):
+    return sim_models.CAN(**_seq_params(params, info))
+
+
+@register_model("eta")
+def _eta(params: dict, info: DataInfo):
+    return sim_models.ETA(**_seq_params(params, info))
+
+
+# ----------------------------------------------------------------- DMR family
+@register_model("dmr")
+def _dmr(params: dict, info: DataInfo):
+    # its position table is sized by L, which flax reads off the first batch
+    p = _seq_params(params, info)
+    p.setdefault("max_seq_length", info.max_seq_length)
+    return dmr_models.DMR(**p)
+
+
+@register_model("dmt")
+def _dmt(params: dict, info: DataInfo):
+    p = _seq_params(params, info)
+    p.setdefault("max_seq_length", info.max_seq_length)
+    return dmr_models.DMT(**p)
+
+
+@register_model("finalmlp")
+def _finalmlp(params: dict, info: DataInfo):
+    return dmr_models.FinalMLP(**_common(params, info))
+
+
+@register_model("sdim")
+def _sdim(params: dict, info: DataInfo):
+    return dmr_models.SDIM(**_seq_params(params, info))

@@ -40,6 +40,7 @@ class _SeqBase(nn.Module):
         self.item_features = list(item_features)
         self.sequence_features = list(sequence_features)
         self.query_features = list(query_features)
+        self.vocab_size = vocab_size
         self.embed_dim = embed_dim
         self.hidden_dims = tuple(hidden_dims)
         self.padding_index = padding_index
@@ -61,7 +62,6 @@ class _SeqBase(nn.Module):
         embs = [self.emb(inputs[n]) for n in self.sequence_features]
         keys = torch.cat(embs, dim=-1) if len(embs) > 1 else embs[0]
         return keys, mask
-
 
     @property
     def key_dim(self) -> int:

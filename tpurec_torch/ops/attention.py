@@ -55,15 +55,16 @@ class MultiHeadAttention(nn.Module):
     ``kv_dim``) keys and values (the queries themselves when ``kv`` is
     None): ``q``/``k``/``v`` projections to ``num_heads`` × ``head_dim``
     without bias, ``scaled_dot_attention``, the ``out`` projection back to
-    D, the residual and ``ln`` (``LayerNorm``); all in ``dtype``. (The JAX
-    module's ``out_dim``, ``use_residual=False``, ``use_layer_norm=False``
+    D, the residual when ``use_residual`` and ``ln`` (``LayerNorm``); all
+    in ``dtype``. (The JAX module's ``out_dim``, ``use_layer_norm=False``
     and dropout come with the first ported model that sets them.)"""
 
     def __init__(self, dim: int, num_heads: int, head_dim: int, kv_dim: Optional[int] = None,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, use_residual: bool = True):
         super().__init__()
         kv_dim = dim if kv_dim is None else kv_dim
         self.num_heads, self.head_dim = num_heads, head_dim
+        self.residual = use_residual
         width = num_heads * head_dim
         self.q = Dense(dim, width, dtype, use_bias=False)
         self.k = Dense(kv_dim, width, dtype, use_bias=False)
@@ -88,7 +89,9 @@ class MultiHeadAttention(nn.Module):
         out = scaled_dot_attention(heads(q, self.q, lq), heads(kv, self.k, lk),
                                    heads(kv, self.v, lk), expand_mask(mask, lq, lk))
         out = self.out(out.transpose(1, 2).reshape(b, lq, h * dh))
-        return self.ln(out + q)
+        if self.residual:
+            out = out + q
+        return self.ln(out)
 
 
 class DinTargetAttention(nn.Module):

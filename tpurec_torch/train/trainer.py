@@ -171,6 +171,10 @@ class ChainOptimizer(torch.optim.Optimizer):
 
     Frozen parameters (``TrainConfig.freeze_prefixes``) are not in the
     optimizer: no update and no moments, as ``optax.set_to_zero`` gives them.
+    They take no gradient either (``Trainer._make_optimizer`` turns their
+    ``requires_grad`` off), as XLA drops the frozen branch's gradient from
+    the JAX package's compiled step: a frozen DIEN trunk runs no backward,
+    kernel #5 included.
     State per parameter: ``mu``, ``nu`` (Adam moments); ``count`` (updates
     applied) is kept in every group. The learning rate is computed on the
     host from ``count``, so a step never waits for the device."""
@@ -283,6 +287,9 @@ class Trainer:
             path = name.replace(".", "/")
             return any(path == p or path.startswith(p + "/") for p in prefixes)
 
+        for n, p in model.named_parameters():
+            if frozen(n):
+                p.requires_grad_(False)
         # the sparse engines update the tables themselves
         tables = set(_table_names(model)) if self.config.train.sparse_embedding else set()
         named = [
