@@ -20,6 +20,7 @@
     python3 chip_smoke.py --multitask # phase 13 alone (the multi-task and personalization families)
     python3 chip_smoke.py --sequence  # phase 14 alone (DIEN, DSIN, SDM and the FiBiNET++ family)
     python3 chip_smoke.py --long-seq  # phase 15 alone (SIM, CAN, ETA, DMR, DMT, FinalMLP, SDIM)
+    python3 chip_smoke.py --mesh      # phase 16 alone (the mesh: ranks over NCCL and gloo)
 
 Needs one CUDA card and ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``); ``triton``
 only for ``--fm-ab`` and ``--cross-ab`` against a parent whose #1 and #2
@@ -397,6 +398,34 @@ checkout and exits non-zero on the first phase that fails. Phases:
       fp32 model's ``long_term_interest`` (``SKETCH_ATOL``).
     Phase 15's checks sit under ``other_shapes`` of #4, #5 and #9, its
     launches under their ``launches_by_path``.
+16. the mesh (``core/mesh.py``, ``core/distributed.py``, the row-sharded
+    lookup, the sharded fused step, ``ops/attention_cp.py``), with ranks
+    that are processes of this script (``--mesh-rank``), started with
+    ``spawn`` semantics (a fresh interpreter each) after #4, #5 and #9 are
+    built, joined under ``MESH_TIMEOUT``: a rank that fails or hangs fails
+    the phase. One card holds every rank, so nothing here measures scaling:
+    - 16a: a world of one over NCCL, mesh (1, 1): DIN dense at phase 6's
+      width (B=8192, L=64, D=32, bf16) for ``MESH_STEPS`` steps, its losses
+      and parameters against the same steps without a world in this
+      process, both step times printed;
+    - 16b: a world of four ranks on ``cuda:0`` over gloo (NCCL allows one
+      rank of a communicator on a device; gloo reduces CUDA tensors through
+      the host), mesh (2, 2): DIN dense at global B=8192 (4096 a data
+      rank), ``MESH_FP32_STEPS`` fp32 steps against this process's
+      one-device run of the same global batches, then ``MESH_STEPS`` bf16
+      steps (#4 and #5 once a step on each rank); #4 and #5 on each rank's
+      own recorded inputs against their plain versions
+      (``check_step_attention``'s cases, #5 in fp64); FM over the 2.08M-row
+      table in the fused engine (each rank ``pad_vocab(V, 2) / 2`` rows):
+      ``MESH_STEPS`` bf16 steps (#9 twice a step on each rank), #9 on each
+      rank's own stream (ids outside its rows dropped) held by
+      ``check_step_scatter`` with its broken versions, and one fp32 fused
+      step against one fp32 dense step on the mesh; ``din_attention_cp`` at
+      ``CP_SHAPE`` over model = 4 (a (1, 4) mesh of the same world), its
+      pooled, its scores and every gradient against the one-device plain
+      version in fp64 (``din_reading``, ``bwd_reading``), which a pool
+      without the sum over the axis must miss.
+    Phase 16's launches sit under ``launches_by_path`` of #4, #5 and #9.
 
 TF32 is off for the whole run (``allow_tf32 = False`` for matmul and
 cuDNN), so every fp32 comparison is fp32 on both sides.
@@ -1611,8 +1640,12 @@ def scatter_case(torch, eu, gen, plan, v, d, timing=True, grads=None):
         # gradient element
         r["bound_ms"], r["bound_by"] = bound(4 * (plan.n * d + plan.n + v * d), plan.n * d)
         r["ms"] = device_ms(torch, lambda: eu.fused_scatter_add(v, d, plan, grads))
+        # a sharded step's stream holds ids outside the rank's rows, which
+        # #9 drops: index_add_ takes the stream's ids in [0, v)
+        keep = (plan.sids >= 0) & (plan.sids < v)
+        ids_in, grads_in = plan.sids[keep], grads.reshape(plan.n, d)[keep]
         r["library_ms"] = device_ms(torch, lambda: torch.zeros(v, d, device="cuda").index_add_(
-            0, plan.sids, grads))
+            0, ids_in, grads_in))
         r["split_ms"] = kernel_split(torch, lambda: eu.fused_scatter_add(v, d, plan, grads))
     return r, grads, got
 
@@ -1629,7 +1662,8 @@ def carry_readings(torch, eu, broken, plan, v, d, grads, r) -> None:
     s = plan.sids
     start = torch.searchsorted(s, s)
     pos = torch.arange(plan.n, device="cuda")
-    live = (grads.reshape(plan.n, d) != 0).any(dim=-1)
+    # rows #9 sums: a nonzero gradient at an id in [0, v)
+    live = (grads.reshape(plan.n, d) != 0).any(dim=-1) & (s >= 0) & (s < v)
     for unit, rows in (("tile", eu.scatter_tile_rows(d)), ("slice", eu.scatter_slice_rows(d))):
         r[f"{unit}_rows"] = rows
         r[f"{unit}_crossing_rows"] = int(((pos // rows != start // rows) & live).sum())
@@ -3691,7 +3725,8 @@ def trainer_clock(torch):
 
 
 def path_launches(kernels, eu) -> dict:
-    """The launches of the kernels on the CLI's paths since the last reset."""
+    """The launches of the kernels on the CLI's and the mesh's paths since
+    the last reset."""
     return dict(fm_second_order=kernels.fm_second_order_fused.launches,
                 din_attention=kernels.din_attention_fused.launches,
                 din_attention_bwd=kernels.din_attention_bwd_fused.launches,
@@ -4981,6 +5016,395 @@ def run_long_seq(torch, kernels, eu, workdir, card):
     return records, launches, seconds
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the mesh, its ranks processes of this script on the one card
+MESH_STEPS = 10  # timed bf16 steps of each mesh run
+MESH_FP32_STEPS = 4  # fp32 steps held against the one-device run
+MESH_TIMEOUT = 420  # seconds a world may take, from its start to its last rank's end
+MESH_LOSS_TOL = dict(rtol=2e-4, atol=2e-5)  # the CPU mesh tests' (tests/test_torch_mesh_train.py)
+MESH_PARAM_TOL = dict(rtol=5e-3, atol=5e-5)
+MESH_GROUPLESS_TOL = 1e-6  # world of one against no world: the same launches on the same card
+CP_SHAPE = (8192, 1024, 32, 36)  # B, L, D, H of din_attention_cp over model = 4
+CP_CHUNK = 512  # rows of the fp64 plain reference at a time
+MESH_2X2 = dict(data=2, model=2)
+
+
+def mesh_batches(info, n, seq_len=64, seed=160):
+    return [bench_batch(info, TRAIN_BATCH, seq_len, seed=seed + i) for i in range(n)]
+
+
+def on_mesh(config, **mesh):
+    from tpurec_torch.config import MeshConfig
+
+    return config.replace(mesh=MeshConfig(**mesh))
+
+
+def mesh_steps(torch, trainer, state, batches):
+    """One synchronised step per batch: (state, losses, host ms per step,
+    metric results)."""
+    metric_state = trainer.metrics.init()
+    losses, times = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, metric_state, logs = trainer.train_step(state, trainer.device_batch(b), metric_state)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(logs["loss"]))
+    results = {k: float(v) for k, v in trainer.metrics.result(metric_state).items()}
+    return state, losses, times, results
+
+
+def whole_params(model) -> dict:
+    """Every parameter on the CPU, tables whole (gathered over 'model')."""
+    from tpurec_torch.embedding.modules import EmbeddingTable
+
+    tables = {f"{n}.embedding" if n else "embedding": m
+              for n, m in model.named_modules() if isinstance(m, EmbeddingTable)}
+    return {n: (tables[n].whole(p) if n in tables else p).detach().cpu()
+            for n, p in model.named_parameters()}
+
+
+def param_reading(torch, got, want, tol) -> dict:
+    """Worst parameter over the rows both have, in units of ``tol``
+    (|got − want| / (atol + rtol·|want|); at most 1 passes)."""
+    worst, name = 0.0, None
+    for n, w in want.items():
+        g = got[n]
+        if g.dim():
+            rows = min(g.shape[0], w.shape[0])
+            g, w = g[:rows], w[:rows]
+        r = tol_ratio(g.double(), w.double(), **tol)
+        if r >= worst:
+            worst, name = r, n
+    return dict(param=worst, param_worst=name)
+
+
+def mesh_world(torch, world, size, directory) -> list:
+    """Start ``size`` ranks of this script (``--mesh-rank``), each a fresh
+    interpreter, and wait for them under ``MESH_TIMEOUT``. A rank that
+    fails (the others then wait in a collective: they are killed at once)
+    or is still running at the limit fails the phase. Returns each rank's
+    result."""
+    logs = [os.path.join(directory, f"{world}_{rank}.log") for rank in range(size)]
+    procs = []
+    for rank, log in enumerate(logs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-rank", world, str(rank),
+                 str(size), directory], stdout=f, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + MESH_TIMEOUT
+    try:
+        while time.monotonic() < deadline:
+            codes = [p.poll() for p in procs]
+            if all(c is not None for c in codes) or any(c not in (None, 0) for c in codes):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            print(f"world {world} rank {rank} (exit {p.returncode}) output:\n"
+                  f"{open(log).read()[-6000:]}", flush=True)
+    for rank, p in enumerate(procs):
+        check(p.returncode == 0, f"world {world}: rank {rank} exited {p.returncode} "
+                                 f"(killed if negative: at {MESH_TIMEOUT} s, or after another rank failed)")
+    out = []
+    for rank in range(size):
+        with open(os.path.join(directory, f"{world}_{rank}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def mesh_world_one(torch, kernels, eu, directory) -> dict:
+    """16a, in the one rank of an NCCL world: DIN dense bf16 over the (1, 1)
+    mesh its config gives."""
+    import torch.distributed as dist
+
+    from tpurec_torch.train.trainer import Trainer
+
+    x = torch.ones(4, device="cuda")
+    dist.all_reduce(x)  # the communicator carries a sum
+    check(float(x.sum()) == 4.0, f"NCCL world of one: all_reduce gave {x.tolist()}")
+    info = din_info()
+    batches = mesh_batches(info, MESH_STEPS)
+    trainer = Trainer(din_train_config("bfloat16"), info)
+    check(trainer.mesh_ctx.n_devices == 1, f"world of one: mesh {trainer.mesh_ctx}")
+    state = trainer.init_state(batches[0])
+    kernels.reset_launch_counts()
+    state, losses, times, results = mesh_steps(torch, trainer, state, batches)
+    counts = path_launches(kernels, eu)
+    torch.save(whole_params(state.model), os.path.join(directory, "nccl1_params.pt"))
+    return dict(losses=losses, step_ms=times, results=results, launches=counts)
+
+
+def mesh_din(torch, kernels, eu, directory) -> dict:
+    """16b's DIN: fp32 steps against the one-device run, then timed bf16
+    steps, then #4 and #5 on the rank's own inputs."""
+    from tpurec_torch.train.trainer import Trainer
+
+    info = din_info()
+    batches = mesh_batches(info, MESH_STEPS)
+    trainer = Trainer(on_mesh(din_train_config("float32"), **MESH_2X2), info)
+    state = trainer.init_state(batches[0])
+    state, losses, _, results = mesh_steps(torch, trainer, state, batches[:MESH_FP32_STEPS])
+    ref = torch.load(os.path.join(directory, "din_fp32_ref.pt"))
+    loss_err = max(tol_ratio(torch.tensor(losses, dtype=torch.float64),
+                             torch.tensor(ref["losses"], dtype=torch.float64), **MESH_LOSS_TOL),
+                   tol_ratio(torch.tensor(results["auc"]), torch.tensor(ref["results"]["auc"]),
+                             atol=1e-6, rtol=0))
+    reading = dict(loss=loss_err, **param_reading(torch, whole_params(state.model), ref["params"],
+                                                  MESH_PARAM_TOL))
+    check(reading["loss"] <= 1.0 and reading["param"] <= 1.0,
+          f"DIN on (2, 2) against one device, fp32: {reading} (losses {losses} vs {ref['losses']})")
+    del trainer, state
+    trainer = Trainer(on_mesh(din_train_config("bfloat16"), **MESH_2X2), info)
+    state = trainer.init_state(batches[0])
+    kernels.reset_launch_counts()
+    state, bf16_losses, times, _ = mesh_steps(torch, trainer, state, batches)
+    counts = path_launches(kernels, eu)
+    check(counts["din_attention"] == counts["din_attention_bwd"] == MESH_STEPS,
+          f"DIN on (2, 2): #4/#5 not once a step on this rank: {counts}")
+    check(all(np.isfinite(bf16_losses)), f"DIN on (2, 2): non-finite losses {bf16_losses}")
+    # #4 and #5 on this rank's own inputs of one bf16 step
+    fwd_rec, bwd_rec, calls = recorded_attention(kernels)
+    with mock.patch.object(kernels, "din_attention_fused", fwd_rec), \
+            mock.patch.object(kernels, "din_attention_bwd_fused", bwd_rec):
+        trainer.train_step(state, trainer.device_batch(batches[0]), trainer.metrics.init())
+        torch.cuda.synchronize()
+    check(len(calls["fwd"]) == len(calls["bwd"]) == 1, "DIN on (2, 2): one #4 and one #5 a step")
+    (args, out), (bargs, bout) = calls["fwd"][0], calls["bwd"][0]
+    check(args[1].shape[0] == TRAIN_BATCH // 2, f"#4 on a data rank's {args[1].shape[0]} rows")
+    readings, records = {}, {}
+    readings["din_2x2"], records["din_2x2"] = attention_fwd_case(torch, kernels, args, out)
+    readings["din_2x2_bwd"], records["din_2x2_bwd"] = attention_bwd_case(torch, kernels, bargs, bout)
+    check_attention_readings(readings, "din on (2, 2)")
+    return dict(fp32_losses=losses, fp32_reading=reading, bf16_losses=bf16_losses, step_ms=times,
+                launches=counts, attention=records)
+
+
+def mesh_fm(torch, kernels, eu) -> dict:
+    """16b's FM over the 2.08M-row table in the fused engine on (2, 2)."""
+    from tpurec_torch.train.trainer import Trainer
+
+    info = fm_info()
+    batches = [bench_batch(info, TRAIN_BATCH, 0, seed=161 + i) for i in range(MESH_STEPS)]
+    from tpurec_torch.embedding.modules import embedding_tables
+
+    trainer = Trainer(on_mesh(fm_train_config("fused"), **MESH_2X2), info)
+    state = trainer.init_state(batches[0])
+    rows = [t.embedding.shape[0] for t in embedding_tables(state.model)]
+    kernels.reset_launch_counts()
+    state, losses, times, _ = mesh_steps(torch, trainer, state, batches)
+    counts = path_launches(kernels, eu)
+    check(counts["fused_scatter_add"] == 2 * MESH_STEPS,
+          f"FM fused on (2, 2): #9 not twice a step on this rank: {counts}")
+    check(all(np.isfinite(losses)), f"FM fused on (2, 2): non-finite losses {losses}")
+    del trainer, state
+    scatter = check_step_scatter(torch, eu, Trainer(on_mesh(fm_train_config("fused"), **MESH_2X2), info),
+                                 batches[0], ("fm_w_2x2", "fm_v_2x2"), (1, 32))
+    reading = fused_vs_dense(torch, eu, lambda m: on_mesh(fm_train_config(m, "float32"), **MESH_2X2),
+                             info, batches[0], FM_TABLES, "fm on (2, 2)")
+    return dict(rows_per_rank=rows, losses=losses, step_ms=times, launches=counts, scatter=scatter,
+                fused_vs_dense=reading)
+
+
+def mesh_cp(torch, kernels, eu) -> dict:
+    """16b's ``din_attention_cp`` at ``CP_SHAPE`` over model = 4 against the
+    one-device plain version in fp64, a chunk of rows at a time."""
+    from tpurec_torch.config import MeshConfig
+    from tpurec_torch.core.mesh import make_mesh
+    from tpurec_torch.ops.attention_cp import din_attention_cp
+
+    mesh = make_mesh(MeshConfig(data=1, model=4))
+    b, l, d, h = CP_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    q, keys, mask, w1, b1, w2, alpha = din_inputs(torch, gen, b, l, d, h)
+    cot_p = torch.randn(b, d, device="cuda", generator=gen)
+    cot_s = torch.randn(b, l, device="cuda", generator=gen)
+    lk = l // mesh.n_model
+    steps = slice(mesh.model_index * lk, (mesh.model_index + 1) * lk)
+    leaves = [t.clone().requires_grad_() for t in (q, w1, b1, w2, alpha)]
+    k_loc = keys[:, steps].contiguous().requires_grad_()
+    m_loc = mask[:, steps].contiguous()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    pooled, scores = din_attention_cp(leaves[0], k_loc, m_loc, *leaves[1:], mesh)
+    ((pooled * cot_p).sum() + (scores * cot_s[:, steps]).sum()).backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = path_launches(kernels, eu)
+    local_pooled = kernels.din_attention_plain(q, k_loc.detach(), m_loc, w1, b1, w2, alpha)[0]
+    # the one-device plain version in fp64
+    want = dict(pooled=[], scores=[], dq=[], dkeys=[])
+    wts = [t.double().requires_grad_() for t in (w1, b1, w2, alpha)]
+    wsum = [torch.zeros_like(t) for t in wts]
+    for r in range(0, b, CP_CHUNK):
+        rows = slice(r, r + CP_CHUNK)
+        qc = q[rows].double().requires_grad_()
+        kc = keys[rows].double().requires_grad_()
+        p, s = kernels.din_attention_plain(qc, kc, mask[rows].double(), *wts)
+        loss = (p * cot_p[rows].double()).sum() + (s * cot_s[rows].double()).sum()
+        grads = torch.autograd.grad(loss, [qc, kc] + wts)
+        want["pooled"].append(p.detach().float())
+        want["scores"].append(s.detach()[:, steps].float())
+        want["dq"].append(grads[0].float())
+        want["dkeys"].append(grads[1][:, steps].float())
+        for acc, g in zip(wsum, grads[2:]):
+            acc += g
+    want = {k: torch.cat(v) for k, v in want.items()}
+    fwd = din_reading((pooled.detach(), scores.detach()), (want["pooled"], want["scores"]))
+    bwd = bwd_reading([leaves[0].grad, k_loc.grad] + [t.grad for t in leaves[1:]],
+                      [want["dq"], want["dkeys"]] + [w.float() for w in wsum])
+    broken = din_reading((local_pooled, scores.detach()), (want["pooled"], want["scores"]))["pooled"]
+    reading = dict(forward=fwd, backward=bwd, broken_no_sum=broken)
+    if max(bwd.values()) > 1.0:  # where the backward misses: the worst step's pre-activations
+        for name, got, w in (("dq", leaves[0].grad, want["dq"]), ("dkeys", k_loc.grad, want["dkeys"])):
+            ratio = (got - w).abs() / (KERNEL_TOL["atol"] + KERNEL_TOL["rtol"] * w.abs())
+            idx = np.unravel_index(int(ratio.argmax()), tuple(ratio.shape))
+            info = dict(n_over=int((ratio > 1).sum()), max_abs_err=float((got - w).abs().max()),
+                        worst=list(map(int, idx)), got=float(got[idx]), want=float(w[idx]),
+                        max_abs_want=float(w.abs().max()))
+            row = idx[0]
+            qd, kd = q[row].double(), keys[row, steps].double()
+            feats = torch.cat([qd.expand_as(kd), qd - kd, kd, qd * kd], dim=-1)
+            lin = (feats @ w1.double() + b1.double()).abs()  # (L/n, H)
+            live = m_loc[row] != 0
+            info["row_min_abs_lin_live"] = float(lin[live].min()) if bool(live.any()) else None
+            if name == "dkeys":
+                info["step_live"] = bool(live[idx[1]])
+                info["step_min_abs_lin"] = float(lin[idx[1]].min())
+            reading[f"{name}_worst"] = info
+        bargs = [q, k_loc.detach(), m_loc, w1, b1, w2, alpha, cot_p, cot_s[:, steps].contiguous()]
+        reading["local_bwd_case"] = attention_bwd_case(torch, kernels, bargs)[0]
+    check(max(fwd.values()) <= 1.0 and max(bwd.values()) <= 1.0,
+          f"din_attention_cp against the plain version: {reading}")
+    check(broken > 1.0, f"the check cannot tell a pool without the sum over the axis: {reading}")
+    check(counts["din_attention"] == counts["din_attention_bwd"] == 1,
+          f"din_attention_cp: #4/#5 not once on this rank: {counts}")
+    return dict(shape=list(CP_SHAPE), local_steps=lk, reading=reading, host_ms=ms, launches=counts)
+
+
+def mesh_world_four(torch, kernels, eu, directory) -> dict:
+    """16b, in each rank of a gloo world of four on ``cuda:0``."""
+    out = dict(din=mesh_din(torch, kernels, eu, directory))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["fm"] = mesh_fm(torch, kernels, eu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["cp"] = mesh_cp(torch, kernels, eu)
+    return out
+
+
+def mesh_rank(argv) -> int:
+    """A rank of phase 16: ``--mesh-rank WORLD RANK SIZE DIR``."""
+    import torch
+    import torch.distributed as dist
+
+    from tpurec_torch.core.distributed import initialize
+    from tpurec_torch.ops import embedding_update as eu
+    from tpurec_torch.ops import kernels
+
+    world, rank, size, directory = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    backend = "nccl" if world == "nccl1" else "gloo"
+    t0 = time.perf_counter()
+    topology = initialize(f"file://{os.path.join(directory, world + '.rendezvous')}", size, rank,
+                          backend)
+    out = dict(world=world, backend=backend, topology=topology, rank=rank,
+               init_s=time.perf_counter() - t0)
+    run = mesh_world_one if world == "nccl1" else mesh_world_four
+    out.update(run(torch, kernels, eu, directory))
+    out["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(directory, f"{world}_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def run_mesh(torch, kernels, eu, workdir, card):
+    """Phase 16: returns ({kernel: {path: launches}}, summary)."""
+    from tpurec_torch.train.trainer import Trainer
+
+    info = din_info()
+    batches = mesh_batches(info, MESH_STEPS)
+    # 16a's reference: the same steps without a world
+    trainer = Trainer(din_train_config("bfloat16"), info)
+    state = trainer.init_state(batches[0])
+    state, losses, times, results = mesh_steps(torch, trainer, state, batches)
+    groupless = dict(losses=losses, step_ms=times, params=whole_params(state.model))
+    # 16b's reference: the one-device fp32 steps on the same global batches
+    trainer = Trainer(din_train_config("float32"), info)
+    state = trainer.init_state(batches[0])
+    state, losses, _, results = mesh_steps(torch, trainer, state, batches[:MESH_FP32_STEPS])
+    torch.save(dict(losses=losses, results=results, params=whole_params(state.model)),
+               os.path.join(workdir, "din_fp32_ref.pt"))
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    (one,) = mesh_world(torch, "nccl1", 1, workdir)
+    nccl_s = time.perf_counter() - t0
+    params = torch.load(os.path.join(workdir, "nccl1_params.pt"))
+    loss_err = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(one["losses"], groupless["losses"]))
+    param_err = max(float((params[n] - w).abs().max()) for n, w in groupless["params"].items())
+    same_bits = one["losses"] == groupless["losses"] and all(
+        torch.equal(params[n], w) for n, w in groupless["params"].items())
+    world_one = dict(card=card, backend="nccl", mesh=[1, 1], batch=TRAIN_BATCH, steps=MESH_STEPS,
+                     step_p50_ms=statistics.median(one["step_ms"][2:]),
+                     groupless_step_p50_ms=statistics.median(groupless["step_ms"][2:]),
+                     loss_rel_err=loss_err, param_abs_err=param_err, same_bits=same_bits,
+                     launches=one["launches"], init_s=one["init_s"], world_s=nccl_s)
+    print("phase 16a, DIN dense in a world of one over NCCL against no world:", json.dumps(world_one),
+          flush=True)
+    check(loss_err <= MESH_GROUPLESS_TOL and param_err <= MESH_GROUPLESS_TOL,
+          f"world of one against no world: {world_one}")
+    check(one["launches"]["din_attention"] == one["launches"]["din_attention_bwd"] == MESH_STEPS,
+          f"world of one: #4/#5 not once a step: {one['launches']}")
+
+    t0 = time.perf_counter()
+    four = mesh_world(torch, "gloo4", 4, workdir)
+    gloo_s = time.perf_counter() - t0
+    summary = dict(card=card, backend="gloo (4 ranks share cuda:0: a check of correctness, no scaling)",
+                   world_s=gloo_s, ranks=[])
+    for r in four:
+        summary["ranks"].append(dict(
+            rank=r["rank"], init_s=r["init_s"], seconds=r["seconds"],
+            din=dict(fp32_reading=r["din"]["fp32_reading"], step_p50_ms=statistics.median(
+                r["din"]["step_ms"][2:]), launches=r["din"]["launches"],
+                attention={k: v["readings"] for k, v in r["din"]["attention"].items()}),
+            fm=dict(rows_per_rank=r["fm"]["rows_per_rank"], step_p50_ms=statistics.median(
+                r["fm"]["step_ms"][2:]), launches=r["fm"]["launches"],
+                scatter={k: dict(n=v["shape"][0], rows=v["shape"][1], d=v["shape"][2],
+                                 max_abs_err=v["max_abs_err"], ms=v["ms"], bound_ms=v["bound_ms"],
+                                 plain_ms=v["plain_ms"], library_ms=v["library_ms"])
+                         for k, v in r["fm"]["scatter"].items()},
+                fused_vs_dense=r["fm"]["fused_vs_dense"]["fused"]),
+            cp=dict(reading=r["cp"]["reading"], launches=r["cp"]["launches"], host_ms=r["cp"]["host_ms"])))
+    print("phase 16b, a world of four ranks on one card over gloo, mesh (2, 2) and (1, 4):",
+          json.dumps(summary), flush=True)
+    launches = dict(
+        din_attention=dict(mesh_din_nccl1=one["launches"]["din_attention"],
+                           mesh_din_2x2=sum(r["din"]["launches"]["din_attention"] for r in four),
+                           mesh_din_attention_cp=sum(r["cp"]["launches"]["din_attention"] for r in four)),
+        din_attention_bwd=dict(mesh_din_nccl1=one["launches"]["din_attention_bwd"],
+                               mesh_din_2x2=sum(r["din"]["launches"]["din_attention_bwd"] for r in four),
+                               mesh_din_attention_cp=sum(r["cp"]["launches"]["din_attention_bwd"]
+                                                         for r in four)),
+        fused_scatter_add=dict(mesh_fm_fused_2x2=sum(r["fm"]["launches"]["fused_scatter_add"]
+                                                     for r in four)),
+    )
+    print("phase 16 launches (all ranks):", json.dumps(launches), flush=True)
+    return launches, dict(world_one=world_one, world_four=summary)
+
+
 def ok_line(torch) -> dict:
     return {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                    "count": torch.cuda.device_count()}}
@@ -4992,6 +5416,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank(sys.argv[2:])
     from tpurec_torch.ops import kernels
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5143,6 +5569,21 @@ def main() -> int:
                           "long_seq_checks": ls_records}), flush=True)
         print(json.dumps(ok_line(torch)), flush=True)
         return 0
+    if sys.argv[1:] == ["--mesh"]:
+        # phase 16 alone: the mesh (its kernels are #4, #5 and #9), built
+        # here before any rank starts
+        from tpurec_torch.ops import embedding_update as eu
+
+        t = time.perf_counter()
+        kernels.build(["din_attention", "din_attention_bwd", "embedding_update"])
+        print(f"built in {time.perf_counter() - t:.1f} s", flush=True)
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR.parent) as workdir:
+            mesh_launches, _ = run_mesh(torch, kernels, eu, workdir, smi)
+        print("phase seconds:", json.dumps({"16_mesh": time.perf_counter() - t}), flush=True)
+        print(json.dumps({"card": smi, "mesh_launches_by_path": mesh_launches}), flush=True)
+        print(json.dumps(ok_line(torch)), flush=True)
+        return 0
     if sys.argv[1:2] == ["--din-bwd-ab"] and len(sys.argv) == 3:
         # kernel #5 of another checkout (a git archive of the parent commit)
         # against this one's, alternating
@@ -5199,6 +5640,7 @@ def main() -> int:
         mt_scatter, mt_launches = timed("13_multitask", run_multitask, torch, kernels, eu, workdir, smi)
         seq_records, seq_launches, _ = timed("14_sequence", run_sequence, torch, kernels, eu, workdir, smi)
         ls_records, ls_launches, _ = timed("15_long_seq", run_long_seq, torch, kernels, eu, workdir, smi)
+        mesh_launches, _ = timed("16_mesh", run_mesh, torch, kernels, eu, workdir, smi)
     print("phase seconds:", json.dumps(seconds), flush=True)
     # a kernel on several paths: its launches are their sum
     fm_paths = dict(http_rank=records["fm_second_order"]["launches"], **cli_launches["fm_second_order"])
@@ -5212,18 +5654,20 @@ def main() -> int:
         records[name]["other_shapes"].update(ls_records[name])
     forward_paths = dict(din_serving=serve_launches, din_training=train_launches,
                          din_fused_training=din_fused["din_attention"], **cli_launches["din_attention"],
-                         **seq_launches["din_attention"], **ls_launches["din_attention"])
+                         **seq_launches["din_attention"], **ls_launches["din_attention"],
+                         **mesh_launches["din_attention"])
     records["din_attention"]["launches"] = sum(forward_paths.values())
     records["din_attention"]["launches_by_path"] = forward_paths
     bwd_paths = dict(din_training=bwd_launches, din_fused_training=din_fused["din_attention_bwd"],
                      **cli_launches["din_attention_bwd"], **seq_launches["din_attention_bwd"],
-                     **ls_launches["din_attention_bwd"])
+                     **ls_launches["din_attention_bwd"], **mesh_launches["din_attention_bwd"])
     records["din_attention_bwd"]["launches"] = sum(bwd_paths.values())
     records["din_attention_bwd"]["launches_by_path"] = bwd_paths
     scatter_paths = dict(fm_fused_training=fm_scatter_launches,
                          din_fused_training=din_fused["fused_scatter_add"], **fm_family_launches,
                          **dcn_rest_launches, **cli_launches["fused_scatter_add"], **mt_launches,
-                         **seq_launches["fused_scatter_add"], **ls_launches["fused_scatter_add"])
+                         **seq_launches["fused_scatter_add"], **ls_launches["fused_scatter_add"],
+                         **mesh_launches["fused_scatter_add"])
     records["fused_scatter_add"] = dict(embedding["fm_v"], launches=sum(scatter_paths.values()),
                                         launches_by_path=scatter_paths,
                                         other_shapes=dict(fm_w=embedding["fm_w"], din=embedding["din"],

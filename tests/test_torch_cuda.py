@@ -200,6 +200,20 @@ def test_din_attention_bwd_kernel_takes_the_kinks_side(card, d):
     and dq. Each of the 36 columns gets one live step at ±1e-6 from the
     kink (b1 shifted so); the kernel's gradients must equal the plain
     version's in fp64 there (fp32's rounding of lin is ~1e-7)."""
+    _kinks_side(card, d, 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64])
+def test_din_attention_bwd_kernel_takes_the_kinks_side_within_fp32_rounding(card, d):
+    """As above at ±1e-9 from the kink (b1's fp32 rounding then leaves each
+    lin within ~1e-8 of it): below the rounding of the fp32 folds of w1
+    (w1_a + w1_b, w1_c − w1_b), so the kernel's fp64 evaluation must take w1
+    itself to take the plain version's side."""
+    _kinks_side(card, d, 1e-9)
+
+
+def _kinks_side(card, d, margin):
     from tpurec_torch.ops import kernels
 
     b, l, h = 512, 64, 36
@@ -210,7 +224,7 @@ def test_din_attention_bwd_kernel_takes_the_kinks_side(card, d):
     live = m.nonzero().cpu().numpy()
     rng = np.random.default_rng(8)
     for col, (r, s) in enumerate(live[rng.choice(len(live), size=h, replace=False)]):
-        b1[col] -= lin[r, s, col] - (1e-6 if col % 2 else -1e-6)
+        b1[col] -= lin[r, s, col] - (margin if col % 2 else -margin)
     args[4] = b1.float()
     gen = torch.Generator(card).manual_seed(9)
     grads = [torch.randn(b, d, device=card, generator=gen), torch.randn(b, l, device=card, generator=gen)]
@@ -1683,3 +1697,109 @@ def test_can_fused_step_on_card_matches_cpu(card):
         got = states[0].model.get_parameter(name).detach().cpu()[:-1]
         want = states[1].model.get_parameter(name).detach()[:-1]
         torch.testing.assert_close(got, want, atol=2e-6, rtol=0, msg=lambda m, n=name: f"{n}: {m}")
+
+
+# --------------------------------------------------------------------------
+# the mesh on the card: two ranks share cuda:0 over gloo, which reduces
+# CUDA tensors through the host (NCCL allows one rank of a communicator on a
+# device). The ranks are processes of this file (``tests/test_torch_mesh.py``'s
+# ``run_world``); ``din_attention_cp`` runs #4 and #5 on each rank's half of
+# the steps and is held, with every gradient, to the one-device plain
+# version in fp64 (atol/rtol 1e-4; the weights' gradients to 1e-4 of their
+# largest value: sums over B·L steps).
+CP_CARD_SHAPE = (256, 128, 32, 36)
+
+
+def _card_mesh_world(inputs):
+    import torch.distributed as dist
+
+    from tpurec_torch.config import MeshConfig
+    from tpurec_torch.core.collectives import pmax, psum, replicated_input
+    from tpurec_torch.core.mesh import make_mesh
+    from tpurec_torch.ops import kernels
+    from tpurec_torch.ops.attention_cp import din_attention_cp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = dist.get_rank()
+    mesh = make_mesh(MeshConfig(data=1, model=2))
+    group = mesh.model_group
+    x = torch.full((3,), float(rank + 1), device="cuda", requires_grad=True)
+    c = torch.tensor([1.0, 2.0, 3.0], device="cuda")
+    y = psum(x, group)
+    (y * c).sum().backward()
+    z = torch.full((3,), 2.0, device="cuda", requires_grad=True)
+    (replicated_input(z, group) * (rank + 1)).sum().backward()
+    out = {"psum": y.detach().cpu().numpy(), "psum_grad": x.grad.cpu().numpy(),
+           "replicated_grad": z.grad.cpu().numpy(),
+           "max": pmax(torch.tensor([float(rank), -float(rank)], device="cuda"), group).cpu().numpy()}
+
+    b, l, d, h = CP_CARD_SHAPE
+    q, keys, mask, w1, b1, w2, alpha = _din_args(torch.device("cuda"), b, l, d, h, True, seed=3,
+                                                holes=True)
+    rng = np.random.default_rng(4)
+    cot_p = torch.as_tensor(rng.normal(size=(b, d)), dtype=torch.float32, device="cuda")
+    cot_s = torch.as_tensor(rng.normal(size=(b, l)), dtype=torch.float32, device="cuda")
+    steps = slice(rank * l // 2, (rank + 1) * l // 2)
+    leaves = [t.clone().requires_grad_() for t in (q, w1, b1, w2, alpha)]
+    k_loc = keys[:, steps].contiguous().requires_grad_()
+    kernels.reset_launch_counts()
+    pooled, scores = din_attention_cp(leaves[0], k_loc, mask[:, steps].contiguous(), *leaves[1:],
+                                      mesh)
+    ((pooled * cot_p).sum() + (scores * cot_s[:, steps]).sum()).backward()
+    torch.cuda.synchronize()
+    out["launches"] = (kernels.din_attention_fused.launches, kernels.din_attention_bwd_fused.launches)
+    args64 = [t.double().requires_grad_() for t in (q, keys, w1, b1, w2, alpha)]
+    wp, ws = kernels.din_attention_plain(args64[0], args64[1], mask.double(), *args64[2:])
+    loss = (wp * cot_p.double()).sum() + (ws * cot_s.double()).sum()
+    grads = torch.autograd.grad(loss, args64)
+    got = [pooled, scores, leaves[0].grad, k_loc.grad] + [t.grad for t in leaves[1:]]
+    want = [wp, ws[:, steps], grads[0], grads[1][:, steps]] + list(grads[2:])
+    out["cp"] = [(g.detach().double().cpu().numpy(), w.detach().cpu().numpy()) for g, w in zip(got, want)]
+    return out
+
+
+@pytest.fixture(scope="module")
+def card_mesh(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import os
+
+    from test_torch_mesh import run_world, shared_world
+
+    return shared_world(tmp_path_factory, "torch_cuda_mesh",
+                        lambda d: run_world(os.path.abspath(__file__), "card2", 2, d, {}))
+
+
+@pytest.mark.cuda
+def test_psum_over_gloo_on_cuda_tensors(card, card_mesh):
+    """The sum over two ranks on cuda:0 and its identity backward (twice the
+    cotangent if it all-reduced), ``replicated_input``'s summed backward and
+    ``pmax``, on CUDA tensors over gloo."""
+    for res in card_mesh:
+        np.testing.assert_array_equal(res["psum"], np.full(3, 3.0))
+        np.testing.assert_array_equal(res["psum_grad"], [1.0, 2.0, 3.0])
+        np.testing.assert_array_equal(res["replicated_grad"], np.full(3, 3.0))
+        np.testing.assert_array_equal(res["max"], [1.0, 0.0])
+
+
+@pytest.mark.cuda
+def test_din_attention_cp_on_card_matches_plain(card, card_mesh):
+    """``din_attention_cp`` over model = 2 with #4 and #5 on each rank's
+    half of the steps (a mask with holes, an all-zero row): pooled, the
+    rank's scores and every gradient against the one-device plain version
+    in fp64."""
+    names = ("pooled", "scores", "dq", "dkeys", "dw1", "db1", "dw2", "dalpha")
+    for res in card_mesh:
+        assert res["launches"] == (1, 1)
+        for name, (got, want) in zip(names, res["cp"]):
+            if name in ("dw1", "db1", "dw2", "dalpha"):
+                np.testing.assert_allclose(got, want, atol=1e-4 * np.abs(want).max(), rtol=0,
+                                           err_msg=name)
+            else:
+                np.testing.assert_allclose(got, want, **TOL, err_msg=name)
+
+
+if __name__ == "__main__":
+    from test_torch_mesh import rank_main
+
+    rank_main({"card2": _card_mesh_world})

@@ -291,7 +291,7 @@ def test_sparse_engines_refuse_what_jax_refuses():
     padded = info.__class__(**{**info.__dict__, "padding_index": 3})
     with pytest.raises(ValueError, match="padding_index"):
         Trainer(sparse_configs("din", "fused_adam")[1], padded, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(ValueError, match="mesh 2x1 != 1 devices"):
         Trainer(cfg.replace(mesh=cfg.mesh.replace(data=2)), tinfo, device="cpu")
     with pytest.raises(KeyError):
         Trainer(sparse_configs("fm", "lamb")[1], tinfo, device="cpu")

@@ -536,14 +536,14 @@ def test_load_from_export_and_init_subtree(tmp_path):
 
 
 def test_trainer_refuses_unported_engines():
-    """Meshes of more than one device are refused; ``'auto'`` resolves to the
-    dense engine; with ``sparse_embedding=False`` a sparse
+    """A mesh of more devices than the world has is refused, with the JAX
+    package's ``make_mesh`` error; ``'auto'`` resolves to the dense engine; with ``sparse_embedding=False`` a sparse
     ``embedding_optimizer`` is ignored and the step is dense, as in the JAX
     package (``trainer.py:1359-1368``): the tables stay in the optimizer and
     the step equals the JAX dense step."""
     jinfo, info, data = _din_data()
     cfg = ExperimentConfig.from_dict(dict(mesh=dict(data=2)))
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(ValueError, match="mesh 2x1 != 1 devices"):
         Trainer(cfg, info, device="cpu")
     auto = ExperimentConfig.from_dict(dict(train=dict(optimizer=dict(embedding_optimizer="auto"))))
     resolved = Trainer(auto, info, device="cpu").config.train

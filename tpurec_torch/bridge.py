@@ -50,6 +50,10 @@ does not know, and the strict ``load_state_dict`` raises
 ``RuntimeError`` on any key of either side left unmatched and on any shape
 that differs.
 
+Into a model placed on a mesh (``models.registry.place_on_mesh``) a table
+loads this rank's rows of the JAX package's whole table
+(``EmbeddingTable.fit``).
+
 ``opt_state_from_jax(optimizer, module, opt_state)`` carries an optax Adam
 state (the ``ScaleByAdamState`` found anywhere in the chain's state:
 ``count``, ``mu``, ``nu``) into the port's ``ChainOptimizer`` over the same
@@ -143,6 +147,12 @@ def params_from_jax(module: nn.Module, variables: Mapping) -> nn.Module:
                 name, arr = _torch_leaf("batch_stats" if collection == "batch_stats" else "params",
                                         path, value, module)
             state[".".join(path[:-1] + (name,))] = torch.from_numpy(np.ascontiguousarray(arr))
+    from tpurec_torch.embedding.modules import EmbeddingTable
+
+    for name, m in module.named_modules():
+        key = f"{name}.embedding" if name else "embedding"
+        if isinstance(m, EmbeddingTable) and m.mesh is not None and key in state:
+            state[key] = m.fit(m.embedding, state[key])  # this rank's rows
     module.load_state_dict(state)
     return module
 

@@ -2,8 +2,8 @@
 
 Every dataclass of the JAX module, with every field and default, so a JSON
 config or an export meta written by either package loads here. Fields that
-select devices the port does not have yet (meshes of more than one device)
-are carried and refused where they are read (``tpurec_torch.train.trainer``).
+select what the port does not have (the TPU gather and sort strategies)
+are carried and read as the port's one choice.
 """
 
 from __future__ import annotations
@@ -59,8 +59,8 @@ class _Base:
 
 @dataclass(frozen=True)
 class MeshConfig(_Base):
-    """Device-mesh layout: ('data', 'model') axes. The port trains on one
-    device; a mesh of more than one device is refused (ROADMAP slice 7)."""
+    """Device-mesh layout: ('data', 'model') axes over the ranks of a
+    ``torch.distributed`` world (``tpurec_torch.core.mesh.make_mesh``)."""
 
     data: int = -1  # -1: fill with remaining devices
     model: int = 1

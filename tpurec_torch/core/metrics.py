@@ -14,6 +14,8 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from tpurec_torch.core.collectives import all_reduce_
+
 State = Dict[str, torch.Tensor]
 
 
@@ -100,12 +102,16 @@ class MetricBundle:
     """Named collection of metrics with one state dict, kept on ``device``.
 
     ``bundle.update(state, auc=(y, p), loss=(value,))`` — each metric gets its
-    update args as a tuple keyed by metric name.
+    update args as a tuple keyed by metric name. On a mesh, ``group`` is the
+    'data' axis's: each rank updates its states with its own rows, and
+    ``result`` sums the states over the axis first (every state is a sum),
+    so the result is the global batch's.
     """
 
-    def __init__(self, metrics: Mapping[str, object], device=None):
+    def __init__(self, metrics: Mapping[str, object], device=None, group=None):
         self.metrics = dict(metrics)
         self.device = device
+        self.group = group
 
     def init(self) -> Dict[str, State]:
         return {k: m.init(self.device) for k, m in self.metrics.items()}
@@ -117,6 +123,11 @@ class MetricBundle:
         return out
 
     def result(self, state: Dict[str, State]) -> Dict[str, torch.Tensor]:
+        if self.group is not None:
+            state = {
+                k: {n: all_reduce_(t.clone(), self.group) for n, t in s.items()}
+                for k, s in state.items()
+            }
         return {k: m.result(state[k]) for k, m in self.metrics.items()}
 
 

@@ -68,9 +68,11 @@
 //   x = lin + c within 2^-14 max_l |k_l| |W_eff[:, h]| + 2^-16 (sum_d
 //   |q_d w_q[d, h]| + |b1[h]|) of 0 (max over the tile's 16 steps; some
 //   1e-4 of the elements) is taken again in fp64 from the keys tile and the
-//   block's fp32 weights, x = b1 + sum_d k_d (w_k + q_d w_p) + q_d w_q: the
-//   slope then agrees with any fp32 evaluation but where fp32's own
-//   rounding crosses the kink. The lanes vote once a tile and the flagged
+//   raw w1, x = b1 + sum_d q_d w1_a + (q_d - k_d) w1_b + k_d w1_c +
+//   q_d k_d w1_d: the slope then agrees with the plain version's in fp64
+//   down to fp64's rounding (the fp32 folds w_k, w_q would misplace an x
+//   ~1e-8 from the kink: some 1e-8 of the elements, a few in the
+//   context-parallel check's 3e8). The lanes vote once a tile and the flagged
 //   x go through one fp64 loop; the test and the branch cost the common
 //   path time (PERF.md, the kernel table's #5).
 // - Even work: pass 2 cuts the rows into contiguous ranges of equal work,
@@ -162,18 +164,32 @@ __device__ __forceinline__ float quad_sum(float v) {  // over tig (lane bits 0-1
 }
 
 // x = lin + c of step s (a row of the keys tile) and column h in fp64, from
-// the block's fp32 w_k, w_p (wkp) and w_q (wqf), the same fp32 values the
-// unfolded weights take: for a lane whose x lies near PReLU's kink.
-template <int D, int NT>
-__device__ __forceinline__ float exact_x(const float* kt_s, const float* q_s, const float* wkp, const float* wqf,
-                                         float b1h, int s, int h) {
+// the raw (4D, H) w1 over the features the plain version builds, q, q - k,
+// k and q k (each exact in fp64): for a lane whose x lies near PReLU's
+// kink. The fp32 folds w_k = w1_c - w1_b and w_q = w1_a + w1_b would each
+// round by up to 2^-24 of their size, enough to put an x ~1e-8 from the
+// kink on the other side. Not inlined: its loads stay out of the main
+// loop's registers (on an H100 at 700 W, D=64: 0.615 ms a launch, against
+// 0.645 inlined).
+template <int D>
+__device__ __noinline__ float exact_x(const float* kt_s, const float* q_s, const float* __restrict__ w1,
+                                      int H, float b1h, int s, int h) {
   double x = b1h;
+  // eight steps of d a round: their 32 loads from L2 are in flight together
 #pragma unroll 1
-  for (int d = 0; d < D; ++d) {
-    const int i = ((d >> 3) * NT + (h >> 3)) * 32 + ((h & 7) << 2) + (d & 3), e = (d >> 2) & 1;
-    const double k = kt_s[s * (D + 4) + d], q = q_s[d];
-    x += k * (static_cast<double>(wkp[4 * i + e]) + q * static_cast<double>(wkp[4 * i + 2 + e])) +
-         q * static_cast<double>(wqf[2 * i + e]);
+  for (int d0 = 0; d0 < D; d0 += 8) {
+    float w[4][8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int f = 0; f < 4; ++f) w[f][j] = __ldg(w1 + (f * D + d0 + j) * H + h);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const double k = kt_s[s * (D + 4) + d0 + j], q = q_s[d0 + j];
+      x += q * static_cast<double>(w[0][j]) + (q - k) * static_cast<double>(w[1][j]) +
+           k * static_cast<double>(w[2][j]) + (q * k) * static_cast<double>(w[3][j]);
+    }
   }
   return static_cast<float>(x);
 }
@@ -461,7 +477,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 1) din_attention_bwd_kernel(
         for (uint64_t m = near; m != 0; m &= m - 1) {
           const int b = __ffsll(static_cast<long long>(m)) - 1, e = b & 3;
           const int h = 8 * (b >> 2) + 2 * tig + (e & 1), st = gid + 8 * (e >> 1);
-          dl_s[st * SD + h] = exact_x<D, NT>(kt_s, q_s, wkp, wqf, b1_s[h], st, h);
+          dl_s[st * SD + h] = exact_x<D>(kt_s, q_s, w1, H, b1_s[h], st, h);
         }
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {

@@ -15,7 +15,14 @@ records its used-id L2 term on them); in the ``'direct'`` layout it is
 ``contiguous_take`` and the trainer computes the used-id L2 itself. The
 trainer leaves the tables out of the optimizer and updates them in place
 (the counterpart of the JAX ``'tables'`` collection). The JAX package's
-packed and ``shard_map`` lookups are TPU and mesh features of later slices.
+packed lookup is a TPU gather strategy the port does not need.
+
+On a mesh of more than one device (``place``, called by ``build_model``) a
+table holds this rank's rows of the ``pad_vocab(V, n_model)``-row table, and
+the dense engine looks ids up with ``row_sharded_lookup``; its used-id L2
+term counts the rows the global batch touches (``sharded_used_id_l2``). The
+JAX package's two strategies, ``'gspmd'`` and ``'shard_map'``, compute the
+same rows: the port has one.
 
 ``FieldAwareEmbedding`` (FFM's and ONN's (V_pad, F, D) table) takes part in
 all of this as a table: ``embedding_tables`` and ``sparse_rows`` list it
@@ -40,7 +47,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpurec_torch.embedding.ops import contiguous_take, pad_vocab, used_id_l2
+from tpurec_torch.core.collectives import gather_rows
+from tpurec_torch.embedding.ops import (
+    contiguous_take,
+    local_rows,
+    pad_vocab,
+    row_sharded_lookup,
+    sharded_used_id_l2,
+    used_id_l2,
+)
 from tpurec_torch.initializers import uniform_
 
 
@@ -58,7 +73,11 @@ class EmbeddingTable(nn.Module):
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dtype = dtype
+        self.vocab_size = vocab_size
+        self.row_shape = tuple(row_shape)
         self.embedding = nn.Parameter(torch.empty(pad_vocab(vocab_size), *row_shape))
+        # the MeshContext of a mesh of more than one device, else None
+        self.mesh = None
         # the list of an open ``record_used_id_l2`` (``SharedEmbedding``s
         # only), else None
         self.used_id_l2_terms: Optional[List[torch.Tensor]] = None
@@ -66,8 +85,60 @@ class EmbeddingTable(nn.Module):
         self.sparse_rows: Optional[torch.Tensor] = None
         self.sparse_layout = "unique"
 
+    def place(self, mesh) -> None:
+        """Take part in ``mesh`` (more than one device): with n_model > 1 the
+        table becomes this rank's V_pad / n_model rows, V_pad =
+        ``pad_vocab(vocab_size, n_model)``. Call before ``init_weights``."""
+        self.mesh = mesh
+        if mesh.n_model > 1:
+            rows = pad_vocab(self.vocab_size, mesh.n_model) // mesh.n_model
+            self.embedding = nn.Parameter(self.embedding.new_empty(rows, *self.row_shape))
+
+    @property
+    def row_offset(self) -> int:
+        """The global row of this rank's first row."""
+        return 0 if self.mesh is None else self.mesh.model_index * self.embedding.shape[0]
+
     def init_weights(self, generator: torch.Generator) -> None:
-        uniform_(self.embedding, INIT_SCALE, generator)
+        if self.mesh is None or self.mesh.n_model == 1:
+            uniform_(self.embedding, INIT_SCALE, generator)
+            return
+        # every rank draws the whole table, so the rest of the draws agree
+        whole = self.embedding.new_empty(
+            self.embedding.shape[0] * self.mesh.n_model, *self.row_shape
+        )
+        uniform_(whole, INIT_SCALE, generator)
+        with torch.no_grad():
+            self.embedding.copy_(local_rows(whole, self.mesh))
+
+    def whole(self, local: torch.Tensor) -> torch.Tensor:
+        """The whole table of a (V_loc, ...) tensor of this table's rows (the
+        table, a moment), gathered over 'model' on every rank of the axis."""
+        if self.mesh is None:
+            return local.detach()
+        m = self.mesh
+        return gather_rows(local, m.model_group, m.model_index, m.n_model)
+
+    def fit(self, current: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
+        """``current`` (this rank's rows of the table or of a moment) with the
+        rows that ``whole`` has taken from it: whole tables of another mesh
+        differ only in padding rows past the vocabulary (``pad_vocab``), and
+        rows that ``whole`` lacks keep their values. Raises ``ValueError``
+        when ``whole`` is not this table on any mesh."""
+        n_rows = whole.shape[0]
+        if tuple(whole.shape[1:]) != tuple(current.shape[1:]) or not any(
+            pad_vocab(self.vocab_size, n) == n_rows for n in range(1, n_rows // 128 + 1)
+        ):
+            raise ValueError(
+                f"a {tuple(whole.shape)} table is not the {self.vocab_size}-id table "
+                f"with rows {tuple(current.shape[1:])} on any mesh"
+            )
+        out = current.detach().clone()
+        lo = self.row_offset
+        hi = min(lo + current.shape[0], whole.shape[0])
+        if hi > lo:
+            out[: hi - lo] = whole[lo:hi].to(out)
+        return out
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         rows = self.sparse_rows
@@ -75,12 +146,18 @@ class EmbeddingTable(nn.Module):
             out = contiguous_take(rows, ids)
         else:
             table = self.embedding if rows is None else rows
-            # a (V, F, D) table is indexed: on the H100 its backward
-            # (``index_put_``) took less device time than
-            # ``embedding_dense_backward`` over the (V, F·D) view (PERF.md §5)
-            out = F.embedding(ids, table) if table.dim() == 2 else table[ids]
+            mesh = self.mesh if rows is None else None  # the dense engine on a mesh
+            if mesh is not None and mesh.n_model > 1:
+                out = row_sharded_lookup(table, ids, mesh)
+            else:
+                # a (V, F, D) table is indexed: on the H100 its backward
+                # (``index_put_``) took less device time than
+                # ``embedding_dense_backward`` over the (V, F·D) view (PERF.md §5)
+                out = F.embedding(ids, table) if table.dim() == 2 else table[ids]
             if self.used_id_l2_terms is not None and self.training:
-                self.used_id_l2_terms.append(used_id_l2(table, ids))
+                self.used_id_l2_terms.append(
+                    used_id_l2(table, ids) if mesh is None else sharded_used_id_l2(table, ids, mesh)
+                )
         return out if self.dtype is None else out.to(self.dtype)
 
 

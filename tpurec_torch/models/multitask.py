@@ -11,8 +11,9 @@ Child modules and raw parameters keep the flax names (``emb``, ``experts``,
 ``{task}_gate``, ``{task}_tower``, ``{task}_head``, ``L{level}_...``,
 ``trunk``, ``imputation``, FDN's ``L{level}_{task}_aux_w``/``_aux_b``), so
 weights map across by path. ``ExpertBank``'s tensor-parallel partitioning
-over the mesh's 'model' axis is a feature of the multi-device slice; on one
-device it changes nothing.
+over the mesh's 'model' axis changes where its weights live, not what they
+compute: on the port's mesh they are whole on every rank (the placement is
+ROADMAP slice 7).
 """
 
 from __future__ import annotations

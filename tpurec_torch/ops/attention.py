@@ -4,7 +4,9 @@ sequence models' encoders later) and DIN's target attention.
 
 Masks are 1 = keep; a masked logit becomes −1e9 and the softmax runs in
 fp32. The JAX package's ``MultiHeadAttention`` shards its projections over
-a ``'model'`` mesh axis; the port runs on one device (ROADMAP slice 7).
+a ``'model'`` mesh axis; on the port's mesh they are whole on every rank,
+which changes where they live, not what they compute (their tensor-parallel
+placement is ROADMAP slice 7).
 """
 
 from __future__ import annotations

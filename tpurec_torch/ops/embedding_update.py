@@ -62,11 +62,13 @@ def make_scatter_plan(ids: torch.Tensor, num_rows: int) -> ScatterPlan:
 # plain math (what the JAX module's references compute)
 def scatter_add_plain(num_rows: int, sids: torch.Tensor, grads: torch.Tensor) -> torch.Tensor:
     """(V, D) fp32: ``G[sids[j]] += grads[j]``, zeros elsewhere, as
-    ``scatter_add_reference``. On the CPU ``index_add_`` sums in index order;
-    on CUDA it sums with atomics, in an order that changes from run to run."""
+    ``scatter_add_reference``; ids outside [0, V) are dropped, as the kernel
+    drops them. On the CPU ``index_add_`` sums in index order; on CUDA it
+    sums with atomics, in an order that changes from run to run."""
     grads = grads.reshape(sids.shape[0], grads.shape[-1])
+    keep = (sids >= 0) & (sids < num_rows)
     out = torch.zeros(num_rows, grads.shape[1], dtype=torch.float32, device=grads.device)
-    return out.index_add_(0, sids, grads.to(torch.float32))
+    return out.index_add_(0, sids[keep], grads[keep].to(torch.float32))
 
 
 def gather_rows_plain(table: torch.Tensor, sids: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpurec_torch.core.collectives import psum, replicated_input
 from tpurec_torch.initializers import glorot_uniform_, lecun_normal_, orthogonal_
 
 
@@ -77,6 +78,11 @@ class BatchNorm(nn.Module):
     variance (``F.batch_norm`` would update ``running_var`` with the unbiased
     one). In eval mode it normalises with the running statistics.
 
+    On a mesh (``data_group``, set by ``models.registry.place_on_mesh``) the
+    batch moments are the global batch's, as GSPMD computes them for the
+    JAX package: each rank's sums and row count are summed over 'data', and
+    that sum's backward sums the ranks' cotangents, whose losses differ.
+
     The output dtype is flax's: ``dtype`` when it is set (FiBiNET++'s
     ``cat_bn``; the statistics and the normalisation stay fp32), else the
     promotion of the input's and the fp32 parameters' types (fp32 for a
@@ -94,6 +100,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.empty(num_features)) if use_bias else None
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.data_group = None  # the 'data' axis's group on a mesh
 
     def init_weights(self, generator: torch.Generator) -> None:
         if self.scale is not None:
@@ -103,9 +110,17 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         flat = x.reshape(-1, x.shape[-1]).float()
-        if self.training:
+        if self.training and self.data_group is not None:
+            count = flat.new_full((1,), flat.shape[0])
+            sums = torch.cat([flat.sum(dim=0), torch.square(flat).sum(dim=0), count])
+            sums = psum(replicated_input(sums, self.data_group), self.data_group)
+            c = flat.shape[1]
+            mean = sums[:c] / sums[-1]
+            var = (sums[c : 2 * c] / sums[-1] - torch.square(mean)).clamp_min(0.0)
+        elif self.training:
             mean = flat.mean(dim=0)
             var = (torch.square(flat).mean(dim=0) - torch.square(mean)).clamp_min(0.0)
+        if self.training:
             with torch.no_grad():
                 self.running_mean.copy_(
                     self.momentum * self.running_mean + (1.0 - self.momentum) * mean

@@ -29,8 +29,18 @@ selected by config. The JAX package's names and call shapes are kept:
   gradient from kernel #9, Adam on every row as dense Adam does); ``'adam'``,
   ``'rowwise_adam'``, ``'rowwise_adagrad'`` and ``'host_adam'`` are the
   lazy-sparse engine (``_sparse_step``: unique ids, row-sparse updates).
-  Meshes of more than one device are not ported yet (ROADMAP slice 7);
-  asking for one raises.
+- A mesh (``MeshConfig`` over a ``torch.distributed`` world, through
+  ``core.mesh.make_mesh``): every rank is one process with one device.
+  Each data rank steps on its block of the batch's rows
+  (``device_batch``); the tables hold this rank's rows over 'model'
+  (``row_sharded_lookup`` in the dense engine, ``_fused_step_sharded`` in
+  the fused one). The gradients are averaged over 'data', so they are the
+  global batch's, as GSPMD's are in the JAX package; so are the logged
+  loss, the used-id L2 (each row the global batch touches counts once), the
+  ``BatchNorm`` moments and the metrics. A model-only mesh (data = 1) runs
+  every model in the dense and fused engines; data > 1 runs the models of
+  ``DATA_PARALLEL_MODELS`` with the ``bce`` loss. The rest, and the
+  lazy-sparse engines on any mesh, raise (ROADMAP).
 """
 
 from __future__ import annotations
@@ -49,8 +59,12 @@ import numpy as np
 import torch
 from torch import nn
 
+import torch.distributed as dist
+
 from tpurec_torch.config import ExperimentConfig, OptimizerConfig
+from tpurec_torch.core.collectives import all_reduce_, gather_rows
 from tpurec_torch.core.early_stop import EarlyStopper
+from tpurec_torch.core.mesh import MeshContext, make_mesh
 from tpurec_torch.core.metrics import AUC, Mean, MetricBundle
 from tpurec_torch.core.summary import NullSummaryWriter, SummaryWriter
 from tpurec_torch.data.schema import DataInfo
@@ -63,6 +77,7 @@ from tpurec_torch.embedding.modules import (
     record_used_id_l2,
     sparse_rows,
 )
+from tpurec_torch.embedding.ops import pad_vocab, row_sharded_lookup
 from tpurec_torch.models import build_model
 from tpurec_torch.models.mind import sampling_generator
 from tpurec_torch.ops import embedding_update as eu
@@ -78,6 +93,9 @@ _TABLE_OPT_INIT = {
     "host_adam": None,  # moments in a HostAdamStore
 }
 _FUSED_BACKWARDS = ("permute", "sort_payload", "xla_packed")
+# the models whose batch reductions are global on data > 1 (each proven by a
+# parity test against the JAX package's mesh run)
+DATA_PARALLEL_MODELS = ("din", "fm")
 
 
 @dataclasses.dataclass
@@ -94,10 +112,13 @@ class TrainState:
     host_store: Optional[HostAdamStore] = None
 
 
-def resolve_embedding_engine(config: ExperimentConfig, info: DataInfo) -> ExperimentConfig:
+def resolve_embedding_engine(
+    config: ExperimentConfig, info: DataInfo, n_model: int = 1
+) -> ExperimentConfig:
     """``embedding_optimizer='auto'`` resolves to the dense engine, as in the
-    JAX package (``trainer.py:105-123``, a rule from TPU measurements; its
-    H100 form is ROADMAP Queue 1 item 11)."""
+    JAX package (``trainer.py:105-123``, a rule from TPU measurements, whose
+    ``n_model`` does not enter it either; its H100 form is ROADMAP Queue 1
+    item 11)."""
     oc = config.train.optimizer
     if oc.embedding_optimizer != "auto":
         return config
@@ -107,21 +128,35 @@ def resolve_embedding_engine(config: ExperimentConfig, info: DataInfo) -> Experi
     return config.replace(train=train)
 
 
-def _check_engine(config: ExperimentConfig, info: DataInfo) -> None:
+def _check_engine(config: ExperimentConfig, info: DataInfo, mesh: MeshContext) -> None:
     """Refuse what the configured engine cannot train, as the JAX package
-    does (``trainer.py:633-643``), and meshes the port does not have."""
-    if config.mesh.model != 1 or config.mesh.data not in (-1, 1):
-        raise NotImplementedError(
-            f"the port trains on one device; mesh {config.mesh} is ROADMAP slice 7"
-        )
+    does (``trainer.py:397-401``, ``:633-643``), and what the port does not
+    train on a mesh yet."""
     train = config.train
+    oc = train.optimizer
+    if mesh.n_data > 1 and (config.model.name not in DATA_PARALLEL_MODELS or train.loss != "bce"):
+        raise NotImplementedError(
+            f"model {config.model.name!r} with loss {train.loss!r} on data={mesh.n_data}: "
+            f"only {list(DATA_PARALLEL_MODELS)} with 'bce' have global batch "
+            "reductions on a data axis yet; the rest is ROADMAP slice 7"
+        )
     if not train.sparse_embedding:
         return
-    oc = train.optimizer
     if oc.embedding_optimizer not in _TABLE_OPT_INIT:
         raise KeyError(
             f"unknown embedding_optimizer {oc.embedding_optimizer!r}; known: "
             f"{sorted(_TABLE_OPT_INIT)}"
+        )
+    if mesh.n_devices > 1 and oc.embedding_optimizer == "host_adam":
+        raise ValueError(
+            "embedding_optimizer='host_adam' requires a single "
+            "device (per-shard host callbacks are not wired yet)"
+        )
+    if mesh.n_devices > 1 and oc.embedding_optimizer != "fused_adam":
+        raise NotImplementedError(
+            f"embedding_optimizer={oc.embedding_optimizer!r} on a mesh of "
+            f"{mesh.n_devices} devices: the lazy-sparse engines on a mesh "
+            "are ROADMAP slice 7"
         )
     if oc.embedding_optimizer != "fused_adam":
         return
@@ -177,7 +212,10 @@ class ChainOptimizer(torch.optim.Optimizer):
     kernel #5 included.
     State per parameter: ``mu``, ``nu`` (Adam moments); ``count`` (updates
     applied) is kept in every group. The learning rate is computed on the
-    host from ``count``, so a step never waits for the device."""
+    host from ``count``, so a step never waits for the device.
+    On a mesh the parameters named in ``sharded`` (tables split over
+    'model') enter the clip's global norm with every model rank's rows
+    (``model_group``)."""
 
     def __init__(
         self,
@@ -185,6 +223,8 @@ class ChainOptimizer(torch.optim.Optimizer):
         config: OptimizerConfig,
         decay: Dict[str, float],
         row_decay: Dict[str, torch.Tensor],
+        sharded: Tuple[str, ...] = (),
+        model_group=None,
     ):
         if config.name not in ("adam", "adamw", "sgd"):
             raise KeyError(f"unknown optimizer {config.name!r}")
@@ -197,6 +237,8 @@ class ChainOptimizer(torch.optim.Optimizer):
         self.config = config
         self.decay = decay
         self.row_decay = row_decay
+        self.sharded = {n for n, _ in named_params if n in sharded and model_group is not None}
+        self.model_group = model_group
 
     def learning_rate(self, count: int) -> float:
         """The learning rate of the update after ``count`` updates."""
@@ -216,7 +258,15 @@ class ChainOptimizer(torch.optim.Optimizer):
         params = [g["params"][0] for g in self.param_groups]
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         if oc.grad_clip_norm > 0:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            norms = torch._foreach_norm(grads)
+            if self.sharded:
+                split = [n in self.sharded for n in names]
+                local = torch.stack([nm for nm, sh in zip(norms, split) if sh]).square().sum()
+                whole = all_reduce_(local, self.model_group)
+                rest = [nm for nm, sh in zip(norms, split) if not sh]
+                norm = (whole + (torch.stack(rest).square().sum() if rest else 0.0)).sqrt()
+            else:
+                norm = torch.linalg.vector_norm(torch.stack(norms))
             keep = norm < oc.grad_clip_norm
             grads = [torch.where(keep, g, g / norm * oc.grad_clip_norm) for g in grads]
         for i, (name, p) in enumerate(zip(names, params)):
@@ -257,13 +307,18 @@ class ChainOptimizer(torch.optim.Optimizer):
 
 class Trainer:
     """``Trainer(config, info)`` trains on ``cuda`` unless the caller passes
-    ``device="cpu"``; asking for ``cuda`` where there is none raises."""
+    ``device="cpu"``; asking for ``cuda`` where there is none raises.
+    ``mesh_ctx`` defaults to ``make_mesh(config.mesh)`` over the
+    ``torch.distributed`` world (the (1, 1) mesh without one); every rank of
+    a mesh runs the same calls, each on its own device."""
 
-    def __init__(self, config: ExperimentConfig, info: DataInfo, device: DeviceLike = "cuda"):
+    def __init__(self, config: ExperimentConfig, info: DataInfo, device: DeviceLike = "cuda",
+                 mesh_ctx: Optional[MeshContext] = None):
         self.device = resolve_device(device)
         self.info = info
-        config = resolve_embedding_engine(config, info)
-        _check_engine(config, info)
+        self.mesh_ctx = mesh_ctx or make_mesh(config.mesh)
+        config = resolve_embedding_engine(config, info, self.mesh_ctx.n_model)
+        _check_engine(config, info, self.mesh_ctx)
         self.config = config
         self.loss_fn = get_loss(config.train.loss)
         self.metrics = self._make_metrics()
@@ -297,6 +352,12 @@ class Trainer:
         ]
         decay: Dict[str, float] = {}
         row_decay: Dict[str, torch.Tensor] = {}
+        # the first global row of each table split over 'model'
+        offsets = {
+            n: t.row_offset
+            for n, t in zip(_table_names(model), embedding_tables(model))
+            if self.mesh_ctx.n_model > 1
+        }
         if oc.embedding_l2 > 0 or oc.embedding_l2_order1 > 0:
             split = oc.embedding_l2_order1 >= 0
             lam = None
@@ -319,12 +380,15 @@ class Trainer:
                 elif split and is_order1 and oc.embedding_l2_order1 > 0:
                     decay[n] = oc.embedding_l2_order1
                 if lam is not None and not is_order1:
+                    # this rank's rows of the (V,) coefficients
+                    lo = offsets.get(n, 0)
                     rows = np.zeros((p.shape[0],), np.float32)
-                    m = min(p.shape[0], lam.shape[0])
-                    rows[:m] = lam[:m]
+                    part = lam[lo : lo + p.shape[0]]
+                    rows[: part.shape[0]] = part
                     shape = (p.shape[0],) + (1,) * (p.dim() - 1)
                     row_decay[n] = torch.as_tensor(rows, device=p.device).reshape(shape)
-        return ChainOptimizer(named, oc, decay, row_decay)
+        return ChainOptimizer(named, oc, decay, row_decay, tuple(offsets),
+                              self.mesh_ctx.model_group)
 
     def _make_metrics(self) -> MetricBundle:
         loss_name = self.config.train.loss
@@ -340,7 +404,7 @@ class Trainer:
             }[loss_name]
         for n in names:
             metrics[n] = Mean() if n == "accuracy" else AUC()
-        return MetricBundle(metrics, device=self.device)
+        return MetricBundle(metrics, device=self.device, group=self.mesh_ctx.data_group)
 
     def _metric_updates(self, outputs, batch) -> Dict[str, tuple]:
         loss_name = self.config.train.loss
@@ -389,7 +453,8 @@ class Trainer:
         mc = self.config.model
         params = dict(mc.params)
         params.setdefault("dtype", self.config.train.compute_dtype)
-        model = build_model(mc.replace(params=params), self.info, self.device, seed)
+        model = build_model(mc.replace(params=params), self.info, self.device, seed,
+                            self.mesh_ctx)
         table_opt = store = None
         if self.config.train.sparse_embedding:
             opt_name = self.config.train.optimizer.embedding_optimizer
@@ -413,7 +478,15 @@ class Trainer:
 
     def device_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """Host → device: each column through pinned memory with a
-        non-blocking copy on the card (a plain tensor on the CPU)."""
+        non-blocking copy on the card (a plain tensor on the CPU). On a mesh
+        with data > 1 ``batch`` is the global batch, and this rank keeps its
+        contiguous block of rows over 'data' (the whole batch, alike on
+        every rank, when its rows do not divide over the axis)."""
+        m = self.mesh_ctx
+        n = len(next(iter(batch.values())))
+        if m.n_data > 1 and n % m.n_data == 0:
+            k = n // m.n_data
+            batch = {key: v[m.data_index * k : (m.data_index + 1) * k] for key, v in batch.items()}
         out = {}
         for k, v in batch.items():
             t = torch.as_tensor(v)
@@ -444,6 +517,8 @@ class Trainer:
         if not train.sparse_embedding:
             return self._dense_step(state, batch, metric_state)
         if train.optimizer.embedding_optimizer == "fused_adam":
+            if self.mesh_ctx.n_devices > 1:
+                return self._fused_step_sharded(state, batch, metric_state)
             return self._fused_step(state, batch, metric_state)
         return self._sparse_step(state, batch, metric_state)
 
@@ -457,12 +532,29 @@ class Trainer:
         self._mark("backward")
         state.model.zero_grad(set_to_none=True)
         loss.backward()
+        self._average_over_data([p.grad for p in state.model.parameters() if p.grad is not None])
         self._mark("optimizer")
         state.optimizer.step()
+
+    def _average_over_data(self, tensors: List[torch.Tensor]) -> None:
+        """Average ``tensors`` (each rank's gradients of its own loss) over
+        'data', in place: the gradients of the global batch's loss, as every
+        rank's batch is the same size. One all-reduce of one flat buffer."""
+        m = self.mesh_ctx
+        if m.n_data == 1 or not tensors:
+            return
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        all_reduce_(flat, m.data_group).div_(m.n_data)
+        offset = 0
+        for t in tensors:
+            t.copy_(flat[offset : offset + t.numel()].view_as(t))
+            offset += t.numel()
 
     def _finish(self, state, metric_state, loss, logs, outputs, batch):
         self._mark("metrics")
         loss = loss.detach()
+        if self.mesh_ctx.n_data > 1:  # the global batch's loss
+            loss = all_reduce_(loss.clone(), self.mesh_ctx.data_group) / self.mesh_ctx.n_data
         outputs = {k: v.detach() for k, v in outputs.items()}
         metric_state = self.metrics.update(
             metric_state, loss=(loss,), **self._metric_updates(outputs, batch)
@@ -536,6 +628,27 @@ class Trainer:
                 sparse_ops.sparse_adam(t, opt, uniq, g, step, oc.learning_rate, *hp)
         return self._finish(state, metric_state, loss, logs, outputs, batch)
 
+    def _identity_positions(self, batch, present):
+        """``batch`` with each id column of ``present`` rewritten to its
+        occurrences' positions in the concatenated stream (``_flat_ids``'
+        order; a (B, L) sequence's positions transposed, so every column of
+        a lookup is a contiguous run, and its validity mask shipped as
+        ``__mask__<name>``)."""
+        seq_cols = set(self._id_features) - set(self.info.feature_names)
+        batch = dict(batch)
+        offset = 0
+        for name in present:
+            x = batch[name]
+            pos = torch.arange(offset, offset + x.numel(), device=x.device)
+            if name in seq_cols and x.dim() == 2:
+                batch[f"__mask__{name}"] = (x != self.info.padding_index).to(torch.float32)
+                pos = pos.reshape(x.shape[1], x.shape[0]).T
+            else:
+                pos = pos.reshape(x.shape)
+            batch[name] = pos
+            offset += x.numel()
+        return batch
+
     def _fused_step(self, state, batch, metric_state):
         """The fused engine (``trainer.py:604-980``, one device): numerically
         dense Adam on every table without a table-shaped gradient in
@@ -563,7 +676,6 @@ class Trainer:
         names = _table_names(model)
         oc = self.config.train.optimizer
         l2_coeff = self.config.model.embedding.used_id_l2
-        seq_cols = set(self._id_features) - set(self.info.feature_names)
         self._mark("forward")
         present = [n for n in self._id_features if n in batch]
         ids_all = torch.cat([_flat_ids(batch[n]) for n in present]).to(torch.int32)
@@ -578,18 +690,7 @@ class Trainer:
             first = torch.ones(n_ids, 1, device=ids_all.device)
             first[1:, 0] = (plan.sids[1:] != plan.sids[:-1]).to(torch.float32)
             first_orig = eu.unpermute_rows(first, plan)[:, 0]
-        batch = dict(batch)
-        offset = 0
-        for name in present:
-            x = batch[name]
-            pos = torch.arange(offset, offset + x.numel(), device=x.device)
-            if name in seq_cols and x.dim() == 2:
-                batch[f"__mask__{name}"] = (x != self.info.padding_index).to(torch.float32)
-                pos = pos.reshape(x.shape[1], x.shape[0]).T
-            else:
-                pos = pos.reshape(x.shape)
-            batch[name] = pos
-            offset += x.numel()
+        batch = self._identity_positions(batch, present)
         with sparse_rows(model, rows, "direct"), sampling_generator(model, state.generator):
             outputs = model(batch)
         loss, logs = self._loss(outputs, batch)
@@ -634,6 +735,75 @@ class Trainer:
                 logs["used_id_l2"] = reg
             for t, m, v, gd in zip(t2, ms, vs, gds):
                 eu.adam_update_(t, m, v, gd, step, lr, *hp)
+        return self._finish(state, metric_state, loss, logs, outputs, batch)
+
+    def _fused_step_sharded(self, state, batch, metric_state):
+        """The fused engine on a mesh (``trainer.py:982-1230``): the tables,
+        their moments, kernel #9 and Adam run on each rank's rows.
+
+        Each rank's lookup rows come from ``row_sharded_lookup`` (its own
+        rows, summed over 'model'), outside autograd; the positions, the
+        forward and the backward are the one-device step's, on the rank's
+        block of the batch. Each rank sorts its block's ids once and maps
+        them into its row range: ids below it become -1 and ids above it
+        ``V_loc``, which keeps the order sorted, and kernel #9 drops ids
+        outside [0, V_loc) (``csrc/embedding_update.cu``). #9 builds the
+        rank's aggregated gradient (and, with ``used_id_l2``, its occurrence
+        count); both are summed over 'data', the gradient averaged. The
+        used-id L2 is in table space, each touched row once (``G +=
+        l2·touched·table``, its value summed over 'model'), as the JAX
+        package's sharded step has it whatever ``fused_backward`` says; then
+        Adam on the rank's rows (``adam_update_``). The JAX step splits the
+        flat id stream over 'data' rather than the batch's rows; the sum
+        over 'data' is the same up to rounding."""
+        model = state.model.train()
+        tables = embedding_tables(model)
+        names = _table_names(model)
+        mesh = self.mesh_ctx
+        oc = self.config.train.optimizer
+        l2_coeff = self.config.model.embedding.used_id_l2
+        self._mark("forward")
+        present = [n for n in self._id_features if n in batch]
+        ids_all = torch.cat([_flat_ids(batch[n]) for n in present])
+        n_ids = ids_all.shape[0]
+        v_loc = tables[0].embedding.shape[0]
+        with torch.no_grad():
+            rows = [row_sharded_lookup(t.embedding, ids_all, mesh) for t in tables]
+        rows = [r.requires_grad_() for r in rows]
+        batch = self._identity_positions(batch, present)
+        with sparse_rows(model, rows, "direct"), sampling_generator(model, state.generator):
+            outputs = model(batch)
+        loss, logs = self._loss(outputs, batch)
+        self._update_params(state, loss)
+        step = state.step + 1
+        lr, hp = oc.learning_rate, (oc.b1, oc.b2, oc.eps)
+        with torch.no_grad():
+            sids, order = torch.sort(ids_all.to(torch.int32), stable=True)
+            lo = tables[0].row_offset
+            local = torch.where(sids < lo, -1, torch.clamp_max(sids - lo, v_loc))
+            plan = eu.ScatterPlan(local.to(torch.int32), order, n_ids, v_loc)
+            touched = None
+            if l2_coeff > 0:
+                ones = torch.ones(n_ids, 1, device=ids_all.device)
+                count = all_reduce_(eu.fused_scatter_add(v_loc, 1, plan, ones), mesh.data_group)
+                touched = (count > 0).to(torch.float32)
+            reg = None
+            for name, t, r in zip(names, tables, rows):
+                g = (r.grad if r.grad is not None else torch.zeros_like(r)).reshape(n_ids, -1)
+                t2 = t.embedding.detach().reshape(v_loc, -1)
+                gd = eu.fused_scatter_add(v_loc, t2.shape[1], plan, g.index_select(0, order))
+                self._average_over_data([gd])
+                if touched is not None:
+                    part = 0.5 * (touched[:, 0] * t2.square().sum(-1)).sum()
+                    reg = part if reg is None else reg + part
+                    gd = gd + l2_coeff * touched * t2
+                st = state.table_opt[name]
+                eu.adam_update_(t2, st.m.reshape(v_loc, -1), st.v.reshape(v_loc, -1), gd,
+                                step, lr, *hp)
+            if reg is not None:
+                reg = all_reduce_(reg, mesh.model_group)
+                loss = loss.detach() + l2_coeff * reg
+                logs["used_id_l2"] = reg
         return self._finish(state, metric_state, loss, logs, outputs, batch)
 
     def eval_step(self, state: TrainState, batch: Dict[str, torch.Tensor], metric_state):
@@ -790,17 +960,52 @@ class Trainer:
         }
 
     # ------------------------------------------------------------- ckpt/infer
-    @staticmethod
-    def _state_tree(state: TrainState) -> Dict[str, Any]:
+    def _tables(self, model: nn.Module) -> Dict[str, EmbeddingTable]:
+        return dict(zip(_table_names(model), embedding_tables(model)))
+
+    def _state_tree(self, state: TrainState) -> Dict[str, Any]:
+        """The checkpoint's tree, in one layout on every mesh: whole tables
+        and whole table moments (gathered over 'model'; a collective, so
+        every rank builds it)."""
+        tables = self._tables(state.model)
+        model = {
+            k: tables[k].whole(v) if k in tables else v
+            for k, v in state.model.state_dict().items()
+        }
+        optimizer = state.optimizer.state_dict()
+        for i, group in enumerate(optimizer["param_groups"]):
+            if group["name"] in tables and i in optimizer["state"]:
+                t = tables[group["name"]]
+                optimizer["state"][i] = {
+                    k: t.whole(v) if k in ("mu", "nu") else v
+                    for k, v in optimizer["state"][i].items()
+                }
         tree = {
             "step": state.step,
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
+            "model": model,
+            "optimizer": optimizer,
             "generator": state.generator.get_state(),
         }
         if state.table_opt is not None:
-            tree["table_opt"] = {n: st._asdict() for n, st in state.table_opt.items()}
+            tree["table_opt"] = {
+                n: {f: tables[n].whole(v) if isinstance(v, torch.Tensor) else v
+                    for f, v in st._asdict().items()}
+                for n, st in state.table_opt.items()
+            }
         return tree
+
+    def _fit_tables(self, model: nn.Module, saved: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """``saved`` (a state dict with whole tables of any mesh) with each
+        table replaced by this rank's rows (``EmbeddingTable.fit``)."""
+        tables = self._tables(model)
+        return {
+            k: tables[k].fit(tables[k].embedding, v) if k in tables else v
+            for k, v in saved.items()
+        }
+
+    def _barrier(self) -> None:
+        if self.mesh_ctx.n_devices > 1:
+            dist.barrier()
 
     def _sidecar(self, step: int) -> str:
         return os.path.join(self.ckpt.directory, f"host_moments_{step}.npz")
@@ -809,8 +1014,12 @@ class Trainer:
         """Checkpoint ``state``. With ``host_adam`` the host moments go to a
         ``host_moments_<step>.npz`` sidecar beside the checkpoint; sidecars
         of steps the manager no longer keeps are removed (each is twice the
-        size of the fp32 tables)."""
-        self.ckpt.save(state.step, self._state_tree(state))
+        size of the fp32 tables). On a mesh every rank takes part and rank
+        0 writes whole tables (``_state_tree``)."""
+        tree = self._state_tree(state)
+        if self.mesh_ctx.rank == 0:
+            self.ckpt.save(state.step, tree)
+        self._barrier()
         if state.host_store is None:
             return
         state.host_store.save(self._sidecar(state.step))
@@ -825,10 +1034,21 @@ class Trainer:
         ``state_like``'s model, optimizer, table optimizer state and
         generator, in place; with ``host_adam`` the host moments come from
         the step's sidecar (a warning, and zero moments, when it is
-        missing)."""
+        missing). A checkpoint moves between meshes: each table, and each
+        table moment, takes this rank's rows of the saved whole table
+        (``EmbeddingTable.fit``)."""
         tree = self.ckpt.restore(step, map_location="cpu")
-        state_like.model.load_state_dict(tree["model"])
-        state_like.optimizer.load_state_dict(tree["optimizer"])
+        tables = self._tables(state_like.model)
+        state_like.model.load_state_dict(self._fit_tables(state_like.model, tree["model"]))
+        optimizer = tree["optimizer"]
+        for i, group in enumerate(optimizer["param_groups"]):
+            if group["name"] in tables and i in optimizer["state"]:
+                t = tables[group["name"]]
+                optimizer["state"][i] = {
+                    k: t.fit(torch.zeros_like(t.embedding), v) if k in ("mu", "nu") else v
+                    for k, v in optimizer["state"][i].items()
+                }
+        state_like.optimizer.load_state_dict(optimizer)
         state_like.generator.set_state(tree["generator"])
         restored_step = int(tree["step"])
         if state_like.table_opt is not None:
@@ -841,7 +1061,7 @@ class Trainer:
                 for name, st in state_like.table_opt.items():
                     for field, value in st._asdict().items():
                         if isinstance(value, torch.Tensor):
-                            value.copy_(saved[name][field])
+                            value.copy_(tables[name].fit(value, saved[name][field]))
                         elif value != saved[name][field]:
                             raise ValueError(f"{name}.{field}: {saved[name][field]} != {value}")
         if state_like.host_store is not None:
@@ -861,9 +1081,8 @@ class Trainer:
     def load_from_export(self, state: TrainState, directory: str) -> TrainState:
         """Incremental retraining: the model's weights (and running
         statistics) from a frozen export, the optimizer kept as it is."""
-        state.model.load_state_dict(
-            ckpt_lib.load_exported_params(directory, map_location=str(self.device))
-        )
+        exported = ckpt_lib.load_exported_params(directory, map_location=str(self.device))
+        state.model.load_state_dict(self._fit_tables(state.model, exported))
         return state
 
     def init_subtree_from_export(
@@ -886,6 +1105,7 @@ class Trainer:
                 f"export at {directory} does not match {dst_prefix!r}: "
                 f"missing {missing}, unexpected {extra}"
             )
+        loaded = self._fit_tables(sub, loaded)  # a table's rows on a mesh
         with torch.no_grad():
             for name, p in params.items():
                 if loaded[name].shape != p.shape:
@@ -897,17 +1117,27 @@ class Trainer:
         return state
 
     def export(self, state: TrainState, directory: str) -> None:
-        ckpt_lib.export_params(
-            directory,
-            state.model.state_dict(),
-            meta={
-                "model": self.config.model.name,
-                "model_params": {
-                    k: v for k, v in self.config.model.params.items() if k != "dtype"
+        """The frozen export ``load_servable`` reads: on a mesh every rank
+        takes part, and rank 0 writes whole tables cut to the one-device
+        row count, ``pad_vocab(V)`` (the rows past it are padding)."""
+        tables = self._tables(state.model)
+        params = {
+            k: tables[k].whole(v)[: pad_vocab(tables[k].vocab_size)] if k in tables else v
+            for k, v in state.model.state_dict().items()
+        }
+        if self.mesh_ctx.rank == 0:
+            ckpt_lib.export_params(
+                directory,
+                params,
+                meta={
+                    "model": self.config.model.name,
+                    "model_params": {
+                        k: v for k, v in self.config.model.params.items() if k != "dtype"
+                    },
+                    "embedding": self.config.model.embedding.to_dict(),
                 },
-                "embedding": self.config.model.embedding.to_dict(),
-            },
-        )
+            )
+        self._barrier()
 
     def infer(self, state: TrainState, batch: Dict[str, Any]) -> Dict[str, np.ndarray]:
         """Eval-mode forward on ``batch``; outputs come back as numpy arrays
@@ -915,6 +1145,16 @@ class Trainer:
         model = state.model.eval()
         with torch.inference_mode():
             outputs = model(self.device_batch(batch))
+            m = self.mesh_ctx
+            n = len(next(iter(batch.values())))
+            if m.n_data > 1 and n % m.n_data == 0:
+                # each data rank scored its block: the whole batch's outputs
+                outputs = {
+                    k: gather_rows(v.float() if v.dtype == torch.bfloat16 else v,
+                                   m.data_group, m.data_index, m.n_data)
+                    if v.dim() and v.shape[0] == n // m.n_data else v
+                    for k, v in outputs.items()
+                }
         return {
             k: (v.float() if v.dtype == torch.bfloat16 else v).cpu().numpy()
             for k, v in outputs.items()
