@@ -399,7 +399,8 @@ checkout and exits non-zero on the first phase that fails. Phases:
     Phase 15's checks sit under ``other_shapes`` of #4, #5 and #9, its
     launches under their ``launches_by_path``.
 16. the mesh (``core/mesh.py``, ``core/distributed.py``, the row-sharded
-    lookup, the sharded fused step, ``ops/attention_cp.py``), with ranks
+    lookup, the tensor-parallel weights, the lazy-sparse and sharded fused
+    steps, ``ops/attention_cp.py``, ``dryrun.py``), with ranks
     that are processes of this script (``--mesh-rank``), started with
     ``spawn`` semantics (a fresh interpreter each) after #4, #5 and #9 are
     built, joined under ``MESH_TIMEOUT``: a rank that fails or hangs fails
@@ -407,12 +408,16 @@ checkout and exits non-zero on the first phase that fails. Phases:
     - 16a: a world of one over NCCL, mesh (1, 1): DIN dense at phase 6's
       width (B=8192, L=64, D=32, bf16) for ``MESH_STEPS`` steps, its losses
       and parameters against the same steps without a world in this
-      process, both step times printed;
+      process, both step times printed; then ``dryrun_multichip(1)``
+      (DIN at D=8 in the dense, ``rowwise_adam`` and ``fused_adam``
+      engines: #4 and #5 once a step, #9 once in the fused one);
     - 16b: a world of four ranks on ``cuda:0`` over gloo (NCCL allows one
       rank of a communicator on a device; gloo reduces CUDA tensors through
       the host), mesh (2, 2): DIN dense at global B=8192 (4096 a data
-      rank), ``MESH_FP32_STEPS`` fp32 steps against this process's
-      one-device run of the same global batches, then ``MESH_STEPS`` bf16
+      rank; its ``mlp`` (200, 80) tensor parallel: ``dense_0`` holds 100
+      output columns a rank, ``dense_1`` 100 input rows),
+      ``MESH_FP32_STEPS`` fp32 steps against this process's one-device run
+      of the same global batches, then ``MESH_STEPS`` bf16
       steps (#4 and #5 once a step on each rank); #4 and #5 on each rank's
       own recorded inputs against their plain versions
       (``check_step_attention``'s cases, #5 in fp64); FM over the 2.08M-row
@@ -420,7 +425,11 @@ checkout and exits non-zero on the first phase that fails. Phases:
       ``MESH_STEPS`` bf16 steps (#9 twice a step on each rank), #9 on each
       rank's own stream (ids outside its rows dropped) held by
       ``check_step_scatter`` with its broken versions, and one fp32 fused
-      step against one fp32 dense step on the mesh; ``din_attention_cp`` at
+      step against one fp32 dense step on the mesh; FM in ``rowwise_adam``
+      (each rank half the rows of each table and of its row-wise state):
+      ``MESH_FP32_STEPS`` fp32 steps against this process's one-device run
+      (losses, AUC, tables, state); ``dryrun_multichip(4)``;
+      ``din_attention_cp`` at
       ``CP_SHAPE`` over model = 4 (a (1, 4) mesh of the same world), its
       pooled, its scores and every gradient against the one-device plain
       version in fp64 (``din_reading``, ``bwd_reading``), which a pool
@@ -5055,13 +5064,11 @@ def mesh_steps(torch, trainer, state, batches):
 
 
 def whole_params(model) -> dict:
-    """Every parameter on the CPU, tables whole (gathered over 'model')."""
-    from tpurec_torch.embedding.modules import EmbeddingTable
+    """Every parameter on the CPU, tables and tensor-parallel weights whole
+    (gathered over 'model')."""
+    from tpurec_torch.train.trainer import whole_tensors
 
-    tables = {f"{n}.embedding" if n else "embedding": m
-              for n, m in model.named_modules() if isinstance(m, EmbeddingTable)}
-    return {n: (tables[n].whole(p) if n in tables else p).detach().cpu()
-            for n, p in model.named_parameters()}
+    return {n: t.cpu() for n, t in whole_tensors(model).items()}
 
 
 def param_reading(torch, got, want, tol) -> dict:
@@ -5118,9 +5125,29 @@ def mesh_world(torch, world, size, directory) -> list:
     return out
 
 
+def mesh_dryrun(torch, kernels, eu, n) -> dict:
+    """``dryrun_multichip(n)`` in this rank's world: one DIN step (D=8) in
+    the dense (its MLP tensor parallel on model = 2), ``rowwise_adam`` and
+    ``fused_adam`` engines, each with its own asserts; #4 and #5 once in
+    each step, #9 once in the fused one."""
+    from tpurec_torch.dryrun import dryrun_multichip
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = dryrun_multichip(n, "cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = path_launches(kernels, eu)
+    check(counts["din_attention"] == counts["din_attention_bwd"] == 3
+          and counts["fused_scatter_add"] == 1,
+          f"dryrun_multichip({n}): #4/#5 not once a step or #9 not once in the fused step: {counts}")
+    check(all(np.isfinite(v) for v in losses.values()), f"dryrun_multichip({n}): {losses}")
+    return dict(losses=losses, launches=counts, seconds=seconds)
+
+
 def mesh_world_one(torch, kernels, eu, directory) -> dict:
     """16a, in the one rank of an NCCL world: DIN dense bf16 over the (1, 1)
-    mesh its config gives."""
+    mesh its config gives, then ``dryrun_multichip(1)``."""
     import torch.distributed as dist
 
     from tpurec_torch.train.trainer import Trainer
@@ -5137,7 +5164,9 @@ def mesh_world_one(torch, kernels, eu, directory) -> dict:
     state, losses, times, results = mesh_steps(torch, trainer, state, batches)
     counts = path_launches(kernels, eu)
     torch.save(whole_params(state.model), os.path.join(directory, "nccl1_params.pt"))
-    return dict(losses=losses, step_ms=times, results=results, launches=counts)
+    del trainer, state
+    return dict(losses=losses, step_ms=times, results=results, launches=counts,
+                dryrun=mesh_dryrun(torch, kernels, eu, 1))
 
 
 def mesh_din(torch, kernels, eu, directory) -> dict:
@@ -5149,6 +5178,14 @@ def mesh_din(torch, kernels, eu, directory) -> dict:
     batches = mesh_batches(info, MESH_STEPS)
     trainer = Trainer(on_mesh(din_train_config("float32"), **MESH_2X2), info)
     state = trainer.init_state(batches[0])
+    # the top MLP (200, 80) tensor parallel over model = 2
+    mlp = state.model.mlp
+    tp = {n: list(p.shape) for n, p in mlp.named_parameters()}
+    width_in = tp["dense_0.weight"][1]
+    check(mlp.dense_0.split == "column" and mlp.dense_1.split == "row"
+          and tp == {"dense_0.weight": [100, width_in], "dense_0.bias": [100],
+                     "dense_1.weight": [80, 100], "dense_1.bias": [80]},
+          f"DIN's mlp on (2, 2) not tensor parallel: {tp}")
     state, losses, _, results = mesh_steps(torch, trainer, state, batches[:MESH_FP32_STEPS])
     ref = torch.load(os.path.join(directory, "din_fp32_ref.pt"))
     loss_err = max(tol_ratio(torch.tensor(losses, dtype=torch.float64),
@@ -5182,7 +5219,7 @@ def mesh_din(torch, kernels, eu, directory) -> dict:
     readings["din_2x2_bwd"], records["din_2x2_bwd"] = attention_bwd_case(torch, kernels, bargs, bout)
     check_attention_readings(readings, "din on (2, 2)")
     return dict(fp32_losses=losses, fp32_reading=reading, bf16_losses=bf16_losses, step_ms=times,
-                launches=counts, attention=records)
+                launches=counts, attention=records, mlp_shares=tp)
 
 
 def mesh_fm(torch, kernels, eu) -> dict:
@@ -5209,6 +5246,53 @@ def mesh_fm(torch, kernels, eu) -> dict:
                              info, batches[0], FM_TABLES, "fm on (2, 2)")
     return dict(rows_per_rank=rows, losses=losses, step_ms=times, launches=counts, scatter=scatter,
                 fused_vs_dense=reading)
+
+
+def fm_rowwise_batches():
+    return [bench_batch(fm_info(), TRAIN_BATCH, 0, seed=171 + i) for i in range(MESH_FP32_STEPS)]
+
+
+def fm_rowwise_state(state) -> dict:
+    """FM's tables and their row-wise Adam state, whole, on the CPU."""
+    from tpurec_torch.embedding.modules import embedding_tables
+    from tpurec_torch.train.trainer import _table_names
+
+    tables = dict(zip(_table_names(state.model), embedding_tables(state.model)))
+    return {f"{n}.{f}": tables[n].whole(v).cpu() for n, st in state.table_opt.items()
+            for f, v in st._asdict().items()}
+
+
+def mesh_fm_rowwise(torch, directory) -> dict:
+    """16b's FM over the 2.08M-row table in ``rowwise_adam`` on (2, 2):
+    each rank holds half the rows of each table and of its state;
+    ``MESH_FP32_STEPS`` fp32 steps against this process's one-device run
+    of the same global batches."""
+    from tpurec_torch.embedding.modules import embedding_tables
+    from tpurec_torch.train.trainer import Trainer
+
+    info = fm_info()
+    trainer = Trainer(on_mesh(fm_train_config("sparse", "float32"), **MESH_2X2), info)
+    state = trainer.init_state()
+    rows = {n: [list(t.embedding.shape), {f: list(v.shape) for f, v in st._asdict().items()}]
+            for t, (n, st) in zip(embedding_tables(state.model), state.table_opt.items())}
+    whole = {n: t.whole(t.embedding).shape[0] for n, t in
+             zip(state.table_opt, embedding_tables(state.model))}
+    check(all(r[0][0] * 2 == whole[n] and all(s[0] == r[0][0] for s in r[1].values())
+              for n, r in rows.items()), f"FM rowwise_adam on (2, 2): rows not split: {rows}")
+    state, losses, times, results = mesh_steps(torch, trainer, state, fm_rowwise_batches())
+    ref = torch.load(os.path.join(directory, "fm_rowwise_ref.pt"))
+    loss_err = max(tol_ratio(torch.tensor(losses, dtype=torch.float64),
+                             torch.tensor(ref["losses"], dtype=torch.float64), **MESH_LOSS_TOL),
+                   tol_ratio(torch.tensor(results["auc"]), torch.tensor(ref["results"]["auc"]),
+                             atol=1e-6, rtol=0))
+    reading = dict(loss=loss_err,
+                   **param_reading(torch, whole_params(state.model), ref["params"], MESH_PARAM_TOL),
+                   **{f"state_{k}": v for k, v in param_reading(
+                       torch, fm_rowwise_state(state), ref["state"], MESH_PARAM_TOL).items()})
+    check(max(reading["loss"], reading["param"], reading["state_param"]) <= 1.0,
+          f"FM rowwise_adam on (2, 2) against one device, fp32: {reading} "
+          f"(losses {losses} vs {ref['losses']})")
+    return dict(rows_per_rank=rows, losses=losses, step_ms=times, reading=reading)
 
 
 def mesh_cp(torch, kernels, eu) -> dict:
@@ -5295,7 +5379,11 @@ def mesh_world_four(torch, kernels, eu, directory) -> dict:
     out["fm"] = mesh_fm(torch, kernels, eu)
     gc.collect()
     torch.cuda.empty_cache()
+    out["fm_rowwise"] = mesh_fm_rowwise(torch, directory)
+    gc.collect()
+    torch.cuda.empty_cache()
     out["cp"] = mesh_cp(torch, kernels, eu)
+    out["dryrun"] = mesh_dryrun(torch, kernels, eu, 4)
     return out
 
 
@@ -5346,6 +5434,13 @@ def run_mesh(torch, kernels, eu, workdir, card):
     torch.save(dict(losses=losses, results=results, params=whole_params(state.model)),
                os.path.join(workdir, "din_fp32_ref.pt"))
     del trainer, state
+    # 16b's FM rowwise_adam reference: one device, fp32
+    trainer = Trainer(fm_train_config("sparse", "float32"), fm_info())
+    state = trainer.init_state()
+    state, losses, fm_times, results = mesh_steps(torch, trainer, state, fm_rowwise_batches())
+    torch.save(dict(losses=losses, results=results, params=whole_params(state.model),
+                    state=fm_rowwise_state(state)), os.path.join(workdir, "fm_rowwise_ref.pt"))
+    del trainer, state
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5361,7 +5456,8 @@ def run_mesh(torch, kernels, eu, workdir, card):
                      step_p50_ms=statistics.median(one["step_ms"][2:]),
                      groupless_step_p50_ms=statistics.median(groupless["step_ms"][2:]),
                      loss_rel_err=loss_err, param_abs_err=param_err, same_bits=same_bits,
-                     launches=one["launches"], init_s=one["init_s"], world_s=nccl_s)
+                     launches=one["launches"], init_s=one["init_s"], world_s=nccl_s,
+                     dryrun=one["dryrun"])
     print("phase 16a, DIN dense in a world of one over NCCL against no world:", json.dumps(world_one),
           flush=True)
     check(loss_err <= MESH_GROUPLESS_TOL and param_err <= MESH_GROUPLESS_TOL,
@@ -5387,20 +5483,27 @@ def run_mesh(torch, kernels, eu, workdir, card):
                                  plain_ms=v["plain_ms"], library_ms=v["library_ms"])
                          for k, v in r["fm"]["scatter"].items()},
                 fused_vs_dense=r["fm"]["fused_vs_dense"]["fused"]),
+            din_mlp_shares=r["din"]["mlp_shares"],
+            fm_rowwise=dict(rows_per_rank=r["fm_rowwise"]["rows_per_rank"],
+                            reading=r["fm_rowwise"]["reading"],
+                            step_p50_ms=statistics.median(r["fm_rowwise"]["step_ms"][1:]),
+                            one_device_step_p50_ms=statistics.median(fm_times[1:])),
+            dryrun=r["dryrun"],
             cp=dict(reading=r["cp"]["reading"], launches=r["cp"]["launches"], host_ms=r["cp"]["host_ms"])))
     print("phase 16b, a world of four ranks on one card over gloo, mesh (2, 2) and (1, 4):",
           json.dumps(summary), flush=True)
-    launches = dict(
-        din_attention=dict(mesh_din_nccl1=one["launches"]["din_attention"],
-                           mesh_din_2x2=sum(r["din"]["launches"]["din_attention"] for r in four),
-                           mesh_din_attention_cp=sum(r["cp"]["launches"]["din_attention"] for r in four)),
-        din_attention_bwd=dict(mesh_din_nccl1=one["launches"]["din_attention_bwd"],
-                               mesh_din_2x2=sum(r["din"]["launches"]["din_attention_bwd"] for r in four),
-                               mesh_din_attention_cp=sum(r["cp"]["launches"]["din_attention_bwd"]
-                                                         for r in four)),
-        fused_scatter_add=dict(mesh_fm_fused_2x2=sum(r["fm"]["launches"]["fused_scatter_add"]
-                                                     for r in four)),
-    )
+    launches = {
+        name: dict(mesh_din_nccl1=one["launches"][name],
+                   mesh_din_2x2=sum(r["din"]["launches"][name] for r in four),
+                   mesh_din_attention_cp=sum(r["cp"]["launches"][name] for r in four),
+                   mesh_dryrun_nccl1=one["dryrun"]["launches"][name],
+                   mesh_dryrun_2x2=sum(r["dryrun"]["launches"][name] for r in four))
+        for name in ("din_attention", "din_attention_bwd")
+    }
+    launches["fused_scatter_add"] = dict(
+        mesh_fm_fused_2x2=sum(r["fm"]["launches"]["fused_scatter_add"] for r in four),
+        mesh_dryrun_nccl1=one["dryrun"]["launches"]["fused_scatter_add"],
+        mesh_dryrun_2x2=sum(r["dryrun"]["launches"]["fused_scatter_add"] for r in four))
     print("phase 16 launches (all ranks):", json.dumps(launches), flush=True)
     return launches, dict(world_one=world_one, world_four=summary)
 

@@ -1755,6 +1755,38 @@ def _card_mesh_world(inputs):
     got = [pooled, scores, leaves[0].grad, k_loc.grad] + [t.grad for t in leaves[1:]]
     want = [wp, ws[:, steps], grads[0], grads[1][:, steps]] + list(grads[2:])
     out["cp"] = [(g.detach().double().cpu().numpy(), w.detach().cpu().numpy()) for g, w in zip(got, want)]
+    out["tp_din"] = _card_tp_din_step(mesh)
+    return out
+
+
+def _card_tp_din_step(mesh):
+    """One fp32 DIN step with its ``mlp`` tensor parallel over ``mesh``'s
+    model = 2 on cuda:0, and the same step on one device from the same
+    seed: both losses, both parameter sets (whole), #4/#5 launches."""
+    from tpurec_torch.config import EmbeddingConfig, ExperimentConfig, ModelConfig, TrainConfig
+    from tpurec_torch.core.mesh import MeshContext
+    from tpurec_torch.dryrun import tiny_dataset
+    from tpurec_torch.models.registry import sharded_weights
+    from tpurec_torch.ops import kernels
+    from tpurec_torch.train.trainer import Trainer, whole_tensors
+
+    info, batch = tiny_dataset(batch=64)
+    cfg = ExperimentConfig(
+        model=ModelConfig(name="din", embedding=EmbeddingConfig(dim=8, used_id_l2=1e-6)),
+        train=TrainConfig(compute_dtype="float32", log_every_steps=0),
+    )
+    out = {}
+    for key, ctx in (("tp", mesh), ("one", MeshContext())):
+        trainer = Trainer(cfg, info, device="cuda", mesh_ctx=ctx)
+        state = trainer.init_state()
+        kernels.reset_launch_counts()
+        state, _, logs = trainer.train_step(state, trainer.device_batch(batch), trainer.metrics.init())
+        torch.cuda.synchronize()
+        params = {n: t.cpu().numpy() for n, t in whole_tensors(state.model).items()}
+        out[key] = {"loss": float(logs["loss"]), "params": params,
+                    "shards": sorted(sharded_weights(state.model)),
+                    "launches": (kernels.din_attention_fused.launches,
+                                 kernels.din_attention_bwd_fused.launches)}
     return out
 
 
@@ -1797,6 +1829,24 @@ def test_din_attention_cp_on_card_matches_plain(card, card_mesh):
                                            err_msg=name)
             else:
                 np.testing.assert_allclose(got, want, **TOL, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_tensor_parallel_din_step_on_card_matches_one_device(card, card_mesh):
+    """DIN with its ``mlp`` tensor parallel over two ranks on cuda:0 (gloo):
+    ``dense_0`` and ``dense_1`` split, #4 and #5 once in the step; one fp32
+    step from the same seed against one device: the loss (rtol 2e-4, atol
+    2e-5) and every parameter, gathered (rtol 5e-3, atol 5e-5: the CPU
+    mesh tests' tolerances; the row layer sums two partial products)."""
+    for res in card_mesh:
+        tp, one = res["tp_din"]["tp"], res["tp_din"]["one"]
+        assert tp["shards"] == ["mlp.dense_0.bias", "mlp.dense_0.weight", "mlp.dense_1.weight"]
+        assert tp["launches"] == one["launches"] == (1, 1)
+        np.testing.assert_allclose(tp["loss"], one["loss"], rtol=2e-4, atol=2e-5)
+        assert set(tp["params"]) == set(one["params"])
+        for n, want in one["params"].items():
+            got = tp["params"][n][: want.shape[0]]
+            np.testing.assert_allclose(got, want, rtol=5e-3, atol=5e-5, err_msg=n)
 
 
 if __name__ == "__main__":

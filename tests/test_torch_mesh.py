@@ -139,6 +139,7 @@ def _ops_world(inputs):
     from tpurec_torch.embedding.ops import local_rows, row_sharded_lookup
     from tpurec_torch.ops.attention_cp import din_attention_cp, softmax_attention_cp
     from tpurec_torch.ops.mlp import BatchNorm, Dice
+    from tpurec_torch.train.trainer import whole_tensors
 
     rank = dist.get_rank()
     out = {"layouts": {}, "lookup": {}}
@@ -235,7 +236,74 @@ def _ops_world(inputs):
         loss=(torch.from_numpy(inputs["preds"][block]),),
     )
     out["metrics"] = {k: float(v) for k, v in bundle.result(st).items()}
+
+    # the tensor-parallel modules over model = 4 against one device
+    out["tp"] = {}
+    mesh = meshes[(1, 4)]
+    for name in TP_MODULES:
+        module = _tp_module(name, mesh)
+        x = torch.from_numpy(inputs["tp_x"][name]).requires_grad_()
+        y = module(x)
+        (y * torch.from_numpy(inputs["tp_cot"][name])).sum().backward()
+        params = dict(module.named_parameters())
+        out["tp"][name] = {
+            "y": _np(y), "dx": _np(x.grad),
+            "shapes": {n: tuple(p.shape) for n, p in params.items()},
+            "params": {n: _np(t) for n, t in whole_tensors(module).items()},
+            "grads": {n: _np(t) for n, t in whole_tensors(
+                module, {n: p.grad for n, p in params.items()}).items()},
+        }
     return out
+
+
+# name → (class, args): sizes that split (a gather after an odd column layer
+# in the MLP and the bank), that do not (the MLP's width 6, so its rows and
+# the next layer's stay whole), heads split within a head (2 of 8 over 4)
+# and whole heads (4 of 4)
+TP_MODULES = {
+    "mlp": ("MLP", (12, (16, 8, 4))),
+    "mlp_uneven": ("MLP", (12, (6, 8))),
+    "experts": ("ExpertBank", (12, 3, (16, 8, 4))),
+    "mha_split_heads": ("MultiHeadAttention", (8, 2, 8)),
+    "mha_whole_heads": ("MultiHeadAttention", (8, 4, 4)),
+}
+# input and output shapes
+TP_SHAPES = {"mlp": ((6, 12), (6, 4)), "mlp_uneven": ((6, 12), (6, 8)),
+             "experts": ((6, 12), (6, 3, 4)), "mha_split_heads": ((3, 5, 8), (3, 5, 8)),
+             "mha_whole_heads": ((3, 5, 8), (3, 5, 8))}
+
+
+def _tp_module(name, mesh=None):
+    """The module of ``TP_MODULES[name]`` from seed 0, fp32, placed on
+    ``mesh`` (tensor parallel over its 'model' axis) when there is one, its
+    biases set to fixed nonzero values."""
+    from tpurec_torch.initializers import init_parameters
+    from tpurec_torch.models.multitask import ExpertBank
+    from tpurec_torch.ops.attention import MultiHeadAttention
+    from tpurec_torch.ops.mlp import MLP
+
+    cls, args = TP_MODULES[name]
+    kw = {"tp_axis": "model"} if cls == "MLP" else {}
+    module = {"MLP": MLP, "ExpertBank": ExpertBank, "MultiHeadAttention": MultiHeadAttention}[cls](
+        *args, **kw)
+    if mesh is not None:
+        module.place(mesh)
+    init_parameters(module, 0)
+    # nonzero biases (they start at zero), so a bias added on every rank
+    # before the sum over 'model' shows
+    from tpurec_torch.core.collectives import local_share
+    from tpurec_torch.models.registry import sharded_weights
+
+    shards = sharded_weights(module)
+    with torch.no_grad():
+        for n, p in module.named_parameters():
+            if n.split(".")[-1] == "bias" or n.split(".")[-1].startswith("b_"):
+                shape = list(p.shape)
+                if n in shards:
+                    shape[shards[n][0]] *= mesh.n_model
+                whole = 0.1 * torch.sin(torch.arange(float(np.prod(shape)))).reshape(shape)
+                p.copy_(local_share(whole, shards[n][0], mesh) if n in shards else whole)
+    return module
 
 
 CASES = {"ops": _ops_world}
@@ -263,6 +331,8 @@ def _inputs():
         "bn_cot": f32(16, 5),
         "labels": rng.integers(0, 2, size=(64,)).astype(np.float32),
         "preds": rng.random(64).astype(np.float32),
+        "tp_x": {n: f32(*shapes[0]) for n, shapes in TP_SHAPES.items()},
+        "tp_cot": {n: f32(*shapes[1]) for n, shapes in TP_SHAPES.items()},
     }
 
 
@@ -413,13 +483,19 @@ def _jax_cp(inputs):
     return (jax.tree.map(np.asarray, din_out), jax.tree.map(np.asarray, soft_out))
 
 
-def test_din_attention_cp_matches_jax(ops):
+@pytest.fixture(scope="module")
+def jax_cp(ops):
+    """The JAX package's two CP functions and their gradients, once."""
+    return _jax_cp(ops[0])
+
+
+def test_din_attention_cp_matches_jax(ops, jax_cp):
     """Each rank's quarter of the steps through ``DinAttention``, the pool
     summed over 'model': pooled, the rank's scores, and every gradient
     against ``jax.grad`` of the JAX package's ``din_attention_cp`` (row 3
     has no valid step, row 5 only on the first rank)."""
     inputs, results = ops
-    want, _ = _jax_cp(inputs)
+    want, _ = jax_cp
     lk = inputs["cp"]["keys"].shape[1] // 4
     for m, res in enumerate(results):
         got = res["din_cp"]
@@ -433,13 +509,13 @@ def test_din_attention_cp_matches_jax(ops):
         np.testing.assert_array_equal(got["pooled"][3], 0.0)
 
 
-def test_softmax_attention_cp_matches_jax(ops):
+def test_softmax_attention_cp_matches_jax(ops, jax_cp):
     """The two-pass softmax pool over four ranks' steps against the JAX
     package's, and its gradients against ``jax.grad`` of the same pool over
     the whole sequence on one device (the JAX function's ``pmax`` has no
     differentiation rule); the row with no valid step gives zeros."""
     inputs, results = ops
-    _, want = _jax_cp(inputs)
+    _, want = jax_cp
     lk = inputs["cp"]["keys"].shape[1] // 4
     for m, res in enumerate(results):
         got = res["softmax_cp"]
@@ -478,6 +554,46 @@ def test_batch_moments_are_global_over_data(ops, name):
         np.testing.assert_allclose(got["running_var"], _np(bn.running_var), **TOL)
         for n, p in module.named_parameters():
             np.testing.assert_allclose(got[f"d{n}"], _np(p.grad), **GRAD_TOL)
+
+
+# the parameters each rank holds a quarter of (the rest stay whole)
+TP_SPLIT = {
+    "mlp": {"dense_0.weight": 0, "dense_0.bias": 0, "dense_1.weight": 1, "dense_2.weight": 0,
+            "dense_2.bias": 0},
+    "mlp_uneven": {},
+    "experts": {"w_0": 2, "b_0": 1, "w_1": 1, "w_2": 2, "b_2": 1},
+    "mha_split_heads": {"q.weight": 0, "k.weight": 0, "v.weight": 0, "out.weight": 1},
+    "mha_whole_heads": {"q.weight": 0, "k.weight": 0, "v.weight": 0, "out.weight": 1},
+}
+
+
+@pytest.mark.parametrize("name", list(TP_MODULES))
+def test_tensor_parallel_modules_equal_one_device(ops, name):
+    """An ``MLP`` with ``tp_axis``, an ``ExpertBank`` and a
+    ``MultiHeadAttention`` placed over model = 4: each rank holds a quarter
+    of each split parameter on its split axis (as the JAX package
+    partitions them; a width of 6 stays whole), the shares gather to the
+    one-device initialisation from the same seed bit for bit (the biases
+    then set alike), and the
+    output, the input's gradient and every parameter's gradient (gathered)
+    equal the one-device module's (fp32 sums in another order)."""
+    inputs, results = ops
+    module = _tp_module(name)
+    x = torch.from_numpy(inputs["tp_x"][name]).requires_grad_()
+    y = module(x)
+    (y * torch.from_numpy(inputs["tp_cot"][name])).sum().backward()
+    whole = dict(module.named_parameters())
+    for res in results:
+        got = res["tp"][name]
+        for n, p in whole.items():
+            shape = list(p.shape)
+            if n in TP_SPLIT[name]:
+                shape[TP_SPLIT[name][n]] //= 4
+            assert got["shapes"][n] == tuple(shape), n
+            np.testing.assert_array_equal(got["params"][n], _np(p), err_msg=n)
+            np.testing.assert_allclose(got["grads"][n], _np(p.grad), **TOL, err_msg=n)
+        np.testing.assert_allclose(got["y"], _np(y), **TOL)
+        np.testing.assert_allclose(got["dx"], _np(x.grad), **TOL)
 
 
 def test_metrics_are_global_over_data(ops):

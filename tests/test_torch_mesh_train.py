@@ -4,21 +4,31 @@ trainer runs on four of its virtual CPU devices in the pytest process.
 
 Three worlds, each run once for the whole file:
 
-- (2, 2), four ranks: DIN in the dense engine and FM in the fused engine
-  against the JAX package's (2, 2) runs, four fp32 steps from the same
-  weights on the same global batches; FM fused also against the port's
-  one-device fused step; checkpoints moved between (2, 2) and one device
-  both ways; the export; the refusals.
+- (2, 2), four ranks: DIN in the dense engine (its top MLP tensor
+  parallel) and FM in the fused engine against the JAX package's (2, 2)
+  runs, four fp32 steps from the same weights on the same global batches;
+  FM fused also against the port's one-device fused step; FM in the three
+  lazy-sparse engines and DIN in ``rowwise_adam`` against the JAX
+  package's (2, 2) runs; ``evaluate`` over a batch that divides over
+  'data' and one that does not, against one device and the JAX package;
+  checkpoints moved between (2, 2) and one device both ways; the export;
+  ``dryrun_multichip``; the refusals.
 - (1, 4), four ranks: din, fm, ffm and mmoe in the dense and the fused
-  engine, equal to the one-device step.
+  engine against the one-device step; din, mmoe and autoint (tensor
+  parallel) and FM's three lazy-sparse engines against the JAX package's
+  (1, 4) runs; the tensor-parallel initialisation against one device.
 - a world of one: equal to the trainer without a world.
 
 Tolerances (no looser than the JAX package's own ``test_tp_matches_dp``):
 losses rtol 2e-4, atol 2e-5; parameters rtol 5e-3, atol 5e-5, on the rows
 both tables have (``pad_vocab`` rounds rows to n_model·128); the used-id
-L2 term like the losses; AUC 1e-6 (a sum of histogram counts). The
-model-only mesh and the world of one are exact: the sum over 'model' adds
-zeros, and every other operation is the one-device step's.
+L2 term like the losses; AUC 1e-6 (a sum of histogram counts). The world
+of one, and the model-only mesh of the models without tensor-parallel
+weights (fm, ffm), are exact: the sum over 'model' adds zeros, and every
+other operation is the one-device step's. A tensor-parallel row layer
+sums its partial products over 'model' in another order, so din and mmoe
+on (1, 4) are held to one device at the losses' and parameters'
+tolerances; their initialisation is exact.
 """
 
 from __future__ import annotations
@@ -40,8 +50,13 @@ from tpurec_torch.embedding.modules import embedding_tables  # noqa: E402
 
 LOSS_TOL = dict(rtol=2e-4, atol=2e-5)
 PARAM_TOL = dict(rtol=5e-3, atol=5e-5)
+MOMENT_TOL = dict(rtol=5e-3, atol=1e-8)
 STEPS = 4
+SPARSE_STEPS = 3
 EXACT_MODELS = ("din", "fm", "ffm", "mmoe")
+TP_MODELS = ("din", "mmoe")  # tensor parallel on (1, 4): held at LOSS_TOL, PARAM_TOL
+LAZY_ENGINES = ("adam", "rowwise_adam", "rowwise_adagrad")
+JAX14_MODELS = ("din", "mmoe", "autoint")
 
 
 # --------------------------------------------------------------------------
@@ -53,13 +68,26 @@ def _tables(model):
 
 
 def _whole_params(model):
-    """{name: numpy} of every parameter, tables whole (a collective on a
-    mesh)."""
-    tables = _tables(model)
-    return {
-        n: (tables[n].whole(p) if n in tables else p).detach().cpu().numpy()
-        for n, p in model.named_parameters()
-    }
+    """{name: numpy} of every parameter, tables and tensor-parallel weights
+    whole (a collective on a mesh)."""
+    from tpurec_torch.train.trainer import whole_tensors
+
+    return {n: t.cpu().numpy() for n, t in whole_tensors(model).items()}
+
+
+def _whole_moments(state):
+    """{table: {field: numpy}} of the table optimizer state, whole, fp32."""
+    tables = _tables(state.model)
+    return {n: {f: tables[n].whole(v).float().numpy() for f, v in st._asdict().items()}
+            for n, st in state.table_opt.items()}
+
+
+def _shard_shapes(model):
+    """{name: local shape} of every tensor-parallel weight."""
+    from tpurec_torch.models.registry import sharded_weights
+
+    params = dict(model.named_parameters())
+    return {n: tuple(params[n].shape) for n in sharded_weights(model)}
 
 
 def _run(trainer, state, batches):
@@ -112,16 +140,14 @@ def _mesh22(inputs):
         case = inputs[name]
         t = _trainer(case["cfg"], case["info"], checkpoint_dir=case["ckpt"])
         state = t.init_state()
+        if name == "din":
+            out["din_shards"] = _shard_shapes(state.model)
         params_from_jax(state.model, case["variables"])
         state, losses, regs, results = _run(t, state, case["batches"])
         out[name] = {"losses": losses, "regs": regs, "results": results,
                      "params": _whole_params(state.model)}
         if state.table_opt is not None:
-            tables = _tables(state.model)
-            out[name]["moments"] = {
-                n: {f: tables[n].whole(v).numpy() for f, v in st._asdict().items()}
-                for n, st in state.table_opt.items()
-            }
+            out[name]["moments"] = _whole_moments(state)
         t.save(state)
         t.export(state, case["export"])
         out[name]["infer"] = t.infer(state, case["batches"][0])["output"]
@@ -133,33 +159,73 @@ def _mesh22(inputs):
     state, losses, _, _ = _run(t, state, [case["batch"]])
     out["restore"] = {"step": state.step, "losses": losses, "params": _whole_params(state.model)}
 
+    # evaluate over a batch that divides over 'data' and one that does not
+    case = inputs["evaluate"]
+    t = _trainer(case["cfg"], case["info"])
+    state = t.init_state()
+    params_from_jax(state.model, case["variables"])
+    out["evaluate"] = {k: t.evaluate(state, batches) for k, batches in case["batches"].items()}
+
+    out["lazy"] = _lazy_runs(inputs["lazy"])
+
+    from tpurec_torch.dryrun import dryrun_multichip
+
+    out["dryrun"] = dryrun_multichip(4, "cpu")
+
     din, fm = inputs["din"], inputs["fm"]
     mesh14 = make_mesh(MeshConfig(data=1, model=4))
     out["refusals"] = {
         "model": _refusal(lambda: _trainer(fm["cfg"], fm["info"], model="deepfm",
                                            sparse_embedding=False)),
         "loss": _refusal(lambda: _trainer(din["cfg"], din["info"], loss="in_batch_softmax")),
-        "rowwise_adam": _refusal(lambda: _trainer(fm["cfg"], fm["info"],
-                                                  embedding_optimizer="rowwise_adam")),
-        "adam_model_only": _refusal(lambda: _trainer(fm["cfg"], fm["info"], mesh14,
-                                                     embedding_optimizer="adam")),
         "host_adam": _refusal(lambda: _trainer(fm["cfg"], fm["info"], mesh14,
                                                embedding_optimizer="host_adam")),
     }
     return out
 
 
+def _lazy_runs(cases, mesh=None):
+    """Each lazy-sparse case from the JAX package's initial variables: its
+    run, whole tables and table optimizer state."""
+    from tpurec_torch.bridge import params_from_jax
+
+    out = {}
+    for key, case in cases.items():
+        t = _trainer(case["cfg"], case["info"], mesh)
+        state = t.init_state()
+        params_from_jax(state.model, case["variables"])
+        state, losses, regs, results = _run(t, state, case["batches"])
+        out[key] = {"losses": losses, "regs": regs, "results": results,
+                    "params": _whole_params(state.model), "moments": _whole_moments(state),
+                    "rows": {n: tuple(tb.embedding.shape) for n, tb in _tables(state.model).items()},
+                    "state_rows": {n: {f: tuple(v.shape) for f, v in st._asdict().items()}
+                                   for n, st in state.table_opt.items()}}
+    return out
+
+
 def _mesh14(inputs):
+    from tpurec_torch.bridge import params_from_jax
     from tpurec_torch.core.mesh import make_mesh
 
     mesh = make_mesh(MeshConfig(data=1, model=4))
-    out = {}
-    for key, case in inputs.items():
+    out = {"exact": {}, "jax": {}, "init": {}}
+    for key, case in inputs["exact"].items():
         t = _trainer(case["cfg"], case["info"], mesh)
         state = t.load_from_export(t.init_state(), case["export"])
         state, losses, regs, results = _run(t, state, case["batches"])
-        out[key] = {"losses": losses, "regs": regs, "results": results,
-                    "params": _whole_params(state.model)}
+        out["exact"][key] = {"losses": losses, "regs": regs, "results": results,
+                             "params": _whole_params(state.model)}
+    for key, case in inputs["jax"].items():
+        t = _trainer(case["cfg"], case["info"], mesh)
+        state = t.init_state()
+        params_from_jax(state.model, case["variables"])
+        state, losses, regs, results = _run(t, state, case["batches"])
+        out["jax"][key] = {"losses": losses, "regs": regs, "results": results,
+                           "params": _whole_params(state.model)}
+    for key, case in inputs["init"].items():
+        model = _trainer(case["cfg"], case["info"], mesh).init_state().model
+        out["init"][key] = {"shards": _shard_shapes(model), "params": _whole_params(model)}
+    out["lazy"] = _lazy_runs(inputs["lazy"], mesh)
     return out
 
 
@@ -203,7 +269,8 @@ def _port_info(jinfo):
     return DataInfo(**{k: getattr(jinfo, k) for k in DataInfo.__dataclass_fields__})
 
 
-def _jcfg(name, mesh, fused=False, used_id_l2=0.01, loss="bce", **opt):
+def _jcfg(name, mesh, fused=False, used_id_l2=0.01, loss="bce", params=None,
+          embedding_optimizer="fused_adam", **opt):
     from tpurec.config import (
         EmbeddingConfig,
         ExperimentConfig as JExperimentConfig,
@@ -214,12 +281,13 @@ def _jcfg(name, mesh, fused=False, used_id_l2=0.01, loss="bce", **opt):
     )
 
     return JExperimentConfig(
-        model=ModelConfig(name=name, embedding=EmbeddingConfig(dim=8, used_id_l2=used_id_l2)),
+        model=ModelConfig(name=name, params=dict(params or {}),
+                          embedding=EmbeddingConfig(dim=8, used_id_l2=used_id_l2)),
         train=TrainConfig(
             compute_dtype="float32", log_every_steps=0, seed=7, loss=loss,
             sparse_embedding=fused,
-            optimizer=OptimizerConfig(learning_rate=0.01, embedding_optimizer="fused_adam",
-                                      **opt),
+            optimizer=OptimizerConfig(learning_rate=0.01,
+                                      embedding_optimizer=embedding_optimizer, **opt),
         ),
         mesh=JMeshConfig(data=mesh[0], model=mesh[1]),
     )
@@ -300,8 +368,64 @@ def _common_rows(variables, model):
 def _jax_moments(js):
     from tpurec_torch.bridge import _flatten
 
-    return {".".join(p): {f: np.asarray(getattr(st, f)) for f in st._fields}
+    return {".".join(p): {f: np.asarray(getattr(st, f)).astype(np.float32) for f in st._fields}
             for p, st in _flatten(js.table_opt)}
+
+
+def _jax_evaluate(jcfg, jinfo, runs):
+    """The JAX package's ``evaluate`` of each list of batches in ``runs`` on
+    its initial state: (variables, {key: results})."""
+    import jax
+
+    from tpurec.core.mesh import make_mesh as jmake_mesh
+    from tpurec.train import Trainer as JTrainer
+
+    n = jcfg.mesh.data * jcfg.mesh.model
+    jt = JTrainer(jcfg, jinfo, mesh_ctx=jmake_mesh(jcfg.mesh, devices=jax.devices()[:n]))
+    js = jt.init_state(next(iter(runs.values()))[0])
+    variables = jax.tree.map(np.asarray, {"params": js.params, **js.model_state})
+    return variables, {k: jt.evaluate(js, batches) for k, batches in runs.items()}
+
+
+def _lazy_cases(mesh):
+    """The lazy-sparse engines' cases on ``mesh`` (FM in each engine; on (2,
+    2) DIN in ``rowwise_adam`` too), used-id L2 0.01: (inputs, the JAX
+    package's runs)."""
+    inputs, want = {}, {}
+    names = [("fm", e) for e in LAZY_ENGINES] + ([("din", "rowwise_adam")] if mesh == (2, 2) else [])
+    for name, engine in names:
+        make = _din_data if name == "din" else _tab_data
+        jinfo = make(16, 0)[0]
+        batches = [make(16 if name == "din" else 64, 40 + i)[1] for i in range(SPARSE_STEPS)]
+        jcfg = _jcfg(name, mesh, fused=True, embedding_optimizer=engine)
+        variables, losses, regs, results, js = _jax_run(jcfg, jinfo, batches)
+        info = _port_info(jinfo)
+        key = f"{name}-{engine}"
+        inputs[key] = {"cfg": jcfg.to_json(), "info": info, "variables": variables,
+                       "batches": batches}
+        model = _trainer(jcfg.replace(mesh=jcfg.mesh.replace(data=1, model=1)).to_json(),
+                         info).init_state().model  # names only
+        want[key] = {"losses": losses, "regs": regs, "results": results,
+                     "params": _by_name(js, model), "moments": _jax_moments(js),
+                     "rows": {n: np.asarray(t).shape for n, t in _by_name(js, model).items()
+                              if n.endswith("embedding")}}
+    return inputs, want
+
+
+def _assert_lazy(got, want):
+    """A lazy-sparse run against the JAX package's: losses, used-id L2,
+    metrics, whole tables and dense weights, and the table optimizer state
+    (the row-wise (V,) moments included); each rank holds 1/n_model of the
+    rows of every table and its state."""
+    _assert_run(got, want)
+    for k, v in want["results"].items():
+        assert got["results"][k] == pytest.approx(v, abs=1e-6 if "auc" in k else 2e-5), k
+    _assert_params(got["params"], want["params"], PARAM_TOL, common=False)
+    for table, moments in want["moments"].items():
+        for f, w in moments.items():
+            np.testing.assert_allclose(got["moments"][table][f], w, **MOMENT_TOL,
+                                       err_msg=f"{table}.{f}")
+    return got
 
 
 @pytest.fixture(scope="module")
@@ -349,6 +473,23 @@ def mesh22(tmp_path_factory):
         inputs["restore"] = {"cfg": _jcfg("din", (2, 2)).to_json(), "info": din["info"],
                              "ckpt": ckpt, "batch": din["batches"][2]}
         want["restore"] = {"losses": losses, "params": _whole_params(state.model)}
+
+        # evaluate over 4 rows (they divide over 'data') then 3 (they do not),
+        # unweighted and with uneven row weights, on (2, 2), one device, JAX
+        jinfo = _din_data(16, 0)[0]
+        rows = [_din_data(4, 60)[1], _din_data(3, 61)[1]]
+        weights = [np.array([1.0, 0.0, 2.0, 1.0], np.float32), np.array([0.5, 1.0, 0.0], np.float32)]
+        eval_batches = {"unweighted": rows,
+                        "weighted": [dict(b, __weight__=w) for b, w in zip(rows, weights)]}
+        jcfg = _jcfg("din", (2, 2))
+        variables, want["evaluate"] = _jax_evaluate(jcfg, jinfo, eval_batches)
+        t = _trainer(_jcfg("din", (1, 1)).to_json(), din["info"])
+        state = t.init_state()
+        params_from_jax(state.model, _common_rows(variables, state.model))
+        want["evaluate_one_device"] = {k: t.evaluate(state, b) for k, b in eval_batches.items()}
+        inputs["evaluate"] = {"cfg": jcfg.to_json(), "info": din["info"], "variables": variables,
+                              "batches": eval_batches}
+        inputs["lazy"], want["lazy"] = _lazy_cases((2, 2))
         results = run_world(os.path.abspath(__file__), "mesh22", 4, directory, inputs)
         return inputs, want, results
 
@@ -452,19 +593,78 @@ def test_export_from_2x2_loads_as_servable(mesh22):
 
 
 def test_mesh_refusals(mesh22):
-    """On a mesh: another model or loss on data > 1 and the lazy-sparse
-    engines raise ``NotImplementedError`` naming ROADMAP; ``host_adam``
-    raises the JAX package's ``ValueError``, in its words."""
+    """On a mesh: another model or loss on data > 1 raises
+    ``NotImplementedError`` naming ROADMAP; ``host_adam`` raises the JAX
+    package's ``ValueError``, in its words."""
     _, _, results = mesh22
     for res in results:
         r = res["refusals"]
-        for key in ("model", "loss", "rowwise_adam", "adam_model_only"):
+        assert set(r) == {"model", "loss", "host_adam"}
+        for key in ("model", "loss"):
             assert r[key][0] == "NotImplementedError" and "ROADMAP" in r[key][1], (key, r[key])
         assert r["host_adam"] == (
             "ValueError",
             "embedding_optimizer='host_adam' requires a single device (per-shard host "
             "callbacks are not wired yet)",
         )
+
+
+@pytest.mark.parametrize("weights", ["unweighted", "weighted"])
+def test_evaluate_counts_a_replicated_batch_once(mesh22, weights):
+    """``evaluate`` on (2, 2) over 4 rows (each data rank takes 2) then 3
+    (they do not divide over 'data', so every rank holds all three): the
+    AUC and the loss equal one device's and the JAX package's (2, 2) run,
+    unweighted and with uneven ``__weight__`` rows. A replicated batch's
+    rows count once, and each batch keeps its weight in the loss ``Mean``
+    (unweighted: one per batch)."""
+    _, want, results = mesh22
+    for res in results:
+        got = res["evaluate"][weights]
+        for ref in (want["evaluate_one_device"][weights], want["evaluate"][weights]):
+            assert set(got) == set(ref)
+            for k, v in ref.items():
+                assert got[k] == pytest.approx(v, abs=1e-6), (k, got, ref)
+
+
+@pytest.mark.parametrize("key", [f"fm-{e}" for e in LAZY_ENGINES] + ["din-rowwise_adam"])
+def test_lazy_sparse_engines_2x2_match_jax(mesh22, key):
+    """The lazy-sparse engines on (2, 2), three fp32 steps (used-id L2
+    0.01) from the JAX package's weights, against its (2, 2) runs: losses,
+    used-id L2, metrics, tables, dense weights and the table optimizer
+    state; tables and state hold half their rows on each rank."""
+    _, want, results = mesh22
+    for res in results:
+        got = _assert_lazy(res["lazy"][key], want["lazy"][key])
+        _assert_sharded_rows(got, want["lazy"][key], 2)
+
+
+def _assert_sharded_rows(got, want, n_model):
+    for table, shape in want["rows"].items():
+        assert got["rows"][table][0] * n_model == shape[0], (table, got["rows"][table], shape)
+        for field, st in got["state_rows"][table].items():
+            assert st[0] == got["rows"][table][0], (table, field, st)
+
+
+def test_dryrun_multichip_in_2x2_world(mesh22):
+    """``dryrun_multichip(4)`` in the (2, 2) world: one DIN step in each
+    engine (its own asserts of the sharded rows and the tensor-parallel
+    MLP), a finite loss each, the same on every rank."""
+    _, _, results = mesh22
+    losses = [res["dryrun"] for res in results]
+    assert set(losses[0]) == {"dense", "rowwise_adam", "fused_adam"}
+    for got in losses:
+        assert all(np.isfinite(v) for v in got.values())
+        assert got == losses[0]
+
+
+def test_din_mlp_is_tensor_parallel_on_2x2(mesh22):
+    """DIN's ``mlp`` on (2, 2): ``dense_0`` holds half its output columns
+    (its (out, in) weight's rows) and of its bias, ``dense_1`` half its
+    input rows; nothing else is split."""
+    _, _, results = mesh22
+    for res in results:
+        assert res["din_shards"] == {"mlp.dense_0.weight": (100, 56), "mlp.dense_0.bias": (100,),
+                                     "mlp.dense_1.weight": (80, 100)}
 
 
 def test_mesh_without_a_world_refuses():
@@ -496,14 +696,58 @@ def _exact_case(name, fused, directory):
     return {"cfg": cfg, "info": info, "export": directory, "batches": batches}, want
 
 
+# the (1, 4) cases against the JAX package: (model, params, loss); mmoe with
+# three expert layers, so its last layer's share is gathered; autoint's two
+# heads of 8 are split within a head over four ranks
+JAX14_CASES = {"din": ({}, "bce"), "mmoe": ({"expert_dims": (64, 32, 16)}, "multi_task"),
+               "autoint": ({}, "bce")}
+# the tensor-parallel initialisation: (model, params) and each rank's shares
+INIT_CASES = {
+    "din": ("din", {}, {"mlp.dense_0.weight": (50, 56), "mlp.dense_0.bias": (50,),
+                        "mlp.dense_1.weight": (80, 50)}),
+    # a width of 1 stays whole: dense_2's weight and bias are not split
+    "din-narrow": ("din", {"hidden_dims": (200, 80, 1)},
+                   {"mlp.dense_0.weight": (50, 56), "mlp.dense_0.bias": (50,),
+                    "mlp.dense_1.weight": (80, 50)}),
+    "mmoe": ("mmoe", {}, {"experts.w_0": (4, 64, 16), "experts.b_0": (4, 16),
+                          "experts.w_1": (4, 16, 32)}),
+    "autoint": ("autoint", {}, {f"mha_{i}.{p}.weight": s for i in range(2)
+                                for p, s in (("q", (4, 8)), ("k", (4, 8)), ("v", (4, 8)),
+                                             ("out", (8, 4)))}),
+}
+
+
 @pytest.fixture(scope="module")
 def mesh14(tmp_path_factory):
     def compute(directory):
-        inputs, want = {}, {}
+        inputs = {"exact": {}, "jax": {}, "init": {}}
+        want = {"exact": {}, "jax": {}, "init": {}}
         for name in EXACT_MODELS:
             for fused in (False, True):
                 key = f"{name}-{'fused' if fused else 'dense'}"
-                inputs[key], want[key] = _exact_case(name, fused, os.path.join(directory, key))
+                inputs["exact"][key], want["exact"][key] = _exact_case(
+                    name, fused, os.path.join(directory, key))
+        for name, (params, loss) in JAX14_CASES.items():
+            make = _din_data if name == "din" else _tab_data
+            jinfo = make(16, 0)[0]
+            batches = [make(16 if name == "din" else 64, 50 + i)[1] for i in range(2)]
+            jcfg = _jcfg(name, (1, 4), loss=loss, params=params)
+            variables, losses, regs, results, js = _jax_run(jcfg, jinfo, batches)
+            info = _port_info(jinfo)
+            one = jcfg.replace(mesh=jcfg.mesh.replace(data=1, model=1)).to_json()
+            inputs["jax"][name] = {"cfg": jcfg.to_json(), "info": info, "variables": variables,
+                                   "batches": batches}
+            want["jax"][name] = {"losses": losses, "regs": regs, "results": results,
+                                 "params": _by_name(js, _trainer(one, info).init_state().model)}
+        for key, (name, params, _) in INIT_CASES.items():
+            make = _din_data if name == "din" else _tab_data
+            info = _port_info(make(16, 0)[0])
+            loss = "multi_task" if name == "mmoe" else "bce"
+            cfg = _jcfg(name, (1, 4), loss=loss, params=params).to_json()
+            inputs["init"][key] = {"cfg": cfg, "info": info}
+            one = _variant(cfg).replace(mesh=MeshConfig(data=1, model=1))
+            want["init"][key] = _whole_params(_trainer(one, info).init_state().model)
+        inputs["lazy"], want["lazy"] = _lazy_cases((1, 4))
         return want, run_world(os.path.abspath(__file__), "mesh14", 4, directory, inputs)
 
     return shared_world(tmp_path_factory, "torch_mesh14", compute)
@@ -522,15 +766,72 @@ def test_model_only_mesh_equals_one_device(mesh14, name, engine):
     on the CPU once the three quarters of ids a rank does not own are added
     (as zeros to its row 0); its tables are held to 1e-6 after the two Adam
     steps (a gradient near zero turns a rounding difference into a visible
-    share of the step), its losses and metrics exactly."""
+    share of the step), its losses and metrics exactly.
+
+    Nor din and mmoe, whose top MLP and expert bank are tensor parallel:
+    a row layer sums its four ranks' partial products over 'model', in
+    another order than one device's product, so their losses and metrics
+    are held at ``LOSS_TOL`` (AUC 1e-6) and their parameters at
+    ``PARAM_TOL`` (the JAX package's (1, 4) runs hold them too:
+    ``test_tensor_parallel_1x4_matches_jax``)."""
     want, results = mesh14
     key = f"{name}-{engine}"
-    tol = dict(rtol=0, atol=1e-6 if key == "ffm-dense" else 0)
+    want = want["exact"][key]
     for res in results:
-        got = res[key]
-        assert got["losses"] == want[key]["losses"]
-        assert got["results"] == want[key]["results"]
-        _assert_params(got["params"], want[key]["params"], tol)
+        got = res["exact"][key]
+        if name in TP_MODELS:
+            _assert_run(got, want)
+            for k, v in want["results"].items():
+                assert got["results"][k] == pytest.approx(v, abs=1e-6 if "auc" in k else 2e-5), k
+            _assert_params(got["params"], want["params"], PARAM_TOL)
+            continue
+        tol = dict(rtol=0, atol=1e-6 if key == "ffm-dense" else 0)
+        assert got["losses"] == want["losses"]
+        assert got["results"] == want["results"]
+        _assert_params(got["params"], want["params"], tol)
+
+
+@pytest.mark.parametrize("name", JAX14_MODELS)
+def test_tensor_parallel_1x4_matches_jax(mesh14, name):
+    """din (its ``mlp``), mmoe (three expert layers) and autoint (two
+    ``MultiHeadAttention`` layers, 2 heads of 8: a share cuts a head) on
+    (1, 4) with their weights tensor parallel, two fp32 steps (used-id L2
+    0.01) from the JAX package's weights, against its (1, 4) runs, which
+    partition the same weights: losses, used-id L2, metrics and every
+    parameter after the steps."""
+    want, results = mesh14
+    for res in results:
+        got = res["jax"][name]
+        _assert_run(got, want["jax"][name])
+        for k, v in want["jax"][name]["results"].items():
+            assert got["results"][k] == pytest.approx(v, abs=1e-6 if "auc" in k else 2e-5), k
+        _assert_params(got["params"], want["jax"][name]["params"], PARAM_TOL)
+
+
+@pytest.mark.parametrize("key", list(INIT_CASES))
+def test_tensor_parallel_init_equals_one_device(mesh14, key):
+    """On (1, 4) each rank holds a quarter of every split weight (DIN's
+    ``dense_0`` columns and ``dense_1`` rows, mmoe's ``w_0``/``b_0`` and
+    ``w_1``, autoint's q, k, v and out; a width of 1 whole), and the
+    shares gather to the one-device initialisation from the same seed bit
+    for bit."""
+    want, results = mesh14
+    for res in results:
+        got = res["init"][key]
+        assert got["shards"] == INIT_CASES[key][2]
+        _assert_params(got["params"], want["init"][key], dict(rtol=0, atol=0))
+
+
+@pytest.mark.parametrize("engine", LAZY_ENGINES)
+def test_lazy_sparse_engines_1x4_match_jax(mesh14, engine):
+    """FM in each lazy-sparse engine on (1, 4) against the JAX package's
+    (1, 4) run (as on (2, 2)); tables and state hold a quarter of their
+    rows on each rank."""
+    want, results = mesh14
+    key = f"fm-{engine}"
+    for res in results:
+        _assert_sharded_rows(_assert_lazy(res["lazy"][key], want["lazy"][key]),
+                             want["lazy"][key], 4)
 
 
 def test_world_of_one_equals_no_world(tmp_path):

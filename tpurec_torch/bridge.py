@@ -52,7 +52,8 @@ that differs.
 
 Into a model placed on a mesh (``models.registry.place_on_mesh``) a table
 loads this rank's rows of the JAX package's whole table
-(``EmbeddingTable.fit``).
+(``EmbeddingTable.fit``), and a tensor-parallel weight its share over
+'model' of the whole weight (``models.registry.sharded_weights``).
 
 ``opt_state_from_jax(optimizer, module, opt_state)`` carries an optax Adam
 state (the ``ScaleByAdamState`` found anywhere in the chain's state:
@@ -147,12 +148,17 @@ def params_from_jax(module: nn.Module, variables: Mapping) -> nn.Module:
                 name, arr = _torch_leaf("batch_stats" if collection == "batch_stats" else "params",
                                         path, value, module)
             state[".".join(path[:-1] + (name,))] = torch.from_numpy(np.ascontiguousarray(arr))
+    from tpurec_torch.core.collectives import local_share
     from tpurec_torch.embedding.modules import EmbeddingTable
+    from tpurec_torch.models.registry import sharded_weights
 
     for name, m in module.named_modules():
         key = f"{name}.embedding" if name else "embedding"
         if isinstance(m, EmbeddingTable) and m.mesh is not None and key in state:
             state[key] = m.fit(m.embedding, state[key])  # this rank's rows
+    for key, (dim, mesh) in sharded_weights(module).items():
+        if key in state:
+            state[key] = local_share(state[key], dim, mesh)
     module.load_state_dict(state)
     return module
 

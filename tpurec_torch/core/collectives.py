@@ -17,6 +17,11 @@ Which backward a sum needs depends on who reads its result:
   moments over 'data' (``ops.mlp.BatchNorm``), read by ranks whose losses
   differ.
 - ``pmax``: a maximum, with no gradient (the softmax shift).
+- ``all_gather``: the whole tensor from each rank's block along one axis,
+  read alike by every rank (a tensor-parallel layer's sharded activation
+  before a layer that needs it whole), so the backward keeps the rank's
+  own block of the cotangent. Before a use that differs by rank (a slice
+  of its own), wrap it in ``replicated_input``, whose backward then sums.
 
 A group of None stands for an axis of size 1: every function is then the
 identity.
@@ -77,15 +82,45 @@ def pmax(x: torch.Tensor, group: Optional[Any]) -> torch.Tensor:
     return all_reduce_(x.detach().clone(), group, dist.ReduceOp.MAX)
 
 
-def gather_rows(local: torch.Tensor, group: Optional[Any], index: int, n: int) -> torch.Tensor:
-    """The whole (n·R, ...) tensor from each rank's (R, ...) block, the
-    block of the rank at ``index`` at rows [index·R, (index+1)·R), on every
-    rank of the axis, outside autograd. A sum of zero-padded blocks, so it
-    needs only ``all_reduce`` (which gloo has for CUDA tensors) and is
+def gather_rows(local: torch.Tensor, group: Optional[Any], index: int, n: int,
+                dim: int = 0) -> torch.Tensor:
+    """The whole tensor, n·R long on ``dim``, from each rank's block R long
+    there, the block of the rank at ``index`` at [index·R, (index+1)·R), on
+    every rank of the axis, outside autograd. A sum of zero-padded blocks,
+    so it needs only ``all_reduce`` (which gloo has for CUDA tensors) and is
     exact."""
     if group is None:
         return local.detach().clone()
-    r = local.shape[0]
-    whole = local.new_zeros((n * r,) + tuple(local.shape[1:]))
-    whole[index * r : (index + 1) * r] = local.detach()
+    r = local.shape[dim]
+    shape = list(local.shape)
+    shape[dim] = n * r
+    whole = local.new_zeros(shape)
+    whole.narrow(dim, index * r, r).copy_(local.detach())
     return all_reduce_(whole, group)
+
+
+def local_share(whole: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """This rank's share over ``mesh``'s 'model' axis of ``whole`` on
+    ``dim`` (the inverse of ``gather_rows`` over the axis), a copy."""
+    k = whole.shape[dim] // mesh.n_model
+    return whole.narrow(dim, mesh.model_index * k, k).clone()
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, index, n, dim):
+        ctx.index, ctx.dim, ctx.r = index, dim, x.shape[dim]
+        return gather_rows(x, group, index, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.r, ctx.r), None, None, None, None
+
+
+def all_gather(x: torch.Tensor, group: Optional[Any], index: int, n: int,
+               dim: int = -1) -> torch.Tensor:
+    """``gather_rows`` along ``dim`` with a gradient: the backward keeps this
+    rank's block of the cotangent."""
+    if group is None:
+        return x
+    return _AllGather.apply(x, group, index, n, dim % x.dim())

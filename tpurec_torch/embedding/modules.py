@@ -20,9 +20,10 @@ packed lookup is a TPU gather strategy the port does not need.
 On a mesh of more than one device (``place``, called by ``build_model``) a
 table holds this rank's rows of the ``pad_vocab(V, n_model)``-row table, and
 the dense engine looks ids up with ``row_sharded_lookup``; its used-id L2
-term counts the rows the global batch touches (``sharded_used_id_l2``). The
-JAX package's two strategies, ``'gspmd'`` and ``'shard_map'``, compute the
-same rows: the port has one.
+term counts the rows the global batch touches (``sharded_used_id_l2``; in
+the lazy-sparse engine, whose unique rows every rank holds,
+``data_used_id_l2``). The JAX package's two strategies, ``'gspmd'`` and
+``'shard_map'``, compute the same rows: the port has one.
 
 ``FieldAwareEmbedding`` (FFM's and ONN's (V_pad, F, D) table) takes part in
 all of this as a table: ``embedding_tables`` and ``sparse_rows`` list it
@@ -50,6 +51,7 @@ from torch import nn
 from tpurec_torch.core.collectives import gather_rows
 from tpurec_torch.embedding.ops import (
     contiguous_take,
+    data_used_id_l2,
     local_rows,
     pad_vocab,
     row_sharded_lookup,
@@ -88,7 +90,10 @@ class EmbeddingTable(nn.Module):
     def place(self, mesh) -> None:
         """Take part in ``mesh`` (more than one device): with n_model > 1 the
         table becomes this rank's V_pad / n_model rows, V_pad =
-        ``pad_vocab(vocab_size, n_model)``. Call before ``init_weights``."""
+        ``pad_vocab(vocab_size, n_model)``. Call before ``init_weights``,
+        which draws the one-device table's rows (so the model's other
+        weights draw what they draw on one device) and leaves the rows past
+        them, padding past the vocabulary, zero."""
         self.mesh = mesh
         if mesh.n_model > 1:
             rows = pad_vocab(self.vocab_size, mesh.n_model) // mesh.n_model
@@ -103,17 +108,19 @@ class EmbeddingTable(nn.Module):
         if self.mesh is None or self.mesh.n_model == 1:
             uniform_(self.embedding, INIT_SCALE, generator)
             return
-        # every rank draws the whole table, so the rest of the draws agree
-        whole = self.embedding.new_empty(
+        # every rank draws the one-device table, so the rest of the draws
+        # agree with one device's; the mesh's extra padding rows are zeros
+        whole = self.embedding.new_zeros(
             self.embedding.shape[0] * self.mesh.n_model, *self.row_shape
         )
-        uniform_(whole, INIT_SCALE, generator)
+        uniform_(whole[: pad_vocab(self.vocab_size)], INIT_SCALE, generator)
         with torch.no_grad():
             self.embedding.copy_(local_rows(whole, self.mesh))
 
     def whole(self, local: torch.Tensor) -> torch.Tensor:
         """The whole table of a (V_loc, ...) tensor of this table's rows (the
-        table, a moment), gathered over 'model' on every rank of the axis."""
+        table, a moment, a row-wise optimizer's (V_loc,) state), gathered
+        over 'model' on every rank of the axis."""
         if self.mesh is None:
             return local.detach()
         m = self.mesh
@@ -155,9 +162,13 @@ class EmbeddingTable(nn.Module):
                 # ``embedding_dense_backward`` over the (V, F·D) view (PERF.md §5)
                 out = F.embedding(ids, table) if table.dim() == 2 else table[ids]
             if self.used_id_l2_terms is not None and self.training:
-                self.used_id_l2_terms.append(
-                    used_id_l2(table, ids) if mesh is None else sharded_used_id_l2(table, ids, mesh)
-                )
+                if mesh is not None:
+                    term = sharded_used_id_l2(table, ids, mesh)
+                elif rows is not None and self.mesh is not None and self.mesh.n_data > 1:
+                    term = data_used_id_l2(table, ids, self.mesh)  # lazy-sparse on 'data'
+                else:
+                    term = used_id_l2(table, ids)
+                self.used_id_l2_terms.append(term)
         return out if self.dtype is None else out.to(self.dtype)
 
 

@@ -111,3 +111,16 @@ def sharded_used_id_l2(table: torch.Tensor, ids: torch.Tensor, mesh: "MeshContex
     touched = all_reduce_(count, mesh.data_group) > 0
     sq = table.reshape(table.shape[0], -1).square().sum(-1)
     return psum(0.5 * torch.where(touched, sq, 0.0).sum(), mesh.model_group)
+
+
+def data_used_id_l2(rows: torch.Tensor, ids: torch.Tensor, mesh: "MeshContext") -> torch.Tensor:
+    """``used_id_l2`` of a lookup into rows that every data rank holds alike
+    (the lazy-sparse engine's unique rows on a data axis) by ids that are
+    this rank's block of the global batch's: each row the global batch
+    touches counts once (the occurrence counts summed over 'data'), so the
+    term is the same on every rank."""
+    count = torch.zeros(rows.shape[0], device=rows.device)
+    count.index_add_(0, ids.reshape(-1), torch.ones(ids.numel(), device=rows.device))
+    touched = all_reduce_(count, mesh.data_group) > 0
+    sq = rows.reshape(rows.shape[0], -1).square().sum(-1)
+    return 0.5 * torch.where(touched, sq, 0.0).sum()

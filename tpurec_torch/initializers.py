@@ -9,7 +9,7 @@ for the same seed: tests move weights across with ``tpurec_torch.bridge``.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -112,6 +112,25 @@ def jax_normal(seed: int, n: int) -> np.ndarray:
     low = np.nextafter(np.float32(-1.0), np.float32(0.0))
     u = np.maximum(low, unit * (np.float32(1.0) - low) + low)
     return np.float32(math.sqrt(2.0)) * _erfinv32(u)
+
+
+def draw_share_(param: torch.Tensor, draw, split: Optional[Tuple[int, int, int]]) -> None:
+    """``draw(t)`` on ``param``; with ``split`` = (dim, index, n) ``param`` is
+    rank ``index``'s share of a tensor n times as long on ``dim``: the whole
+    tensor is drawn (its fans, and the generator's advance, are the
+    one-device draw's) and the share kept, so the shares of every rank make
+    the one-device tensor bit for bit."""
+    if split is None:
+        draw(param)
+        return
+    dim, index, n = split
+    shape = list(param.shape)
+    size = shape[dim]
+    shape[dim] = size * n
+    whole = param.new_empty(shape)
+    draw(whole)
+    with torch.no_grad():
+        param.copy_(whole.narrow(dim, index * size, size))
 
 
 def init_parameters(model: nn.Module, seed: int = 0) -> nn.Module:

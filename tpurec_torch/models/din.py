@@ -4,7 +4,8 @@
 Input contract: ``sequence_features`` are (B, L) padded id tensors aligned
 1:1 with ``query_features`` (the candidate's corresponding ids); the other
 user/item categorical features form the profile. Masks come from the padding
-index.
+index. The top ``mlp`` of each is tensor parallel over a mesh's 'model'
+axis (``tp_axis``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpurec_torch.core.mesh import MODEL_AXIS
 from tpurec_torch.embedding.modules import SharedEmbedding
 from tpurec_torch.models.base import Inputs, Outputs, binary_output, series_mask, stack_ids
 from tpurec_torch.ops.attention import DinTargetAttention, MultiHeadAttention
@@ -90,7 +92,8 @@ class DIN(_SeqBase):
         self.att = DinTargetAttention(
             key_dim, hidden_dims=tuple(attention_hidden_dims), dtype=self.dtype
         )
-        self.mlp = MLP(self.profile_dim + 2 * key_dim, self.hidden_dims, dtype=self.dtype)
+        self.mlp = MLP(self.profile_dim + 2 * key_dim, self.hidden_dims, dtype=self.dtype,
+                       tp_axis=MODEL_AXIS)
         self.head = Dense(self.hidden_dims[-1], 1, dtype=self.dtype)
 
     def forward(self, inputs: Inputs) -> Outputs:
@@ -124,7 +127,8 @@ class DIEN(_SeqBase):
         self.extractor = MaskedGRU(d, d, self.dtype)
         self.att = DinTargetAttention(d, hidden_dims=tuple(attention_hidden_dims), dtype=self.dtype)
         self.evolution = AttentionGRU(d, d, gru_mode, self.dtype)
-        self.mlp = MLP(self.profile_dim + 2 * d, self.hidden_dims, dtype=self.dtype)
+        self.mlp = MLP(self.profile_dim + 2 * d, self.hidden_dims, dtype=self.dtype,
+                       tp_axis=MODEL_AXIS)
         self.head = Dense(self.hidden_dims[-1], 1, dtype=self.dtype)
 
     def forward(self, inputs: Inputs) -> Outputs:
@@ -193,7 +197,8 @@ class DSIN(_SeqBase):
         att = tuple(attention_hidden_dims)
         self.att_interest = DinTargetAttention(d, hidden_dims=att, dtype=self.dtype)
         self.att_evolved = DinTargetAttention(d, hidden_dims=att, dtype=self.dtype)
-        self.mlp = MLP(self.profile_dim + 3 * d, self.hidden_dims, dtype=self.dtype)
+        self.mlp = MLP(self.profile_dim + 3 * d, self.hidden_dims, dtype=self.dtype,
+                       tp_axis=MODEL_AXIS)
         self.head = Dense(self.hidden_dims[-1], 1, dtype=self.dtype)
 
     def init_weights(self, generator: torch.Generator) -> None:

@@ -10,10 +10,9 @@ compute their total loss in the model (``loss='model_loss'``).
 Child modules and raw parameters keep the flax names (``emb``, ``experts``,
 ``{task}_gate``, ``{task}_tower``, ``{task}_head``, ``L{level}_...``,
 ``trunk``, ``imputation``, FDN's ``L{level}_{task}_aux_w``/``_aux_b``), so
-weights map across by path. ``ExpertBank``'s tensor-parallel partitioning
-over the mesh's 'model' axis changes where its weights live, not what they
-compute: on the port's mesh they are whole on every rank (the placement is
-ROADMAP slice 7).
+weights map across by path. ``ExpertBank`` is tensor parallel over a
+mesh's 'model' axis (``ExpertBank.place``), as the JAX package partitions
+it: that changes where its weights live, not what they compute.
 """
 
 from __future__ import annotations
@@ -24,9 +23,10 @@ import torch
 from torch import nn
 
 from tpurec_torch.embedding.modules import SharedEmbedding
-from tpurec_torch.initializers import glorot_uniform_
+from tpurec_torch.core.collectives import psum, replicated_input
+from tpurec_torch.initializers import draw_share_, glorot_uniform_
 from tpurec_torch.models.base import Inputs, Outputs, stack_continuous, stack_ids
-from tpurec_torch.ops.mlp import MLP, Dense
+from tpurec_torch.ops.mlp import MLP, Dense, gather_columns, share, split_over_model, tp_input
 
 _EPS = 1e-7
 
@@ -55,7 +55,14 @@ class ExpertBank(nn.Module):
     dtype with the weights cast to it. A (B, in) input is broadcast over the
     experts; a (B, E, in) input gives each expert its own stream. (The JAX
     module's ``dtype`` field is unused there too: the input sets the
-    compute dtype.)"""
+    compute dtype.)
+
+    On a mesh (``place``) the layers are tensor parallel over 'model' as
+    ``tpurec/models/multitask.py:52-60`` partitions them: even layers split
+    ``w_{i}`` over out and ``b_{i}`` with it (``'column'``), odd layers
+    split ``w_{i}`` over in and keep ``b_{i}`` whole, added once after the
+    sum over the axis (``'row'``); a width that does not divide stays
+    whole. The collectives are ``ops.mlp.Dense``'s."""
 
     def __init__(self, in_features: int, num_experts: int, hidden_dims: Sequence[int]):
         super().__init__()
@@ -66,19 +73,50 @@ class ExpertBank(nn.Module):
             self.register_parameter(f"w_{i}", nn.Parameter(torch.empty(num_experts, width_in, width)))
             self.register_parameter(f"b_{i}", nn.Parameter(torch.empty(num_experts, width)))
             width_in = width
+        self.mesh = None
+        self.splits = [None] * len(self.hidden_dims)
+        self.shard_dims: Dict[str, int] = {}
+
+    def place(self, mesh) -> None:
+        """Hold this rank's share of each layer over ``mesh``'s 'model' axis.
+        Call before ``init_weights``."""
+        for i in range(len(self.hidden_dims)):
+            w, b = getattr(self, f"w_{i}"), getattr(self, f"b_{i}")
+            dim = 2 if i % 2 == 0 else 1
+            if not split_over_model(w.shape[dim], mesh):
+                continue
+            self.mesh = mesh
+            self.splits[i] = "column" if dim == 2 else "row"
+            shape = list(w.shape)
+            shape[dim] //= mesh.n_model
+            self.register_parameter(f"w_{i}", nn.Parameter(w.new_empty(shape)))
+            self.shard_dims[f"w_{i}"] = dim
+            if dim == 2:
+                self.register_parameter(f"b_{i}", nn.Parameter(b.new_empty(shape[0], shape[2])))
+                self.shard_dims[f"b_{i}"] = 1
 
     def init_weights(self, generator: torch.Generator) -> None:
         for i in range(len(self.hidden_dims)):
-            glorot_uniform_(getattr(self, f"w_{i}"), generator)
+            name = f"w_{i}"
+            split = share(self.mesh, self.shard_dims[name]) if name in self.shard_dims else None
+            draw_share_(getattr(self, name), lambda t: glorot_uniform_(t, generator), split)
             nn.init.zeros_(getattr(self, f"b_{i}"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dim() == 2:
             x = x[:, None, :].expand(x.shape[0], self.num_experts, x.shape[-1])
-        for i in range(len(self.hidden_dims)):
+        sharded = False  # x's last axis is this rank's share over 'model'
+        for i, split in enumerate(self.splits):
             w, b = getattr(self, f"w_{i}"), getattr(self, f"b_{i}")
-            x = torch.relu(torch.einsum("bed,edh->beh", x, w.to(x.dtype)) + b.to(x.dtype))
-        return x  # (B, E, out)
+            x = tp_input(x, split, sharded, self.mesh)
+            if split == "column":
+                x = replicated_input(x, self.mesh.model_group)
+            y = torch.einsum("bed,edh->beh", x, w.to(x.dtype))
+            if split == "row":
+                y = psum(y, self.mesh.model_group)
+            x = torch.relu(y + b.to(x.dtype))
+            sharded = split == "column"
+        return gather_columns(x, self.mesh) if sharded else x  # (B, E, out)
 
 
 class _MultiTaskBase(nn.Module):

@@ -5,7 +5,7 @@ initialises it from a seed."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 import torch
 from torch import nn
@@ -32,19 +32,38 @@ def register_model(name: str):
 
 def place_on_mesh(model: nn.Module, mesh) -> nn.Module:
     """Put ``model`` on ``mesh`` (a ``MeshContext`` of more than one device)
-    as the JAX package's builders do with their ``mesh`` argument: every
-    table holds this rank's rows (``EmbeddingTable.place``) and every
-    ``BatchNorm`` takes its batch moments over 'data'. Dense weights stay
-    whole on every rank."""
+    as the JAX package places its variables (``tpurec/train/trainer.py:
+    358-371``): every table holds this rank's rows (``EmbeddingTable.place``),
+    every ``BatchNorm`` takes its batch moments over 'data', and the
+    tensor-parallel weights hold this rank's share over 'model': an
+    ``MLP`` with ``tp_axis`` (DIN's, DIEN's and DSIN's ``mlp``), every
+    ``ExpertBank`` and every ``MultiHeadAttention`` (each parameter whole
+    where its split dimension does not divide). The other dense weights
+    are whole on every rank."""
     from tpurec_torch.embedding.modules import EmbeddingTable
-    from tpurec_torch.ops.mlp import BatchNorm
+    from tpurec_torch.models.multitask import ExpertBank
+    from tpurec_torch.ops.attention import MultiHeadAttention
+    from tpurec_torch.ops.mlp import MLP, BatchNorm
 
     for m in model.modules():
         if isinstance(m, EmbeddingTable):
             m.place(mesh)
         elif isinstance(m, BatchNorm):
             m.data_group = mesh.data_group
+        elif isinstance(m, (MLP, ExpertBank, MultiHeadAttention)) and mesh.n_model > 1:
+            m.place(mesh)
     return model
+
+
+def sharded_weights(model: nn.Module) -> Dict[str, Tuple[int, object]]:
+    """``{parameter name: (dim, mesh)}`` of every dense weight that holds
+    this rank's share over 'model' on ``dim`` (the tables are
+    ``EmbeddingTable``'s own)."""
+    out = {}
+    for name, m in model.named_modules():
+        for p, dim in getattr(m, "shard_dims", {}).items():
+            out[f"{name}.{p}" if name else p] = (dim, m.mesh)
+    return out
 
 
 def build_model(

@@ -3,10 +3,9 @@ scaled-dot multi-head attention (AutoInt's field self-attention, and the
 sequence models' encoders later) and DIN's target attention.
 
 Masks are 1 = keep; a masked logit becomes −1e9 and the softmax runs in
-fp32. The JAX package's ``MultiHeadAttention`` shards its projections over
-a ``'model'`` mesh axis; on the port's mesh they are whole on every rank,
-which changes where they live, not what they compute (their tensor-parallel
-placement is ROADMAP slice 7).
+fp32. ``MultiHeadAttention`` is tensor parallel over a mesh's ``'model'``
+axis (``MultiHeadAttention.place``), as the JAX package partitions it:
+that changes where its projections live, not what they compute.
 """
 
 from __future__ import annotations
@@ -17,9 +16,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from tpurec_torch.core.collectives import replicated_input
 from tpurec_torch.initializers import glorot_uniform_
 from tpurec_torch.ops import kernels
-from tpurec_torch.ops.mlp import MLP, Dense, LayerNorm
+from tpurec_torch.ops.mlp import MLP, Dense, LayerNorm, gather_columns
 
 _NEG_INF = -1e9
 
@@ -59,7 +59,15 @@ class MultiHeadAttention(nn.Module):
     without bias, ``scaled_dot_attention``, the ``out`` projection back to
     D, the residual when ``use_residual`` and ``ln`` (``LayerNorm``); all
     in ``dtype``. (The JAX module's ``out_dim``, ``use_layer_norm=False``
-    and dropout come with the first ported model that sets them.)"""
+    and dropout come with the first ported model that sets them.)
+
+    On a mesh (``place``) ``q``, ``k`` and ``v`` split their columns over
+    'model' and ``out`` its rows, its bias whole (``ops.mlp.Dense``;
+    ``tpurec/ops/attention.py:73-90``). When the heads divide over the
+    axis, each rank attends with its own heads; when a share cuts a head
+    (2 heads of 8 over 4 ranks), q, k and v are gathered over the axis,
+    every rank attends with every head, as GSPMD computes it, and keeps
+    its own columns for ``out``."""
 
     def __init__(self, dim: int, num_heads: int, head_dim: int, kv_dim: Optional[int] = None,
                  dtype: Optional[torch.dtype] = None, use_residual: bool = True):
@@ -73,6 +81,14 @@ class MultiHeadAttention(nn.Module):
         self.v = Dense(kv_dim, width, dtype, use_bias=False)
         self.out = Dense(width, dim, dtype)
         self.ln = LayerNorm(dim, dtype)
+        self.mesh = None
+
+    def place(self, mesh) -> None:
+        """Split the projections over ``mesh``'s 'model' axis (all four stay
+        whole when h·dh does not divide). Call before ``init_weights``."""
+        if all([self.q.place(mesh, "column"), self.k.place(mesh, "column"),
+                self.v.place(mesh, "column"), self.out.place(mesh, "row")]):
+            self.mesh = mesh
 
     def forward(
         self,
@@ -84,13 +100,25 @@ class MultiHeadAttention(nn.Module):
         b, lq, _ = q.shape
         lk = kv.shape[1]
         h, dh = self.num_heads, self.head_dim
+        m = self.mesh
+        # heads split within a head: gathered, then read differently by rank
+        whole = m is not None and h % m.n_model != 0
+        if m is not None and not whole:
+            h //= m.n_model  # this rank's heads
 
         def heads(x, proj, length):
-            return proj(x).reshape(b, length, h, dh).transpose(1, 2)
+            y = proj(x)
+            if whole:
+                y = replicated_input(gather_columns(y, m), m.model_group)
+            return y.reshape(b, length, h, dh).transpose(1, 2)
 
         out = scaled_dot_attention(heads(q, self.q, lq), heads(kv, self.k, lk),
                                    heads(kv, self.v, lk), expand_mask(mask, lq, lk))
-        out = self.out(out.transpose(1, 2).reshape(b, lq, h * dh))
+        out = out.transpose(1, 2).reshape(b, lq, h * dh)
+        if whole:
+            k = h * dh // m.n_model
+            out = out.narrow(-1, m.model_index * k, k)
+        out = self.out(out)
         if self.residual:
             out = out + q
         return self.ln(out)

@@ -6,18 +6,61 @@ Parameters are fp32; matmuls run in the module's compute ``dtype`` (bf16 in
 production, as the JAX package's trainer sets it). Normalisation statistics
 are computed in fp32. Child modules keep the flax names (``dense_0``,
 ``prelu_0``, ``dice_0/bn``...) so weights map across by path.
+
+Tensor parallelism over the mesh's 'model' axis (``Dense.place``, called
+through ``models.registry.place_on_mesh``) changes where weights live, not
+what they compute: a ``'column'`` layer holds this rank's share of the
+output columns (weight and bias) and reads its whole input, whose
+backward sums over the axis (``replicated_input``, Megatron's *f*); a
+``'row'`` layer holds its share of the input rows, takes this rank's
+columns of its input, sums its partial products over the axis (``psum``,
+Megatron's *g*) and adds its whole bias once, after the sum.
+``tp_input`` lays an activation out for the next layer. Every rank draws
+the whole weight and keeps its share (``initializers.draw_share_``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpurec_torch.core.collectives import psum, replicated_input
-from tpurec_torch.initializers import glorot_uniform_, lecun_normal_, orthogonal_
+from tpurec_torch.core.collectives import all_gather, psum, replicated_input
+from tpurec_torch.core.mesh import MODEL_AXIS
+from tpurec_torch.initializers import draw_share_, glorot_uniform_, lecun_normal_, orthogonal_
+
+
+def share(mesh, dim: int):
+    """(dim, index, n): this rank's share over 'model' on ``dim``, the
+    split ``initializers.draw_share_`` takes."""
+    return dim, mesh.model_index, mesh.n_model
+
+
+def split_over_model(size: int, mesh) -> bool:
+    """Whether a dimension of ``size`` splits over ``mesh``'s 'model' axis;
+    the JAX package's ``_place`` keeps a parameter whole where it does not
+    (``tpurec/train/trainer.py:365-371``)."""
+    return mesh.n_model > 1 and size % mesh.n_model == 0
+
+
+def gather_columns(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The whole last axis of an activation split over 'model', read alike
+    by every rank."""
+    return all_gather(x, mesh.model_group, mesh.model_index, mesh.n_model, -1)
+
+
+def tp_input(x: torch.Tensor, split: Optional[str], sharded: bool, mesh) -> torch.Tensor:
+    """``x`` (its last axis this rank's share over 'model' when ``sharded``)
+    laid out for a layer split as ``split``: a ``'row'`` layer takes this
+    rank's columns, any other layer the whole axis."""
+    if split == "row":
+        if sharded:
+            return x
+        k = x.shape[-1] // mesh.n_model
+        return replicated_input(x, mesh.model_group).narrow(-1, mesh.model_index * k, k)
+    return gather_columns(x, mesh) if sharded else x
 
 
 def _compute_dtype(x: torch.Tensor, param: torch.Tensor, dtype: Optional[torch.dtype]):
@@ -48,20 +91,53 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.empty(out_features)) if use_bias else None
         self.dtype = dtype
         self.kernel_init = kernel_init
+        # tensor parallelism over 'model' (``place``): the split, the mesh,
+        # and the dimension of each parameter held as this rank's share
+        self.split: Optional[str] = None
+        self.mesh = None
+        self.shard_dims: Dict[str, int] = {}
+
+    def place(self, mesh, split: str) -> bool:
+        """Hold this rank's share over ``mesh``'s 'model' axis: ``'column'``
+        splits the output (weight and bias), ``'row'`` the input (the bias
+        stays whole). A width that does not divide stays whole. Call before
+        ``init_weights``; returns whether the layer is split."""
+        dim = {"column": 0, "row": 1}[split]
+        if not split_over_model(self.weight.shape[dim], mesh):
+            return False
+        self.split, self.mesh = split, mesh
+        self.shard_dims = {"weight": dim}
+        shape = list(self.weight.shape)
+        shape[dim] //= mesh.n_model
+        self.weight = nn.Parameter(self.weight.new_empty(shape))
+        if split == "column" and self.bias is not None:
+            self.bias = nn.Parameter(self.bias.new_empty(shape[0]))
+            self.shard_dims["bias"] = 0
+        return True
 
     def init_weights(self, generator: torch.Generator) -> None:
         if self.kernel_init == "glorot_uniform":
-            glorot_uniform_(self.weight, generator)
+            draw = lambda t: glorot_uniform_(t, generator)  # noqa: E731
         elif self.kernel_init == "orthogonal":
-            orthogonal_(self.weight, generator)
+            draw = lambda t: orthogonal_(t, generator)  # noqa: E731
         else:
-            lecun_normal_(self.weight, generator)
+            draw = lambda t: lecun_normal_(t, generator)  # noqa: E731
+        draw_share_(self.weight, draw, share(self.mesh, self.shard_dims["weight"])
+                    if self.split else None)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``: the whole input, or this rank's columns for a ``'row'``
+        layer (``tp_input``); a ``'column'`` layer gives this rank's
+        columns."""
         dt = _compute_dtype(x, self.weight, self.dtype)
         bias = None if self.bias is None else self.bias.to(dt)
+        if self.split == "row":
+            y = psum(F.linear(x.to(dt), self.weight.to(dt)), self.mesh.model_group)
+            return y if bias is None else y + bias
+        if self.split == "column":
+            x = replicated_input(x, self.mesh.model_group)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
@@ -217,6 +293,13 @@ class MLP(nn.Module):
     ``MLP((200, 80))`` ends in relu). Activations: relu, linear, prelu and
     dice. (The JAX MLP's other activations, its BatchNorm/LayerNorm options
     and its dropout come with the first ported model that sets them.)
+
+    ``tp_axis='model'`` (DIN's, DIEN's and DSIN's ``mlp``) makes it tensor
+    parallel on a mesh (``place``): even layers split their columns, odd
+    layers their rows, as ``tpurec/ops/mlp.py:100-108`` partitions them, so
+    a column layer's share of the activation feeds the next row layer
+    without a gather. A prelu or dice activation, whose parameters are
+    whole, and the tower's output read the whole width.
     """
 
     def __init__(
@@ -226,9 +309,12 @@ class MLP(nn.Module):
         activation: str = "relu",
         out_activation: Optional[str] = None,
         dtype: Optional[torch.dtype] = None,
+        tp_axis: Optional[str] = None,
     ):
         super().__init__()
         self.hidden_dims = tuple(hidden_dims)
+        self.tp_axis = tp_axis
+        self.mesh = None
         self.acts = []
         n = len(self.hidden_dims)
         width_in = in_features
@@ -246,11 +332,26 @@ class MLP(nn.Module):
             self.acts.append(act)
             width_in = width
 
+    def place(self, mesh) -> None:
+        """Split the layers over ``mesh``'s 'model' axis when ``tp_axis`` is
+        'model': column, row, column... (each layer whole where its width
+        does not divide)."""
+        if self.tp_axis != MODEL_AXIS or mesh.n_model == 1:
+            return
+        self.mesh = mesh
+        for i in range(len(self.acts)):
+            getattr(self, f"dense_{i}").place(mesh, "column" if i % 2 == 0 else "row")
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        sharded = False  # x's last axis is this rank's share over 'model'
         for i, act in enumerate(self.acts):
-            x = getattr(self, f"dense_{i}")(x)
+            dense = getattr(self, f"dense_{i}")
+            x = dense(tp_input(x, dense.split, sharded, self.mesh))
+            sharded = dense.split == "column"
             if act in ("prelu", "dice"):
+                if sharded:
+                    x, sharded = gather_columns(x, self.mesh), False
                 x = getattr(self, f"{act}_{i}")(x)
             else:
                 x = _SIMPLE_ACTS[act](x)
-        return x
+        return gather_columns(x, self.mesh) if sharded else x

@@ -32,15 +32,22 @@ selected by config. The JAX package's names and call shapes are kept:
 - A mesh (``MeshConfig`` over a ``torch.distributed`` world, through
   ``core.mesh.make_mesh``): every rank is one process with one device.
   Each data rank steps on its block of the batch's rows
-  (``device_batch``); the tables hold this rank's rows over 'model'
-  (``row_sharded_lookup`` in the dense engine, ``_fused_step_sharded`` in
-  the fused one). The gradients are averaged over 'data', so they are the
-  global batch's, as GSPMD's are in the JAX package; so are the logged
-  loss, the used-id L2 (each row the global batch touches counts once), the
-  ``BatchNorm`` moments and the metrics. A model-only mesh (data = 1) runs
-  every model in the dense and fused engines; data > 1 runs the models of
-  ``DATA_PARALLEL_MODELS`` with the ``bce`` loss. The rest, and the
-  lazy-sparse engines on any mesh, raise (ROADMAP).
+  (``device_batch``); the tables and their optimizer state hold this
+  rank's rows over 'model' (``row_sharded_lookup`` in the dense engine,
+  ``_sparse_step``'s row-sharded take of the global batch's unique ids in
+  the lazy-sparse ones, ``_fused_step_sharded`` in the fused one), and the
+  tensor-parallel weights (an ``MLP`` with ``tp_axis``, ``ExpertBank``,
+  ``MultiHeadAttention``) their share over 'model'
+  (``models.registry.place_on_mesh``). The gradients are averaged over
+  'data', so they are the global batch's, as GSPMD's are in the JAX
+  package; so are the logged loss, the used-id L2 (each row the global
+  batch touches counts once), the global-norm clip, the ``BatchNorm``
+  moments and the metrics (a batch whose rows do not divide over 'data'
+  is whole on every rank and counted once). A model-only mesh (data = 1)
+  runs every model in every engine but ``host_adam``, which raises the
+  JAX package's error; data > 1 runs the models of
+  ``DATA_PARALLEL_MODELS`` with the ``bce`` loss, and the rest raise
+  (ROADMAP).
 """
 
 from __future__ import annotations
@@ -62,7 +69,7 @@ from torch import nn
 import torch.distributed as dist
 
 from tpurec_torch.config import ExperimentConfig, OptimizerConfig
-from tpurec_torch.core.collectives import all_reduce_, gather_rows
+from tpurec_torch.core.collectives import all_reduce_, gather_rows, local_share
 from tpurec_torch.core.early_stop import EarlyStopper
 from tpurec_torch.core.mesh import MeshContext, make_mesh
 from tpurec_torch.core.metrics import AUC, Mean, MetricBundle
@@ -79,6 +86,7 @@ from tpurec_torch.embedding.modules import (
 )
 from tpurec_torch.embedding.ops import pad_vocab, row_sharded_lookup
 from tpurec_torch.models import build_model
+from tpurec_torch.models.registry import sharded_weights
 from tpurec_torch.models.mind import sampling_generator
 from tpurec_torch.ops import embedding_update as eu
 from tpurec_torch.train import checkpoint as ckpt_lib
@@ -96,6 +104,14 @@ _FUSED_BACKWARDS = ("permute", "sort_payload", "xla_packed")
 # the models whose batch reductions are global on data > 1 (each proven by a
 # parity test against the JAX package's mesh run)
 DATA_PARALLEL_MODELS = ("din", "fm")
+
+
+class DeviceBatch(dict):
+    """A batch on the device (``Trainer.device_batch``), its columns by name.
+    ``replicated``: on a mesh with data > 1, every data rank holds the
+    whole batch (its rows do not divide over the axis), not its block."""
+
+    replicated = False
 
 
 @dataclasses.dataclass
@@ -130,8 +146,9 @@ def resolve_embedding_engine(
 
 def _check_engine(config: ExperimentConfig, info: DataInfo, mesh: MeshContext) -> None:
     """Refuse what the configured engine cannot train, as the JAX package
-    does (``trainer.py:397-401``, ``:633-643``), and what the port does not
-    train on a mesh yet."""
+    does (``trainer.py:397-401``, ``:633-643``; ``host_adam`` on a mesh,
+    ``:441-445``), and what the port does not train on a data axis yet:
+    the models and losses without global batch reductions there."""
     train = config.train
     oc = train.optimizer
     if mesh.n_data > 1 and (config.model.name not in DATA_PARALLEL_MODELS or train.loss != "bce"):
@@ -151,12 +168,6 @@ def _check_engine(config: ExperimentConfig, info: DataInfo, mesh: MeshContext) -
         raise ValueError(
             "embedding_optimizer='host_adam' requires a single "
             "device (per-shard host callbacks are not wired yet)"
-        )
-    if mesh.n_devices > 1 and oc.embedding_optimizer != "fused_adam":
-        raise NotImplementedError(
-            f"embedding_optimizer={oc.embedding_optimizer!r} on a mesh of "
-            f"{mesh.n_devices} devices: the lazy-sparse engines on a mesh "
-            "are ROADMAP slice 7"
         )
     if oc.embedding_optimizer != "fused_adam":
         return
@@ -182,6 +193,35 @@ def _table_names(model: nn.Module) -> List[str]:
         for name, m in model.named_modules()
         if isinstance(m, EmbeddingTable)
     ]
+
+
+def shard_layouts(model: nn.Module) -> Dict[str, Tuple[Callable, Callable]]:
+    """``{name: (whole, fit)}`` for every parameter of ``model`` that a mesh
+    splits: the tables (``EmbeddingTable.whole``/``fit``) and the
+    tensor-parallel weights (``models.registry.sharded_weights``).
+    ``whole(local)`` gathers a tensor of this rank's share over 'model' (a
+    collective); ``fit(current, whole)`` gives this rank's share of a whole
+    one."""
+    out = {n: (t.whole, lambda cur, whole, t=t: t.fit(cur, whole))
+           for n, t in zip(_table_names(model), embedding_tables(model))}
+    for n, (dim, mesh) in sharded_weights(model).items():
+        out[n] = (
+            lambda x, d=dim, m=mesh: gather_rows(x, m.model_group, m.model_index, m.n_model, d),
+            lambda cur, whole, d=dim, m=mesh: local_share(whole, d, m).to(cur),
+        )
+    return out
+
+
+def whole_tensors(model: nn.Module, tensors: Optional[Dict[str, torch.Tensor]] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """``tensors`` by parameter name (default: ``model``'s parameters, or
+    their gradients, as the caller passes them), each split one gathered
+    whole over 'model' (a collective on a mesh: every rank calls it),
+    detached."""
+    layouts = shard_layouts(model)
+    if tensors is None:
+        tensors = dict(model.named_parameters())
+    return {n: layouts[n][0](t) if n in layouts else t.detach() for n, t in tensors.items()}
 
 
 def _flat_ids(x: torch.Tensor) -> torch.Tensor:
@@ -213,9 +253,10 @@ class ChainOptimizer(torch.optim.Optimizer):
     State per parameter: ``mu``, ``nu`` (Adam moments); ``count`` (updates
     applied) is kept in every group. The learning rate is computed on the
     host from ``count``, so a step never waits for the device.
-    On a mesh the parameters named in ``sharded`` (tables split over
-    'model') enter the clip's global norm with every model rank's rows
-    (``model_group``)."""
+    On a mesh the parameters named in ``sharded`` (tables and
+    tensor-parallel weights split over 'model') enter the clip's global norm
+    with every model rank's share (``model_group``); every other parameter,
+    whole on each rank, counts once."""
 
     def __init__(
         self,
@@ -387,8 +428,8 @@ class Trainer:
                     rows[: part.shape[0]] = part
                     shape = (p.shape[0],) + (1,) * (p.dim() - 1)
                     row_decay[n] = torch.as_tensor(rows, device=p.device).reshape(shape)
-        return ChainOptimizer(named, oc, decay, row_decay, tuple(offsets),
-                              self.mesh_ctx.model_group)
+        sharded = tuple(offsets) + tuple(sharded_weights(model))
+        return ChainOptimizer(named, oc, decay, row_decay, sharded, self.mesh_ctx.model_group)
 
     def _make_metrics(self) -> MetricBundle:
         loss_name = self.config.train.loss
@@ -406,9 +447,19 @@ class Trainer:
             metrics[n] = Mean() if n == "accuracy" else AUC()
         return MetricBundle(metrics, device=self.device, group=self.mesh_ctx.data_group)
 
+    def _counted_elsewhere(self, batch) -> bool:
+        """Whether this rank's rows of ``batch`` are counted by another rank:
+        a replicated batch's rows count once, on data rank 0."""
+        return getattr(batch, "replicated", False) and self.mesh_ctx.data_index != 0
+
     def _metric_updates(self, outputs, batch) -> Dict[str, tuple]:
+        """The row-valued metric updates (AUC histograms, accuracy, each row
+        weighted by ``__weight__`` when there is one); none on a rank whose
+        rows another rank counts."""
         loss_name = self.config.train.loss
         upd: Dict[str, tuple] = {}
+        if self._counted_elsewhere(batch):
+            return upd
         weight = batch.get("__weight__")  # wrap-padded eval batches
         configured = set(self.metrics.metrics) - {"loss"}
         if loss_name == "model_loss":
@@ -476,18 +527,22 @@ class Trainer:
             host_store=store,
         )
 
-    def device_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    def device_batch(self, batch: Dict[str, Any]) -> DeviceBatch:
         """Host → device: each column through pinned memory with a
         non-blocking copy on the card (a plain tensor on the CPU). On a mesh
         with data > 1 ``batch`` is the global batch, and this rank keeps its
         contiguous block of rows over 'data' (the whole batch, alike on
-        every rank, when its rows do not divide over the axis)."""
+        every rank and ``replicated``, when its rows do not divide over the
+        axis, as the JAX package places such a batch replicated:
+        ``trainer.py:450-452``)."""
         m = self.mesh_ctx
         n = len(next(iter(batch.values())))
+        out = DeviceBatch()
         if m.n_data > 1 and n % m.n_data == 0:
             k = n // m.n_data
             batch = {key: v[m.data_index * k : (m.data_index + 1) * k] for key, v in batch.items()}
-        out = {}
+        else:
+            out.replicated = m.n_data > 1
         for k, v in batch.items():
             t = torch.as_tensor(v)
             if self.device.type == "cuda" and t.device.type == "cpu":
@@ -551,6 +606,10 @@ class Trainer:
             offset += t.numel()
 
     def _finish(self, state, metric_state, loss, logs, outputs, batch):
+        """The step's end: the logged loss (the global batch's) and the
+        metric updates. ``batch`` is the step's batch as ``device_batch``
+        gave it; the loss ``Mean`` takes every rank's loss, so every batch,
+        replicated or not, weighs n_data there."""
         self._mark("metrics")
         loss = loss.detach()
         if self.mesh_ctx.n_data > 1:  # the global batch's loss
@@ -585,28 +644,49 @@ class Trainer:
         sacrificial last row), their rows gathered outside autograd, the
         batch's ids rewritten into slots, and a row-sparse update of each
         table with its (U, D) gradient ((U, F, D) for a field-aware table;
-        the row-wise optimizers reduce over every trailing axis)."""
+        the row-wise optimizers reduce over every trailing axis).
+
+        On a mesh it is one step over the global batch, as GSPMD runs the
+        JAX step: the unique ids are the global batch's (each data rank's
+        block gathered over 'data', so every rank holds the same slots), a
+        rank's rows come from the row-sharded take (its own rows, summed
+        over 'model'), each data rank's forward and backward run on its
+        block, the (U, D) gradients are averaged over 'data', and each model
+        rank updates the unique rows it owns, a run of the sorted unique
+        ids found with one read of two positions back to the host. The
+        sacrificial row is the global ``pad_vocab(V, n_model)`` table's
+        last, which the last model rank owns; the used-id L2 counts each
+        row the global batch touches once (``EmbeddingTable.forward``)."""
         model = state.model.train()
         tables = embedding_tables(model)
+        mesh = self.mesh_ctx
         oc = self.config.train.optimizer
         l2_coeff = self.config.model.embedding.used_id_l2
         self._mark("forward")
         present = [n for n in self._id_features if n in batch]
-        ids_all = torch.cat([batch[n].reshape(-1) for n in present])
-        pad_id = tables[0].embedding.shape[0] - 1  # the spare row of pad_vocab
+        gathered = mesh.n_data > 1 and not getattr(batch, "replicated", False)
+        ids = [gather_rows(batch[n], mesh.data_group, mesh.data_index, mesh.n_data)
+               if gathered else batch[n] for n in present]
+        ids_all = torch.cat([x.reshape(-1) for x in ids])
+        v_loc = tables[0].embedding.shape[0]
+        pad_id = v_loc * mesh.n_model - 1  # the spare row of pad_vocab
         uniq, positions = sparse_ops.unique_with_positions(ids_all, pad_id)
-        rows = [t.embedding.detach().index_select(0, uniq).requires_grad_() for t in tables]
-        batch = dict(batch)
+        with torch.no_grad():
+            rows = [row_sharded_lookup(t.embedding, uniq, mesh) if mesh.n_model > 1
+                    else t.embedding.detach().index_select(0, uniq) for t in tables]
+        rows = [r.requires_grad_() for r in rows]
+        inputs = dict(batch)
         offset = 0
-        for name in present:
-            size = batch[name].numel()
-            batch[name] = positions[offset : offset + size].reshape(batch[name].shape)
-            offset += size
+        for name, x in zip(present, ids):
+            pos = positions[offset : offset + x.numel()].reshape(x.shape)
+            offset += x.numel()
+            k = batch[name].shape[0]
+            inputs[name] = pos[mesh.data_index * k : (mesh.data_index + 1) * k] if gathered else pos
         with sparse_rows(model, rows, "unique"), sampling_generator(model, state.generator), (
             record_used_id_l2(model) if l2_coeff > 0 else contextlib.nullcontext()
         ) as reg:
-            outputs = model(batch)
-        loss, logs = self._loss(outputs, batch)
+            outputs = model(inputs)
+        loss, logs = self._loss(outputs, inputs)
         if reg:
             penalty = torch.stack(reg).sum()
             loss = loss + l2_coeff * penalty
@@ -614,8 +694,14 @@ class Trainer:
         self._update_params(state, loss)
         step = state.step + 1
         hp = (oc.b1, oc.b2, oc.eps)
-        for name, table, r in zip(_table_names(model), tables, rows):
-            g = r.grad if r.grad is not None else torch.zeros_like(r)
+        grads = [r.grad if r.grad is not None else torch.zeros_like(r) for r in rows]
+        self._average_over_data(grads)
+        if mesh.n_model > 1:
+            # the unique ids this rank owns, a run of the sorted ids
+            lo = tables[0].row_offset
+            a, b = torch.searchsorted(uniq, uniq.new_tensor([lo, lo + v_loc])).tolist()
+            uniq, grads = uniq[a:b] - lo, [g[a:b] for g in grads]
+        for name, table, g in zip(_table_names(model), tables, grads):
             opt = state.table_opt[name]
             t = table.embedding
             if isinstance(opt, HostAdamState):
@@ -690,10 +776,10 @@ class Trainer:
             first = torch.ones(n_ids, 1, device=ids_all.device)
             first[1:, 0] = (plan.sids[1:] != plan.sids[:-1]).to(torch.float32)
             first_orig = eu.unpermute_rows(first, plan)[:, 0]
-        batch = self._identity_positions(batch, present)
+        inputs = self._identity_positions(batch, present)
         with sparse_rows(model, rows, "direct"), sampling_generator(model, state.generator):
-            outputs = model(batch)
-        loss, logs = self._loss(outputs, batch)
+            outputs = model(inputs)
+        loss, logs = self._loss(outputs, inputs)
         if first_orig is not None:
             reg = sum(
                 0.5 * (first_orig * r.reshape(n_ids, -1).to(torch.float32).square().sum(-1)).sum()
@@ -770,10 +856,10 @@ class Trainer:
         with torch.no_grad():
             rows = [row_sharded_lookup(t.embedding, ids_all, mesh) for t in tables]
         rows = [r.requires_grad_() for r in rows]
-        batch = self._identity_positions(batch, present)
+        inputs = self._identity_positions(batch, present)
         with sparse_rows(model, rows, "direct"), sampling_generator(model, state.generator):
-            outputs = model(batch)
-        loss, logs = self._loss(outputs, batch)
+            outputs = model(inputs)
+        loss, logs = self._loss(outputs, inputs)
         self._update_params(state, loss)
         step = state.step + 1
         lr, hp = oc.learning_rate, (oc.b1, oc.b2, oc.eps)
@@ -807,16 +893,27 @@ class Trainer:
         return self._finish(state, metric_state, loss, logs, outputs, batch)
 
     def eval_step(self, state: TrainState, batch: Dict[str, torch.Tensor], metric_state):
+        """The metric updates of one batch in eval mode, as the JAX
+        package's: the loss ``Mean`` takes the batch's loss, weighted by
+        its rows' ``__weight__`` sum when there is one. On a data axis an
+        unweighted batch weighs n_data (every rank adds its loss, replicated
+        or not); a weighted one its rows' weights, each rank's taken with
+        the global batch's loss, a replicated batch's on data rank 0."""
         model = state.model.eval()
+        m = self.mesh_ctx
         with torch.no_grad():
             outputs = model(batch)
             loss, _ = self.loss_fn(outputs, batch)
             loss, _ = add_auxiliary(loss, outputs)
+            updates = self._metric_updates(outputs, batch)
             w = batch.get("__weight__")
-            loss_args = (loss,) if w is None else (loss, w.sum())
-            return self.metrics.update(
-                metric_state, loss=loss_args, **self._metric_updates(outputs, batch)
-            )
+            if w is None:
+                updates["loss"] = (loss,)
+            elif not self._counted_elsewhere(batch):
+                if m.n_data > 1 and not getattr(batch, "replicated", False):
+                    loss = all_reduce_(loss.clone(), m.data_group) / m.n_data
+                updates["loss"] = (loss, w.sum())
+            return self.metrics.update(metric_state, **updates)
 
     # ------------------------------------------------------------------ loops
     def _profiler(self):
@@ -964,20 +1061,18 @@ class Trainer:
         return dict(zip(_table_names(model), embedding_tables(model)))
 
     def _state_tree(self, state: TrainState) -> Dict[str, Any]:
-        """The checkpoint's tree, in one layout on every mesh: whole tables
-        and whole table moments (gathered over 'model'; a collective, so
-        every rank builds it)."""
+        """The checkpoint's tree, in one layout on every mesh: whole tables,
+        whole tensor-parallel weights and their whole moments (gathered
+        over 'model'; a collective, so every rank builds it)."""
+        layouts = shard_layouts(state.model)
         tables = self._tables(state.model)
-        model = {
-            k: tables[k].whole(v) if k in tables else v
-            for k, v in state.model.state_dict().items()
-        }
+        model = whole_tensors(state.model, state.model.state_dict())
         optimizer = state.optimizer.state_dict()
         for i, group in enumerate(optimizer["param_groups"]):
-            if group["name"] in tables and i in optimizer["state"]:
-                t = tables[group["name"]]
+            if group["name"] in layouts and i in optimizer["state"]:
+                whole = layouts[group["name"]][0]
                 optimizer["state"][i] = {
-                    k: t.whole(v) if k in ("mu", "nu") else v
+                    k: whole(v) if k in ("mu", "nu") else v
                     for k, v in optimizer["state"][i].items()
                 }
         tree = {
@@ -994,12 +1089,14 @@ class Trainer:
             }
         return tree
 
-    def _fit_tables(self, model: nn.Module, saved: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """``saved`` (a state dict with whole tables of any mesh) with each
-        table replaced by this rank's rows (``EmbeddingTable.fit``)."""
-        tables = self._tables(model)
+    def _fit(self, model: nn.Module, saved: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """``saved`` (a state dict with whole tables and weights of any mesh)
+        with each table and tensor-parallel weight replaced by this rank's
+        share (``shard_layouts``)."""
+        layouts = shard_layouts(model)
+        current = model.state_dict()
         return {
-            k: tables[k].fit(tables[k].embedding, v) if k in tables else v
+            k: layouts[k][1](current[k], v) if k in layouts else v
             for k, v in saved.items()
         }
 
@@ -1036,16 +1133,20 @@ class Trainer:
         the step's sidecar (a warning, and zero moments, when it is
         missing). A checkpoint moves between meshes: each table, and each
         table moment, takes this rank's rows of the saved whole table
-        (``EmbeddingTable.fit``)."""
+        (``EmbeddingTable.fit``), and each tensor-parallel weight and its
+        moments this rank's share."""
         tree = self.ckpt.restore(step, map_location="cpu")
         tables = self._tables(state_like.model)
-        state_like.model.load_state_dict(self._fit_tables(state_like.model, tree["model"]))
+        layouts = shard_layouts(state_like.model)
+        current = state_like.model.state_dict()
+        state_like.model.load_state_dict(self._fit(state_like.model, tree["model"]))
         optimizer = tree["optimizer"]
         for i, group in enumerate(optimizer["param_groups"]):
-            if group["name"] in tables and i in optimizer["state"]:
-                t = tables[group["name"]]
+            name = group["name"]
+            if name in layouts and i in optimizer["state"]:
+                fit = layouts[name][1]
                 optimizer["state"][i] = {
-                    k: t.fit(torch.zeros_like(t.embedding), v) if k in ("mu", "nu") else v
+                    k: fit(torch.zeros_like(current[name]), v) if k in ("mu", "nu") else v
                     for k, v in optimizer["state"][i].items()
                 }
         state_like.optimizer.load_state_dict(optimizer)
@@ -1082,7 +1183,7 @@ class Trainer:
         """Incremental retraining: the model's weights (and running
         statistics) from a frozen export, the optimizer kept as it is."""
         exported = ckpt_lib.load_exported_params(directory, map_location=str(self.device))
-        state.model.load_state_dict(self._fit_tables(state.model, exported))
+        state.model.load_state_dict(self._fit(state.model, exported))
         return state
 
     def init_subtree_from_export(
@@ -1105,7 +1206,7 @@ class Trainer:
                 f"export at {directory} does not match {dst_prefix!r}: "
                 f"missing {missing}, unexpected {extra}"
             )
-        loaded = self._fit_tables(sub, loaded)  # a table's rows on a mesh
+        loaded = self._fit(sub, loaded)  # this rank's share on a mesh
         with torch.no_grad():
             for name, p in params.items():
                 if loaded[name].shape != p.shape:
@@ -1118,13 +1219,12 @@ class Trainer:
 
     def export(self, state: TrainState, directory: str) -> None:
         """The frozen export ``load_servable`` reads: on a mesh every rank
-        takes part, and rank 0 writes whole tables cut to the one-device
-        row count, ``pad_vocab(V)`` (the rows past it are padding)."""
+        takes part, and rank 0 writes whole tensor-parallel weights and
+        whole tables cut to the one-device row count, ``pad_vocab(V)`` (the
+        rows past it are padding)."""
         tables = self._tables(state.model)
-        params = {
-            k: tables[k].whole(v)[: pad_vocab(tables[k].vocab_size)] if k in tables else v
-            for k, v in state.model.state_dict().items()
-        }
+        params = {k: v[: pad_vocab(tables[k].vocab_size)] if k in tables else v
+                  for k, v in whole_tensors(state.model, state.model.state_dict()).items()}
         if self.mesh_ctx.rank == 0:
             ckpt_lib.export_params(
                 directory,
