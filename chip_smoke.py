@@ -433,7 +433,17 @@ checkout and exits non-zero on the first phase that fails. Phases:
       ``CP_SHAPE`` over model = 4 (a (1, 4) mesh of the same world), its
       pooled, its scores and every gradient against the one-device plain
       version in fp64 (``din_reading``, ``bwd_reading``), which a pool
-      without the sum over the axis must miss.
+      without the sum over the axis must miss; then mesh (4, 1) of the
+      same world (``mesh_data41``): DIEN without ``neg_history`` (its
+      auxiliary negatives rolled across ranks), DMR (its auxiliary softmax
+      against the global batch) and MIND with ``MESH_SAMPLED`` sampled
+      negatives a row, ``MESH_FP32_STEPS`` fp32 steps each at global
+      B=8192 (2048 a rank) against this process's one-device run (losses,
+      logged auxiliary terms, metrics, parameters); DIEN bf16 for
+      ``MESH_STEPS`` dense steps (#4 and #5 once a step on each rank), #4
+      and #5 on each rank's own inputs (``check_step_attention``, #5 in
+      fp64), ``MESH_FUSED_STEPS`` fused steps (#9 once a step) and #9 on
+      each rank's stream (``check_step_scatter``).
     Phase 16's launches sit under ``launches_by_path`` of #4, #5 and #9.
 
 TF32 is off for the whole run (``allow_tf32 = False`` for matmul and
@@ -5036,6 +5046,9 @@ MESH_GROUPLESS_TOL = 1e-6  # world of one against no world: the same launches on
 CP_SHAPE = (8192, 1024, 32, 36)  # B, L, D, H of din_attention_cp over model = 4
 CP_CHUNK = 512  # rows of the fp64 plain reference at a time
 MESH_2X2 = dict(data=2, model=2)
+MESH_4X1 = dict(data=4, model=1)
+MESH_SAMPLED = 64  # MIND's sampled negatives a row on (4, 1)
+MESH_FUSED_STEPS = 4  # DIEN's bf16 fused steps on (4, 1)
 
 
 def mesh_batches(info, n, seq_len=64, seed=160):
@@ -5048,9 +5061,10 @@ def on_mesh(config, **mesh):
     return config.replace(mesh=MeshConfig(**mesh))
 
 
-def mesh_steps(torch, trainer, state, batches):
+def mesh_steps(torch, trainer, state, batches, terms=None):
     """One synchronised step per batch: (state, losses, host ms per step,
-    metric results)."""
+    metric results); each step's logged terms appended to ``terms`` when
+    it is a list."""
     metric_state = trainer.metrics.init()
     losses, times = [], []
     for b in batches:
@@ -5059,6 +5073,8 @@ def mesh_steps(torch, trainer, state, batches):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(logs["loss"]))
+        if terms is not None:
+            terms.append({k: float(v) for k, v in logs.items()})
     results = {k: float(v) for k, v in trainer.metrics.result(metric_state).items()}
     return state, losses, times, results
 
@@ -5371,6 +5387,121 @@ def mesh_cp(torch, kernels, eu) -> dict:
     return dict(shape=list(CP_SHAPE), local_steps=lk, reading=reading, host_ms=ms, launches=counts)
 
 
+def data41_cases() -> dict:
+    """16b's (4, 1) cases at full width, fp32, ``MESH_FP32_STEPS`` global
+    batches of ``TRAIN_BATCH`` rows each: {case: (config, schema,
+    batches)}. DIEN over DIN's schema without ``neg_history`` (its
+    auxiliary negatives are the global batch's positives rolled by a row,
+    across ranks), DMR (its auxiliary softmax against the global batch's
+    last steps), MIND over phase 9's schema with ``MESH_SAMPLED`` sampled
+    negatives a row (each rank its block of the global draw)."""
+    din = din_info()
+    dmr, make = long_seq_data("dmr")
+    mind = mind_info()
+    return {
+        "dien": (sequence_config("dien", "dense", "float32"), din, mesh_batches(din, MESH_FP32_STEPS)),
+        "dmr": (long_seq_config("dmr", "dense", "float32"), dmr,
+                [make(TRAIN_BATCH, 165 + i) for i in range(MESH_FP32_STEPS)]),
+        "mind_sampled": (mind_train_config("float32", params=dict(MIND_PARAMS,
+                                                                  num_sampled_negatives=MESH_SAMPLED)),
+                         mind, [mind_batch(mind, TRAIN_BATCH, seed=168 + i) for i in range(MESH_FP32_STEPS)]),
+    }
+
+
+def data41_reference(torch, directory) -> dict:
+    """16b's (4, 1) references in this process: each case of
+    ``data41_cases`` on one device, saved for the ranks. Returns each
+    case's step times."""
+    from tpurec_torch.train.trainer import Trainer
+
+    times = {}
+    for case, (config, info, batches) in data41_cases().items():
+        trainer = Trainer(config, info)
+        state = trainer.init_state(batches[0])
+        terms = []
+        state, _, times[case], results = mesh_steps(torch, trainer, state, batches, terms)
+        torch.save(dict(terms=terms, results=results, params=whole_params(state.model)),
+                   os.path.join(directory, f"{case}_4x1_ref.pt"))
+        del trainer, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return times
+
+
+def mesh_data41(torch, kernels, eu, directory) -> dict:
+    """16b's (4, 1) mesh of the world of four: each case of
+    ``data41_cases`` against this process's one-device run (losses, the
+    logged auxiliary terms, the metrics, every parameter), then DIEN in
+    bf16 (``mesh_dien41``)."""
+    from tpurec_torch.train.trainer import Trainer
+
+    out = {}
+    for case, (config, info, batches) in data41_cases().items():
+        trainer = Trainer(on_mesh(config, **MESH_4X1), info)
+        state = trainer.init_state(batches[0])
+        terms = []
+        state, _, times, results = mesh_steps(torch, trainer, state, batches, terms)
+        ref = torch.load(os.path.join(directory, f"{case}_4x1_ref.pt"))
+        names = sorted(k for k in ref["terms"][0] if k != "loss")
+        check(all(sorted(k for k in t if k != "loss") == names for t in terms),
+              f"{case} on (4, 1): logged {sorted(terms[0])}, one device {sorted(ref['terms'][0])}")
+        got = torch.tensor([[t[k] for k in ["loss"] + names] for t in terms], dtype=torch.float64)
+        want = torch.tensor([[t[k] for k in ["loss"] + names] for t in ref["terms"]], dtype=torch.float64)
+        reading = dict(loss=tol_ratio(got, want, **MESH_LOSS_TOL), terms=names,
+                       metrics=max(tol_ratio(torch.tensor(results[k]), torch.tensor(v), atol=1e-6, rtol=0)
+                                   for k, v in ref["results"].items()),
+                       **param_reading(torch, whole_params(state.model), ref["params"], MESH_PARAM_TOL))
+        check(max(reading["loss"], reading["metrics"], reading["param"]) <= 1.0,
+              f"{case} on (4, 1) against one device, fp32: {reading} (terms {terms} vs {ref['terms']})")
+        out[case] = dict(terms=terms, reading=reading, step_ms=times)
+        del trainer, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["dien_bf16"] = mesh_dien41(torch, kernels, eu)
+    return out
+
+
+def mesh_dien41(torch, kernels, eu) -> dict:
+    """DIEN on (4, 1) at full width (2048 rows a rank), bf16:
+    ``MESH_STEPS`` dense steps (#4 and #5 once a step on each rank), #4
+    and #5 on the rank's own recorded inputs and cotangents
+    (``check_step_attention``, #5 in fp64), ``MESH_FUSED_STEPS`` fused
+    steps (#9 once a step on the rank's stream) and #9 on that stream held
+    by ``check_step_scatter`` with its broken versions."""
+    from tpurec_torch.train.trainer import Trainer
+
+    info = din_info()
+    batches = mesh_batches(info, MESH_STEPS, seed=175)
+    config = on_mesh(sequence_config("dien"), **MESH_4X1)
+    trainer = Trainer(config, info)
+    state = trainer.init_state(batches[0])
+    kernels.reset_launch_counts()
+    state, losses, times, _ = mesh_steps(torch, trainer, state, batches)
+    counts = path_launches(kernels, eu)
+    check(counts["din_attention"] == counts["din_attention_bwd"] == MESH_STEPS
+          and counts["fused_scatter_add"] == 0, f"DIEN on (4, 1): #4/#5 not once a step: {counts}")
+    check(all(np.isfinite(losses)), f"DIEN on (4, 1): non-finite losses {losses}")
+    del trainer, state
+    attention = check_step_attention(torch, kernels, info, "dien", batches[0], config=config)
+    check(all(r["shape"][0] == TRAIN_BATCH // 4 for r in attention.values()),
+          f"#4/#5 of DIEN on (4, 1) not on a data rank's rows: {[r['shape'] for r in attention.values()]}")
+    fused = on_mesh(sequence_config("dien", "fused"), **MESH_4X1)
+    trainer = Trainer(fused, info)
+    state = trainer.init_state(batches[0])
+    kernels.reset_launch_counts()
+    state, fused_losses, fused_times, _ = mesh_steps(torch, trainer, state, batches[:MESH_FUSED_STEPS])
+    fused_counts = path_launches(kernels, eu)
+    check(fused_counts["fused_scatter_add"] == fused_counts["din_attention"]
+          == fused_counts["din_attention_bwd"] == MESH_FUSED_STEPS,
+          f"DIEN fused on (4, 1): #4/#5/#9 not once a step: {fused_counts}")
+    check(all(np.isfinite(fused_losses)), f"DIEN fused on (4, 1): non-finite losses {fused_losses}")
+    del trainer, state
+    scatter = check_step_scatter(torch, eu, Trainer(fused, info), batches[0], ("dien_emb_4x1",), (32,))
+    return dict(losses=losses, step_ms=times, launches=counts, attention=attention,
+                fused_losses=fused_losses, fused_step_ms=fused_times, fused_launches=fused_counts,
+                scatter=scatter)
+
+
 def mesh_world_four(torch, kernels, eu, directory) -> dict:
     """16b, in each rank of a gloo world of four on ``cuda:0``."""
     out = dict(din=mesh_din(torch, kernels, eu, directory))
@@ -5384,6 +5515,9 @@ def mesh_world_four(torch, kernels, eu, directory) -> dict:
     torch.cuda.empty_cache()
     out["cp"] = mesh_cp(torch, kernels, eu)
     out["dryrun"] = mesh_dryrun(torch, kernels, eu, 4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["data41"] = mesh_data41(torch, kernels, eu, directory)
     return out
 
 
@@ -5416,6 +5550,25 @@ def mesh_rank(argv) -> int:
     return 0
 
 
+def mesh41_summary(r, one_device_ms) -> dict:
+    """A rank's (4, 1) results as phase 16b prints them: each fp32 case's
+    reading and step p50 beside one device's, DIEN's bf16 dense and fused
+    step p50s, launches and the readings of #4, #5 and #9 on its inputs."""
+    dien = r["dien_bf16"]
+    out = {case: dict(reading=r[case]["reading"], step_p50_ms=statistics.median(r[case]["step_ms"][1:]),
+                      one_device_step_p50_ms=statistics.median(one_device_ms[case][1:]))
+           for case in one_device_ms}
+    out["dien_bf16"] = dict(
+        step_p50_ms=statistics.median(dien["step_ms"][2:]), launches=dien["launches"],
+        fused_step_p50_ms=statistics.median(dien["fused_step_ms"][1:]), fused_launches=dien["fused_launches"],
+        attention={k: dict(readings=v["readings"], shape=v["shape"], ms=v["ms"], bound_ms=v["bound_ms"],
+                           plain_ms=v["plain_ms"]) for k, v in dien["attention"].items()},
+        scatter={k: dict(n=v["shape"][0], rows=v["shape"][1], d=v["shape"][2], max_abs_err=v["max_abs_err"],
+                         ms=v["ms"], bound_ms=v["bound_ms"], plain_ms=v["plain_ms"],
+                         library_ms=v["library_ms"]) for k, v in dien["scatter"].items()})
+    return out
+
+
 def run_mesh(torch, kernels, eu, workdir, card):
     """Phase 16: returns ({kernel: {path: launches}}, summary)."""
     from tpurec_torch.train.trainer import Trainer
@@ -5443,6 +5596,8 @@ def run_mesh(torch, kernels, eu, workdir, card):
     del trainer, state
     gc.collect()
     torch.cuda.empty_cache()
+    # 16b's (4, 1) references: DIEN, DMR and MIND sampled on one device, fp32
+    data41_times = data41_reference(torch, workdir)
 
     t0 = time.perf_counter()
     (one,) = mesh_world(torch, "nccl1", 1, workdir)
@@ -5489,21 +5644,26 @@ def run_mesh(torch, kernels, eu, workdir, card):
                             step_p50_ms=statistics.median(r["fm_rowwise"]["step_ms"][1:]),
                             one_device_step_p50_ms=statistics.median(fm_times[1:])),
             dryrun=r["dryrun"],
-            cp=dict(reading=r["cp"]["reading"], launches=r["cp"]["launches"], host_ms=r["cp"]["host_ms"])))
-    print("phase 16b, a world of four ranks on one card over gloo, mesh (2, 2) and (1, 4):",
+            cp=dict(reading=r["cp"]["reading"], launches=r["cp"]["launches"], host_ms=r["cp"]["host_ms"]),
+            data41=mesh41_summary(r["data41"], data41_times)))
+    print("phase 16b, a world of four ranks on one card over gloo, mesh (2, 2), (1, 4) and (4, 1):",
           json.dumps(summary), flush=True)
     launches = {
         name: dict(mesh_din_nccl1=one["launches"][name],
                    mesh_din_2x2=sum(r["din"]["launches"][name] for r in four),
                    mesh_din_attention_cp=sum(r["cp"]["launches"][name] for r in four),
                    mesh_dryrun_nccl1=one["dryrun"]["launches"][name],
-                   mesh_dryrun_2x2=sum(r["dryrun"]["launches"][name] for r in four))
+                   mesh_dryrun_2x2=sum(r["dryrun"]["launches"][name] for r in four),
+                   mesh_dien_4x1=sum(r["data41"]["dien_bf16"]["launches"][name] for r in four),
+                   mesh_dien_fused_4x1=sum(r["data41"]["dien_bf16"]["fused_launches"][name] for r in four))
         for name in ("din_attention", "din_attention_bwd")
     }
     launches["fused_scatter_add"] = dict(
         mesh_fm_fused_2x2=sum(r["fm"]["launches"]["fused_scatter_add"] for r in four),
         mesh_dryrun_nccl1=one["dryrun"]["launches"]["fused_scatter_add"],
-        mesh_dryrun_2x2=sum(r["dryrun"]["launches"]["fused_scatter_add"] for r in four))
+        mesh_dryrun_2x2=sum(r["dryrun"]["launches"]["fused_scatter_add"] for r in four),
+        mesh_dien_fused_4x1=sum(r["data41"]["dien_bf16"]["fused_launches"]["fused_scatter_add"]
+                                for r in four))
     print("phase 16 launches (all ranks):", json.dumps(launches), flush=True)
     return launches, dict(world_one=world_one, world_four=summary)
 

@@ -12,7 +12,8 @@ Three worlds, each run once for the whole file:
   package's (2, 2) runs; ``evaluate`` over a batch that divides over
   'data' and one that does not, against one device and the JAX package;
   checkpoints moved between (2, 2) and one device both ways; the export;
-  ``dryrun_multichip``; the refusals.
+  ``dryrun_multichip``; the refusals; every other registry model (the
+  cases of ``tests/test_torch_mesh_data.py``) one step against one device.
 - (1, 4), four ranks: din, fm, ffm and mmoe in the dense and the fused
   engine against the one-device step; din, mmoe and autoint (tensor
   parallel) and FM's three lazy-sparse engines against the JAX package's
@@ -171,6 +172,11 @@ def _mesh22(inputs):
     from tpurec_torch.dryrun import dryrun_multichip
 
     out["dryrun"] = dryrun_multichip(4, "cpu")
+
+    from test_torch_mesh_data import _case_run
+
+    mesh = make_mesh(MeshConfig(data=2, model=2))
+    out["models"] = {key: _case_run(case, mesh) for key, case in inputs["models"].items()}
 
     din, fm = inputs["din"], inputs["fm"]
     mesh14 = make_mesh(MeshConfig(data=1, model=4))
@@ -490,6 +496,7 @@ def mesh22(tmp_path_factory):
         inputs["evaluate"] = {"cfg": jcfg.to_json(), "info": din["info"], "variables": variables,
                               "batches": eval_batches}
         inputs["lazy"], want["lazy"] = _lazy_cases((2, 2))
+        inputs["models"], want["models"] = _model_cases((2, 2))
         results = run_world(os.path.abspath(__file__), "mesh22", 4, directory, inputs)
         return inputs, want, results
 
@@ -593,15 +600,16 @@ def test_export_from_2x2_loads_as_servable(mesh22):
 
 
 def test_mesh_refusals(mesh22):
-    """On a mesh: another model or loss on data > 1 raises
-    ``NotImplementedError`` naming ROADMAP; ``host_adam`` raises the JAX
-    package's ``ValueError``, in its words."""
+    """On a mesh the port refuses only what the JAX package refuses: on
+    (2, 2) deepfm and DIN under the in-batch softmax build (every model and
+    loss trains on data > 1), and ``host_adam`` raises the JAX package's
+    ``ValueError``, in its words."""
     _, _, results = mesh22
     for res in results:
         r = res["refusals"]
         assert set(r) == {"model", "loss", "host_adam"}
         for key in ("model", "loss"):
-            assert r[key][0] == "NotImplementedError" and "ROADMAP" in r[key][1], (key, r[key])
+            assert r[key] is None, (key, r[key])
         assert r["host_adam"] == (
             "ValueError",
             "embedding_optimizer='host_adam' requires a single device (per-shard host "
@@ -636,6 +644,43 @@ def test_lazy_sparse_engines_2x2_match_jax(mesh22, key):
     for res in results:
         got = _assert_lazy(res["lazy"][key], want["lazy"][key])
         _assert_sharded_rows(got, want["lazy"][key], 2)
+
+
+def registry_names():
+    """Every registry model but din and fm, which the cases of this file
+    hold on their own."""
+    from tpurec_torch.models import builders  # noqa: F401  (registers the builders)
+    from tpurec_torch.models.registry import MODEL_REGISTRY
+
+    return sorted(set(MODEL_REGISTRY) - {"din", "fm"})
+
+
+def _model_cases(mesh):
+    """One fp32 step of every model of ``registry_names`` over 16 rows on
+    ``mesh`` (``tests/test_torch_mesh_data.py``'s cases, from the seed's
+    weights): (inputs, the one-device runs)."""
+    from test_torch_mesh_data import GLOBAL_ROWS, MODELS, _case_run, _cfg, _data
+
+    inputs = {}
+    for seed, (name, (schema, params, loss)) in enumerate(MODELS.items()):
+        inputs[name] = {"cfg": _cfg(name, params, loss, mesh=mesh),
+                        "info": _data(schema, GLOBAL_ROWS, 0)[0],
+                        "batches": [_data(schema, GLOBAL_ROWS, 300 + seed)[1]]}
+    return inputs, {name: _case_run(case) for name, case in inputs.items()}
+
+
+@pytest.mark.parametrize("name", registry_names())
+def test_every_model_steps_on_2x2(mesh22, name):
+    """Every other registry model on (2, 2), its tensor-parallel weights
+    split over 'model' and its batch over 'data', one fp32 step over 16
+    rows from the seed's weights under its family's loss: the logged loss
+    and terms, the metrics and every parameter against one device."""
+    from test_torch_mesh_data import MODELS, _assert_one_device
+
+    _, want, results = mesh22
+    assert name in MODELS, f"{name}: no case on a mesh"
+    for res in results:
+        _assert_one_device(res["models"][name], want["models"][name])
 
 
 def _assert_sharded_rows(got, want, n_model):

@@ -22,6 +22,16 @@ Which backward a sum needs depends on who reads its result:
   before a layer that needs it whole), so the backward keeps the rank's
   own block of the cotangent. Before a use that differs by rank (a slice
   of its own), wrap it in ``replicated_input``, whose backward then sums.
+  Never over 'data': there every rank's loss differs.
+- ``gather_batch``: the global batch's rows from each data rank's block,
+  read differently by every rank (its own rows against the whole batch:
+  the in-batch softmax's columns, DIEN's rolled negatives, DMR's
+  auxiliary softmax), so the backward sums the cotangent over 'data' and
+  keeps the rank's own block (a reduce-scatter): rank j's rows take the
+  cotangent of every rank's loss.
+- ``data_mean_share``: a mean over the global batch normalised by a count
+  (a masked mean), as this rank's share of it, which the average of the
+  gradients over 'data' turns into the global batch's value.
 
 A group of None stands for an axis of size 1: every function is then the
 identity.
@@ -120,7 +130,48 @@ class _AllGather(torch.autograd.Function):
 def all_gather(x: torch.Tensor, group: Optional[Any], index: int, n: int,
                dim: int = -1) -> torch.Tensor:
     """``gather_rows`` along ``dim`` with a gradient: the backward keeps this
-    rank's block of the cotangent."""
+    rank's block of the cotangent. Right only where every rank of the axis
+    computes the same thing from the result (the 'model' axis of a
+    tensor-parallel layer); over 'data' use ``gather_batch``."""
     if group is None:
         return x
     return _AllGather.apply(x, group, index, n, dim % x.dim())
+
+
+class _GatherBatch(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, index, n):
+        ctx.group, ctx.index, ctx.r = group, index, x.shape[0]
+        return gather_rows(x, group, index, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        # a reduce-scatter from all_reduce, which gloo has for CUDA tensors
+        whole = all_reduce_(g.contiguous().clone(), ctx.group)
+        return whole.narrow(0, ctx.index * ctx.r, ctx.r), None, None, None
+
+
+def gather_batch(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The global batch's rows of ``x`` (n_data·R rows from each data rank's
+    R, in data order) on every data rank, with a gradient: the backward sums
+    the cotangent over 'data' and keeps this rank's block, since each rank
+    reads the result with its own loss. Right only over 'data'; a
+    tensor-parallel layer's gather is ``all_gather``. ``mesh`` None (one
+    data rank, or a replicated batch, which every rank holds whole): the
+    identity."""
+    if mesh is None or mesh.data_group is None:
+        return x
+    return _GatherBatch.apply(x, mesh.data_group, mesh.data_index, mesh.n_data)
+
+
+def data_mean_share(total: torch.Tensor, count: torch.Tensor, mesh) -> torch.Tensor:
+    """``total / max(count, 1)`` over the global batch, as this rank's share
+    of it: ``n_data · total / max(Σ count over 'data', 1)`` from this rank's
+    ``total`` and ``count``, so that the mean of the shares over 'data' (the
+    gradient average's) is the global value. ``mesh`` None (one data rank,
+    or a replicated batch, whose local sums are already global): the plain
+    quotient."""
+    if mesh is None or mesh.data_group is None:
+        return total / count.clamp_min(1.0)
+    whole = all_reduce_(count.detach().clone(), mesh.data_group)
+    return mesh.n_data * total / whole.clamp_min(1.0)

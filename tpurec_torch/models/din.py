@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpurec_torch.core.collectives import data_mean_share, gather_batch
 from tpurec_torch.core.mesh import MODEL_AXIS
 from tpurec_torch.embedding.modules import SharedEmbedding
 from tpurec_torch.models.base import Inputs, Outputs, binary_output, series_mask, stack_ids
@@ -117,7 +118,12 @@ class DIEN(_SeqBase):
     loss: each interest h_t scores the next behavior e_{t+1} above a
     negative, which is the embedded ``neg_<series>`` column at t+1 when the
     batch carries every such column, else the positive of the previous row
-    (``torch.roll`` over the batch)."""
+    (the batch rolled by one row). On a mesh
+    (``batch_mesh``, set by ``models.registry.place_on_mesh``) both are the
+    global batch's: row 0 of data rank r takes the last row of rank r − 1
+    (rank 0 that of the last rank), gathered over 'data' with the borrowed
+    row's cotangent returned to its owner, and the masked mean's count is
+    summed over 'data' (``data_mean_share``)."""
 
     def __init__(self, *args, gru_mode: str = "augru", aux_weight: float = 1.0,
                  attention_hidden_dims: Sequence[int] = (36,), **kw):
@@ -130,6 +136,7 @@ class DIEN(_SeqBase):
         self.mlp = MLP(self.profile_dim + 2 * d, self.hidden_dims, dtype=self.dtype,
                        tp_axis=MODEL_AXIS)
         self.head = Dense(self.hidden_dims[-1], 1, dtype=self.dtype)
+        self.batch_mesh = None  # the mesh whose 'data' axis splits the batch
 
     def forward(self, inputs: Inputs) -> Outputs:
         profile = self._profile(inputs)
@@ -156,15 +163,21 @@ class DIEN(_SeqBase):
         embs = [self.emb(inputs[n]) for n in names]
         return torch.cat(embs, dim=-1) if len(embs) > 1 else embs[0]
 
-    @staticmethod
-    def _aux_loss(interests, keys, mask, neg_keys=None) -> torch.Tensor:
+    def _aux_loss(self, interests, keys, mask, neg_keys=None) -> torch.Tensor:
         f32 = torch.float32
+        mesh = self.batch_mesh
         h = interests[:, :-1].to(f32)
         pos = keys[:, 1:].to(f32)
-        neg = neg_keys[:, 1:].to(f32) if neg_keys is not None else torch.roll(pos, 1, dims=0)
+        if neg_keys is not None:
+            neg = neg_keys[:, 1:].to(f32)
+        else:  # the roll over the global batch: the previous row's positive
+            last = pos[-1:]
+            if mesh is not None:
+                last = gather_batch(last, mesh).narrow(0, (mesh.data_index - 1) % mesh.n_data, 1)
+            neg = torch.cat([last, pos[:-1]], dim=0)
         m = (mask[:, 1:] * mask[:, :-1]).to(f32)
         loss = F.softplus(-(h * pos).sum(dim=-1)) + F.softplus((h * neg).sum(dim=-1))
-        return (loss * m).sum() / m.sum().clamp_min(1.0)
+        return data_mean_share((loss * m).sum(), m.sum(), mesh)
 
 
 class DSIN(_SeqBase):

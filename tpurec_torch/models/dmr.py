@@ -30,6 +30,7 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
+from tpurec_torch.core.collectives import data_mean_share, gather_batch
 from tpurec_torch.embedding.modules import SharedEmbedding
 from tpurec_torch.initializers import glorot_uniform_
 from tpurec_torch.models.base import Inputs, Outputs, binary_output, series_mask, stack_ids
@@ -62,7 +63,9 @@ class DMR(_SeqBase):
     the mean over rows with more than one valid step of the softmax cross
     entropy of the prefix user vector (U2I weights over the valid steps
     before index count − 1) against the (B, B) in-batch logits with the
-    step at index count − 1 of every row."""
+    step at index count − 1 of every row. On a mesh (``batch_mesh``, set
+    by ``models.registry.place_on_mesh``) the columns are the global
+    batch's last steps and the mean is over its rows."""
 
     def __init__(self, *args, hidden_dims: Sequence[int] = (80, 40), attention_dim: int = 32,
                  aux_weight: float = 0.1, max_seq_length: int = 0, **kw):
@@ -71,6 +74,7 @@ class DMR(_SeqBase):
             raise ValueError("DMR needs max_seq_length (its position table is sized by L)")
         d, a, dtype = self.key_dim, attention_dim, self.dtype
         self.aux_weight = aux_weight
+        self.batch_mesh = None  # the mesh whose 'data' axis splits the batch
         self.pos = LearnedPositionEmbedding(max_seq_length, d, dtype)
         self.i2i_wc = Dense(d, a, dtype)
         self.i2i_we = Dense(d, a, dtype)
@@ -106,13 +110,16 @@ class DMR(_SeqBase):
                        rel_feature.to(profile.dtype), u2i_score.to(profile.dtype)], dim=-1)
         out = binary_output(self.head(self.mlp(x)))
         if self.training and self.aux_weight > 0:
-            out["auxiliary_loss"] = self.aux_weight * self._aux_loss(keys, mask, u_scores)
+            out["auxiliary_loss"] = self.aux_weight * self._aux_loss(keys, mask, u_scores,
+                                                                     self.batch_mesh)
         return out
 
     @staticmethod
-    def _aux_loss(keys, mask, u_scores) -> torch.Tensor:
+    def _aux_loss(keys, mask, u_scores, mesh=None) -> torch.Tensor:
         """The prefix user vector (the steps before the last one) should
-        retrieve that last step against the other rows' last steps."""
+        retrieve that last step against the other rows' last steps: on a
+        mesh those of the global batch (gathered over 'data'), with the
+        count of rows of two valid steps or more summed over 'data'."""
         b, l, _ = keys.shape
         f32 = torch.float32
         lengths = mask.sum(dim=-1).to(torch.int32)
@@ -121,10 +128,12 @@ class DMR(_SeqBase):
         prefix_mask = mask * (torch.arange(l, device=mask.device)[None, :] < last_idx[:, None]).to(mask.dtype)
         pw = _masked_softmax(u_scores, prefix_mask)
         prefix_vec = torch.einsum("bl,bld->bd", pw.to(keys.dtype), keys)
-        logits = prefix_vec.to(f32) @ last_emb.to(f32).T
-        ce = -torch.log_softmax(logits, dim=-1).diagonal()
+        logits = prefix_vec.to(f32) @ gather_batch(last_emb.to(f32), mesh).T
+        offset = mesh.data_index * b if mesh is not None else 0
+        labels = torch.arange(offset, offset + b, device=keys.device)
+        ce = -torch.log_softmax(logits, dim=-1).gather(1, labels[:, None])[:, 0]
         valid = (lengths > 1).to(f32)
-        return (ce * valid).sum() / valid.sum().clamp_min(1.0)
+        return data_mean_share((ce * valid).sum(), valid.sum(), mesh)
 
 
 class DMT(_SeqBase):

@@ -86,6 +86,7 @@ class _RetrievalBase(nn.Module):
         self.normalize_logits = normalize_logits
         self.dtype = dtype
         self.generator: Optional[torch.Generator] = None  # set by sampling_generator
+        self.batch_mesh = None  # the mesh whose 'data' axis splits the batch
         self.emb = SharedEmbedding(vocab_size, embed_dim, dtype=dtype)
         if normalize_logits:
             self.logit_scale = nn.Parameter(torch.empty(()))
@@ -137,7 +138,11 @@ class _RetrievalBase(nn.Module):
     def sample_negative_ids(self, batch: int, device: torch.device) -> torch.Tensor:
         """(B, N, F) candidate ids, the j-th uniform over the j-th query
         feature's range (``query_feature_ranges``, else [1, vocab)), never the
-        padding id; drawn from the generator ``sampling_generator`` set."""
+        padding id; drawn from the generator ``sampling_generator`` set. On
+        a mesh (``batch_mesh``, set by ``models.registry.place_on_mesh``)
+        every data rank draws the global batch's (n_data·B, N) ids a column
+        from the same generator state and keeps its block of rows, so the
+        mesh's negatives are the one-device run's."""
         if self.generator is None:
             raise RuntimeError(
                 "sampled negatives need a generator: run the model under "
@@ -145,15 +150,17 @@ class _RetrievalBase(nn.Module):
             )
         f = len(self.query_features)
         ranges = self.query_feature_ranges or [(1, self.vocab_size)] * f
+        mesh = self.batch_mesh
+        n_data, start = (mesh.n_data, mesh.data_index * batch) if mesh is not None else (1, 0)
         cols = []
         for lo, hi in ranges:
             lo, hi = int(lo), int(hi)
             if lo <= self.padding_index < hi:
                 lo = self.padding_index + 1
             cols.append(torch.randint(
-                lo, hi, (batch, self.num_sampled_negatives), device=device,
+                lo, hi, (n_data * batch, self.num_sampled_negatives), device=device,
                 generator=self.generator,
-            ))
+            )[start : start + batch])
         return torch.stack(cols, dim=-1)
 
     def sampled_logits(

@@ -5,6 +5,7 @@ initialises it from a seed."""
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Tuple
 
 import torch
@@ -39,7 +40,10 @@ def place_on_mesh(model: nn.Module, mesh) -> nn.Module:
     ``MLP`` with ``tp_axis`` (DIN's, DIEN's and DSIN's ``mlp``), every
     ``ExpertBank`` and every ``MultiHeadAttention`` (each parameter whole
     where its split dimension does not divide). The other dense weights
-    are whole on every rank."""
+    are whole on every rank. On data > 1 every module whose training terms
+    couple the batch's rows (``batch_mesh``: DIEN's and DMR's auxiliary
+    losses, the retrieval models' sampled negatives) reads the global
+    batch over 'data'."""
     from tpurec_torch.embedding.modules import EmbeddingTable
     from tpurec_torch.models.multitask import ExpertBank
     from tpurec_torch.ops.attention import MultiHeadAttention
@@ -52,7 +56,25 @@ def place_on_mesh(model: nn.Module, mesh) -> nn.Module:
             m.data_group = mesh.data_group
         elif isinstance(m, (MLP, ExpertBank, MultiHeadAttention)) and mesh.n_model > 1:
             m.place(mesh)
+        if hasattr(m, "batch_mesh") and mesh.n_data > 1:
+            m.batch_mesh = mesh
     return model
+
+
+@contextlib.contextmanager
+def replicated_batch(model: nn.Module):
+    """In the body, every module of ``model`` that reads the global batch
+    over 'data' (``batch_mesh``) takes this rank's batch as the whole one:
+    a batch whose rows do not divide over 'data' is whole on every rank
+    (``Trainer.device_batch``)."""
+    mods = [(m, m.batch_mesh) for m in model.modules() if getattr(m, "batch_mesh", None) is not None]
+    for m, _ in mods:
+        m.batch_mesh = None
+    try:
+        yield
+    finally:
+        for m, mesh in mods:
+            m.batch_mesh = mesh
 
 
 def sharded_weights(model: nn.Module) -> Dict[str, Tuple[int, object]]:

@@ -1,10 +1,16 @@
 """Composable losses (counterpart of ``tpurec/train/losses.py``).
 
-Each is a named function ``loss_fn(outputs, batch) -> (loss, logs)``
-selected by ``TrainConfig.loss``: plain BCE, the 0.5/0.5 CTR+CVR BCE,
-in-batch sampled softmax, the 0.2·GSU + 0.8·ESU softmax CE, and a model's
-own loss. Auxiliary losses a model returns are added by ``add_auxiliary``.
-Losses are computed in fp32.
+Each is a named function ``loss_fn(outputs, batch, mesh=None) -> (loss,
+logs)`` selected by ``TrainConfig.loss``: plain BCE, the 0.5/0.5 CTR+CVR
+BCE, in-batch sampled softmax, the 0.2·GSU + 0.8·ESU softmax CE, and a
+model's own loss. Auxiliary losses a model returns are added by
+``add_auxiliary``. Losses are computed in fp32.
+
+``mesh`` is the mesh whose 'data' axis splits the batch's rows (None when
+this rank holds the whole batch). Every loss is a mean of per-row terms
+over this rank's rows, which the trainer's average over 'data' makes the
+global batch's; only the in-batch softmax, whose rows meet every row of
+the global batch, reads it.
 """
 
 from __future__ import annotations
@@ -13,6 +19,8 @@ from typing import Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from tpurec_torch.core.collectives import gather_batch, gather_rows
 
 Tensor = torch.Tensor
 LossFn = Callable[[Dict[str, Tensor], Dict[str, Tensor]], Tuple[Tensor, Dict[str, Tensor]]]
@@ -32,13 +40,13 @@ def _bce_from_outputs(outputs: Dict[str, Tensor], labels: Tensor, key: str = "")
     return -(labels * torch.log(p) + (1.0 - labels) * torch.log1p(-p)).mean()
 
 
-def bce(outputs, batch):
+def bce(outputs, batch, mesh=None):
     labels = batch["label"].reshape(-1).to(torch.float32)
     loss = _bce_from_outputs(outputs, labels)
     return loss, {"bce": loss}
 
 
-def multi_task(outputs, batch, weights=(0.5, 0.5)):
+def multi_task(outputs, batch, mesh=None, weights=(0.5, 0.5)):
     """CTR + CVR weighted BCE; for ESMM-style models the CVR label
     supervises the ctcvr output."""
     ctr_labels = batch["ctr"].reshape(-1).to(torch.float32)
@@ -50,33 +58,46 @@ def multi_task(outputs, batch, weights=(0.5, 0.5)):
     return loss, {"ctr_bce": ctr_loss, "cvr_bce": cvr_loss}
 
 
-def in_batch_softmax(outputs, batch):
+def tower_logits(outputs, mesh=None) -> Tuple[Tensor, Tensor]:
+    """The in-batch softmax's (B, B_global) logits of this rank's users
+    against the global batch's items, and each row's positive column
+    (``data_index · B`` + its row): the item tower's embeddings are gathered
+    over 'data' (``gather_batch``, whose backward returns every rank's
+    cotangent to the row's owner). Unmasked; ``mesh`` None: (B, B)."""
+    u = outputs["user_embedding"].to(torch.float32)
+    v = gather_batch(outputs["item_embedding"].to(torch.float32), mesh)
+    offset = mesh.data_index * u.shape[0] if mesh is not None else 0
+    labels = torch.arange(offset, offset + u.shape[0], device=u.device)
+    return u @ v.T, labels
+
+
+def in_batch_softmax(outputs, batch, mesh=None):
     """Sampled softmax over [positive ∥ in-batch negatives].
 
     With model 'logits' (B, 1+N) the positive is column 0; otherwise logits
-    are built from the tower embeddings with in-batch negatives (diagonal
-    positive), and off-diagonal entries whose 'item_id' equals row i's
-    positive are masked out as accidental hits."""
+    are built from the tower embeddings with the global batch's items as
+    negatives (``tower_logits``), and entries other than the row's positive
+    whose 'item_id' equals it are masked out as accidental hits (the ids
+    gathered over 'data' too: raw ids, or positions in the lazy-sparse
+    engine's unique list, which is the global batch's)."""
     if "logits" in outputs:
         logits = outputs["logits"].to(torch.float32)
         labels = torch.zeros(logits.shape[0], dtype=torch.long, device=logits.device)
     else:
-        u = outputs["user_embedding"].to(torch.float32)
-        v = outputs["item_embedding"].to(torch.float32)
-        logits = u @ v.T
-        b = logits.shape[0]
-        labels = torch.arange(b, device=logits.device)
+        logits, labels = tower_logits(outputs, mesh)
         ids = batch.get("item_id")
         if ids is not None:
             ids = ids.reshape(-1)
-            eye = torch.eye(b, dtype=torch.bool, device=logits.device)
-            dup = (ids[:, None] == ids[None, :]) & ~eye
+            cols = ids if mesh is None else gather_rows(
+                ids, mesh.data_group, mesh.data_index, mesh.n_data)
+            own = torch.arange(cols.shape[0], device=logits.device)[None, :] == labels[:, None]
+            dup = (ids[:, None] == cols[None, :]) & ~own
             logits = torch.where(dup, -1e9, logits)
     loss = F.cross_entropy(logits, labels)
     return loss, {"softmax_ce": loss}
 
 
-def gsu_esu(outputs, batch, alpha=0.2, beta=0.8):
+def gsu_esu(outputs, batch, mesh=None, alpha=0.2, beta=0.8):
     """Two-stage long-sequence ranking loss: alpha·GSU + beta·ESU softmax CE
     over 2-class logits."""
     labels = batch["label"].reshape(-1).to(torch.long)
@@ -86,7 +107,7 @@ def gsu_esu(outputs, batch, alpha=0.2, beta=0.8):
     return loss, {"gsu_ce": gsu, "esu_ce": esu}
 
 
-def model_loss(outputs, batch):
+def model_loss(outputs, batch, mesh=None):
     """The model computed its own total loss."""
     loss = torch.as_tensor(outputs["loss"]).to(torch.float32).reshape(())
     return loss, {"model_loss": loss}

@@ -40,14 +40,18 @@ selected by config. The JAX package's names and call shapes are kept:
   ``MultiHeadAttention``) their share over 'model'
   (``models.registry.place_on_mesh``). The gradients are averaged over
   'data', so they are the global batch's, as GSPMD's are in the JAX
-  package; so are the logged loss, the used-id L2 (each row the global
-  batch touches counts once), the global-norm clip, the ``BatchNorm``
-  moments and the metrics (a batch whose rows do not divide over 'data'
-  is whole on every rank and counted once). A model-only mesh (data = 1)
-  runs every model in every engine but ``host_adam``, which raises the
-  JAX package's error; data > 1 runs the models of
-  ``DATA_PARALLEL_MODELS`` with the ``bce`` loss, and the rest raise
-  (ROADMAP).
+  package; so are the logged loss and terms, the used-id L2 (each row
+  the global batch touches counts once), the global-norm clip, the
+  ``BatchNorm`` moments and the metrics (a batch whose rows do not divide
+  over 'data' is whole on every rank and counted once). The terms that
+  couple the batch's rows read the global batch over 'data'
+  (``core.collectives.gather_batch``, whose backward returns every rank's
+  cotangent to the rows' owner): the in-batch softmax's items and its
+  accuracy (``losses.tower_logits``), DIEN's rolled negatives and DMR's
+  auxiliary softmax, each masked mean's count (``data_mean_share``), and
+  the sampled negatives (each rank keeps its block of the global draw).
+  Every model trains on every mesh in every engine the JAX package
+  allows there: ``host_adam`` on more than one device raises its error.
 """
 
 from __future__ import annotations
@@ -86,11 +90,11 @@ from tpurec_torch.embedding.modules import (
 )
 from tpurec_torch.embedding.ops import pad_vocab, row_sharded_lookup
 from tpurec_torch.models import build_model
-from tpurec_torch.models.registry import sharded_weights
+from tpurec_torch.models.registry import replicated_batch, sharded_weights
 from tpurec_torch.models.mind import sampling_generator
 from tpurec_torch.ops import embedding_update as eu
 from tpurec_torch.train import checkpoint as ckpt_lib
-from tpurec_torch.train.losses import add_auxiliary, get_loss
+from tpurec_torch.train.losses import add_auxiliary, get_loss, tower_logits
 
 # table optimizers of the sparse engines, with their state's init
 _TABLE_OPT_INIT = {
@@ -101,9 +105,6 @@ _TABLE_OPT_INIT = {
     "host_adam": None,  # moments in a HostAdamStore
 }
 _FUSED_BACKWARDS = ("permute", "sort_payload", "xla_packed")
-# the models whose batch reductions are global on data > 1 (each proven by a
-# parity test against the JAX package's mesh run)
-DATA_PARALLEL_MODELS = ("din", "fm")
 
 
 class DeviceBatch(dict):
@@ -147,16 +148,9 @@ def resolve_embedding_engine(
 def _check_engine(config: ExperimentConfig, info: DataInfo, mesh: MeshContext) -> None:
     """Refuse what the configured engine cannot train, as the JAX package
     does (``trainer.py:397-401``, ``:633-643``; ``host_adam`` on a mesh,
-    ``:441-445``), and what the port does not train on a data axis yet:
-    the models and losses without global batch reductions there."""
+    ``:441-445``), and nothing else."""
     train = config.train
     oc = train.optimizer
-    if mesh.n_data > 1 and (config.model.name not in DATA_PARALLEL_MODELS or train.loss != "bce"):
-        raise NotImplementedError(
-            f"model {config.model.name!r} with loss {train.loss!r} on data={mesh.n_data}: "
-            f"only {list(DATA_PARALLEL_MODELS)} with 'bce' have global batch "
-            "reductions on a data axis yet; the rest is ROADMAP slice 7"
-        )
     if not train.sparse_embedding:
         return
     if oc.embedding_optimizer not in _TABLE_OPT_INIT:
@@ -447,6 +441,23 @@ class Trainer:
             metrics[n] = Mean() if n == "accuracy" else AUC()
         return MetricBundle(metrics, device=self.device, group=self.mesh_ctx.data_group)
 
+    def _batch_mesh(self, batch) -> Optional[MeshContext]:
+        """The mesh whose 'data' axis splits ``batch``'s rows; None when
+        this rank holds the whole batch (one data rank, or a replicated
+        batch)."""
+        m = self.mesh_ctx
+        return m if m.n_data > 1 and not getattr(batch, "replicated", False) else None
+
+    def _forward_context(self, model: nn.Module, batch, generator) -> contextlib.ExitStack:
+        """A training forward's context: the sampled negatives drawn from
+        ``generator``, and on a replicated batch the modules that read the
+        global batch over 'data' reading this rank's, which is whole."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(sampling_generator(model, generator))
+        if getattr(batch, "replicated", False):
+            stack.enter_context(replicated_batch(model))
+        return stack
+
     def _counted_elsewhere(self, batch) -> bool:
         """Whether this rank's rows of ``batch`` are counted by another rank:
         a replicated batch's rows count once, on data rank 0."""
@@ -482,12 +493,9 @@ class Trainer:
         elif loss_name == "in_batch_softmax":
             if "logits" in outputs:
                 hit = (outputs["logits"].argmax(dim=-1) == 0).to(torch.float32)
-            else:
-                u = outputs["user_embedding"].to(torch.float32)
-                v = outputs["item_embedding"].to(torch.float32)
-                logits = u @ v.T
-                arange = torch.arange(logits.shape[0], device=logits.device)
-                hit = (logits.argmax(dim=-1) == arange).to(torch.float32)
+            else:  # the loss's logits over the global batch's items
+                logits, labels = tower_logits(outputs, self._batch_mesh(batch))
+                hit = (logits.argmax(dim=-1) == labels).to(torch.float32)
             upd["accuracy"] = (hit,)
         if weight is not None:
             upd = {k: v + (weight.reshape(-1),) for k, v in upd.items()}
@@ -577,8 +585,11 @@ class Trainer:
             return self._fused_step(state, batch, metric_state)
         return self._sparse_step(state, batch, metric_state)
 
-    def _loss(self, outputs, batch):
-        loss, logs = self.loss_fn(outputs, batch)
+    def _loss(self, outputs, inputs, batch):
+        """The loss of ``outputs`` on ``inputs`` (the model's batch, ids
+        rewritten by a sparse engine); ``batch`` is the step's batch as
+        ``device_batch`` gave it."""
+        loss, logs = self.loss_fn(outputs, inputs, mesh=self._batch_mesh(batch))
         loss, aux_logs = add_auxiliary(loss, outputs)
         logs.update(aux_logs)
         return loss, logs
@@ -606,31 +617,37 @@ class Trainer:
             offset += t.numel()
 
     def _finish(self, state, metric_state, loss, logs, outputs, batch):
-        """The step's end: the logged loss (the global batch's) and the
-        metric updates. ``batch`` is the step's batch as ``device_batch``
-        gave it; the loss ``Mean`` takes every rank's loss, so every batch,
-        replicated or not, weighs n_data there."""
+        """The step's end: the logged loss and terms (the global batch's)
+        and the metric updates. ``batch`` is the step's batch as
+        ``device_batch`` gave it; the loss ``Mean`` takes every rank's loss,
+        so every batch, replicated or not, weighs n_data there."""
         self._mark("metrics")
         loss = loss.detach()
-        if self.mesh_ctx.n_data > 1:  # the global batch's loss
-            loss = all_reduce_(loss.clone(), self.mesh_ctx.data_group) / self.mesh_ctx.n_data
+        logs = {k: v.detach() for k, v in logs.items()}
+        if self.mesh_ctx.n_data > 1:
+            # each rank's loss and terms (the used-id L2 is global already),
+            # averaged in one all-reduce: the global batch's
+            local = [k for k in logs if k != "used_id_l2"]
+            flat = torch.stack([loss] + [logs[k].reshape(()) for k in local])
+            flat = all_reduce_(flat, self.mesh_ctx.data_group) / self.mesh_ctx.n_data
+            loss = flat[0]
+            logs.update(zip(local, flat[1:]))
         outputs = {k: v.detach() for k, v in outputs.items()}
         metric_state = self.metrics.update(
             metric_state, loss=(loss,), **self._metric_updates(outputs, batch)
         )
         self._mark("end")
-        logs = {k: v.detach() for k, v in logs.items()}
         return dataclasses.replace(state, step=state.step + 1), metric_state, logs | {"loss": loss}
 
     def _dense_step(self, state, batch, metric_state):
         model = state.model.train()
         l2_coeff = self.config.model.embedding.used_id_l2
         self._mark("forward")
-        with sampling_generator(model, state.generator), (
+        with self._forward_context(model, batch, state.generator), (
             record_used_id_l2(model) if l2_coeff > 0 else contextlib.nullcontext()
         ) as reg:
             outputs = model(batch)
-        loss, logs = self._loss(outputs, batch)
+        loss, logs = self._loss(outputs, batch, batch)
         if reg:
             penalty = torch.stack(reg).sum()
             loss = loss + l2_coeff * penalty
@@ -682,11 +699,11 @@ class Trainer:
             offset += x.numel()
             k = batch[name].shape[0]
             inputs[name] = pos[mesh.data_index * k : (mesh.data_index + 1) * k] if gathered else pos
-        with sparse_rows(model, rows, "unique"), sampling_generator(model, state.generator), (
+        with sparse_rows(model, rows, "unique"), self._forward_context(model, batch, state.generator), (
             record_used_id_l2(model) if l2_coeff > 0 else contextlib.nullcontext()
         ) as reg:
             outputs = model(inputs)
-        loss, logs = self._loss(outputs, inputs)
+        loss, logs = self._loss(outputs, inputs, batch)
         if reg:
             penalty = torch.stack(reg).sum()
             loss = loss + l2_coeff * penalty
@@ -777,9 +794,9 @@ class Trainer:
             first[1:, 0] = (plan.sids[1:] != plan.sids[:-1]).to(torch.float32)
             first_orig = eu.unpermute_rows(first, plan)[:, 0]
         inputs = self._identity_positions(batch, present)
-        with sparse_rows(model, rows, "direct"), sampling_generator(model, state.generator):
+        with sparse_rows(model, rows, "direct"), self._forward_context(model, batch, state.generator):
             outputs = model(inputs)
-        loss, logs = self._loss(outputs, inputs)
+        loss, logs = self._loss(outputs, inputs, batch)
         if first_orig is not None:
             reg = sum(
                 0.5 * (first_orig * r.reshape(n_ids, -1).to(torch.float32).square().sum(-1)).sum()
@@ -857,9 +874,9 @@ class Trainer:
             rows = [row_sharded_lookup(t.embedding, ids_all, mesh) for t in tables]
         rows = [r.requires_grad_() for r in rows]
         inputs = self._identity_positions(batch, present)
-        with sparse_rows(model, rows, "direct"), sampling_generator(model, state.generator):
+        with sparse_rows(model, rows, "direct"), self._forward_context(model, batch, state.generator):
             outputs = model(inputs)
-        loss, logs = self._loss(outputs, inputs)
+        loss, logs = self._loss(outputs, inputs, batch)
         self._update_params(state, loss)
         step = state.step + 1
         lr, hp = oc.learning_rate, (oc.b1, oc.b2, oc.eps)
@@ -903,7 +920,7 @@ class Trainer:
         m = self.mesh_ctx
         with torch.no_grad():
             outputs = model(batch)
-            loss, _ = self.loss_fn(outputs, batch)
+            loss, _ = self.loss_fn(outputs, batch, mesh=self._batch_mesh(batch))
             loss, _ = add_auxiliary(loss, outputs)
             updates = self._metric_updates(outputs, batch)
             w = batch.get("__weight__")
