@@ -21,6 +21,7 @@
     python3 chip_smoke.py --sequence  # phase 14 alone (DIEN, DSIN, SDM and the FiBiNET++ family)
     python3 chip_smoke.py --long-seq  # phase 15 alone (SIM, CAN, ETA, DMR, DMT, FinalMLP, SDIM)
     python3 chip_smoke.py --mesh      # phase 16 alone (the mesh: ranks over NCCL and gloo)
+    python3 chip_smoke.py --blocks    # phase 17 alone (the building blocks' options)
 
 Needs one CUDA card and ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``); ``triton``
 only for ``--fm-ab`` and ``--cross-ab`` against a parent whose #1 and #2
@@ -89,7 +90,9 @@ checkout and exits non-zero on the first phase that fails. Phases:
    params, ``loss='bce'``, Adam lr 1e-3 eps 1e-7, a B=8192 batch made as
    ``bench.py:75-87`` with seed 1), through ``Trainer(cfg, info)`` →
    ``init_state`` → ``device_batch`` → ``train_step``:
-   - the DIN backward kernel against ``din_attention_bwd_plain`` at the
+   - the DIN backward kernel against ``din_attention_bwd_plain`` in fp64
+     rounded to fp32 (``bwd_reference``; the fp32 plain version's readings
+     are printed as ``plain_fp32``) at the
      training shape (with and without PReLU slopes), at ragged shapes and
      with a mask with holes (an all-zero row, a row live only at its last
      step), each output's error in units of its limit (``bwd_reading``); a
@@ -443,8 +446,36 @@ checkout and exits non-zero on the first phase that fails. Phases:
       ``MESH_STEPS`` dense steps (#4 and #5 once a step on each rank), #4
       and #5 on each rank's own inputs (``check_step_attention``, #5 in
       fp64), ``MESH_FUSED_STEPS`` fused steps (#9 once a step) and #9 on
-      each rank's stream (``check_step_scatter``).
+      each rank's stream (``check_step_scatter``); last, back on (2, 2), a
+      tensor-parallel MLP over DIN's tower (200, 80) with LayerNorm, gelu,
+      a softmax output and dropout 0.1 (``MESH_BLOCKS``): one fp32
+      training forward and backward over each data rank's 4096 rows
+      against this process's one-device run at global B=8192, the dropout
+      the one-device draw (``BLOCKS_FP32_TOL``).
     Phase 16's launches sit under ``launches_by_path`` of #4, #5 and #9.
+17. the building blocks' options, which no registry model sets and which
+    run in plain PyTorch in both packages (no kernel, so nothing here adds
+    to a launch count); ``--blocks`` runs this phase alone. Each case is
+    built on the CPU from a seed, copied to the card, run there over
+    B=8192 rows with a random cotangent (its dropout drawn from a CUDA
+    generator, each mask recorded) and on the CPU over the first 256 rows
+    (a training BatchNorm over all 8192) with the same masks; the output,
+    the input gradient and the running statistics on those rows are held
+    at ``BLOCKS_FP32_TOL`` (fp32) or ``BLOCKS_BF16_RTOL`` of the largest
+    value (bf16), and a mask off by one row, and (fp32) torch's exact gelu
+    in place of flax's tanh form, must read above the limit:
+    - the MLP over DIN's tower (phase 6's input width → 200 → 80), fp32
+      and bf16: sigmoid, tanh, gelu, a softmax output, BatchNorm in
+      training (the running statistics too) and in eval mode (redrawn
+      running statistics), LayerNorm, dropout 0.1;
+    - ``MultiHeadAttention`` at AutoInt's Criteo setting (D=16, 2 heads of
+      32) over phase 11's 39 ``wide_and_deep`` fields, ``out_dim=32`` (no
+      residual), no LayerNorm, dropout 0.1, fp32 and bf16;
+    - dropout's draw at (8192, 200): the keep count within 6σ of the
+      binomial's mean, the same generator state the same mask,
+      ``apply_dropout_mask`` and its gradient equal to the CPU's;
+    - each case's device ms of the forward and of the forward and
+      backward, the draw's and the masking's.
 
 TF32 is off for the whole run (``allow_tf32 = False`` for matmul and
 cuDNN), so every fp32 comparison is fp32 on both sides.
@@ -456,6 +487,7 @@ The second-to-last line is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import gc
 import json
@@ -1219,10 +1251,22 @@ def din_bwd_bound(args):
     return (*bound(nbytes, ops), nbytes / HBM_BYTES_PER_S * 1e3, live)
 
 
+def bwd_reference(kernels, *args):
+    """The plain backward of ``args`` (the forward's inputs, then gp and gs)
+    in fp64, rounded to fp32: the reference #5 is held to. At a live step
+    whose pre-activation lies within fp32's rounding of PReLU's kink the
+    fp32 plain version takes the other slope, where the kernel takes such
+    lin in fp64."""
+    return [w.float() for w in kernels.din_attention_bwd_plain(*[a.double() for a in args])]
+
+
 def check_din_backward(torch, kernels, shape=DIN_SHAPE):
-    """The DIN backward kernel against its plain version (phase 6). Another
-    ``shape`` (phase 12's key width 64) takes the readings, the broken
-    versions, the same bits and the times at that shape alone."""
+    """The DIN backward kernel against its plain version in fp64 rounded to
+    fp32 (``bwd_reference``; phase 6). The fp32 plain version's readings
+    against the same reference are printed under ``plain_fp32``, not
+    checked. Another ``shape`` (phase 12's key width 64) takes the
+    readings, the broken versions, the same bits and the times at that
+    shape alone."""
     gen = torch.Generator(device="cuda").manual_seed(1)
 
     def case(b, l, d, h):
@@ -1236,14 +1280,15 @@ def check_din_backward(torch, kernels, shape=DIN_SHAPE):
     args, cot = case(b, l, d, h)
     relu = args[:6] + [torch.zeros_like(args[6])]
     no_mask = args[:2] + [torch.ones_like(args[2])] + args[3:]
-    readings, err = {}, 0.0
+    readings, plain_fp32, err = {}, {}, 0.0
     for name, a in (("prelu", args), ("relu", relu)):
         got = kernels.din_attention_bwd_fused(*a, *cot)
-        want = kernels.din_attention_bwd_plain(*a, *cot)
+        want = bwd_reference(kernels, *a, *cot)
         readings[name] = bwd_reading(got, want)
+        plain_fp32[name] = bwd_reading(kernels.din_attention_bwd_plain(*a, *cot), want)
         err = max(err, max(float((g - w).abs().max()) for g, w in zip(got, want)))
     # what a backward that ignores the mask or drops the slopes would read
-    want = kernels.din_attention_bwd_plain(*args, *cot)
+    want = bwd_reference(kernels, *args, *cot)
     readings["broken_mask_ignored"] = bwd_reading(kernels.din_attention_bwd_plain(*no_mask, *cot), want)
     readings["broken_alpha_dropped"] = bwd_reading(kernels.din_attention_bwd_plain(*relu, *cot), want)
     # the kernel's unfolded products in single TF32 (3xTF32 is what holds)
@@ -1255,9 +1300,10 @@ def check_din_backward(torch, kernels, shape=DIN_SHAPE):
     for other in ((1003, 64, 32, 36), (37, 1, 32, 36), (300, 64, 8, 36), (300, 64, 16, 36),
                   (300, 48, 64, 36), (257, 33, 16, 7)) if serving else ():
         a, c = case(*other)
-        readings["x".join(map(str, other))] = bwd_reading(
-            kernels.din_attention_bwd_fused(*a, *c), kernels.din_attention_bwd_plain(*a, *c)
-        )
+        key = "x".join(map(str, other))
+        want = bwd_reference(kernels, *a, *c)
+        readings[key] = bwd_reading(kernels.din_attention_bwd_fused(*a, *c), want)
+        plain_fp32[key] = bwd_reading(kernels.din_attention_bwd_plain(*a, *c), want)
     if serving:
         # a mask with holes (not a prefix), a row whose only live step is
         # the last, and an all-zero row
@@ -1266,10 +1312,11 @@ def check_din_backward(torch, kernels, shape=DIN_SHAPE):
         a[2][1] = 0.0
         a[2][2] = 0.0
         a[2][2, -1] = 1.0
-        readings["mask_with_holes"] = bwd_reading(
-            kernels.din_attention_bwd_fused(*a, *c), kernels.din_attention_bwd_plain(*a, *c)
-        )
-    print(f"din backward readings at {list(shape)} (error / limit):", json.dumps(readings), flush=True)
+        want = bwd_reference(kernels, *a, *c)
+        readings["mask_with_holes"] = bwd_reading(kernels.din_attention_bwd_fused(*a, *c), want)
+        plain_fp32["mask_with_holes"] = bwd_reading(kernels.din_attention_bwd_plain(*a, *c), want)
+    print(f"din backward readings at {list(shape)} (error / limit, against the fp64 plain version):",
+          json.dumps(dict(readings, plain_fp32=plain_fp32)), flush=True)
     for name, r in readings.items():
         worst = max(r.values())
         if name.startswith("broken"):
@@ -4354,12 +4401,9 @@ def attention_bwd_case(torch, kernels, args, out=None) -> tuple:
     gp = 0 and gs = 0 at every masked step (DIEN's: its scores go through a
     softmax over the live steps) it computes the same gradients.
 
-    The reference is the plain version in fp64, rounded to fp32: at a live
-    step whose pre-activation lies within fp32's rounding of PReLU's kink
-    (|lin| ~1e-9; one such element in ~10^7 is a few in a model's step)
-    the fp32 plain version takes the other slope, while the kernel takes
-    such lin in fp64 (the kink repair). ``plain_fp32`` reads the fp32 plain
-    version against the same reference."""
+    The reference is ``bwd_reference`` (|lin| ~1e-9 at the kink: one such
+    element in ~10^7 is a few in a model's step). ``plain_fp32`` reads the
+    fp32 plain version against the same reference."""
     b, l, d = args[1].shape
     h = args[3].shape[1]
     gp, gs = args[7], args[8]
@@ -4368,7 +4412,7 @@ def attention_bwd_case(torch, kernels, args, out=None) -> tuple:
     scaled = args[:7] + [gp * scale, gs * scale]
     q, k, m, w1, b1, w2, alpha, sgp, sgs = scaled
     got = kernels.din_attention_bwd_fused(*scaled)
-    want = [w.float() for w in kernels.din_attention_bwd_plain(*[a.double() for a in scaled])]
+    want = bwd_reference(kernels, *scaled)
     worst = lambda x: max(bwd_reading(x, want).values())  # noqa: E731
     r = dict(kernel=worst(got), plain_fp32=worst(kernels.din_attention_bwd_plain(*scaled)),
              broken_mask_ignored=worst(kernels.din_attention_bwd_plain(q, k, torch.ones_like(m), *scaled[3:])),
@@ -4383,7 +4427,7 @@ def attention_bwd_case(torch, kernels, args, out=None) -> tuple:
     if out is not None:
         same = same and all(torch.equal(x, y) for x, y in zip(first, out))
     r["same_bits"] = same
-    want = [w.float() for w in kernels.din_attention_bwd_plain(*[a.double() for a in args])]
+    want = bwd_reference(kernels, *args)
     bound_ms, bound_by, bytes_ms, live = din_bwd_bound(args)
     rec = dict(name="din_attention_bwd", shape=[b, l, d, h], live_steps=live,
                max_abs_err=max(float((g - w).abs().max()) for g, w in zip(first, want)),
@@ -5518,6 +5562,7 @@ def mesh_world_four(torch, kernels, eu, directory) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out["data41"] = mesh_data41(torch, kernels, eu, directory)
+    out["blocks"] = mesh_blocks(torch, directory)
     return out
 
 
@@ -5598,6 +5643,8 @@ def run_mesh(torch, kernels, eu, workdir, card):
     torch.cuda.empty_cache()
     # 16b's (4, 1) references: DIEN, DMR and MIND sampled on one device, fp32
     data41_times = data41_reference(torch, workdir)
+    # 16b's tensor-parallel MLP with LayerNorm, a softmax and dropout
+    mesh_blocks_reference(torch, workdir)
 
     t0 = time.perf_counter()
     (one,) = mesh_world(torch, "nccl1", 1, workdir)
@@ -5645,7 +5692,7 @@ def run_mesh(torch, kernels, eu, workdir, card):
                             one_device_step_p50_ms=statistics.median(fm_times[1:])),
             dryrun=r["dryrun"],
             cp=dict(reading=r["cp"]["reading"], launches=r["cp"]["launches"], host_ms=r["cp"]["host_ms"]),
-            data41=mesh41_summary(r["data41"], data41_times)))
+            data41=mesh41_summary(r["data41"], data41_times), blocks=r["blocks"]))
     print("phase 16b, a world of four ranks on one card over gloo, mesh (2, 2), (1, 4) and (4, 1):",
           json.dumps(summary), flush=True)
     launches = {
@@ -5666,6 +5713,278 @@ def run_mesh(torch, kernels, eu, workdir, card):
                                 for r in four))
     print("phase 16 launches (all ranks):", json.dumps(launches), flush=True)
     return launches, dict(world_one=world_one, world_four=summary)
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the building blocks' options (plain PyTorch in both packages: no
+# kernel of either is on this path)
+BLOCKS_ROWS = 256  # rows held against the CPU port
+BLOCKS_FP32_TOL = dict(atol=1e-5, rtol=1e-4)  # card against CPU, TF32 off: sums in other orders
+BLOCKS_BF16_RTOL = 2.0**-5  # of each output's largest |value|, as FM_FAMILY_RTOL
+BLOCKS_DROPOUT = 0.1
+BLOCKS_SIGMAS = 6.0  # a draw's keep count against the binomial's mean
+BLOCKS_MLP = {
+    # case: the options of an MLP over DIN's tower (``din_mlp_width()`` →
+    # 200 → 80), with whether it runs in training mode
+    "sigmoid": (dict(activation="sigmoid"), True),
+    "tanh": (dict(activation="tanh"), True),
+    "gelu": (dict(activation="gelu"), True),
+    "softmax": (dict(out_activation="softmax"), True),
+    "bn_train": (dict(use_bn=True), True),
+    "bn_eval": (dict(use_bn=True), False),
+    "ln": (dict(use_ln=True), True),
+    "dropout": (dict(dropout_rate=BLOCKS_DROPOUT), True),
+}
+DIN_MLP = (200, 80)
+# AutoInt's Criteo setting (phase 11: D=16, 2 heads of 32) over the
+# ``wide_and_deep`` schema's 26 + 13 fields, projected to 32, no LayerNorm
+BLOCKS_MHA = dict(out_dim=32, use_layer_norm=False, dropout_rate=BLOCKS_DROPOUT)
+BLOCKS_FIELDS = 39
+# phase 16b's tensor-parallel MLP on (2, 2)
+MESH_BLOCKS = dict(hidden_dims=DIN_MLP, activation="gelu", out_activation="softmax", use_ln=True,
+                   dropout_rate=BLOCKS_DROPOUT)
+
+
+def din_mlp_width() -> int:
+    """The input width of DIN's ``mlp`` at phase 6's configuration."""
+    from tpurec_torch.models import build_model
+
+    model = build_model(din_train_config("float32").model, din_info(), device="cpu")
+    return model.mlp.dense_0.weight.shape[1]
+
+
+@contextlib.contextmanager
+def recorded_masks(masks):
+    """Every dropout draw in the body appended to ``masks``."""
+    from tpurec_torch.ops.mlp import Dropout
+
+    draw = Dropout.keep_mask
+
+    def record(self, *args, **kwargs):
+        keep = draw(self, *args, **kwargs)
+        masks.append(keep)
+        return keep
+
+    with mock.patch.object(Dropout, "keep_mask", record):
+        yield
+
+
+@contextlib.contextmanager
+def replayed_masks(masks, rows, shift=0):
+    """The body's dropout draws are ``masks`` in order, their first ``rows``
+    rows (rolled by ``shift`` rows: a wrong mask)."""
+    from tpurec_torch.ops.mlp import Dropout
+
+    queue = list(masks)
+
+    def replay(self, shape, device, columns=None):
+        keep = queue.pop(0)[:rows].roll(shift, 0).to(device)
+        check(tuple(keep.shape) == tuple(shape), f"a replayed mask {tuple(keep.shape)} for {tuple(shape)}")
+        return keep
+
+    with mock.patch.object(Dropout, "keep_mask", replay):
+        yield
+    check(not queue, f"{len(queue)} dropout masks drawn on the card were not drawn on the CPU")
+
+
+def blocks_reading(torch, got, want, bf16) -> float:
+    """Error over limit (at most 1 passes): fp32 elementwise at
+    ``BLOCKS_FP32_TOL``, bf16 at ``BLOCKS_BF16_RTOL`` of the largest |want|."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    if bf16:
+        return scaled_ratio(got, want, BLOCKS_BF16_RTOL)
+    return tol_ratio(got, want, **BLOCKS_FP32_TOL)
+
+
+def blocks_case(torch, module, x, g, train, cpu_rows=BLOCKS_ROWS, gelu_exact=False):
+    """``module`` (built on the CPU, its weights seeded) copied to the card
+    and run there over ``x`` (on the card) with cotangent ``g``, its dropout
+    masks drawn from a CUDA generator and recorded; then on the CPU over
+    the first ``cpu_rows`` rows with the same masks. Returns the readings
+    of the output and the input gradient on the first ``BLOCKS_ROWS`` rows
+    (and of the running statistics), with the broken versions (a mask off
+    by one row; with ``gelu_exact``, torch's exact gelu on the card: an
+    fp32 check only, bf16's limit lies above their difference),
+    the device ms of the forward and of the forward and backward, and
+    whether the card's output is finite."""
+    from tpurec_torch.ops import mlp as tmlp
+
+    bf16 = x.dtype == torch.bfloat16
+    card = copy.deepcopy(module).to("cuda").train(train)
+    module.train(train)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    masks = []
+    xc = x.detach().clone().requires_grad_()
+    with tmlp.dropout_generator(card, gen), recorded_masks(masks):
+        out = card(xc)
+    out.backward(g)
+    xh = x[:cpu_rows].detach().cpu().requires_grad_()
+    with replayed_masks(masks, cpu_rows):
+        want = module(xh)
+    want.backward(g[:cpu_rows].cpu())
+    n = BLOCKS_ROWS
+    r = dict(out=blocks_reading(torch, out[:n], want[:n], bf16),
+             dx=blocks_reading(torch, xc.grad[:n], xh.grad[:n], bf16))
+    for (name, a), b in zip(card.named_buffers(), module.buffers()):
+        r[name] = blocks_reading(torch, a, b, bf16)
+    if masks:
+        with torch.no_grad(), replayed_masks(masks, cpu_rows, shift=1):
+            r["broken_mask_shifted"] = blocks_reading(torch, out[:n], module(xh)[:n], bf16)
+    if gelu_exact:
+        with torch.no_grad(), mock.patch.dict(tmlp._SIMPLE_ACTS, gelu=torch.nn.functional.gelu), \
+                tmlp.dropout_generator(card, gen):
+            r["broken_gelu_exact"] = blocks_reading(torch, card(xc)[:n], want[:n], bf16)
+    with tmlp.dropout_generator(card, gen):
+        fwd_ms = device_ms(torch, lambda: card(xc))
+        step_ms = device_ms(torch, lambda: card(xc).backward(g))
+    finite = bool(torch.isfinite(out).all()) and bool(torch.isfinite(xc.grad).all())
+    return dict(readings=r, fwd_ms=fwd_ms, fwd_bwd_ms=step_ms, finite=finite, shape=list(out.shape),
+                masks=len(masks))
+
+
+def check_dropout_draw(torch, shape) -> dict:
+    """``Dropout``'s draw on the card at ``shape``: the keep count within
+    ``BLOCKS_SIGMAS`` of the binomial's mean, the same generator state the
+    same mask, and ``apply_dropout_mask`` with that mask (and its
+    gradient) equal to the CPU's in fp32 and bf16; device ms of a draw and
+    of the masking."""
+    from tpurec_torch.ops.mlp import Dropout, apply_dropout_mask, dropout_generator
+
+    drop = Dropout(BLOCKS_DROPOUT)
+    gen = torch.Generator(device="cuda").manual_seed(170)
+    with dropout_generator(drop, gen):
+        state = gen.get_state()
+        keep = drop.keep_mask(shape, "cuda")
+        gen.set_state(state)
+        again = drop.keep_mask(shape, "cuda")
+        draw_ms = device_ms(torch, lambda: drop.keep_mask(shape, "cuda"))
+    n, p = keep.numel(), 1.0 - BLOCKS_DROPOUT
+    z = (int(keep.sum()) - n * p) / float(np.sqrt(n * p * (1.0 - p)))
+    x = torch.randn(shape, device="cuda", generator=gen)
+    g = torch.randn(shape, device="cuda", generator=gen)
+    same = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        xc = x.to(dtype).clone().requires_grad_()
+        y = apply_dropout_mask(xc, keep, BLOCKS_DROPOUT)
+        y.backward(g.to(dtype))
+        xh = x.to(dtype).cpu().clone().requires_grad_()
+        yh = apply_dropout_mask(xh, keep.cpu(), BLOCKS_DROPOUT)
+        yh.backward(g.to(dtype).cpu())
+        same[str(dtype).split(".")[-1]] = torch.equal(y.detach().cpu(), yh.detach()) and torch.equal(
+            xc.grad.cpu(), xh.grad)
+    apply_ms = device_ms(torch, lambda: apply_dropout_mask(x, keep, BLOCKS_DROPOUT))
+    out = dict(shape=list(shape), keep_fraction=int(keep.sum()) / n, z=z, replay_same=torch.equal(keep, again),
+               equal_to_cpu=same, draw_ms=draw_ms, apply_ms=apply_ms)
+    print("phase 17, dropout's draw on the card:", json.dumps(out), flush=True)
+    check(abs(z) <= BLOCKS_SIGMAS, f"dropout keeps {out['keep_fraction']} of {n} at rate {BLOCKS_DROPOUT}: "
+                                   f"{z:.2f} sigmas off")
+    check(out["replay_same"], "dropout: the same generator state drew another mask")
+    check(all(same.values()), f"apply_dropout_mask on the card differs from the CPU: {same}")
+    return out
+
+
+def run_blocks(torch, card):
+    """Phase 17: the MLP's activations, BatchNorm (training and eval),
+    LayerNorm and dropout at DIN's tower and B=8192, and
+    ``MultiHeadAttention`` with ``out_dim``, no LayerNorm and dropout at
+    AutoInt's setting, in fp32 and bf16, on the card against the CPU port;
+    dropout's draw. Returns the summary."""
+    from tpurec_torch.initializers import init_parameters
+    from tpurec_torch.ops.attention import MultiHeadAttention
+    from tpurec_torch.ops.mlp import MLP
+
+    width = din_mlp_width()
+    gen = torch.Generator(device="cuda").manual_seed(171)
+    cases = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        x = torch.randn(TRAIN_BATCH, width, device="cuda", generator=gen).to(dt)
+        g = torch.randn(TRAIN_BATCH, DIN_MLP[-1], device="cuda", generator=gen).to(dt)
+        for seed, (case, (kw, train)) in enumerate(BLOCKS_MLP.items()):
+            mlp = init_parameters(MLP(width, DIN_MLP, dtype=dt, **kw), seed=seed)
+            cpu_rows = BLOCKS_ROWS
+            if kw.get("use_bn"):
+                bn = mlp.bn_0  # running statistics that do work in eval mode
+                bn.running_mean.normal_(0.0, 0.5, generator=torch.Generator().manual_seed(seed))
+                bn.running_var.uniform_(0.5, 1.5, generator=torch.Generator().manual_seed(seed))
+                if train:
+                    cpu_rows = TRAIN_BATCH  # the batch's moments are the whole batch's
+            cases[f"mlp_{case}_{dtype}"] = blocks_case(torch, mlp, x, g, train, cpu_rows,
+                                                        gelu_exact=case == "gelu" and dtype == "float32")
+        q = torch.randn(TRAIN_BATCH, BLOCKS_FIELDS, 16, device="cuda", generator=gen).to(dt)
+        gq = torch.randn(TRAIN_BATCH, BLOCKS_FIELDS, BLOCKS_MHA["out_dim"], device="cuda",
+                         generator=gen).to(dt)
+        mha = init_parameters(MultiHeadAttention(16, 2, 32, dtype=dt, **BLOCKS_MHA), seed=99)
+        cases[f"mha_{dtype}"] = blocks_case(torch, mha, q, gq, True)
+    draw = check_dropout_draw(torch, (TRAIN_BATCH, DIN_MLP[0]))
+    summary = dict(card=card, batch=TRAIN_BATCH, din_mlp=[width, *DIN_MLP], rows_held=BLOCKS_ROWS,
+                   limits=dict(fp32=BLOCKS_FP32_TOL, bf16_of_max=BLOCKS_BF16_RTOL), cases=cases, dropout=draw)
+    print("phase 17, the building blocks' options on the card against the CPU (error / limit):",
+          json.dumps(summary), flush=True)
+    for name, c in cases.items():
+        check(c["finite"], f"phase 17 {name}: non-finite output or gradient")
+        for key, r in c["readings"].items():
+            if key.startswith("broken"):
+                check(r > 1.0, f"phase 17 {name}: the check cannot tell a {key} version: {r}")
+            else:
+                check(r <= 1.0, f"phase 17 {name}: {key} on the card against the CPU: {r}")
+        want_masks = 1 if "dropout" in name or name.startswith("mha") else 0
+        check(c["masks"] == want_masks, f"phase 17 {name}: {c['masks']} dropout draws, not {want_masks}")
+    return summary
+
+
+def mesh_blocks_reference(torch, directory) -> None:
+    """16b's tensor-parallel MLP (``MESH_BLOCKS`` over DIN's tower) on one
+    device: one fp32 training forward and backward at B=8192 with its
+    dropout drawn from a seeded CUDA generator, saved with its weights and
+    inputs for the ranks."""
+    from tpurec_torch.initializers import init_parameters
+    from tpurec_torch.ops.mlp import MLP, dropout_generator
+
+    width = din_mlp_width()
+    mlp = init_parameters(MLP(width, tp_axis="model", **MESH_BLOCKS).cuda(), seed=16)
+    gen = torch.Generator(device="cuda").manual_seed(160)
+    x = torch.randn(TRAIN_BATCH, width, device="cuda", generator=gen).requires_grad_()
+    g = torch.randn(TRAIN_BATCH, DIN_MLP[-1], device="cuda", generator=gen)
+    with dropout_generator(mlp, torch.Generator(device="cuda").manual_seed(161)):
+        out = mlp.train()(x)
+    out.backward(g)
+    torch.save(dict(state={k: v.cpu() for k, v in mlp.state_dict().items()}, x=x.detach().cpu(), g=g.cpu(),
+                    out=out.detach().cpu(), dx=x.grad.cpu()), os.path.join(directory, "mesh_blocks_ref.pt"))
+
+
+def mesh_blocks(torch, directory) -> dict:
+    """16b's tensor-parallel MLP on (2, 2): this rank's share of the
+    one-device weights, one fp32 training forward and backward over its
+    data block of the same batch, its dropout the one-device draw: the
+    output and the input gradient against the one-device run's rows."""
+    from tpurec_torch.config import MeshConfig
+    from tpurec_torch.core.collectives import local_share
+    from tpurec_torch.core.mesh import make_mesh
+    from tpurec_torch.models.registry import place_on_mesh, sharded_weights
+    from tpurec_torch.ops.mlp import MLP, dropout_generator
+
+    ref = torch.load(os.path.join(directory, "mesh_blocks_ref.pt"))
+    mesh = make_mesh(MeshConfig(**MESH_2X2))
+    mlp = MLP(ref["x"].shape[1], tp_axis="model", **MESH_BLOCKS).cuda()
+    place_on_mesh(mlp, mesh)
+    state = dict(ref["state"])
+    for key, (dim, m) in sharded_weights(mlp).items():
+        state[key] = local_share(state[key], dim, m)
+    mlp.load_state_dict(state)
+    rows = TRAIN_BATCH // mesh.n_data
+    lo = mesh.data_index * rows
+    x = ref["x"][lo:lo + rows].cuda().requires_grad_()
+    with dropout_generator(mlp, torch.Generator(device="cuda").manual_seed(161)):
+        out = mlp.train()(x)
+    out.backward(ref["g"][lo:lo + rows].cuda())
+    reading = dict(out=tol_ratio(out.detach().double().cpu(), ref["out"][lo:lo + rows].double(), **BLOCKS_FP32_TOL),
+                   dx=tol_ratio(x.grad.double().cpu(), ref["dx"][lo:lo + rows].double(), **BLOCKS_FP32_TOL))
+    shares = {n: list(p.shape) for n, p in mlp.named_parameters()}
+    check(mlp.dense_0.split == "column" and mlp.dense_1.split == "row",
+          f"the blocks' MLP on (2, 2) is not tensor parallel: {shares}")
+    check(max(reading.values()) <= 1.0, f"the blocks' MLP on (2, 2) against one device: {reading}")
+    return dict(reading=reading, shares=shares, rows=[lo, lo + rows])
 
 
 def ok_line(torch) -> dict:
@@ -5847,6 +6166,13 @@ def main() -> int:
         print(json.dumps({"card": smi, "mesh_launches_by_path": mesh_launches}), flush=True)
         print(json.dumps(ok_line(torch)), flush=True)
         return 0
+    if sys.argv[1:] == ["--blocks"]:
+        # phase 17 alone: the building blocks' options (no kernel)
+        t = time.perf_counter()
+        run_blocks(torch, smi)
+        print("phase seconds:", json.dumps({"17_blocks": time.perf_counter() - t}), flush=True)
+        print(json.dumps(ok_line(torch)), flush=True)
+        return 0
     if sys.argv[1:2] == ["--din-bwd-ab"] and len(sys.argv) == 3:
         # kernel #5 of another checkout (a git archive of the parent commit)
         # against this one's, alternating
@@ -5904,6 +6230,7 @@ def main() -> int:
         seq_records, seq_launches, _ = timed("14_sequence", run_sequence, torch, kernels, eu, workdir, smi)
         ls_records, ls_launches, _ = timed("15_long_seq", run_long_seq, torch, kernels, eu, workdir, smi)
         mesh_launches, _ = timed("16_mesh", run_mesh, torch, kernels, eu, workdir, smi)
+    timed("17_blocks", run_blocks, torch, smi)
     print("phase seconds:", json.dumps(seconds), flush=True)
     # a kernel on several paths: its launches are their sum
     fm_paths = dict(http_rank=records["fm_second_order"]["launches"], **cli_launches["fm_second_order"])

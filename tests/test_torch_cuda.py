@@ -1700,6 +1700,137 @@ def test_can_fused_step_on_card_matches_cpu(card):
 
 
 # --------------------------------------------------------------------------
+# the building blocks' options (``chip_smoke.py`` phase 17 at a small size):
+# built on the CPU from a seed, run on the card with its dropout masks drawn
+# from a CUDA generator and recorded, then on the CPU with the same masks.
+# fp32 outputs and input gradients at atol 1e-5, rtol 1e-4 (TF32 off; sums
+# in other orders); bf16 to 2^-5 of each one's largest |value|.
+BLOCK_MLP_CASES = {
+    "sigmoid": (dict(activation="sigmoid"), True),
+    "tanh": (dict(activation="tanh"), True),
+    "gelu": (dict(activation="gelu"), True),
+    "softmax": (dict(out_activation="softmax"), True),
+    "bn_train": (dict(use_bn=True), True),
+    "bn_eval": (dict(use_bn=True), False),
+    "ln": (dict(use_ln=True), True),
+    "dropout": (dict(dropout_rate=0.1), True),
+}
+
+
+def _blocks_on_card_and_cpu(card, module, x, g, train):
+    """(card output, input gradient, buffers), (CPU ...), the masks drawn."""
+    import copy
+
+    from tpurec_torch.ops import mlp as tmlp
+
+    on_card = copy.deepcopy(module).to(card).train(train)
+    module.train(train)
+    masks, draw = [], tmlp.Dropout.keep_mask
+
+    def record(self, *args, **kwargs):
+        masks.append(draw(self, *args, **kwargs))
+        return masks[-1]
+
+    xc = x.detach().to(card).clone().requires_grad_()
+    with pytest.MonkeyPatch.context() as mp, \
+            tmlp.dropout_generator(on_card, torch.Generator(device=card).manual_seed(3)):
+        mp.setattr(tmlp.Dropout, "keep_mask", record)
+        out = on_card(xc)
+    out.backward(g.to(card))
+    queue = [m.cpu() for m in masks]
+    xh = x.detach().clone().requires_grad_()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tmlp.Dropout, "keep_mask", lambda self, shape, device, columns=None: queue.pop(0))
+        want = module(xh)
+    want.backward(g)
+    assert not queue
+    got = (out.detach().cpu(), xc.grad.cpu(), [b.cpu() for b in on_card.buffers()])
+    return got, (want.detach(), xh.grad, list(module.buffers())), len(masks)
+
+
+def _assert_blocks(got, want, bf16):
+    for a, b in zip([got[0], got[1], *got[2]], [want[0], want[1], *want[2]]):
+        a, b = a.float().numpy(), b.float().numpy()
+        if bf16:
+            np.testing.assert_allclose(a, b, atol=2.0**-5 * np.abs(b).max(), rtol=0)
+        else:
+            np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(BLOCK_MLP_CASES))
+def test_mlp_options_on_card_match_cpu(card, case, dtype):
+    """The MLP's activations, BatchNorm (training, with its running
+    statistics, and eval with redrawn ones), LayerNorm and dropout on the
+    card against the CPU port, 64 rows of 24 through (16, 8)."""
+    from tpurec_torch.initializers import init_parameters
+    from tpurec_torch.ops.mlp import MLP
+
+    kw, train = BLOCK_MLP_CASES[case]
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(64, 24, generator=gen).to(dt)
+    g = torch.randn(64, 8, generator=gen).to(dt)
+    mlp = init_parameters(MLP(24, (16, 8), dtype=dt, **kw), seed=2)
+    if kw.get("use_bn"):
+        mlp.bn_0.running_mean.normal_(0.0, 0.5, generator=gen)
+        mlp.bn_0.running_var.uniform_(0.5, 1.5, generator=gen)
+    got, want, masks = _blocks_on_card_and_cpu(card, mlp, x, g, train)
+    assert masks == (1 if kw.get("dropout_rate") else 0)
+    _assert_blocks(got, want, dtype == "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_multi_head_attention_options_on_card_match_cpu(card, dtype):
+    """``MultiHeadAttention(out_dim=32, use_layer_norm=False, dropout 0.1)``
+    at AutoInt's D=16, 2 heads of 32, over 39 fields of 32 rows in training
+    mode, on the card against the CPU port (the residual dropped)."""
+    from tpurec_torch.initializers import init_parameters
+    from tpurec_torch.ops.attention import MultiHeadAttention
+
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(4)
+    q = torch.randn(32, 39, 16, generator=gen).to(dt)
+    g = torch.randn(32, 39, 32, generator=gen).to(dt)
+    mha = init_parameters(MultiHeadAttention(16, 2, 32, dtype=dt, out_dim=32, use_layer_norm=False,
+                                             dropout_rate=0.1), seed=5)
+    assert not mha.residual and mha.ln is None
+    got, want, masks = _blocks_on_card_and_cpu(card, mha, q, g, True)
+    assert masks == 1 and tuple(got[0].shape) == (32, 39, 32)
+    _assert_blocks(got, want, dtype == "bfloat16")
+
+
+@pytest.mark.cuda
+def test_dropout_draw_on_card(card):
+    """Dropout's draw on the card: the keep count of 10^6 within 6σ of the
+    binomial's mean, the same generator state the same mask, and
+    ``apply_dropout_mask`` and its gradient equal to the CPU's, fp32 and
+    bf16; training without a generator raises."""
+    from tpurec_torch.ops.mlp import Dropout, apply_dropout_mask, dropout_generator
+
+    drop = Dropout(0.1)
+    gen = torch.Generator(device=card).manual_seed(6)
+    with dropout_generator(drop, gen):
+        state = gen.get_state()
+        keep = drop.keep_mask((1000, 1000), card)
+        gen.set_state(state)
+        assert torch.equal(keep, drop.keep_mask((1000, 1000), card))
+    assert abs(int(keep.sum()) - 0.9e6) < 6.0 * np.sqrt(1e6 * 0.9 * 0.1)
+    x = torch.randn(1000, 1000, device=card, generator=gen)
+    for dt in (torch.float32, torch.bfloat16):
+        xc = x.to(dt).clone().requires_grad_()
+        xh = x.to(dt).cpu().clone().requires_grad_()
+        yc, yh = apply_dropout_mask(xc, keep, 0.1), apply_dropout_mask(xh, keep.cpu(), 0.1)
+        yc.sum().backward()
+        yh.sum().backward()
+        assert torch.equal(yc.detach().cpu(), yh.detach()) and torch.equal(xc.grad.cpu(), xh.grad)
+    with pytest.raises(RuntimeError, match="needs a generator"):
+        drop.train()(x)
+
+
+# --------------------------------------------------------------------------
 # the mesh on the card: two ranks share cuda:0 over gloo, which reduces
 # CUDA tensors through the host (NCCL allows one rank of a communicator on a
 # device). The ranks are processes of this file (``tests/test_torch_mesh.py``'s

@@ -246,14 +246,19 @@ def test_port_projections_within_4_ulp_of_jax(seed, shape):
 MHA_OPTIONS = {
     "default": {},
     "no_residual": dict(use_residual=False),
+    "out_dim": dict(out_dim=8),  # not D: the JAX module drops the residual
+    "out_dim_d": dict(out_dim=12),  # D: the residual stays
+    "no_layer_norm": dict(use_layer_norm=False),
+    "dropout_eval": dict(dropout_rate=0.3),  # the identity outside training
 }
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("option", list(MHA_OPTIONS))
 def test_multi_head_attention_options_match_jax(option, dtype):
-    """A (B, 1, 12) query over (B, 7, 6) keys with a mask (one row empty):
-    the output, its shape and dtype."""
+    """A (B, 1, 12) query over (B, 7, 6) keys with a mask (one row empty),
+    in eval mode: the output, its shape (B, 1, ``out_dim`` or 12) and
+    dtype."""
     kw = MHA_OPTIONS[option]
     jd = None if dtype == "float32" else jnp.bfloat16
     td = None if dtype == "float32" else torch.bfloat16
@@ -268,8 +273,9 @@ def test_multi_head_attention_options_match_jax(option, dtype):
     want = jm.apply(variables, jargs[0], kv=jargs[1], mask=jargs[2])
     tm = params_from_jax(tattention.MultiHeadAttention(12, 2, 3, kv_dim=6, dtype=td, **kw), variables)
     with torch.no_grad():
-        got = tm(torch.tensor(q).to(td or torch.float32), kv=torch.tensor(kv), mask=torch.tensor(mask))
-    assert tuple(got.shape) == want.shape == (5, 1, 12)
+        got = tm.eval()(torch.tensor(q).to(td or torch.float32), kv=torch.tensor(kv),
+                        mask=torch.tensor(mask))
+    assert tuple(got.shape) == want.shape == (5, 1, kw.get("out_dim") or 12)
     assert str(got.dtype).split(".")[-1] == str(want.dtype)
     _close(got.float().numpy(), _f32(want), dtype)
 

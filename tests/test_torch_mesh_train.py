@@ -13,7 +13,9 @@ Three worlds, each run once for the whole file:
   'data' and one that does not, against one device and the JAX package;
   checkpoints moved between (2, 2) and one device both ways; the export;
   ``dryrun_multichip``; the refusals; every other registry model (the
-  cases of ``tests/test_torch_mesh_data.py``) one step against one device.
+  cases of ``tests/test_torch_mesh_data.py``) one step against one device;
+  a tensor-parallel MLP with LayerNorm, BatchNorm, a softmax and dropout,
+  one training forward and backward against one device.
 - (1, 4), four ranks: din, fm, ffm and mmoe in the dense and the fused
   engine against the one-device step; din, mmoe and autoint (tensor
   parallel) and FM's three lazy-sparse engines against the JAX package's
@@ -177,6 +179,7 @@ def _mesh22(inputs):
 
     mesh = make_mesh(MeshConfig(data=2, model=2))
     out["models"] = {key: _case_run(case, mesh) for key, case in inputs["models"].items()}
+    out["blocks"] = {key: _block_run(case, mesh) for key, case in inputs["blocks"].items()}
 
     din, fm = inputs["din"], inputs["fm"]
     mesh14 = make_mesh(MeshConfig(data=1, model=4))
@@ -188,6 +191,31 @@ def _mesh22(inputs):
                                                embedding_optimizer="host_adam")),
     }
     return out
+
+
+def _block_run(case, mesh=None):
+    """One training forward and backward of a tensor-parallel ``MLP`` (the
+    case's options, flax variables, global batch, cotangent and dropout
+    seed) on ``mesh`` (None: one device): the output and input gradient of
+    this rank's rows over 'data', and the BatchNorms' running statistics."""
+    from tpurec_torch.bridge import params_from_jax
+    from tpurec_torch.models.registry import place_on_mesh
+    from tpurec_torch.ops.mlp import MLP, dropout_generator
+
+    mlp = MLP(case["x"].shape[-1], tp_axis="model", **case["kw"])
+    rows = (0, case["x"].shape[0])
+    if mesh is not None:
+        place_on_mesh(mlp, mesh)
+        r = case["x"].shape[0] // mesh.n_data
+        rows = (mesh.data_index * r, (mesh.data_index + 1) * r)
+    params_from_jax(mlp, case["variables"])
+    x = torch.from_numpy(case["x"][rows[0]:rows[1]]).requires_grad_()
+    with dropout_generator(mlp, torch.Generator().manual_seed(case["seed"])):
+        out = mlp.train()(x)
+    out.backward(torch.from_numpy(case["g"][rows[0]:rows[1]]))
+    return {"rows": rows, "out": out.detach().numpy(), "dx": x.grad.numpy(),
+            "split": {n: m.split for n, m in mlp.named_children() if n.startswith("dense_")},
+            "stats": {n: b.numpy().copy() for n, b in mlp.named_buffers()}}
 
 
 def _lazy_runs(cases, mesh=None):
@@ -497,6 +525,8 @@ def mesh22(tmp_path_factory):
                               "batches": eval_batches}
         inputs["lazy"], want["lazy"] = _lazy_cases((2, 2))
         inputs["models"], want["models"] = _model_cases((2, 2))
+        inputs["blocks"] = _block_cases()
+        want["blocks"] = {key: _block_run(case) for key, case in inputs["blocks"].items()}
         results = run_world(os.path.abspath(__file__), "mesh22", 4, directory, inputs)
         return inputs, want, results
 
@@ -681,6 +711,62 @@ def test_every_model_steps_on_2x2(mesh22, name):
     assert name in MODELS, f"{name}: no case on a mesh"
     for res in results:
         _assert_one_device(res["models"][name], want["models"][name])
+
+
+BLOCK_CASES = {
+    # the norm and the softmax read the whole width: gathered first
+    "ln_gelu_softmax": dict(hidden_dims=(12, 8, 6), activation="gelu", out_activation="softmax",
+                            use_ln=True, dropout_rate=0.3),
+    # dropout on dense_0's column share: its columns of the one-device mask
+    "relu": dict(hidden_dims=(12, 8, 6), out_activation="linear", dropout_rate=0.3),
+    # BatchNorm's moments over the global batch ('data')
+    "bn_tanh": dict(hidden_dims=(12, 8, 6), activation="tanh", use_bn=True, dropout_rate=0.3),
+}
+BLOCK_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _block_cases():
+    """Each case's flax variables (redrawn N(0, 0.5²), the variances |·|), a
+    global batch of 16 rows, a cotangent and a dropout seed."""
+    import jax
+    from flax import linen as fnn
+
+    from tpurec.ops.mlp import MLP as JMLP
+
+    cases = {}
+    for seed, (key, kw) in enumerate(BLOCK_CASES.items()):
+        rng = np.random.default_rng(500 + seed)
+        x = rng.normal(size=(16, 10)).astype(np.float32)
+        variables = fnn.unbox(JMLP(**kw).init(jax.random.key(seed), x, train=False))
+        variables = jax.tree.map(lambda a: (0.5 * rng.normal(size=a.shape)).astype(np.float32), variables)
+        if "batch_stats" in variables:
+            variables["batch_stats"] = jax.tree.map(np.abs, variables["batch_stats"])
+        cases[key] = {"kw": kw, "variables": variables, "x": x, "seed": 40 + seed,
+                      "g": rng.normal(size=(16, kw["hidden_dims"][-1])).astype(np.float32)}
+    return cases
+
+
+@pytest.mark.parametrize("key", list(BLOCK_CASES))
+def test_tensor_parallel_mlp_blocks_2x2_match_one_device(mesh22, key):
+    """A tensor-parallel MLP with the building blocks' options (LayerNorm,
+    gelu, a softmax output; BatchNorm; dropout, drawn from a seeded
+    generator) on (2, 2), one training forward and backward over each data
+    rank's half of 16 rows: the output, the input gradient and the running
+    statistics against one device's, at ``BLOCK_TOL`` (the row layer sums
+    its partial products over 'model' in another order). ``dense_0`` is
+    split by columns and ``dense_1`` by rows on every rank."""
+    _, want, results = mesh22
+    w = want["blocks"][key]
+    for res in results:
+        got = res["blocks"][key]
+        assert got["split"] == {"dense_0": "column", "dense_1": "row", "dense_2": "column"}
+        lo, hi = got["rows"]
+        assert hi - lo == 8
+        np.testing.assert_allclose(got["out"], w["out"][lo:hi], **BLOCK_TOL, err_msg="out")
+        np.testing.assert_allclose(got["dx"], w["dx"][lo:hi], **BLOCK_TOL, err_msg="dx")
+        assert set(got["stats"]) == set(w["stats"])
+        for name, stat in w["stats"].items():
+            np.testing.assert_allclose(got["stats"][name], stat, **BLOCK_TOL, err_msg=name)
 
 
 def _assert_sharded_rows(got, want, n_model):

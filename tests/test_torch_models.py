@@ -173,35 +173,91 @@ def test_bridge_raises_on_unmatched_and_missing():
     assert params_from_jax(model, variables) is model
 
 
-@pytest.mark.parametrize(
-    "kw",
-    [
-        dict(hidden_dims=(12, 6), activation="relu"),
-        dict(hidden_dims=(12, 6), activation="prelu", out_activation="linear"),
-        dict(hidden_dims=(12, 6), activation="dice"),
-        dict(hidden_dims=(12, 6, 3), activation="relu", out_activation="linear"),
-        dict(hidden_dims=(12, 6), activation="dice", out_activation="prelu"),
-    ],
-    ids=["relu", "prelu-linear", "dice", "relu-linear", "dice-prelu"],
-)
-def test_mlp_matches_jax(kw):
-    """``ops.mlp.MLP`` with PReLU/Dice in eval mode; the weights and Dice's
-    running statistics are redrawn so the normalisation does work."""
+MLP_CASES = {
+    "relu": dict(hidden_dims=(12, 6), activation="relu"),
+    "prelu-linear": dict(hidden_dims=(12, 6), activation="prelu", out_activation="linear"),
+    "dice": dict(hidden_dims=(12, 6), activation="dice"),
+    "relu-linear": dict(hidden_dims=(12, 6, 3), activation="relu", out_activation="linear"),
+    "dice-prelu": dict(hidden_dims=(12, 6), activation="dice", out_activation="prelu"),
+    # the options no registry model sets, from signed weights (``_signed``)
+    "sigmoid": dict(hidden_dims=(12, 6), activation="sigmoid"),
+    "tanh": dict(hidden_dims=(12, 6), activation="tanh", out_activation="linear"),
+    "gelu": dict(hidden_dims=(12, 6), activation="gelu", out_activation="linear"),
+    "relu-softmax": dict(hidden_dims=(12, 6), out_activation="softmax"),
+    "bn-eval": dict(hidden_dims=(12, 6, 3), use_bn=True),
+    "bn-train": dict(hidden_dims=(12, 6, 3), use_bn=True, train=True),
+    "ln": dict(hidden_dims=(12, 6, 3), activation="gelu", use_ln=True),
+    "bn-ln-bf16": dict(hidden_dims=(12, 6, 3), use_bn=True, use_ln=True, dtype="bfloat16"),
+}
+SIGNED_CASES = ("sigmoid", "tanh", "gelu", "relu-softmax", "bn-eval", "bn-train", "ln", "bn-ln-bf16")
+
+
+def _signed(variables, rng):
+    """Dense kernels N(0, 1/fan_in) and biases and running means N(0, 0.5²),
+    so that pre-activations are O(1) and of both signs (tanh, gelu and the
+    norms see more than their positive tail); scales and variances stay
+    in [0.5, 1.5]."""
+    def draw(path, a):
+        name = path[-1].key
+        if name == "kernel":
+            return (rng.normal(size=a.shape) / np.sqrt(a.shape[0])).astype(np.float32)
+        if name in ("bias", "mean"):
+            return (0.5 * rng.normal(size=a.shape)).astype(np.float32)
+        return a
+    return jax.tree_util.tree_map_with_path(draw, variables)
+
+
+@pytest.mark.parametrize("case", list(MLP_CASES))
+def test_mlp_matches_jax(case):
+    """``ops.mlp.MLP`` in eval mode (``bn-train``: training mode, with the
+    updated ``batch_stats``) against ``tpurec``'s: the output and the input
+    gradient of a random cotangent; the weights, Dice's and the BatchNorms'
+    running statistics are redrawn so the normalisation does work. fp32 at
+    ``TOL``; bf16 compute each to 2^-5 of its largest |value|."""
     from tpurec.ops.mlp import MLP as JMLP
     from tpurec_torch.ops.mlp import MLP
 
+    kw = dict(MLP_CASES[case])
+    train = kw.pop("train", False)
+    bf16 = kw.pop("dtype", None) == "bfloat16"
     rng = np.random.default_rng(4)
     x = rng.normal(size=(16, 5, 10)).astype(np.float32)
-    jm = JMLP(**kw)
+    g = rng.normal(size=(16, 5, kw["hidden_dims"][-1])).astype(np.float32)
+    jm = JMLP(**kw, dtype=jnp.bfloat16 if bf16 else None)
     variables = _numpy_tree(jm.init(jax.random.key(1), jnp.asarray(x), train=False))
     variables = jax.tree.map(
         lambda a: rng.uniform(0.5, 1.5, size=a.shape).astype(np.float32), variables
     )
-    model = params_from_jax(MLP(10, **kw).eval(), variables)
-    want = jm.apply(variables, jnp.asarray(x), train=False)
-    with torch.inference_mode():
-        got = model(torch.from_numpy(x))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    if case in SIGNED_CASES:
+        variables = _signed(variables, rng)
+    model = params_from_jax(MLP(10, **kw, dtype=torch.bfloat16 if bf16 else None), variables)
+    model.train(train)
+
+    def jax_fn(x):
+        if train:
+            return jm.apply(variables, x, train=True, mutable=["batch_stats"])
+        return jm.apply(variables, x, train=False), None
+
+    (want, stats), vjp = jax.vjp(jax_fn, jnp.asarray(x))
+    (want_dx,) = vjp((jnp.asarray(g).astype(want.dtype), jax.tree.map(jnp.zeros_like, stats)))
+    tx = torch.from_numpy(x).requires_grad_()
+    got = model(tx)
+    got.backward(torch.from_numpy(g).to(got.dtype))
+    assert str(got.dtype).split(".")[-1] == str(want.dtype)
+    pairs = [("output", got.detach(), want), ("dx", tx.grad, want_dx)]
+    if train:
+        for i in range(len(kw["hidden_dims"]) - 1):
+            jstats = stats["batch_stats"][f"bn_{i}"]
+            bn = getattr(model, f"bn_{i}")
+            pairs += [(f"bn_{i}.mean", bn.running_mean, jstats["mean"]),
+                      (f"bn_{i}.var", bn.running_var, jstats["var"])]
+    for key, t, w in pairs:
+        w = np.asarray(jnp.asarray(w).astype(jnp.float32))
+        if bf16:
+            np.testing.assert_allclose(t.float().numpy(), w, atol=2.0**-5 * np.abs(w).max(), rtol=0,
+                                       err_msg=key)
+        else:
+            np.testing.assert_allclose(t.float().numpy(), w, err_msg=key, **TOL)
 
 
 @pytest.mark.parametrize(

@@ -45,6 +45,10 @@ flax path maps to a torch key by joining with dots, with these renames:
   beside the params) loads into the port's persistent buffers of the same
   names, exactly.
 
+A leaf is read as fp32 (exact for a bf16 one) and copied into the port's
+parameter in that parameter's dtype, so a table held in bf16
+(``param_dtype``) loads flax's bits and stays bf16.
+
 It raises ``KeyError`` on a collection other than these or a leaf name it
 does not know, and the strict ``load_state_dict`` raises
 ``RuntimeError`` on any key of either side left unmatched and on any shape

@@ -65,19 +65,26 @@ INIT_SCALE = 0.05  # tables are drawn from U(-0.05, 0.05), as in the JAX package
 
 
 class EmbeddingTable(nn.Module):
-    """fp32 table ``embedding`` of shape (V_pad, *row_shape), V_pad =
-    ``pad_vocab(vocab_size)``, drawn from U(±0.05); a lookup of (...) ids
-    gives (..., *row_shape) in ``dtype`` (None = the table's fp32). The
-    lookup of every table: from the table, or from the rows of an open
-    ``sparse_rows`` in their layout."""
+    """Table ``embedding`` of shape (V_pad, *row_shape), V_pad =
+    ``pad_vocab(vocab_size)``, held in ``param_dtype`` (fp32 by default)
+    and drawn from U(±``init_scale``) (0.05 by default); a lookup of (...)
+    ids gives (..., *row_shape) in ``dtype`` (None = the table's dtype).
+    The lookup of every table: from the table, or from the rows of an open
+    ``sparse_rows`` in their layout. No config sets ``init_scale`` or
+    ``param_dtype`` (nor in the JAX package), so the trainer's engines
+    always hold fp32 tables."""
 
     def __init__(self, vocab_size: int, row_shape: Tuple[int, ...],
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, init_scale: float = INIT_SCALE,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
         self.vocab_size = vocab_size
         self.row_shape = tuple(row_shape)
-        self.embedding = nn.Parameter(torch.empty(pad_vocab(vocab_size), *row_shape))
+        self.init_scale = init_scale
+        self.embedding = nn.Parameter(
+            torch.empty(pad_vocab(vocab_size), *row_shape, dtype=param_dtype)
+        )
         # the MeshContext of a mesh of more than one device, else None
         self.mesh = None
         # the list of an open ``record_used_id_l2`` (``SharedEmbedding``s
@@ -106,14 +113,14 @@ class EmbeddingTable(nn.Module):
 
     def init_weights(self, generator: torch.Generator) -> None:
         if self.mesh is None or self.mesh.n_model == 1:
-            uniform_(self.embedding, INIT_SCALE, generator)
+            uniform_(self.embedding, self.init_scale, generator)
             return
         # every rank draws the one-device table, so the rest of the draws
         # agree with one device's; the mesh's extra padding rows are zeros
         whole = self.embedding.new_zeros(
             self.embedding.shape[0] * self.mesh.n_model, *self.row_shape
         )
-        uniform_(whole[: pad_vocab(self.vocab_size)], INIT_SCALE, generator)
+        uniform_(whole[: pad_vocab(self.vocab_size)], self.init_scale, generator)
         with torch.no_grad():
             self.embedding.copy_(local_rows(whole, self.mesh))
 
@@ -176,8 +183,9 @@ class SharedEmbedding(EmbeddingTable):
     """(V_pad, D) table over the shared id space; its lookups record the
     used-id L2 term."""
 
-    def __init__(self, vocab_size: int, dim: int, dtype: Optional[torch.dtype] = None):
-        super().__init__(vocab_size, (dim,), dtype)
+    def __init__(self, vocab_size: int, dim: int, dtype: Optional[torch.dtype] = None,
+                 init_scale: float = INIT_SCALE, param_dtype: torch.dtype = torch.float32):
+        super().__init__(vocab_size, (dim,), dtype, init_scale, param_dtype)
 
 
 class FieldAwareEmbedding(EmbeddingTable):
@@ -186,8 +194,9 @@ class FieldAwareEmbedding(EmbeddingTable):
     (``tpurec/embedding/modules.py:223-275``)."""
 
     def __init__(self, vocab_size: int, num_fields: int, dim: int,
-                 dtype: Optional[torch.dtype] = None):
-        super().__init__(vocab_size, (num_fields, dim), dtype)
+                 dtype: Optional[torch.dtype] = None, init_scale: float = INIT_SCALE,
+                 param_dtype: torch.dtype = torch.float32):
+        super().__init__(vocab_size, (num_fields, dim), dtype, init_scale, param_dtype)
 
 
 def embedding_tables(model: nn.Module) -> List[EmbeddingTable]:
@@ -235,9 +244,10 @@ class LinearEmbedding(nn.Module):
     scores with the last dim squeezed. Param path ``w/embedding`` under the
     owner's name, as in the JAX package."""
 
-    def __init__(self, vocab_size: int):
+    def __init__(self, vocab_size: int, init_scale: float = INIT_SCALE,
+                 param_dtype: torch.dtype = torch.float32, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.w = SharedEmbedding(vocab_size, 1)
+        self.w = SharedEmbedding(vocab_size, 1, dtype, init_scale, param_dtype)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         return self.w(ids).squeeze(-1)

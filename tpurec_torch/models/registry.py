@@ -43,7 +43,8 @@ def place_on_mesh(model: nn.Module, mesh) -> nn.Module:
     are whole on every rank. On data > 1 every module whose training terms
     couple the batch's rows (``batch_mesh``: DIEN's and DMR's auxiliary
     losses, the retrieval models' sampled negatives) reads the global
-    batch over 'data'."""
+    batch over 'data', and every ``Dropout`` draws the global batch's
+    mask."""
     from tpurec_torch.embedding.modules import EmbeddingTable
     from tpurec_torch.models.multitask import ExpertBank
     from tpurec_torch.ops.attention import MultiHeadAttention

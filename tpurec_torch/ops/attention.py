@@ -19,7 +19,7 @@ from torch import nn
 from tpurec_torch.core.collectives import replicated_input
 from tpurec_torch.initializers import glorot_uniform_
 from tpurec_torch.ops import kernels
-from tpurec_torch.ops.mlp import MLP, Dense, LayerNorm, gather_columns
+from tpurec_torch.ops.mlp import MLP, Dense, Dropout, LayerNorm, gather_columns
 
 _NEG_INF = -1e9
 
@@ -56,10 +56,11 @@ class MultiHeadAttention(nn.Module):
     """Masked multi-head attention of (B, Lq, D) queries over (B, Lk,
     ``kv_dim``) keys and values (the queries themselves when ``kv`` is
     None): ``q``/``k``/``v`` projections to ``num_heads`` × ``head_dim``
-    without bias, ``scaled_dot_attention``, the ``out`` projection back to
-    D, the residual when ``use_residual`` and ``ln`` (``LayerNorm``); all
-    in ``dtype``. (The JAX module's ``out_dim``, ``use_layer_norm=False``
-    and dropout come with the first ported model that sets them.)
+    without bias, ``scaled_dot_attention``, the ``out`` projection to
+    ``out_dim`` (None: D), ``Dropout(dropout_rate)`` when the rate is above
+    0, the residual when ``use_residual`` and ``out_dim`` is D (another
+    ``out_dim`` drops it, as the JAX module does), and ``ln``
+    (``LayerNorm``, built only when ``use_layer_norm``); all in ``dtype``.
 
     On a mesh (``place``) ``q``, ``k`` and ``v`` split their columns over
     'model' and ``out`` its rows, its bias whole (``ops.mlp.Dense``;
@@ -67,20 +68,25 @@ class MultiHeadAttention(nn.Module):
     axis, each rank attends with its own heads; when a share cuts a head
     (2 heads of 8 over 4 ranks), q, k and v are gathered over the axis,
     every rank attends with every head, as GSPMD computes it, and keeps
-    its own columns for ``out``."""
+    its own columns for ``out``. ``out``'s output is whole, so dropout
+    masks its rows of the one-device mask (``ops.mlp.Dropout``)."""
 
     def __init__(self, dim: int, num_heads: int, head_dim: int, kv_dim: Optional[int] = None,
-                 dtype: Optional[torch.dtype] = None, use_residual: bool = True):
+                 dtype: Optional[torch.dtype] = None, use_residual: bool = True,
+                 out_dim: Optional[int] = None, use_layer_norm: bool = True,
+                 dropout_rate: float = 0.0):
         super().__init__()
         kv_dim = dim if kv_dim is None else kv_dim
+        out_dim = out_dim or dim
         self.num_heads, self.head_dim = num_heads, head_dim
-        self.residual = use_residual
+        self.residual = use_residual and out_dim == dim
         width = num_heads * head_dim
         self.q = Dense(dim, width, dtype, use_bias=False)
         self.k = Dense(kv_dim, width, dtype, use_bias=False)
         self.v = Dense(kv_dim, width, dtype, use_bias=False)
-        self.out = Dense(width, dim, dtype)
-        self.ln = LayerNorm(dim, dtype)
+        self.out = Dense(width, out_dim, dtype)
+        self.dropout = Dropout(dropout_rate) if dropout_rate > 0 else None
+        self.ln = LayerNorm(out_dim, dtype) if use_layer_norm else None
         self.mesh = None
 
     def place(self, mesh) -> None:
@@ -119,9 +125,11 @@ class MultiHeadAttention(nn.Module):
             k = h * dh // m.n_model
             out = out.narrow(-1, m.model_index * k, k)
         out = self.out(out)
+        if self.dropout is not None:
+            out = self.dropout(out)
         if self.residual:
             out = out + q
-        return self.ln(out)
+        return out if self.ln is None else self.ln(out)
 
 
 class DinTargetAttention(nn.Module):

@@ -1,6 +1,6 @@
 """Dense tower building blocks: ``Dense``, ``MLP``, ``PReLU`` and ``Dice``
-(counterpart of ``tpurec/ops/mlp.py``), and flax's ``BatchNorm`` and
-``LayerNorm``.
+(counterpart of ``tpurec/ops/mlp.py``), and flax's ``BatchNorm``,
+``LayerNorm`` and ``Dropout``.
 
 Parameters are fp32; matmuls run in the module's compute ``dtype`` (bf16 in
 production, as the JAX package's trainer sets it). Normalisation statistics
@@ -17,11 +17,18 @@ columns of its input, sums its partial products over the axis (``psum``,
 Megatron's *g*) and adds its whole bias once, after the sum.
 ``tp_input`` lays an activation out for the next layer. Every rank draws
 the whole weight and keeps its share (``initializers.draw_share_``).
+
+Dropout in training mode draws its mask from the generator that
+``dropout_generator(model, generator)`` hands it (the trainer hands over
+``TrainState.generator``, where the JAX package uses its ``'dropout'``
+rng); the draw (``Dropout.keep_mask``) is apart from the masking
+(``apply_dropout_mask``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import contextlib
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -250,14 +257,16 @@ def _normalize(x, mean, var, epsilon, scale, bias):
 
 
 class PReLU(nn.Module):
-    """Parametric ReLU with a learnable per-channel slope (init 0.25)."""
+    """Parametric ReLU with a learnable per-channel slope (init
+    ``init_alpha``)."""
 
-    def __init__(self, num_features: int):
+    def __init__(self, num_features: int, init_alpha: float = 0.25):
         super().__init__()
+        self.init_alpha = init_alpha
         self.alpha = nn.Parameter(torch.empty(num_features))
 
     def init_weights(self, generator: torch.Generator) -> None:
-        nn.init.constant_(self.alpha, 0.25)
+        nn.init.constant_(self.alpha, self.init_alpha)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         alpha = self.alpha.to(x.dtype)
@@ -266,12 +275,13 @@ class PReLU(nn.Module):
 
 class Dice(nn.Module):
     """Data-adaptive activation: p = sigmoid(BN(x)); out = p·x + (1−p)·α·x.
-    The BatchNorm has no scale or bias, epsilon 1e-9 and flax momentum 0.99."""
+    The BatchNorm has no scale or bias, ``epsilon`` (1e-9) and flax momentum
+    0.99."""
 
-    def __init__(self, num_features: int):
+    def __init__(self, num_features: int, epsilon: float = 1e-9):
         super().__init__()
         self.alpha = nn.Parameter(torch.empty(num_features))
-        self.bn = BatchNorm(num_features, use_scale=False, use_bias=False, epsilon=1e-9)
+        self.bn = BatchNorm(num_features, use_scale=False, use_bias=False, epsilon=epsilon)
 
     def init_weights(self, generator: torch.Generator) -> None:
         nn.init.zeros_(self.alpha)
@@ -282,44 +292,146 @@ class Dice(nn.Module):
         return p * x + (1.0 - p) * alpha * x
 
 
-_SIMPLE_ACTS = {"relu": F.relu, "linear": lambda x: x}
+def apply_dropout_mask(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """flax ``nn.Dropout``'s masking: ``x / (1 − rate)`` where ``keep`` and 0
+    elsewhere, 0 everywhere at ``rate`` 1. The divisor is 1 − rate in
+    ``x``'s dtype, as JAX divides by a Python scalar, and a tensor on
+    ``x``'s device: CUDA multiplies by the reciprocal of a CPU scalar,
+    one rounding off a division."""
+    if rate == 1.0:
+        keep = torch.zeros_like(keep)  # flax: zeros, and a zero gradient
+    keep_prob = torch.full((), 1.0 - rate if rate < 1.0 else 1.0, dtype=x.dtype, device=x.device)
+    return torch.where(keep, x / keep_prob, x.new_zeros(()))
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout(rate)``: the identity outside training or at rate 0;
+    in training each element is kept with probability 1 − ``rate``
+    (``keep_mask``) and scaled by 1 / (1 − rate) (``apply_dropout_mask``).
+    Training with a rate above 0 needs a generator (``dropout_generator``);
+    it never falls back to torch's global one.
+
+    On a mesh the mask is the one-device run's: every rank draws the
+    global batch's mask (``batch_mesh``, set by
+    ``models.registry.place_on_mesh`` on data > 1: n_data·B rows) at the
+    whole width and keeps its block of rows over 'data' and, for an
+    activation split over 'model', its columns."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        if not 0.0 <= rate <= 1.0:
+            raise ValueError(f"dropout rate {rate} outside [0, 1]")
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None  # set by dropout_generator
+        self.batch_mesh = None
+
+    def keep_mask(self, shape: Sequence[int], device,
+                  columns: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """A bool mask of ``shape``, each element True with probability
+        1 − rate (``uniform < 1 − rate``, as ``jax.random.bernoulli``); on a
+        mesh this rank's block of the one-device mask, ``columns`` =
+        (index, n) its share of the last axis over 'model'."""
+        if self.generator is None:
+            raise RuntimeError(
+                "dropout in training needs a generator: run the model under "
+                "dropout_generator(model, generator) (the Trainer does)"
+            )
+        mesh = self.batch_mesh
+        n_data, data_index = (mesh.n_data, mesh.data_index) if mesh is not None else (1, 0)
+        index, n = columns or (0, 1)
+        rows, width = shape[0], shape[-1]
+        whole = (n_data * rows, *shape[1:-1], n * width)
+        keep = torch.rand(whole, device=device, generator=self.generator) < 1.0 - self.rate
+        return keep.narrow(0, data_index * rows, rows).narrow(-1, index * width, width)
+
+    def forward(self, x: torch.Tensor, columns: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate == 1.0:  # flax draws nothing
+            keep = x.new_zeros(x.shape, dtype=torch.bool)
+        else:
+            keep = self.keep_mask(x.shape, x.device, columns)
+        return apply_dropout_mask(x, keep, self.rate)
+
+
+@contextlib.contextmanager
+def dropout_generator(model: nn.Module, generator: Optional[torch.Generator]):
+    """In the body, every ``Dropout`` under ``model`` draws its masks from
+    ``generator``."""
+    mods = [m for m in model.modules() if isinstance(m, Dropout)]
+    for m in mods:
+        m.generator = generator
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.generator = None
+
+
+_SIMPLE_ACTS = {
+    "relu": F.relu,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),  # flax's nn.gelu: the tanh form
+    "softmax": lambda x: torch.softmax(x, dim=-1),
+    "linear": lambda x: x,
+    None: lambda x: x,
+}
+# activations that read the whole last axis (their parameters, or the
+# softmax's sum, are whole): a column-split layer's share is gathered first
+_WHOLE_WIDTH_ACTS = ("prelu", "dice", "softmax")
 
 
 class MLP(nn.Module):
-    """Multi-layer dense tower.
+    """Multi-layer dense tower (``tpurec/ops/mlp.py:MLP``).
 
     ``activation`` applies after every layer; the last layer uses
     ``out_activation`` when it is set and ``activation`` otherwise (so DIN's
-    ``MLP((200, 80))`` ends in relu). Activations: relu, linear, prelu and
-    dice. (The JAX MLP's other activations, its BatchNorm/LayerNorm options
-    and its dropout come with the first ported model that sets them.)
+    ``MLP((200, 80))`` ends in relu). Activations: relu, sigmoid, tanh,
+    gelu (flax's tanh form), softmax (over the last axis), linear (or
+    None), prelu and dice. Each layer but the last is followed, in this
+    order, by ``bn_{i}`` (``BatchNorm``, flax's defaults, in ``dtype``) when
+    ``use_bn``, ``ln_{i}`` (``LayerNorm``) when ``use_ln``, the activation,
+    and ``Dropout(dropout_rate)`` when the rate is above 0; the last layer
+    by its activation only. ``kernel_init`` names a ``Dense`` initialiser.
 
     ``tp_axis='model'`` (DIN's, DIEN's and DSIN's ``mlp``) makes it tensor
     parallel on a mesh (``place``): even layers split their columns, odd
     layers their rows, as ``tpurec/ops/mlp.py:100-108`` partitions them, so
     a column layer's share of the activation feeds the next row layer
-    without a gather. A prelu or dice activation, whose parameters are
-    whole, and the tower's output read the whole width.
+    without a gather. What reads the whole width (a norm, a prelu or dice
+    activation, whose parameters are whole, a softmax, and the tower's
+    output) gathers the columns first; dropout on a share masks it with its
+    columns of the one-device mask (``Dropout``).
     """
 
     def __init__(
         self,
         in_features: int,
         hidden_dims: Sequence[int],
-        activation: str = "relu",
+        activation: Optional[str] = "relu",
         out_activation: Optional[str] = None,
         dtype: Optional[torch.dtype] = None,
         tp_axis: Optional[str] = None,
+        use_bn: bool = False,
+        use_ln: bool = False,
+        dropout_rate: float = 0.0,
+        kernel_init: str = "glorot_uniform",
     ):
         super().__init__()
         self.hidden_dims = tuple(hidden_dims)
         self.tp_axis = tp_axis
+        self.use_bn, self.use_ln = use_bn, use_ln
         self.mesh = None
         self.acts = []
         n = len(self.hidden_dims)
         width_in = in_features
         for i, width in enumerate(self.hidden_dims):
-            self.add_module(f"dense_{i}", Dense(width_in, width, dtype, "glorot_uniform"))
+            self.add_module(f"dense_{i}", Dense(width_in, width, dtype, kernel_init))
+            if i < n - 1 and use_bn:
+                self.add_module(f"bn_{i}", BatchNorm(width, dtype=dtype))
+            if i < n - 1 and use_ln:
+                self.add_module(f"ln_{i}", LayerNorm(width, dtype))
             act = activation
             if i == n - 1 and out_activation is not None:
                 act = out_activation
@@ -331,6 +443,7 @@ class MLP(nn.Module):
                 raise ValueError(f"unknown activation {act!r}")
             self.acts.append(act)
             width_in = width
+        self.dropout = Dropout(dropout_rate) if dropout_rate > 0 else None
 
     def place(self, mesh) -> None:
         """Split the layers over ``mesh``'s 'model' axis when ``tp_axis`` is
@@ -344,14 +457,23 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         sharded = False  # x's last axis is this rank's share over 'model'
+        last = len(self.acts) - 1
         for i, act in enumerate(self.acts):
             dense = getattr(self, f"dense_{i}")
             x = dense(tp_input(x, dense.split, sharded, self.mesh))
             sharded = dense.split == "column"
+            norm = i < last and (self.use_bn or self.use_ln)
+            if sharded and (norm or act in _WHOLE_WIDTH_ACTS):
+                x, sharded = gather_columns(x, self.mesh), False
+            if i < last and self.use_bn:
+                x = getattr(self, f"bn_{i}")(x)
+            if i < last and self.use_ln:
+                x = getattr(self, f"ln_{i}")(x)
             if act in ("prelu", "dice"):
-                if sharded:
-                    x, sharded = gather_columns(x, self.mesh), False
                 x = getattr(self, f"{act}_{i}")(x)
             else:
                 x = _SIMPLE_ACTS[act](x)
+            if i < last and self.dropout is not None:
+                m = self.mesh
+                x = self.dropout(x, (m.model_index, m.n_model) if sharded else None)
         return gather_columns(x, self.mesh) if sharded else x

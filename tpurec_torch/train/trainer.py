@@ -92,6 +92,7 @@ from tpurec_torch.embedding.ops import pad_vocab, row_sharded_lookup
 from tpurec_torch.models import build_model
 from tpurec_torch.models.registry import replicated_batch, sharded_weights
 from tpurec_torch.models.mind import sampling_generator
+from tpurec_torch.ops.mlp import dropout_generator
 from tpurec_torch.ops import embedding_update as eu
 from tpurec_torch.train import checkpoint as ckpt_lib
 from tpurec_torch.train.losses import add_auxiliary, get_loss, tower_logits
@@ -449,11 +450,13 @@ class Trainer:
         return m if m.n_data > 1 and not getattr(batch, "replicated", False) else None
 
     def _forward_context(self, model: nn.Module, batch, generator) -> contextlib.ExitStack:
-        """A training forward's context: the sampled negatives drawn from
-        ``generator``, and on a replicated batch the modules that read the
-        global batch over 'data' reading this rank's, which is whole."""
+        """A training forward's context: the sampled negatives and the
+        dropout masks drawn from ``generator``, and on a replicated batch
+        the modules that read the global batch over 'data' reading this
+        rank's, which is whole."""
         stack = contextlib.ExitStack()
         stack.enter_context(sampling_generator(model, generator))
+        stack.enter_context(dropout_generator(model, generator))
         if getattr(batch, "replicated", False):
             stack.enter_context(replicated_batch(model))
         return stack
