@@ -70,9 +70,7 @@ checkout and exits non-zero on the first phase that fails. Phases:
    through the plain attention (``DIN_LOGIT_TOL``) and with the port on the
    CPU over the first 256 rows (``DIN_LOGIT_TOL_CPU``), while an attention
    that returns pooled = 0 or ignores the mask must miss ``DIN_LOGIT_TOL``:
-   the check has to be able to fail; predict p50 of 10 after 2 warm-ups and
-   a profiler summary of 5 calls (here and in phases 6 and 7 the DIN
-   kernels' device time is listed beside the top operators);
+   the check has to be able to fail; predict p50 of 10 after 2 warm-ups;
 5. the HTTP server over the FM benchmark schema (26 fields × 80,000 ids =
    2.08M rows, padded to 2,080,128, D=32): a ``dssm_double`` retrieval model
    (user f0-f12, item f13-f25) and a ``deepfm`` ranker, random seeded
@@ -110,9 +108,10 @@ checkout and exits non-zero on the first phase that fails. Phases:
    - three fp32 steps on the card against the port on the CPU on the first
      256 rows: the loss of each step (``CPU_LOSS_TOL``);
    - 30 steps on the fixed batch: every loss finite, the last below the
-     first, each kernel launched once a step; step p50 (host clock,
-     synchronised, steps 10-29) and examples/s; a CUDA-event breakdown of
-     a step (host→device copy, forward, backward, optimizer, metrics);
+     first, each kernel launched once a step; then 10 steps, each copying
+     its batch from an empty launch queue, through the port's spans
+     (``tpurec_torch/core/trace.py``): each span's median host ms and no
+     host sync (the counter must see a ``.item()``'s);
    - ``run`` over small batches with a checkpoint directory, ``restore``
      (identical state), ``export`` → ``load_servable`` → ``predict``, which
      must equal ``Trainer.infer`` (fp32 compute, since the export, as the
@@ -137,10 +136,9 @@ checkout and exits non-zero on the first phase that fails. Phases:
      shape and ragged shapes, with its times;
    - FM (bf16 compute, fp32 params) in the dense, ``fused_adam`` and
      ``rowwise_adam`` engines: 30 steps each (losses finite and falling,
-     #9 twice a fused step, no host sync, step p50 and examples/s, peak
-     memory, a profiler summary); one fp32 fused step against one fp32
-     dense step (``ENGINE_*``), which a #9 that drops carried runs must
-     fail; three fp32 steps card against CPU (``fused_adam``,
+     #9 twice a fused step, no host sync, peak memory); one fp32 fused
+     step against one fp32 dense step (``ENGINE_*``), which a #9 that
+     drops carried runs must fail; three fp32 steps card against CPU (``fused_adam``,
      ``rowwise_adam``); ``host_adam`` against lazy ``adam`` after 3 steps,
      with both peak memories; ``run`` → ``restore`` (tables and
      ``table_opt`` equal) → ``export`` → ``load_servable`` → ``predict``
@@ -179,12 +177,11 @@ checkout and exits non-zero on the first phase that fails. Phases:
      miss; the fp32 logit against the same servable run through the plain
      version and against the port on the CPU over the first 256 rows
      (``DCN_LOGIT_RTOL`` of the largest |logit|); predict p50 of 10 after 2
-     warm-ups and a profiler summary of 5 calls;
+     warm-ups;
    - 8c: ``DCN_STEPS`` bf16 ``Trainer.train_step``s on a fixed seed-1
      batch: losses finite and falling, no launch of #2/#3/#6 (training
      takes the plain math, as the JAX package); ``evaluate`` on two batches
-     launches the model's kernel once a batch; step p50 (steps 5-19), peak
-     memory and a profiler summary of 5 more steps.
+     launches the model's kernel once a batch; peak memory.
 
 9. MIND over the phase 4 id space with two aligned series (``history``,
    ``history_tags``), D=32 (so capsules of 64), K=4, three routing
@@ -229,8 +226,7 @@ checkout and exits non-zero on the first phase that fails. Phases:
      module's training math; ``run`` → ``restore`` → ``export`` →
      ``load_servable``, whose predict must equal ``Trainer.infer``;
    - 9d: ``comirec`` ('sa', 'dr') and ``sine`` over the same schema: one
-     predict and 5 train steps each (no kernel); SINE's step then in turns
-     with its prototype pick's ``top_k`` and with ``torch.topk``.
+     predict and 5 train steps each (no kernel).
 
 10. the FM family and MatrixCF, random seeded weights, B=8192, bf16 dense
     compute, fp32 params, bce, Adam lr 1e-3 eps 1e-7: over the phase 5/7 FM
@@ -249,12 +245,12 @@ checkout and exits non-zero on the first phase that fails. Phases:
       finite probabilities, the first 256 rows' logit (MatrixCF's output)
       against the port on the CPU with the same weights
       (``FM_FAMILY_RTOL`` of the largest |value|), p50 of 10 after 2
-      warm-ups and a profiler summary; ``ffm`` also ``Servable.rank`` at
+      warm-ups; ``ffm`` also ``Servable.rank`` at
       the rank buckets 8 to 256 against ``predict``'s rows, with p50s;
     - 10c: each model 10 bf16 dense steps on the seed-1 batch (losses
-      finite and falling, step p50, examples/s, peak memory, a profiler
-      summary); ``ffm`` and ``onn`` also 10 ``fused_adam`` steps (#9 once
-      per table a step) and 10 ``rowwise_adam`` steps (no #9); ``ffm``'s
+      finite and falling, peak memory); ``ffm`` and ``onn`` also 10
+      ``fused_adam`` steps (#9 once per table a step) and 10
+      ``rowwise_adam`` steps (no #9); ``ffm``'s
       fp32 fused step against its dense step (``ENGINE_*``, which a #9
       that drops carried runs must fail) and 3 fp32 fused steps card
       against CPU on 256 rows (``CPU_LOSS_TOL``); ``--fm-family`` runs this
@@ -271,9 +267,8 @@ checkout and exits non-zero on the first phase that fails. Phases:
     - 11a: each model ``export_params`` → ``load_servable`` → ``predict``
       as phase 10b (the first 256 rows against the CPU port); ``autoint``
       also ``Servable.rank`` at the rank buckets 8 to 256;
-    - 11b: each model 10 bf16 dense steps as phase 10c, with a profiler
-      summary; ``nfm`` also 10 ``fused_adam`` steps (#9 once per table a
-      step, D=32 and D=1);
+    - 11b: each model 10 bf16 dense steps as phase 10c; ``nfm`` also 10
+      ``fused_adam`` steps (#9 once per table a step, D=32 and D=1);
     - 11c: #9's launches in one NFM fused step recorded and held to the
       plain version on their own stream and gradients (phase 7a's readings,
       broken versions, same bits, timings), then NFM's fp32 fused step
@@ -288,9 +283,9 @@ checkout and exits non-zero on the first phase that fails. Phases:
     - ``train`` (B=8192, bf16, D=32, the registry's widths, one epoch,
       with a workdir) of deepfm on the dense and the fused engine (#9 once
       per table a step, so twice; #1 once per ``evaluate`` batch) and
-      dssm_double (no kernel), each step timed (host clock, synchronised)
-      and the eval AUC above 0.6, deepfm's dense and fused eval loss and
-      AUC within ``CLI_ENGINE_TOL``; #9 on the fused run's first batch
+      dssm_double (no kernel), each step counted, and the eval AUC above
+      0.6, deepfm's dense and fused eval loss and AUC within
+      ``CLI_ENGINE_TOL``; #9 on the fused run's first batch
       (``check_step_scatter``: 5 x 8192 ids, D=1 then D=32), held to the
       plain version with its broken versions and timed; ``index --topk
       20`` of the dssm_double export on the card and on the CPU: the same
@@ -411,7 +406,7 @@ checkout and exits non-zero on the first phase that fails. Phases:
     - 16a: a world of one over NCCL, mesh (1, 1): DIN dense at phase 6's
       width (B=8192, L=64, D=32, bf16) for ``MESH_STEPS`` steps, its losses
       and parameters against the same steps without a world in this
-      process, both step times printed; then ``dryrun_multichip(1)``
+      process; then ``dryrun_multichip(1)``
       (DIN at D=8 in the dense, ``rowwise_adam`` and ``fused_adam``
       engines: #4 and #5 once a step, #9 once in the fused one);
     - 16b: a world of four ranks on ``cuda:0`` over gloo (NCCL allows one
@@ -499,7 +494,6 @@ import tempfile
 import threading
 import time
 import urllib.request
-import warnings
 from unittest import mock
 
 import numpy as np
@@ -1044,11 +1038,9 @@ def run_din_servable(torch, kernels, workdir, card):
         t0 = time.perf_counter()
         servable.predict(batch)["output"].cpu()
         times.append((time.perf_counter() - t0) * 1e3)
-    busy_ms, top_ops = profile_steps(torch, lambda: servable.predict(batch))
     result = dict(
         card=card, batch=batch_size, din_launches=launches, predict_p50_ms=statistics.median(times[2:]),
-        examples_per_s=batch_size / (statistics.median(times[2:]) / 1e3),
-        mean_prob=float(out.mean()), device_busy_ms=busy_ms, top_ops_ms=top_ops,
+        examples_per_s=batch_size / (statistics.median(times[2:]) / 1e3), mean_prob=float(out.mean()),
     )
     print("din servable:", json.dumps(result), flush=True)
     return launches, result
@@ -1391,52 +1383,41 @@ def step_reading(got, want) -> dict:
     )
 
 
-def count_syncs(torch, fn) -> list:
-    """The host-device synchronisations ``fn()`` makes, as PyTorch's sync
-    debug mode reports them (a prototype that may miss some)."""
+def count_syncs(torch, fn) -> int:
+    """The host-device synchronisations ``fn()`` makes, as the port's
+    tracing counts them (``tpurec_torch/core/trace.py``: PyTorch's sync debug
+    mode, a prototype that may miss some)."""
+    from tpurec_torch.core import trace
+
     torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("warn")
+    rec = trace.start()
     try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            fn()
+        fn()
     finally:
-        torch.cuda.set_sync_debug_mode("default")
+        trace.stop()
     torch.cuda.synchronize()
-    return [str(w.message)[:200] for w in caught if "synchronizing" in str(w.message)]
+    return sum(s.syncs for s in rec.spans) + rec.loose_syncs
 
 
-def profile_steps(torch, step, steps=5):
-    """``torch.profiler`` over ``steps`` calls of ``step()``: the device's
-    busy time per step (the sum of its kernels, copies and fills) and the
-    eight operators whose kernels take most of it, in ms per step, with the
-    DIN attention kernels (#4, #5) beside them as ``kernel <name>``."""
-    from torch.profiler import ProfilerActivity, profile
+def traced_steps(torch, trainer, state, metric_state, batch, steps=10):
+    """``steps`` calls of ``device_batch`` and ``train_step`` with the port's
+    spans on, each from an empty launch queue (a synchronise before and
+    after): (state, metric state, each span's median host ms, the syncs
+    counted in the spans)."""
+    from tpurec_torch.core import trace
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    rec = trace.start()
+    try:
         for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-    return profile_summary(prof, steps)
-
-
-def profile_summary(prof, steps):
-    """(device busy ms a step, the top operators' ms a step) of a finished
-    ``torch.profiler`` run over ``steps`` calls (``profile_steps``)."""
-    from torch.autograd import DeviceType
-
-    averages = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in averages if e.device_type == DeviceType.CUDA)
-    ops = sorted(
-        (e for e in averages if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
-        key=lambda e: -e.self_device_time_total,
-    )
-    din = {
-        f"kernel {e.key[:60]}": e.self_device_time_total / steps / 1e3
-        for e in averages if e.device_type == DeviceType.CUDA and "din_attention" in e.key
-    }
-    return busy / steps / 1e3, {**{e.key: e.self_device_time_total / steps / 1e3 for e in ops[:8]}, **din}
+            state, metric_state, _ = trainer.train_step(state, trainer.device_batch(batch), metric_state)
+            torch.cuda.synchronize()
+    finally:
+        trace.stop()
+    names = dict.fromkeys(s.name for s in rec.spans)
+    host_ms = {n: statistics.median(sum(s.ms for s in rec.spans if s.name == n and s.step == k)
+                                    for k in range(steps)) for n in names}
+    return state, metric_state, host_ms, sum(s.syncs for s in rec.spans)
 
 
 def run_din_training(torch, kernels, workdir, card):
@@ -1482,60 +1463,24 @@ def run_din_training(torch, kernels, workdir, card):
           "the train step check cannot tell a backward that ignores the mask from a sound one")
     check(step["cpu_256_rows_loss"] <= CPU_LOSS_TOL, f"train losses, card vs CPU: {cpu_losses}")
 
-    # the main path: 30 bf16 steps on the fixed batch, as bench.py times them
+    # the main path: 30 bf16 steps on the fixed batch
     trainer = Trainer(din_train_config("bfloat16"), info)
     state = trainer.init_state(batch)
     dbatch = trainer.device_batch(batch)
-    metric_state = trainer.metrics.init()
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    losses, times = [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        state, metric_state, logs = trainer.train_step(state, dbatch, metric_state)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        losses.append(logs["loss"])
+    state, metric_state, losses = train_steps(trainer, state, dbatch)
     launches = (kernels.din_attention_fused.launches, kernels.din_attention_bwd_fused.launches)
-    losses = [float(x) for x in losses]
-    step_ms = statistics.median(times[10:])
 
-    # a CUDA-event breakdown of ten more steps, each copying its batch
-    names = ("copy", "forward", "backward", "optimizer", "metrics", "end")
-    spans = {n: [] for n in names[:-1]}
-    events = {}
-
-    def mark(name):
-        events[name] = torch.cuda.Event(enable_timing=True)
-        events[name].record()
-
-    trainer.step_marks = mark
-    for _ in range(10):
-        mark("copy")
-        state, metric_state, _ = trainer.train_step(state, trainer.device_batch(batch), metric_state)
-        torch.cuda.synchronize()
-        for a, b in zip(names, names[1:]):
-            spans[a].append(events[a].elapsed_time(events[b]))
-    trainer.step_marks = None
-    breakdown = {n: statistics.median(v) for n, v in spans.items()}
-
-    # no host sync inside a step; the device's busy time per step
-    def step():
-        nonlocal state, metric_state
-        state, metric_state, _ = trainer.train_step(state, dbatch, metric_state)
-
-    syncs = count_syncs(torch, step)
+    # ten more steps, each copying its batch, through the port's spans: the
+    # host's ms in each, and no host sync inside a step
+    state, metric_state, host_ms, syncs = traced_steps(torch, trainer, state, metric_state, batch)
     check(count_syncs(torch, lambda: torch.ones(1, device="cuda").item()),
           "the sync check does not see the sync of .item()")
-    busy_ms, top_ops = profile_steps(torch, step)
 
     result = dict(
-        card=card, batch=TRAIN_BATCH, steps=TRAIN_STEPS, step_p50_ms=step_ms,
-        step_ms_min=min(times[10:]), step_ms_max=max(times[10:]),
-        examples_per_s=TRAIN_BATCH / (step_ms / 1e3), first_step_ms=times[0],
-        breakdown_ms=breakdown, device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / step_ms,
-        top_ops_ms=top_ops, host_syncs=len(syncs), din_launches=launches[0], din_bwd_launches=launches[1],
-        loss_first=losses[0], loss_last=losses[-1],
+        card=card, batch=TRAIN_BATCH, steps=TRAIN_STEPS, host_span_ms=host_ms, host_syncs=syncs,
+        din_launches=launches[0], din_bwd_launches=launches[1], loss_first=losses[0], loss_last=losses[-1],
         train_auc=float(trainer.metrics.result(metric_state)["auc"]),
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
     )
@@ -1876,48 +1821,21 @@ def check_embedding_kernels(torch, eu):
     return records
 
 
-def drive_steps(torch, trainer, state, dbatch, steps=TRAIN_STEPS):
-    """``steps`` train steps on one batch, each synchronised: (state, metric
-    state, losses, host times in ms)."""
+def train_steps(trainer, state, dbatch, steps=TRAIN_STEPS):
+    """``steps`` train steps on one batch with no sync between them: (state,
+    metric state, losses)."""
     metric_state = trainer.metrics.init()
-    losses, times = [], []
+    losses = []
     for _ in range(steps):
-        t0 = time.perf_counter()
         state, metric_state, logs = trainer.train_step(state, dbatch, metric_state)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
         losses.append(logs["loss"])
-    return state, metric_state, [float(x) for x in losses], times
-
-
-def step_breakdown(torch, trainer, step, steps=10) -> dict:
-    """Median CUDA-event span, over ``steps`` calls of ``step()``, from each
-    of the trainer's step marks to the next (forward, backward, optimizer
-    with the table update, metrics); a span holds device idle time too."""
-    names = ("forward", "backward", "optimizer", "metrics", "end")
-    spans = {n: [] for n in names[:-1]}
-    events = {}
-
-    def mark(name):
-        events[name] = torch.cuda.Event(enable_timing=True)
-        events[name].record()
-
-    trainer.step_marks = mark
-    try:
-        for _ in range(steps):
-            step()
-            torch.cuda.synchronize()
-            for a, b in zip(names, names[1:]):
-                spans[a].append(events[a].elapsed_time(events[b]))
-    finally:
-        trainer.step_marks = None
-    return {n: statistics.median(v) for n, v in spans.items()}
+    return state, metric_state, [float(x) for x in losses]
 
 
 def engine_run(torch, kernels, eu, name, trainer, batch, card):
     """The main path of one engine: 30 steps on the fixed batch with the
-    launch counts set to 0 before and read after, then the sync check and a
-    profiler summary. Returns (counts, result)."""
+    launch counts set to 0 before and read after, then the sync check.
+    Returns (counts, result)."""
     gc.collect()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
@@ -1926,7 +1844,7 @@ def engine_run(torch, kernels, eu, name, trainer, batch, card):
     dbatch = trainer.device_batch(batch)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    state, metric_state, losses, times = drive_steps(torch, trainer, state, dbatch)
+    state, metric_state, losses = train_steps(trainer, state, dbatch)
     counts = dict(din_attention=kernels.din_attention_fused.launches,
                   din_attention_bwd=kernels.din_attention_bwd_fused.launches,
                   fused_scatter_add=eu.fused_scatter_add.launches,
@@ -1937,17 +1855,10 @@ def engine_run(torch, kernels, eu, name, trainer, batch, card):
         nonlocal state, metric_state
         state, metric_state, _ = trainer.train_step(state, dbatch, metric_state)
 
-    breakdown = step_breakdown(torch, trainer, step)
     syncs = count_syncs(torch, step)
-    busy_ms, top_ops = profile_steps(torch, step)
-    step_ms = statistics.median(times[10:])
     result = dict(
-        card=card, engine=name, batch=TRAIN_BATCH, steps=TRAIN_STEPS, step_p50_ms=step_ms,
-        step_ms_min=min(times[10:]), step_ms_max=max(times[10:]),
-        examples_per_s=TRAIN_BATCH / (step_ms / 1e3), first_step_ms=times[0],
-        breakdown_ms=breakdown, device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / step_ms,
-        top_ops_ms=top_ops, host_syncs=len(syncs), launches=counts, loss_first=losses[0], loss_last=losses[-1],
-        peak_mem_gb=peak_gb,
+        card=card, engine=name, batch=TRAIN_BATCH, steps=TRAIN_STEPS, host_syncs=syncs, launches=counts,
+        loss_first=losses[0], loss_last=losses[-1], peak_mem_gb=peak_gb,
     )
     print(f"{name} training:", json.dumps(result), flush=True)
     check(all(np.isfinite(losses)), f"{name}: non-finite training loss: {losses}")
@@ -2056,11 +1967,10 @@ def run_fm_engines(torch, kernels, eu, workdir, card):
         trainer = Trainer(fm_train_config(mode, "float32"), info)
         state = trainer.init_state(batch)
         dbatch = trainer.device_batch(batch)
-        state, _, losses, times = drive_steps(torch, trainer, state, dbatch, steps=3)
+        state, _, losses = train_steps(trainer, state, dbatch, steps=3)
         host[mode] = dict(
             tables={n: state.model.get_parameter(n).detach()[:-1].clone() for n in FM_TABLES},
-            peak_mem_gb=(torch.cuda.max_memory_allocated() - base) / 2**30, step_ms=times,
-            losses=losses,
+            peak_mem_gb=(torch.cuda.max_memory_allocated() - base) / 2**30, losses=losses,
             host_moment_gb=None if state.host_store is None else state.host_store.nbytes() / 2**30,
         )
         del trainer, state
@@ -2515,12 +2425,10 @@ def run_dcn_servable(torch, kernels, workdir, card, name, seed):
         servable.predict(batch)["output"].cpu()
         times.append((time.perf_counter() - t0) * 1e3)
     p50 = statistics.median(times[2:])
-    busy_ms, top_ops = profile_steps(torch, lambda: servable.predict(batch))
     result = dict(card=card, model=name, batch=TRAIN_BATCH, launches=counts, readings=readings,
                   logit_limit=scale, logit_max_abs=float(logit.abs().max()),
                   logit_std=float(logit.std()), mean_prob=float(out.mean()),
-                  predict_p50_ms=p50, examples_per_s=TRAIN_BATCH / (p50 / 1e3),
-                  device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / p50, top_ops_ms=top_ops)
+                  predict_p50_ms=p50, examples_per_s=TRAIN_BATCH / (p50 / 1e3))
     print(f"{name} servable (readings: error / limit):", json.dumps(result), flush=True)
     check(counts == {k: int(k == kernel) for k in DCN_KERNELS}, f"{name} predict launches {counts}")
     check(out.shape == (TRAIN_BATCH,) and out.dtype == torch.float32, f"{name}: bad output {out.shape}")
@@ -2558,25 +2466,16 @@ def run_dcn_training(torch, kernels, card, name):
     dbatch = trainer.device_batch(batch)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    state, metric_state, losses, times = drive_steps(torch, trainer, state, dbatch, steps=DCN_STEPS)
+    state, _, losses = train_steps(trainer, state, dbatch, steps=DCN_STEPS)
     train_counts = dcn_counts(kernels)
     peak_gb = (torch.cuda.max_memory_allocated() - base) / 2**30
-
-    def step():
-        nonlocal state, metric_state
-        state, metric_state, _ = trainer.train_step(state, dbatch, metric_state)
-
-    busy_ms, top_ops = profile_steps(torch, step)
     kernels.reset_launch_counts()
     report = trainer.evaluate(state, [bench_batch(info, 1024, 0, seed=20 + i) for i in range(2)])
     torch.cuda.synchronize()
     eval_counts = dcn_counts(kernels)
-    step_ms = statistics.median(times[5:])
     result = dict(
-        card=card, model=name, batch=TRAIN_BATCH, steps=DCN_STEPS, step_p50_ms=step_ms,
-        step_ms_min=min(times[5:]), step_ms_max=max(times[5:]), examples_per_s=TRAIN_BATCH / (step_ms / 1e3),
-        first_step_ms=times[0], device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / step_ms,
-        top_ops_ms=top_ops, peak_mem_gb=peak_gb, loss_first=losses[0], loss_last=losses[-1],
+        card=card, model=name, batch=TRAIN_BATCH, steps=DCN_STEPS, peak_mem_gb=peak_gb,
+        loss_first=losses[0], loss_last=losses[-1],
         train_launches=train_counts, eval_launches=eval_counts, eval=report,
     )
     print(f"{name} training:", json.dumps(result), flush=True)
@@ -3067,11 +2966,9 @@ def run_mind_serving(torch, kernels, workdir, card):
         servable.predict(batch)["user_embedding"].cpu()
         times.append((time.perf_counter() - t0) * 1e3)
     p50 = statistics.median(times[2:])
-    busy_ms, top_ops = profile_steps(torch, lambda: servable.predict(batch))
     result = dict(card=card, batch=TRAIN_BATCH, launches=predict_launches, readings=readings,
                   live_steps=int(mask.sum()), capsule_max_abs=float(want.abs().max()),
-                  predict_p50_ms=p50, examples_per_s=TRAIN_BATCH / (p50 / 1e3),
-                  device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / p50, top_ops_ms=top_ops)
+                  predict_p50_ms=p50, examples_per_s=TRAIN_BATCH / (p50 / 1e3))
     print("mind servable (readings: error / limit):", json.dumps(result), flush=True)
     check(predict_launches == (1, 0), f"MIND predict launched (#7, #8) {predict_launches}")
     check(user.shape == (TRAIN_BATCH, 64) and caps.shape == (TRAIN_BATCH, 4, 64),
@@ -3219,25 +3116,15 @@ def run_mind_training(torch, kernels, workdir, card):
     dbatch = trainer.device_batch(batch)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    state, metric_state, losses, times = drive_steps(torch, trainer, state, dbatch, steps=MIND_STEPS)
+    state, metric_state, losses = train_steps(trainer, state, dbatch, steps=MIND_STEPS)
     train_counts = (kernels.capsule_routing_fused.launches, kernels.capsule_routing_bwd_fused.launches)
     peak_gb = (torch.cuda.max_memory_allocated() - base) / 2**30
-
-    def step():
-        nonlocal state, metric_state
-        state, metric_state, _ = trainer.train_step(state, dbatch, metric_state)
-
-    busy_ms, top_ops = profile_steps(torch, step)
     kernels.reset_launch_counts()
     report = trainer.evaluate(state, [mind_batch(info, 1024, seed=20 + i) for i in range(2)])
     torch.cuda.synchronize()
     eval_counts = (kernels.capsule_routing_fused.launches, kernels.capsule_routing_bwd_fused.launches)
-    step_ms = statistics.median(times[5:])
     result = dict(
-        card=card, model="mind", batch=TRAIN_BATCH, steps=MIND_STEPS, step_p50_ms=step_ms,
-        step_ms_min=min(times[5:]), step_ms_max=max(times[5:]), examples_per_s=TRAIN_BATCH / (step_ms / 1e3),
-        first_step_ms=times[0], device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / step_ms,
-        top_ops_ms=top_ops, peak_mem_gb=peak_gb, losses=losses,
+        card=card, model="mind", batch=TRAIN_BATCH, steps=MIND_STEPS, peak_mem_gb=peak_gb, losses=losses,
         train_accuracy=float(trainer.metrics.result(metric_state)["accuracy"]),
         train_launches=train_counts, eval_launches=eval_counts, eval=report,
     )
@@ -3278,9 +3165,7 @@ def run_mind_training(torch, kernels, workdir, card):
 def run_retrieval_family(torch, kernels, card):
     """ComiRec (sa, dr) and SINE over the MIND schema: one bf16 predict at
     B=8192 and 5 bf16 train steps each (phase 9d). No kernel: they show the
-    modules run on the card. SINE's step is also timed in turns with its
-    prototype pick's ``top_k`` and with ``torch.topk``."""
-    from tpurec_torch.models import mind as mind_module
+    modules run on the card."""
     from tpurec_torch.serving.export import Servable
     from tpurec_torch.train.trainer import Trainer
 
@@ -3294,24 +3179,13 @@ def run_retrieval_family(torch, kernels, card):
         with torch.inference_mode():
             out = Servable(state.model).predict(batch)
         finite = all(bool(torch.isfinite(v.float()).all()) for v in out.values())
-        state, _, losses, times = drive_steps(torch, trainer, state, trainer.device_batch(batch), steps=5)
+        state, _, losses = train_steps(trainer, state, trainer.device_batch(batch), steps=5)
         launches = (kernels.capsule_routing_fused.launches, kernels.capsule_routing_bwd_fused.launches)
         results[label] = dict(user_embedding=list(out["user_embedding"].shape), finite=finite,
-                              losses=losses, step_ms=statistics.median(times[1:]), launches=launches)
+                              losses=losses, launches=launches)
         check(finite and out["user_embedding"].shape == (TRAIN_BATCH, 64), f"{label} predict: {results[label]}")
         check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"{label} training: {losses}")
         check(launches == (0, 0), f"{label} launched (#7, #8) {launches}")
-        if label == "sine":
-            # its prototype pick's top-k, repaired and torch.topk: 5 steps a turn
-            held = [state]
-
-            def step_p50():
-                held[0], _, _, t = drive_steps(torch, trainer, held[0], trainer.device_batch(batch), steps=5)
-                return statistics.median(t[1:])
-
-            results[label]["step_ms_top_k_against_torch_topk"] = dict(
-                turns=TOPK_TURNS, **topk_turns(torch, (mind_module,), step_p50))
-            del held
         del trainer, state
     print("multi-interest family:", json.dumps(dict(card=card, batch=TRAIN_BATCH, models=results)), flush=True)
     return results
@@ -3443,7 +3317,7 @@ def run_servable(torch, workdir, card, case, config, info, seed, rank=False, bat
     same weights (``cpu_check(card servable, CPU servable, rows, scale)``
     gives (readings, details) in place of the logit's reading when it is
     given); the kernels the first predict launched; predict p50 of 10
-    after 2 warm-ups and a profiler summary; with ``rank`` also
+    after 2 warm-ups; with ``rank`` also
     ``Servable.rank`` at the rank buckets against ``predict``'s
     probabilities. Returns the result."""
     from tpurec_torch.models import build_model
@@ -3503,12 +3377,10 @@ def run_servable(torch, workdir, card, case, config, info, seed, rank=False, bat
         servable.predict(batch)[prob_key].cpu()
         times.append((time.perf_counter() - t0) * 1e3)
     p50 = statistics.median(times[2:])
-    busy_ms, top_ops = profile_steps(torch, lambda: servable.predict(batch))
     result = dict(card=card, model=case, batch=TRAIN_BATCH, readings=readings, compared=key,
                   launches=launches, limit=scale, rank_limit=rank_scale, max_abs=float(ref.abs().max()), std=float(ref.float().std()),
                   mean_prob=float(out.mean()), predict_p50_ms=p50,
-                  examples_per_s=TRAIN_BATCH / (p50 / 1e3), device_busy_ms=busy_ms,
-                  device_idle_share=1.0 - busy_ms / p50, top_ops_ms=top_ops, rank=ranks, cpu_compare=details)
+                  examples_per_s=TRAIN_BATCH / (p50 / 1e3), rank=ranks, cpu_compare=details)
     print(f"{case} servable (readings: error / limit):", json.dumps(result), flush=True)
     check(out.shape == (TRAIN_BATCH,) and out.dtype == torch.float32, f"{case}: bad output {out.shape}")
     check(bool(torch.isfinite(out).all()) and bool(((out >= 0) & (out <= 1)).all()),
@@ -3528,8 +3400,7 @@ def run_fm_family_training(torch, eu, card, case, mode="dense"):
 def run_training(torch, eu, card, case, config, info, mode="dense", batch=None, extra=None):
     """FM_FAMILY_STEPS steps of ``config`` on a fixed batch (the seed-1
     ``fm_family_batch`` unless ``batch`` is given): losses finite and
-    falling; step p50, examples/s, peak memory, and a profiler summary of 3
-    more steps; ``extra(trainer, state)`` adds its dict to the result; the
+    falling, and the peak memory; ``extra(trainer, state)`` adds its dict to the result; the
     result's ``launches`` holds every counted kernel's launches in the
     steps. Returns (#9's launches in the steps, result)."""
     from tpurec_torch.ops import kernels
@@ -3546,24 +3417,13 @@ def run_training(torch, eu, card, case, config, info, mode="dense", batch=None, 
     dbatch = trainer.device_batch(batch)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    state, metric_state, losses, times = drive_steps(torch, trainer, state, dbatch, steps=FM_FAMILY_STEPS)
+    state, _, losses = train_steps(trainer, state, dbatch, steps=FM_FAMILY_STEPS)
     counts = path_launches(kernels, eu)
     launches = counts["fused_scatter_add"]
     peak_gb = (torch.cuda.max_memory_allocated() - base) / 2**30
-    step_ms = statistics.median(times[2:])
     result = dict(card=card, model=case, engine=mode, batch=TRAIN_BATCH, steps=FM_FAMILY_STEPS,
-                  step_p50_ms=step_ms, step_ms_min=min(times[2:]), step_ms_max=max(times[2:]),
-                  examples_per_s=TRAIN_BATCH / (step_ms / 1e3), first_step_ms=times[0],
                   peak_mem_gb=peak_gb, loss_first=losses[0], loss_last=losses[-1],
                   fused_scatter_add_launches=launches, launches=counts)
-
-    def step():
-        nonlocal state, metric_state
-        state, metric_state, _ = trainer.train_step(state, dbatch, metric_state)
-
-    busy_ms, top_ops = profile_steps(torch, step, steps=3)
-    result.update(device_busy_ms=busy_ms, device_idle_share=1.0 - busy_ms / step_ms,
-                  top_ops_ms=top_ops)
     if extra is not None:
         result.update(extra(trainer, state))
     print(f"{case} {mode} training:", json.dumps(result), flush=True)
@@ -3746,47 +3606,24 @@ def cli_config(path, name, fused=False, epochs=1):
     return path
 
 
-CLI_PROFILED_STEPS = range(4, 7)  # steps 4-6 of a run go through torch.profiler
-
-
 @contextlib.contextmanager
-def trainer_clock(torch):
-    """While ``cli train`` runs: each ``Trainer.train_step`` on the host
-    clock, synchronised before and after (ms), but ``CLI_PROFILED_STEPS``,
-    which ``torch.profiler`` records instead (device busy ms a step and the
-    top operators); and the ``eval_step`` calls."""
-    from torch.profiler import ProfilerActivity, profile
-
+def trainer_calls():
+    """While ``cli train`` runs: the ``Trainer.train_step`` and
+    ``eval_step`` calls, counted."""
     from tpurec_torch.train.trainer import Trainer
 
-    record = dict(step_ms=[], eval_batches=0, steps=0)
+    record = dict(eval_batches=0, steps=0)
     train_step, eval_step = Trainer.train_step, Trainer.eval_step
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
-    def timed(self, *args, **kw):
-        i = record["steps"]
+    def stepped(self, *args, **kw):
         record["steps"] += 1
-        torch.cuda.synchronize()
-        if i in CLI_PROFILED_STEPS:
-            if i == CLI_PROFILED_STEPS[0]:
-                prof.__enter__()
-            out = train_step(self, *args, **kw)
-            if i == CLI_PROFILED_STEPS[-1]:
-                torch.cuda.synchronize()
-                prof.__exit__(None, None, None)
-                record["busy_ms"], record["top_ops_ms"] = profile_summary(prof, len(CLI_PROFILED_STEPS))
-            return out
-        t = time.perf_counter()
-        out = train_step(self, *args, **kw)
-        torch.cuda.synchronize()
-        record["step_ms"].append((time.perf_counter() - t) * 1e3)
-        return out
+        return train_step(self, *args, **kw)
 
     def counted(self, *args, **kw):
         record["eval_batches"] += 1
         return eval_step(self, *args, **kw)
 
-    with mock.patch.object(Trainer, "train_step", timed), mock.patch.object(Trainer, "eval_step", counted):
+    with mock.patch.object(Trainer, "train_step", stepped), mock.patch.object(Trainer, "eval_step", counted):
         yield record
 
 
@@ -3800,17 +3637,15 @@ def path_launches(kernels, eu) -> dict:
 
 
 def cli_train(torch, kernels, eu, card, label, argv):
-    """``cli train`` with the launches counted from 0 and the steps timed.
-    Returns the result: steps, eval batches, step p50 (the timed steps from
-    the third on) and examples/s, the profiled steps' device busy time,
-    idle share and top operators, the command's seconds, the last epoch's
-    train and eval metrics and the launches."""
+    """``cli train`` with the launches counted from 0. Returns the result:
+    steps, eval batches, the command's seconds, the last epoch's train and
+    eval metrics and the launches."""
     from tpurec_torch import cli
 
     workdir = argv[argv.index("--workdir") + 1]
     kernels.reset_launch_counts()
     t = time.perf_counter()
-    with trainer_clock(torch) as record:
+    with trainer_calls() as record:
         cli.main(argv)
     seconds = time.perf_counter() - t
     torch.cuda.synchronize()
@@ -3818,14 +3653,8 @@ def cli_train(torch, kernels, eu, card, label, argv):
     with open(os.path.join(workdir, "report.json")) as f:
         history = json.load(f)["history"]
     last = history[-1]
-    steps = record["step_ms"]
-    p50 = statistics.median(steps[2:])
     result = dict(card=card, run=label, seconds=seconds, steps=record["steps"],
-                  eval_batches=record["eval_batches"], step_p50_ms=p50,
-                  step_ms_min=min(steps[2:]), step_ms_max=max(steps[2:]), first_step_ms=steps[0],
-                  examples_per_s=TRAIN_BATCH / (p50 / 1e3), device_busy_ms=record["busy_ms"],
-                  device_idle_share=1.0 - record["busy_ms"] / p50, top_ops_ms=record["top_ops_ms"],
-                  train=last["train"], eval=last["eval"],
+                  eval_batches=record["eval_batches"], train=last["train"], eval=last["eval"],
                   eval_loss_by_epoch=[h["eval"]["loss"] for h in history], launches=launches)
     print(f"cli train {label}:", json.dumps(result), flush=True)
     check(all(np.isfinite(v) for h in history for v in h["eval"].values()), f"{label}: {history}")
@@ -4584,7 +4413,6 @@ def run_sdm(torch, kernels, eu, workdir, card):
             servable.predict(batch)["user_embedding"].cpu()
             times.append((time.perf_counter() - t0) * 1e3)
         p50 = statistics.median(times[2:])
-        busy_ms, top_ops = profile_steps(torch, lambda: servable.predict(batch), steps=3)
         ub = mind_batch(info, MIND_USERS, seed=5)
         user_profile = {f"u{j}": [int(ub["user_tag"][j]), ub["history"][j].tolist(),
                                   ub["history_tags"][j].tolist()] for j in range(MIND_USERS)}
@@ -4619,7 +4447,6 @@ def run_sdm(torch, kernels, eu, workdir, card):
         slate = kv.get("SDM_u0").split("\t")[0].split(",")
         check(len(kv) == MIND_USERS and len(slate) == 20, f"sdm index: {len(kv)} users, slate {slate}")
         return dict(predict_p50_ms=p50, predict_examples_per_s=TRAIN_BATCH / (p50 / 1e3),
-                    predict_busy_ms=busy_ms, predict_idle_share=1.0 - busy_ms / p50, predict_top_ops_ms=top_ops,
                     index_seconds=index_s, index_users=len(kv), index_items=MIND_ITEMS,
                     predict_and_index_launches=path_launches(kernels, eu))
 
@@ -4903,13 +4730,11 @@ def run_dien_trunk(torch, kernels, eu, workdir, card):
         dbatch = trainer.device_batch(batch)
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
-        state, _, losses, times = drive_steps(torch, trainer, state, dbatch, steps=FM_FAMILY_STEPS)
+        state, _, losses = train_steps(trainer, state, dbatch, steps=FM_FAMILY_STEPS)
         counts = path_launches(kernels, eu)
         moved = [k for k, v in state.model.trunk.named_parameters() if not torch.equal(v, exported[k])]
-        step_ms = statistics.median(times[2:])
         print(f"{case} frozen dien trunk training:", json.dumps(dict(
-            card=card, model=case, batch=TRAIN_BATCH, steps=FM_FAMILY_STEPS, step_p50_ms=step_ms,
-            step_ms_min=min(times[2:]), step_ms_max=max(times[2:]), examples_per_s=TRAIN_BATCH / (step_ms / 1e3),
+            card=card, model=case, batch=TRAIN_BATCH, steps=FM_FAMILY_STEPS,
             peak_mem_gb=(torch.cuda.max_memory_allocated() - base) / 2**30, loss_first=losses[0], loss_last=losses[-1],
             launches=counts, trunk_moved=moved)), flush=True)
         check(counts["din_attention"] == FM_FAMILY_STEPS and counts["din_attention_bwd"] == 0
@@ -5105,22 +4930,18 @@ def on_mesh(config, **mesh):
     return config.replace(mesh=MeshConfig(**mesh))
 
 
-def mesh_steps(torch, trainer, state, batches, terms=None):
-    """One synchronised step per batch: (state, losses, host ms per step,
-    metric results); each step's logged terms appended to ``terms`` when
-    it is a list."""
+def mesh_steps(trainer, state, batches, terms=None):
+    """One step per batch: (state, losses, metric results); each step's
+    logged terms appended to ``terms`` when it is a list."""
     metric_state = trainer.metrics.init()
-    losses, times = [], []
+    losses = []
     for b in batches:
-        t0 = time.perf_counter()
         state, metric_state, logs = trainer.train_step(state, trainer.device_batch(b), metric_state)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(logs["loss"]))
         if terms is not None:
             terms.append({k: float(v) for k, v in logs.items()})
     results = {k: float(v) for k, v in trainer.metrics.result(metric_state).items()}
-    return state, losses, times, results
+    return state, losses, results
 
 
 def whole_params(model) -> dict:
@@ -5221,11 +5042,11 @@ def mesh_world_one(torch, kernels, eu, directory) -> dict:
     check(trainer.mesh_ctx.n_devices == 1, f"world of one: mesh {trainer.mesh_ctx}")
     state = trainer.init_state(batches[0])
     kernels.reset_launch_counts()
-    state, losses, times, results = mesh_steps(torch, trainer, state, batches)
+    state, losses, results = mesh_steps(trainer, state, batches)
     counts = path_launches(kernels, eu)
     torch.save(whole_params(state.model), os.path.join(directory, "nccl1_params.pt"))
     del trainer, state
-    return dict(losses=losses, step_ms=times, results=results, launches=counts,
+    return dict(losses=losses, results=results, launches=counts,
                 dryrun=mesh_dryrun(torch, kernels, eu, 1))
 
 
@@ -5246,7 +5067,7 @@ def mesh_din(torch, kernels, eu, directory) -> dict:
           and tp == {"dense_0.weight": [100, width_in], "dense_0.bias": [100],
                      "dense_1.weight": [80, 100], "dense_1.bias": [80]},
           f"DIN's mlp on (2, 2) not tensor parallel: {tp}")
-    state, losses, _, results = mesh_steps(torch, trainer, state, batches[:MESH_FP32_STEPS])
+    state, losses, results = mesh_steps(trainer, state, batches[:MESH_FP32_STEPS])
     ref = torch.load(os.path.join(directory, "din_fp32_ref.pt"))
     loss_err = max(tol_ratio(torch.tensor(losses, dtype=torch.float64),
                              torch.tensor(ref["losses"], dtype=torch.float64), **MESH_LOSS_TOL),
@@ -5260,7 +5081,7 @@ def mesh_din(torch, kernels, eu, directory) -> dict:
     trainer = Trainer(on_mesh(din_train_config("bfloat16"), **MESH_2X2), info)
     state = trainer.init_state(batches[0])
     kernels.reset_launch_counts()
-    state, bf16_losses, times, _ = mesh_steps(torch, trainer, state, batches)
+    state, bf16_losses, _ = mesh_steps(trainer, state, batches)
     counts = path_launches(kernels, eu)
     check(counts["din_attention"] == counts["din_attention_bwd"] == MESH_STEPS,
           f"DIN on (2, 2): #4/#5 not once a step on this rank: {counts}")
@@ -5278,7 +5099,7 @@ def mesh_din(torch, kernels, eu, directory) -> dict:
     readings["din_2x2"], records["din_2x2"] = attention_fwd_case(torch, kernels, args, out)
     readings["din_2x2_bwd"], records["din_2x2_bwd"] = attention_bwd_case(torch, kernels, bargs, bout)
     check_attention_readings(readings, "din on (2, 2)")
-    return dict(fp32_losses=losses, fp32_reading=reading, bf16_losses=bf16_losses, step_ms=times,
+    return dict(fp32_losses=losses, fp32_reading=reading, bf16_losses=bf16_losses,
                 launches=counts, attention=records, mlp_shares=tp)
 
 
@@ -5294,7 +5115,7 @@ def mesh_fm(torch, kernels, eu) -> dict:
     state = trainer.init_state(batches[0])
     rows = [t.embedding.shape[0] for t in embedding_tables(state.model)]
     kernels.reset_launch_counts()
-    state, losses, times, _ = mesh_steps(torch, trainer, state, batches)
+    state, losses, _ = mesh_steps(trainer, state, batches)
     counts = path_launches(kernels, eu)
     check(counts["fused_scatter_add"] == 2 * MESH_STEPS,
           f"FM fused on (2, 2): #9 not twice a step on this rank: {counts}")
@@ -5304,7 +5125,7 @@ def mesh_fm(torch, kernels, eu) -> dict:
                                  batches[0], ("fm_w_2x2", "fm_v_2x2"), (1, 32))
     reading = fused_vs_dense(torch, eu, lambda m: on_mesh(fm_train_config(m, "float32"), **MESH_2X2),
                              info, batches[0], FM_TABLES, "fm on (2, 2)")
-    return dict(rows_per_rank=rows, losses=losses, step_ms=times, launches=counts, scatter=scatter,
+    return dict(rows_per_rank=rows, losses=losses, launches=counts, scatter=scatter,
                 fused_vs_dense=reading)
 
 
@@ -5339,7 +5160,7 @@ def mesh_fm_rowwise(torch, directory) -> dict:
              zip(state.table_opt, embedding_tables(state.model))}
     check(all(r[0][0] * 2 == whole[n] and all(s[0] == r[0][0] for s in r[1].values())
               for n, r in rows.items()), f"FM rowwise_adam on (2, 2): rows not split: {rows}")
-    state, losses, times, results = mesh_steps(torch, trainer, state, fm_rowwise_batches())
+    state, losses, results = mesh_steps(trainer, state, fm_rowwise_batches())
     ref = torch.load(os.path.join(directory, "fm_rowwise_ref.pt"))
     loss_err = max(tol_ratio(torch.tensor(losses, dtype=torch.float64),
                              torch.tensor(ref["losses"], dtype=torch.float64), **MESH_LOSS_TOL),
@@ -5352,7 +5173,7 @@ def mesh_fm_rowwise(torch, directory) -> dict:
     check(max(reading["loss"], reading["param"], reading["state_param"]) <= 1.0,
           f"FM rowwise_adam on (2, 2) against one device, fp32: {reading} "
           f"(losses {losses} vs {ref['losses']})")
-    return dict(rows_per_rank=rows, losses=losses, step_ms=times, reading=reading)
+    return dict(rows_per_rank=rows, losses=losses, reading=reading)
 
 
 def mesh_cp(torch, kernels, eu) -> dict:
@@ -5452,24 +5273,21 @@ def data41_cases() -> dict:
     }
 
 
-def data41_reference(torch, directory) -> dict:
+def data41_reference(torch, directory) -> None:
     """16b's (4, 1) references in this process: each case of
-    ``data41_cases`` on one device, saved for the ranks. Returns each
-    case's step times."""
+    ``data41_cases`` on one device, saved for the ranks."""
     from tpurec_torch.train.trainer import Trainer
 
-    times = {}
     for case, (config, info, batches) in data41_cases().items():
         trainer = Trainer(config, info)
         state = trainer.init_state(batches[0])
         terms = []
-        state, _, times[case], results = mesh_steps(torch, trainer, state, batches, terms)
+        state, _, results = mesh_steps(trainer, state, batches, terms)
         torch.save(dict(terms=terms, results=results, params=whole_params(state.model)),
                    os.path.join(directory, f"{case}_4x1_ref.pt"))
         del trainer, state
         gc.collect()
         torch.cuda.empty_cache()
-    return times
 
 
 def mesh_data41(torch, kernels, eu, directory) -> dict:
@@ -5484,7 +5302,7 @@ def mesh_data41(torch, kernels, eu, directory) -> dict:
         trainer = Trainer(on_mesh(config, **MESH_4X1), info)
         state = trainer.init_state(batches[0])
         terms = []
-        state, _, times, results = mesh_steps(torch, trainer, state, batches, terms)
+        state, _, results = mesh_steps(trainer, state, batches, terms)
         ref = torch.load(os.path.join(directory, f"{case}_4x1_ref.pt"))
         names = sorted(k for k in ref["terms"][0] if k != "loss")
         check(all(sorted(k for k in t if k != "loss") == names for t in terms),
@@ -5497,7 +5315,7 @@ def mesh_data41(torch, kernels, eu, directory) -> dict:
                        **param_reading(torch, whole_params(state.model), ref["params"], MESH_PARAM_TOL))
         check(max(reading["loss"], reading["metrics"], reading["param"]) <= 1.0,
               f"{case} on (4, 1) against one device, fp32: {reading} (terms {terms} vs {ref['terms']})")
-        out[case] = dict(terms=terms, reading=reading, step_ms=times)
+        out[case] = dict(terms=terms, reading=reading)
         del trainer, state
         gc.collect()
         torch.cuda.empty_cache()
@@ -5520,7 +5338,7 @@ def mesh_dien41(torch, kernels, eu) -> dict:
     trainer = Trainer(config, info)
     state = trainer.init_state(batches[0])
     kernels.reset_launch_counts()
-    state, losses, times, _ = mesh_steps(torch, trainer, state, batches)
+    state, losses, _ = mesh_steps(trainer, state, batches)
     counts = path_launches(kernels, eu)
     check(counts["din_attention"] == counts["din_attention_bwd"] == MESH_STEPS
           and counts["fused_scatter_add"] == 0, f"DIEN on (4, 1): #4/#5 not once a step: {counts}")
@@ -5533,7 +5351,7 @@ def mesh_dien41(torch, kernels, eu) -> dict:
     trainer = Trainer(fused, info)
     state = trainer.init_state(batches[0])
     kernels.reset_launch_counts()
-    state, fused_losses, fused_times, _ = mesh_steps(torch, trainer, state, batches[:MESH_FUSED_STEPS])
+    state, fused_losses, _ = mesh_steps(trainer, state, batches[:MESH_FUSED_STEPS])
     fused_counts = path_launches(kernels, eu)
     check(fused_counts["fused_scatter_add"] == fused_counts["din_attention"]
           == fused_counts["din_attention_bwd"] == MESH_FUSED_STEPS,
@@ -5541,8 +5359,8 @@ def mesh_dien41(torch, kernels, eu) -> dict:
     check(all(np.isfinite(fused_losses)), f"DIEN fused on (4, 1): non-finite losses {fused_losses}")
     del trainer, state
     scatter = check_step_scatter(torch, eu, Trainer(fused, info), batches[0], ("dien_emb_4x1",), (32,))
-    return dict(losses=losses, step_ms=times, launches=counts, attention=attention,
-                fused_losses=fused_losses, fused_step_ms=fused_times, fused_launches=fused_counts,
+    return dict(losses=losses, launches=counts, attention=attention,
+                fused_losses=fused_losses, fused_launches=fused_counts,
                 scatter=scatter)
 
 
@@ -5595,17 +5413,14 @@ def mesh_rank(argv) -> int:
     return 0
 
 
-def mesh41_summary(r, one_device_ms) -> dict:
+def mesh41_summary(r) -> dict:
     """A rank's (4, 1) results as phase 16b prints them: each fp32 case's
-    reading and step p50 beside one device's, DIEN's bf16 dense and fused
-    step p50s, launches and the readings of #4, #5 and #9 on its inputs."""
+    reading, DIEN's bf16 dense and fused launches and the readings of #4,
+    #5 and #9 on its inputs."""
     dien = r["dien_bf16"]
-    out = {case: dict(reading=r[case]["reading"], step_p50_ms=statistics.median(r[case]["step_ms"][1:]),
-                      one_device_step_p50_ms=statistics.median(one_device_ms[case][1:]))
-           for case in one_device_ms}
+    out = {case: dict(reading=v["reading"]) for case, v in r.items() if case != "dien_bf16"}
     out["dien_bf16"] = dict(
-        step_p50_ms=statistics.median(dien["step_ms"][2:]), launches=dien["launches"],
-        fused_step_p50_ms=statistics.median(dien["fused_step_ms"][1:]), fused_launches=dien["fused_launches"],
+        launches=dien["launches"], fused_launches=dien["fused_launches"],
         attention={k: dict(readings=v["readings"], shape=v["shape"], ms=v["ms"], bound_ms=v["bound_ms"],
                            plain_ms=v["plain_ms"]) for k, v in dien["attention"].items()},
         scatter={k: dict(n=v["shape"][0], rows=v["shape"][1], d=v["shape"][2], max_abs_err=v["max_abs_err"],
@@ -5623,26 +5438,26 @@ def run_mesh(torch, kernels, eu, workdir, card):
     # 16a's reference: the same steps without a world
     trainer = Trainer(din_train_config("bfloat16"), info)
     state = trainer.init_state(batches[0])
-    state, losses, times, results = mesh_steps(torch, trainer, state, batches)
-    groupless = dict(losses=losses, step_ms=times, params=whole_params(state.model))
+    state, losses, results = mesh_steps(trainer, state, batches)
+    groupless = dict(losses=losses, params=whole_params(state.model))
     # 16b's reference: the one-device fp32 steps on the same global batches
     trainer = Trainer(din_train_config("float32"), info)
     state = trainer.init_state(batches[0])
-    state, losses, _, results = mesh_steps(torch, trainer, state, batches[:MESH_FP32_STEPS])
+    state, losses, results = mesh_steps(trainer, state, batches[:MESH_FP32_STEPS])
     torch.save(dict(losses=losses, results=results, params=whole_params(state.model)),
                os.path.join(workdir, "din_fp32_ref.pt"))
     del trainer, state
     # 16b's FM rowwise_adam reference: one device, fp32
     trainer = Trainer(fm_train_config("sparse", "float32"), fm_info())
     state = trainer.init_state()
-    state, losses, fm_times, results = mesh_steps(torch, trainer, state, fm_rowwise_batches())
+    state, losses, results = mesh_steps(trainer, state, fm_rowwise_batches())
     torch.save(dict(losses=losses, results=results, params=whole_params(state.model),
                     state=fm_rowwise_state(state)), os.path.join(workdir, "fm_rowwise_ref.pt"))
     del trainer, state
     gc.collect()
     torch.cuda.empty_cache()
     # 16b's (4, 1) references: DIEN, DMR and MIND sampled on one device, fp32
-    data41_times = data41_reference(torch, workdir)
+    data41_reference(torch, workdir)
     # 16b's tensor-parallel MLP with LayerNorm, a softmax and dropout
     mesh_blocks_reference(torch, workdir)
 
@@ -5655,8 +5470,6 @@ def run_mesh(torch, kernels, eu, workdir, card):
     same_bits = one["losses"] == groupless["losses"] and all(
         torch.equal(params[n], w) for n, w in groupless["params"].items())
     world_one = dict(card=card, backend="nccl", mesh=[1, 1], batch=TRAIN_BATCH, steps=MESH_STEPS,
-                     step_p50_ms=statistics.median(one["step_ms"][2:]),
-                     groupless_step_p50_ms=statistics.median(groupless["step_ms"][2:]),
                      loss_rel_err=loss_err, param_abs_err=param_err, same_bits=same_bits,
                      launches=one["launches"], init_s=one["init_s"], world_s=nccl_s,
                      dryrun=one["dryrun"])
@@ -5675,11 +5488,9 @@ def run_mesh(torch, kernels, eu, workdir, card):
     for r in four:
         summary["ranks"].append(dict(
             rank=r["rank"], init_s=r["init_s"], seconds=r["seconds"],
-            din=dict(fp32_reading=r["din"]["fp32_reading"], step_p50_ms=statistics.median(
-                r["din"]["step_ms"][2:]), launches=r["din"]["launches"],
+            din=dict(fp32_reading=r["din"]["fp32_reading"], launches=r["din"]["launches"],
                 attention={k: v["readings"] for k, v in r["din"]["attention"].items()}),
-            fm=dict(rows_per_rank=r["fm"]["rows_per_rank"], step_p50_ms=statistics.median(
-                r["fm"]["step_ms"][2:]), launches=r["fm"]["launches"],
+            fm=dict(rows_per_rank=r["fm"]["rows_per_rank"], launches=r["fm"]["launches"],
                 scatter={k: dict(n=v["shape"][0], rows=v["shape"][1], d=v["shape"][2],
                                  max_abs_err=v["max_abs_err"], ms=v["ms"], bound_ms=v["bound_ms"],
                                  plain_ms=v["plain_ms"], library_ms=v["library_ms"])
@@ -5687,12 +5498,10 @@ def run_mesh(torch, kernels, eu, workdir, card):
                 fused_vs_dense=r["fm"]["fused_vs_dense"]["fused"]),
             din_mlp_shares=r["din"]["mlp_shares"],
             fm_rowwise=dict(rows_per_rank=r["fm_rowwise"]["rows_per_rank"],
-                            reading=r["fm_rowwise"]["reading"],
-                            step_p50_ms=statistics.median(r["fm_rowwise"]["step_ms"][1:]),
-                            one_device_step_p50_ms=statistics.median(fm_times[1:])),
+                            reading=r["fm_rowwise"]["reading"]),
             dryrun=r["dryrun"],
             cp=dict(reading=r["cp"]["reading"], launches=r["cp"]["launches"], host_ms=r["cp"]["host_ms"]),
-            data41=mesh41_summary(r["data41"], data41_times), blocks=r["blocks"]))
+            data41=mesh41_summary(r["data41"]), blocks=r["blocks"]))
     print("phase 16b, a world of four ranks on one card over gloo, mesh (2, 2), (1, 4) and (4, 1):",
           json.dumps(summary), flush=True)
     launches = {

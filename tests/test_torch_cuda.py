@@ -1984,3 +1984,44 @@ if __name__ == "__main__":
     from test_torch_mesh import rank_main
 
     rank_main({"card2": _card_mesh_world})
+
+
+@pytest.mark.cuda
+def test_trace_counts_syncs_and_times_the_feed_on_the_card(card):
+    """The port's tracing on the card: the sync counter sees a ``.item()``,
+    reads 0 over dense DIN steps (bf16, through both DIN kernels), and
+    ``device_batch`` pins and copies in its own spans."""
+    from tpurec_torch.config import EmbeddingConfig, ExperimentConfig, ModelConfig, TrainConfig
+    from tpurec_torch.core import trace
+    from tpurec_torch.train.trainer import Trainer
+
+    rec = trace.start()
+    try:
+        with trace.span("item"):
+            torch.ones(1, device=card).item()
+    finally:
+        trace.stop()
+    assert rec.named("item")[0].syncs == 1
+
+    info, batch = _small_din(np.random.default_rng(2))
+    batch["label"] = np.random.default_rng(3).integers(0, 2, size=(64,)).astype(np.float32)
+    config = ExperimentConfig(
+        model=ModelConfig(name="din", embedding=EmbeddingConfig(dim=32)),
+        train=TrainConfig(compute_dtype="bfloat16", log_every_steps=0),
+    )
+    trainer = Trainer(config, info, device=card)
+    state, metric_state = trainer.init_state(), trainer.metrics.init()
+    state, metric_state, _ = trainer.train_step(state, trainer.device_batch(batch), metric_state)
+    torch.cuda.synchronize()
+    rec = trace.start()
+    try:
+        for _ in range(3):
+            state, metric_state, _ = trainer.train_step(state, trainer.device_batch(batch), metric_state)
+    finally:
+        trace.stop()
+    torch.cuda.synchronize()
+    assert sum(s.syncs for s in rec.spans) + rec.loose_syncs == 0
+    for k in range(3):
+        feed = [(s.name, s.parent.name if s.parent else None) for s in rec.spans
+                if s.step == k and s.name.startswith("feed")]
+        assert feed == [("feed", None), ("feed.pin", "feed"), ("feed.copy", "feed")]

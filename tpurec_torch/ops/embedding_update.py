@@ -36,6 +36,7 @@ from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 
+from tpurec_torch.core import trace
 from tpurec_torch.embedding.sparse import bias_correction
 from tpurec_torch.ops import kernels
 
@@ -189,10 +190,13 @@ def _require_ids(what: str, device: torch.device, plan: ScatterPlan) -> None:
 
 def scatter_adam_sorted(table, m, v, plan, grads_sorted, step, lr, b1=0.9, b2=0.999, eps=1e-7):
     """Dense-parity Adam for one (V, D) table (in place): the aggregated
-    gradient of the sorted stream, then ``adam_update_``."""
+    gradient of the sorted stream, then ``adam_update_`` (the spans
+    ``engine.scatter`` and ``engine.adam``)."""
     v_rows, d = table.shape
-    g = fused_scatter_add(v_rows, d, plan, grads_sorted.reshape(-1, d))
-    return adam_update_(table, m, v, g, step, lr, b1, b2, eps)
+    with trace.span("engine.scatter"):
+        g = fused_scatter_add(v_rows, d, plan, grads_sorted.reshape(-1, d))
+    with trace.span("engine.adam"):
+        return adam_update_(table, m, v, g, step, lr, b1, b2, eps)
 
 
 def scatter_adam_grouped(tables, ms, vs, plan, grads_sorted, step, lr, b1=0.9, b2=0.999, eps=1e-7):

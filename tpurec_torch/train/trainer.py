@@ -78,6 +78,7 @@ from tpurec_torch.core.early_stop import EarlyStopper
 from tpurec_torch.core.mesh import MeshContext, make_mesh
 from tpurec_torch.core.metrics import AUC, Mean, MetricBundle
 from tpurec_torch.core.summary import NullSummaryWriter, SummaryWriter
+from tpurec_torch.core import trace
 from tpurec_torch.data.schema import DataInfo
 from tpurec_torch.device import DeviceLike, resolve_device
 from tpurec_torch.embedding import sparse as sparse_ops
@@ -363,10 +364,10 @@ class Trainer:
             if config.train.checkpoint_dir
             else None
         )
-        # for measurement only: a hook called with a phase name ("forward",
-        # "backward", "optimizer", "metrics", "end") at each boundary of
-        # train_step, so a profiling script can record CUDA events between
-        # them (chip_smoke.py's step breakdown); training leaves it None
+        # for measurement only: a sink called with the mark's name
+        # ("forward", "backward", "optimizer", "metrics", "end") at each
+        # boundary of train_step's child spans (``_mark``), so a caller can
+        # record CUDA events between them; training leaves it None
         self.step_marks: Optional[Callable[[str], None]] = None
 
     # ------------------------------------------------------------------ setup
@@ -545,28 +546,33 @@ class Trainer:
         contiguous block of rows over 'data' (the whole batch, alike on
         every rank and ``replicated``, when its rows do not divide over the
         axis, as the JAX package places such a batch replicated:
-        ``trainer.py:450-452``)."""
-        m = self.mesh_ctx
-        n = len(next(iter(batch.values())))
-        out = DeviceBatch()
-        if m.n_data > 1 and n % m.n_data == 0:
-            k = n // m.n_data
-            batch = {key: v[m.data_index * k : (m.data_index + 1) * k] for key, v in batch.items()}
-        else:
-            out.replicated = m.n_data > 1
-        for k, v in batch.items():
-            t = torch.as_tensor(v)
-            if self.device.type == "cuda" and t.device.type == "cpu":
-                t = t.pin_memory().to(self.device, non_blocking=True)
+        ``trainer.py:450-452``). Spans: ``feed``, with ``feed.pin`` (the
+        pinned copies, on the card) and ``feed.copy`` (the copies' enqueue)."""
+        with trace.span("feed"):
+            m = self.mesh_ctx
+            n = len(next(iter(batch.values())))
+            out = DeviceBatch()
+            if m.n_data > 1 and n % m.n_data == 0:
+                k = n // m.n_data
+                batch = {key: v[m.data_index * k : (m.data_index + 1) * k] for key, v in batch.items()}
             else:
-                t = t.to(self.device)
-            out[k] = t
-        return out
+                out.replicated = m.n_data > 1
+            cols = {k: torch.as_tensor(v) for k, v in batch.items()}
+            if self.device.type == "cuda":
+                with trace.span("feed.pin"):
+                    cols = {k: t.pin_memory() if t.device.type == "cpu" else t for k, t in cols.items()}
+            with trace.span("feed.copy"):
+                out.update({k: t.to(self.device, non_blocking=True) for k, t in cols.items()})
+            return out
 
     # ------------------------------------------------------------------ steps
     def _mark(self, name: str) -> None:
+        """A boundary of the step: the ``step_marks`` sink's call, the end
+        of the open child span of ``step`` and the start of ``step.<name>``
+        (``end`` starts none)."""
         if self.step_marks is not None:
             self.step_marks(name)
+        trace.phase(None if name == "end" else f"step.{name}")
 
     @property
     def _id_features(self) -> List[str]:
@@ -578,15 +584,21 @@ class Trainer:
     def train_step(
         self, state: TrainState, batch: Dict[str, torch.Tensor], metric_state
     ) -> Tuple[TrainState, Any, Dict[str, torch.Tensor]]:
-        """One step of the configured engine (dense, lazy-sparse or fused)."""
+        """One step of the configured engine (dense, lazy-sparse or fused),
+        in the span ``step``, whose children are ``step.forward`` (the model
+        and the loss), ``step.backward`` (the backward and the average over
+        'data'), ``step.optimizer`` (the chain and the sparse engines' table
+        update) and ``step.metrics``; the engines' parts are spans named
+        ``engine.*`` where they run."""
         train = self.config.train
-        if not train.sparse_embedding:
-            return self._dense_step(state, batch, metric_state)
-        if train.optimizer.embedding_optimizer == "fused_adam":
-            if self.mesh_ctx.n_devices > 1:
-                return self._fused_step_sharded(state, batch, metric_state)
-            return self._fused_step(state, batch, metric_state)
-        return self._sparse_step(state, batch, metric_state)
+        with trace.span("step", ends_step=True):
+            if not train.sparse_embedding:
+                return self._dense_step(state, batch, metric_state)
+            if train.optimizer.embedding_optimizer == "fused_adam":
+                if self.mesh_ctx.n_devices > 1:
+                    return self._fused_step_sharded(state, batch, metric_state)
+                return self._fused_step(state, batch, metric_state)
+            return self._sparse_step(state, batch, metric_state)
 
     def _loss(self, outputs, inputs, batch):
         """The loss of ``outputs`` on ``inputs`` (the model's batch, ids
@@ -690,8 +702,9 @@ class Trainer:
         ids_all = torch.cat([x.reshape(-1) for x in ids])
         v_loc = tables[0].embedding.shape[0]
         pad_id = v_loc * mesh.n_model - 1  # the spare row of pad_vocab
-        uniq, positions = sparse_ops.unique_with_positions(ids_all, pad_id)
-        with torch.no_grad():
+        with trace.span("engine.unique"):
+            uniq, positions = sparse_ops.unique_with_positions(ids_all, pad_id)
+        with torch.no_grad(), trace.span("engine.gather"):
             rows = [row_sharded_lookup(t.embedding, uniq, mesh) if mesh.n_model > 1
                     else t.embedding.detach().index_select(0, uniq) for t in tables]
         rows = [r.requires_grad_() for r in rows]
@@ -716,22 +729,23 @@ class Trainer:
         hp = (oc.b1, oc.b2, oc.eps)
         grads = [r.grad if r.grad is not None else torch.zeros_like(r) for r in rows]
         self._average_over_data(grads)
-        if mesh.n_model > 1:
-            # the unique ids this rank owns, a run of the sorted ids
-            lo = tables[0].row_offset
-            a, b = torch.searchsorted(uniq, uniq.new_tensor([lo, lo + v_loc])).tolist()
-            uniq, grads = uniq[a:b] - lo, [g[a:b] for g in grads]
-        for name, table, g in zip(_table_names(model), tables, grads):
-            opt = state.table_opt[name]
-            t = table.embedding
-            if isinstance(opt, HostAdamState):
-                state.host_store.update(t, opt, uniq, g, step, oc.learning_rate, *hp)
-            elif isinstance(opt, sparse_ops.SparseAdagradState):
-                sparse_ops.sparse_rowwise_adagrad(t, opt, uniq, g, oc.learning_rate)
-            elif isinstance(opt, sparse_ops.SparseRowAdamState):
-                sparse_ops.sparse_rowwise_adam(t, opt, uniq, g, step, oc.learning_rate, *hp)
-            else:
-                sparse_ops.sparse_adam(t, opt, uniq, g, step, oc.learning_rate, *hp)
+        with trace.span("engine.update"):
+            if mesh.n_model > 1:
+                # the unique ids this rank owns, a run of the sorted ids
+                lo = tables[0].row_offset
+                a, b = torch.searchsorted(uniq, uniq.new_tensor([lo, lo + v_loc])).tolist()
+                uniq, grads = uniq[a:b] - lo, [g[a:b] for g in grads]
+            for name, table, g in zip(_table_names(model), tables, grads):
+                opt = state.table_opt[name]
+                t = table.embedding
+                if isinstance(opt, HostAdamState):
+                    state.host_store.update(t, opt, uniq, g, step, oc.learning_rate, *hp)
+                elif isinstance(opt, sparse_ops.SparseAdagradState):
+                    sparse_ops.sparse_rowwise_adagrad(t, opt, uniq, g, oc.learning_rate)
+                elif isinstance(opt, sparse_ops.SparseRowAdamState):
+                    sparse_ops.sparse_rowwise_adam(t, opt, uniq, g, step, oc.learning_rate, *hp)
+                else:
+                    sparse_ops.sparse_adam(t, opt, uniq, g, step, oc.learning_rate, *hp)
         return self._finish(state, metric_state, loss, logs, outputs, batch)
 
     def _identity_positions(self, batch, present):
@@ -787,8 +801,12 @@ class Trainer:
         ids_all = torch.cat([_flat_ids(batch[n]) for n in present]).to(torch.int32)
         n_ids = ids_all.shape[0]
         v_rows = tables[0].embedding.shape[0]
-        plan = eu.make_scatter_plan(ids_all, v_rows) if oc.fused_backward == "permute" else None
-        rows = [t.embedding.detach().index_select(0, ids_all).requires_grad_() for t in tables]
+        plan = None
+        if oc.fused_backward == "permute":
+            with trace.span("engine.plan"):
+                plan = eu.make_scatter_plan(ids_all, v_rows)
+        with trace.span("engine.gather"):
+            rows = [t.embedding.detach().index_select(0, ids_all).requires_grad_() for t in tables]
         first_orig = None
         if l2_coeff > 0 and plan is not None:
             # used-id L2 counts each id once: its first occurrence in the
@@ -818,19 +836,22 @@ class Trainer:
         table_l2 = l2_coeff > 0 and oc.fused_backward != "permute"
         with torch.no_grad():
             if oc.fused_backward == "xla_packed":
-                gds = [eu.packed_scatter_add(v_rows, ids_all, g) for g in grads]
-                count = eu.packed_count_rows(v_rows, ids_all) if table_l2 else None
+                with trace.span("engine.scatter"):
+                    gds = [eu.packed_scatter_add(v_rows, ids_all, g) for g in grads]
+                    count = eu.packed_count_rows(v_rows, ids_all) if table_l2 else None
             else:
                 if plan is None:  # sort_payload sorts after the backward
-                    plan = eu.make_scatter_plan(ids_all, v_rows)
+                    with trace.span("engine.plan"):
+                        plan = eu.make_scatter_plan(ids_all, v_rows)
                 gs = [g.index_select(0, plan.order) for g in grads]
                 if not table_l2:
                     eu.scatter_adam_grouped(t2, ms, vs, plan, gs, step, lr, *hp)
                     gds = []
                 else:
-                    ones = torch.ones(n_ids, 1, device=ids_all.device)
-                    count = eu.fused_scatter_add(v_rows, 1, plan, ones)
-                    gds = [eu.fused_scatter_add(v_rows, g.shape[1], plan, g) for g in gs]
+                    with trace.span("engine.scatter"):
+                        ones = torch.ones(n_ids, 1, device=ids_all.device)
+                        count = eu.fused_scatter_add(v_rows, 1, plan, ones)
+                        gds = [eu.fused_scatter_add(v_rows, g.shape[1], plan, g) for g in gs]
             if table_l2:
                 # the rows-space term's exact gradient, each touched id once,
                 # and its value, from the tables before their update
@@ -840,7 +861,8 @@ class Trainer:
                 loss = loss.detach() + l2_coeff * reg
                 logs["used_id_l2"] = reg
             for t, m, v, gd in zip(t2, ms, vs, gds):
-                eu.adam_update_(t, m, v, gd, step, lr, *hp)
+                with trace.span("engine.adam"):
+                    eu.adam_update_(t, m, v, gd, step, lr, *hp)
         return self._finish(state, metric_state, loss, logs, outputs, batch)
 
     def _fused_step_sharded(self, state, batch, metric_state):
@@ -873,7 +895,7 @@ class Trainer:
         ids_all = torch.cat([_flat_ids(batch[n]) for n in present])
         n_ids = ids_all.shape[0]
         v_loc = tables[0].embedding.shape[0]
-        with torch.no_grad():
+        with torch.no_grad(), trace.span("engine.gather"):
             rows = [row_sharded_lookup(t.embedding, ids_all, mesh) for t in tables]
         rows = [r.requires_grad_() for r in rows]
         inputs = self._identity_positions(batch, present)
@@ -884,28 +906,32 @@ class Trainer:
         step = state.step + 1
         lr, hp = oc.learning_rate, (oc.b1, oc.b2, oc.eps)
         with torch.no_grad():
-            sids, order = torch.sort(ids_all.to(torch.int32), stable=True)
-            lo = tables[0].row_offset
-            local = torch.where(sids < lo, -1, torch.clamp_max(sids - lo, v_loc))
-            plan = eu.ScatterPlan(local.to(torch.int32), order, n_ids, v_loc)
+            with trace.span("engine.plan"):
+                sids, order = torch.sort(ids_all.to(torch.int32), stable=True)
+                lo = tables[0].row_offset
+                local = torch.where(sids < lo, -1, torch.clamp_max(sids - lo, v_loc))
+                plan = eu.ScatterPlan(local.to(torch.int32), order, n_ids, v_loc)
             touched = None
             if l2_coeff > 0:
-                ones = torch.ones(n_ids, 1, device=ids_all.device)
-                count = all_reduce_(eu.fused_scatter_add(v_loc, 1, plan, ones), mesh.data_group)
+                with trace.span("engine.scatter"):
+                    ones = torch.ones(n_ids, 1, device=ids_all.device)
+                    count = all_reduce_(eu.fused_scatter_add(v_loc, 1, plan, ones), mesh.data_group)
                 touched = (count > 0).to(torch.float32)
             reg = None
             for name, t, r in zip(names, tables, rows):
                 g = (r.grad if r.grad is not None else torch.zeros_like(r)).reshape(n_ids, -1)
                 t2 = t.embedding.detach().reshape(v_loc, -1)
-                gd = eu.fused_scatter_add(v_loc, t2.shape[1], plan, g.index_select(0, order))
-                self._average_over_data([gd])
+                with trace.span("engine.scatter"):
+                    gd = eu.fused_scatter_add(v_loc, t2.shape[1], plan, g.index_select(0, order))
+                    self._average_over_data([gd])
                 if touched is not None:
                     part = 0.5 * (touched[:, 0] * t2.square().sum(-1)).sum()
                     reg = part if reg is None else reg + part
                     gd = gd + l2_coeff * touched * t2
                 st = state.table_opt[name]
-                eu.adam_update_(t2, st.m.reshape(v_loc, -1), st.v.reshape(v_loc, -1), gd,
-                                step, lr, *hp)
+                with trace.span("engine.adam"):
+                    eu.adam_update_(t2, st.m.reshape(v_loc, -1), st.v.reshape(v_loc, -1), gd,
+                                    step, lr, *hp)
             if reg is not None:
                 reg = all_reduce_(reg, mesh.model_group)
                 loss = loss.detach() + l2_coeff * reg
@@ -936,13 +962,23 @@ class Trainer:
             return self.metrics.update(metric_state, **updates)
 
     # ------------------------------------------------------------------ loops
-    def _profiler(self):
+    def _start_profile(self):
+        """The operator's profiler, with the steps' spans on as its
+        ``record_function`` ranges (unless a caller traces already; no sync
+        counter); returns it and the spans' recording (None then)."""
         activities = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
-        return torch.profiler.profile(activities=activities)
+        prof = torch.profiler.profile(activities=activities)
+        prof.__enter__()
+        rec = None
+        if trace.recording() is None:
+            rec = trace.start(record_function=True, count_syncs=False)
+        return prof, rec
 
-    def _stop_profile(self, prof) -> None:
+    def _stop_profile(self, prof, rec) -> None:
+        if rec is not None and trace.recording() is rec:
+            trace.stop()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         prof.__exit__(None, None, None)
@@ -962,34 +998,35 @@ class Trainer:
         cfg = self.config.train
         log_every = cfg.log_every_steps
         eval_every = cfg.eval_every_steps
-        prof = None
+        prof = rec = None
         t0 = time.time()
         n = 0
-        for batch in batches:
-            n += 1
-            if cfg.profile_dir and epoch == 0:
-                if n == cfg.profile_start_step:
-                    prof = self._profiler()
-                    prof.__enter__()
-                elif prof is not None and n == cfg.profile_start_step + cfg.profile_num_steps:
-                    self._stop_profile(prof)
-                    prof = None
-            batch = self.device_batch(batch)
-            state, metric_state, logs = self.train_step(state, batch, metric_state)
-            if eval_hook is not None and eval_every and n % eval_every == 0:
-                eval_hook(state)
-            if log_every and n % log_every == 0:
-                results = {k: float(v) for k, v in self.metrics.result(metric_state).items()}
-                for k, v in results.items():
-                    writer.scalar(f"train/{k}", v, state.step)
-                rate = n * next(iter(batch.values())).shape[0] / (time.time() - t0)
-                print(
-                    f"epoch {epoch} step {state.step}: "
-                    + " ".join(f"{k}={v:.4f}" for k, v in results.items())
-                    + f" ({rate:.0f} ex/s)"
-                )
-        if prof is not None:  # epoch shorter than the profile window
-            self._stop_profile(prof)
+        try:
+            for batch in batches:
+                n += 1
+                if cfg.profile_dir and epoch == 0:
+                    if n == cfg.profile_start_step:
+                        prof, rec = self._start_profile()
+                    elif prof is not None and n == cfg.profile_start_step + cfg.profile_num_steps:
+                        self._stop_profile(prof, rec)
+                        prof = None
+                batch = self.device_batch(batch)
+                state, metric_state, logs = self.train_step(state, batch, metric_state)
+                if eval_hook is not None and eval_every and n % eval_every == 0:
+                    eval_hook(state)
+                if log_every and n % log_every == 0:
+                    results = {k: float(v) for k, v in self.metrics.result(metric_state).items()}
+                    for k, v in results.items():
+                        writer.scalar(f"train/{k}", v, state.step)
+                    rate = n * next(iter(batch.values())).shape[0] / (time.time() - t0)
+                    print(
+                        f"epoch {epoch} step {state.step}: "
+                        + " ".join(f"{k}={v:.4f}" for k, v in results.items())
+                        + f" ({rate:.0f} ex/s)"
+                    )
+        finally:
+            if prof is not None:  # an epoch shorter than the profile window, or a step that raised
+                self._stop_profile(prof, rec)
         results = {k: float(v) for k, v in self.metrics.result(metric_state).items()}
         return state, results
 
