@@ -22,6 +22,7 @@
     python3 chip_smoke.py --long-seq  # phase 15 alone (SIM, CAN, ETA, DMR, DMT, FinalMLP, SDIM)
     python3 chip_smoke.py --mesh      # phase 16 alone (the mesh: ranks over NCCL and gloo)
     python3 chip_smoke.py --blocks    # phase 17 alone (the building blocks' options)
+    python3 chip_smoke.py --adam      # the optimizer chain's kernel on the benchmark's lists
 
 Needs one CUDA card and ``nvcc`` (``$CUDA_HOME/bin`` or ``PATH``); ``triton``
 only for ``--fm-ab`` and ``--cross-ab`` against a parent whose #1 and #2
@@ -471,6 +472,15 @@ checkout and exits non-zero on the first phase that fails. Phases:
       ``apply_dropout_mask`` and its gradient equal to the CPU's;
     - each case's device ms of the forward and of the forward and
       backward, the draw's and the masking's.
+18. the optimizer chain's kernel (``csrc/adam_update.cu``, no TPU
+    counterpart) on the benchmark's DeepFM and DIN lists
+    (``portbench/configs/``): one step against its foreach twin
+    ``kernels.adam_update_plain`` (every element within 4 ulps), one launch a
+    step, device ms beside the twin's, PyTorch's fused Adam's (timed, never
+    called by the port) and the 28 bytes a parameter bound, and each one's
+    host time a call (``check_adam``). The kernel's record reads its
+    launches in every phase's training steps and in the mesh's ranks
+    (``adam_launches``); each phase that trains on the card must launch it.
 
 TF32 is off for the whole run (``allow_tf32 = False`` for matmul and
 cuDNN), so every fp32 comparison is fp32 on both sides.
@@ -5404,7 +5414,9 @@ def mesh_rank(argv) -> int:
     out = dict(world=world, backend=backend, topology=topology, rank=rank,
                init_s=time.perf_counter() - t0)
     run = mesh_world_one if world == "nccl1" else mesh_world_four
-    out.update(run(torch, kernels, eu, directory))
+    with adam_launches(kernels) as adam:
+        out.update(run(torch, kernels, eu, directory))
+    out["adam_update_launches"] = adam["n"]
     out["seconds"] = time.perf_counter() - t0
     with open(os.path.join(directory, f"{world}_{rank}.json"), "w") as f:
         json.dump(out, f)
@@ -5520,6 +5532,8 @@ def run_mesh(torch, kernels, eu, workdir, card):
         mesh_dryrun_2x2=sum(r["dryrun"]["launches"]["fused_scatter_add"] for r in four),
         mesh_dien_fused_4x1=sum(r["data41"]["dien_bf16"]["fused_launches"]["fused_scatter_add"]
                                 for r in four))
+    launches["adam_update"] = dict(mesh_nccl1=one["adam_update_launches"],
+                                   mesh_gloo4=sum(r["adam_update_launches"] for r in four))
     print("phase 16 launches (all ranks):", json.dumps(launches), flush=True)
     return launches, dict(world_one=world_one, world_four=summary)
 
@@ -5796,6 +5810,128 @@ def mesh_blocks(torch, directory) -> dict:
     return dict(reading=reading, shares=shares, rows=[lo, lo + rows])
 
 
+# --------------------------------------------------------------------------
+# the optimizer chain's kernel (csrc/adam_update.cu) on the benchmark's lists
+ADAM_BYTES = 28  # a parameter: p, g, m and v read, p, m and v written, fp32
+ADAM_CONFIGS = ("deepfm_criteo", "din_amazon")
+# the full run's phases that train on the card through ``ChainOptimizer``
+# (each must launch the chain's kernel), and the mesh's two worlds
+ADAM_TRAINING_PHASES = ("6_din_training", "7cef_fm_engines", "7d_din_fused", "8bc_dcn_family",
+                        "9bcd_mind", "10_fm_family", "11_dcn_rest", "12_cli", "13_multitask",
+                        "14_sequence", "15_long_seq", "16_mesh", "mesh_nccl1", "mesh_gloo4")
+
+
+def adam_chain_lists(torch, name):
+    """The dense engine's optimizer list of the benchmark's configuration
+    ``name`` (``portbench/configs/<name>.json``, built as the benchmark
+    builds it), with gradients and moments drawn from a fixed seed."""
+    from portbench.lib import program
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "portbench", "configs",
+                           f"{name}.json")) as f:
+        cfg = json.load(f)
+    trainer = program.trainer(cfg, {"engine": "auto", "batch": TRAIN_BATCH}, "cuda")
+    opt = trainer.init_state().optimizer
+    params = [g["params"][0].detach() for g in opt.param_groups]
+    gen = torch.Generator(device="cuda").manual_seed(27)
+
+    def draw(p, scale):
+        return scale * torch.randn(p.shape, device="cuda", generator=gen)
+
+    grads = [draw(p, 1e-3) for p in params]
+    mus = [draw(p, 1e-4) for p in params]
+    nus = [draw(p, 1e-4).square_() for p in params]
+    return opt.config, params, grads, mus, nus
+
+
+def check_adam(torch, kernels) -> dict:
+    """The chain's kernel against its foreach twin on DeepFM's and DIN's
+    lists: one step of each from the same state (every element of p, m and v
+    within 4 ulps), then device ms of a step (L2 flushed by a read) beside
+    the 28 bytes a parameter over 3.35 TB/s and PyTorch's fused Adam
+    (``torch._fused_adam_``, a library kernel the port never calls, timed
+    as ``library_ms``: the same plain Adam, no clip, L2 or decay), and each
+    one's host time a call with the card held busy, the kernel's with the
+    descriptor table kept as ``ChainOptimizer`` keeps it and without (the
+    median of single calls queued behind a sleep kernel)."""
+    out = {}
+    for name in ADAM_CONFIGS:
+        oc, params, grads, mus, nus = adam_chain_lists(torch, name)
+        n = sum(p.numel() for p in params)
+        hp = dict(lr=oc.learning_rate, bc1=1.0 - oc.b1**3, bc2=1.0 - oc.b2**3, b1=oc.b1, b2=oc.b2,
+                  eps=oc.eps)
+        copies = [[t.clone() for t in ts] for ts in (params, mus, nus)]
+        before = kernels.adam_update_fused.launches
+        kernels.adam_update_fused(params, grads, mus, nus, **hp)
+        launches = kernels.adam_update_fused.launches - before
+        kernels.adam_update_plain(copies[0], grads, copies[1], copies[2], **hp)
+        torch.cuda.synchronize()
+        ulps = 0
+        for got, want in zip((params, mus, nus), copies):
+            for g, w in zip(got, want):
+                i, j = (x.view(torch.int32).to(torch.int64) for x in (g, w))
+                i, j = (torch.where(x < 0, -(2**31) - x, x) for x in (i, j))
+                ulps = max(ulps, int((i - j).abs().max()))
+        del copies
+        check(ulps <= 4, f"{name}: the chain's kernel is {ulps} ulps from its foreach twin")
+        check(launches == 1, f"{name}: the chain's kernel took {launches} launches for one step")
+        cache = {}
+        steps = [torch.full((), 3.0, device="cuda") for _ in params]
+        kept = lambda: kernels.adam_update_fused(params, grads, mus, nus, **hp, cache=cache)  # noqa: E731
+        kernel = lambda: kernels.adam_update_fused(params, grads, mus, nus, **hp)  # noqa: E731
+        plain = lambda: kernels.adam_update_plain(params, grads, mus, nus, **hp)  # noqa: E731
+        library = lambda: torch._fused_adam_(  # noqa: E731
+            params, grads, mus, nus, [], steps, lr=oc.learning_rate, beta1=oc.b1, beta2=oc.b2,
+            weight_decay=0.0, eps=oc.eps, amsgrad=False, maximize=False)
+        ms = device_ms(torch, kernel, iters=20, flush="read")
+        plain_ms = device_ms(torch, plain, iters=10, flush="read")
+        library_ms = device_ms(torch, library, iters=20, flush="read")
+        bound_ms = ADAM_BYTES * n / HBM_BYTES_PER_S * 1e3
+        host_us = {}
+        # the plain chain's ~18 launches a tensor fill the launch queue in a
+        # few calls: it is timed over 4, the kernel over 200
+        for label, fn, calls in (("kernel_kept_table", kept, 200), ("kernel", kernel, 200),
+                                 ("plain", plain, 4)):
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(2_000_000_000)
+            times = []
+            for _ in range(calls):
+                t = time.perf_counter()
+                fn()
+                times.append(time.perf_counter() - t)
+            host_us[label] = statistics.median(times) * 1e6
+            torch.cuda.synchronize()
+        out[name] = dict(tensors=len(params), parameters=n, ulps=ulps, launches_a_step=launches,
+                         ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by="bytes", share_of_bound=bound_ms / ms,
+                         plain_share_of_bound=bound_ms / plain_ms,
+                         library_share_of_bound=bound_ms / library_ms, host_us_a_call=host_us)
+        print("adam chain:", name, json.dumps(out[name]), flush=True)
+        del params, grads, mus, nus, steps, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def adam_launches(kernels):
+    """Counts the chain kernel's launches inside the block from 0, across the
+    block's own ``reset_launch_counts`` calls (each adds what it clears);
+    the yielded dict holds the count in ``"n"`` once the block ends."""
+    counted = dict(n=0)
+    reset = kernels.reset_launch_counts
+
+    def counting_reset():
+        counted["n"] += kernels.adam_update_fused.launches
+        reset()
+
+    kernels.adam_update_fused.launches = 0
+    with mock.patch.object(kernels, "reset_launch_counts", counting_reset):
+        yield counted
+    counted["n"] += kernels.adam_update_fused.launches
+
+
 def ok_line(torch) -> dict:
     return {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                    "count": torch.cuda.device_count()}}
@@ -5988,6 +6124,12 @@ def main() -> int:
         kernels.build(["din_attention_bwd"])
         din_bwd_ab(torch, kernels, sys.argv[2])
         return 0
+    if sys.argv[1:] == ["--adam"]:
+        # the optimizer chain's kernel alone, on the benchmark's lists
+        paths = kernels.build(["adam_update"])
+        print(open(f"{paths['adam_update']}.log").read(), flush=True)
+        print(json.dumps({"card": smi, "adam_update": check_adam(torch, kernels)}), flush=True)
+        return 0
     if sys.argv[1:] == ["--din-bwd"]:
         # kernel #5 alone: phase 6's kernel checks, with the split and B=1024
         paths = kernels.build(["din_attention_bwd"])
@@ -6005,11 +6147,14 @@ def main() -> int:
     from tpurec_torch.ops import embedding_update as eu
 
     seconds = {}
+    adam_paths = {}  # the chain kernel's launches in each phase
 
     def timed(name, fn, *args):
         t = time.perf_counter()
-        out = fn(*args)
+        with adam_launches(kernels) as adam:
+            out = fn(*args)
         seconds[name] = time.perf_counter() - t
+        adam_paths[name] = adam["n"]
         return out
 
     records = timed("3_kernels", check_kernels, torch, kernels)
@@ -6040,7 +6185,21 @@ def main() -> int:
         ls_records, ls_launches, _ = timed("15_long_seq", run_long_seq, torch, kernels, eu, workdir, smi)
         mesh_launches, _ = timed("16_mesh", run_mesh, torch, kernels, eu, workdir, smi)
     timed("17_blocks", run_blocks, torch, smi)
+    adam_checks = timed("18_adam", check_adam, torch, kernels)
     print("phase seconds:", json.dumps(seconds), flush=True)
+    # the chain kernel: every phase's training steps (phase 18's own step is
+    # its check, not a main path) and the mesh's ranks
+    del adam_paths["18_adam"]
+    adam_paths.update(mesh_launches["adam_update"])
+    print("adam_update launches by phase:", json.dumps(adam_paths), flush=True)
+    for phase in ADAM_TRAINING_PHASES:
+        check(adam_paths[phase] > 0, f"phase {phase} trained without the chain's kernel: {adam_paths}")
+    records["adam_update"] = dict(
+        adam_checks["deepfm_criteo"], name="adam_update", route="cuda",
+        source="tpurec_torch/csrc/adam_update.cu", replaces=None,
+        other_shapes=dict(din_amazon=adam_checks["din_amazon"]),
+        launches=sum(adam_paths.values()), launches_by_path=adam_paths,
+    )
     # a kernel on several paths: its launches are their sum
     fm_paths = dict(http_rank=records["fm_second_order"]["launches"], **cli_launches["fm_second_order"])
     records["fm_second_order"]["launches"] = sum(fm_paths.values())

@@ -2025,3 +2025,211 @@ def test_trace_counts_syncs_and_times_the_feed_on_the_card(card):
         feed = [(s.name, s.parent.name if s.parent else None) for s in rec.spans
                 if s.step == k and s.name.startswith("feed")]
         assert feed == [("feed", None), ("feed.pin", "feed"), ("feed.copy", "feed")]
+
+
+# --------------------------------------------------------------------------
+# the optimizer chain's kernel (adam_update.cu) against its foreach twin
+
+def _ulps(got, want):
+    """Element-wise distance in fp32 ulps (a step between adjacent floats;
+    -0 and +0 are one value)."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(2**31) - i, i)
+
+    return (ordered(got) - ordered(want)).abs()
+
+
+# the lists the chain's kernel is held on: a scalar, odd and large lengths,
+# tables with a coefficient a row (R) and L2 (L), and views off a 16-byte
+# boundary ("view": every array one element past it, so the kernel takes a
+# head of three elements; "skew": only the parameter off it, so every
+# element is a 4-byte load)
+_CHAIN_TENSORS = [((1,), ""), ((3,), ""), ((4097,), "L"), ((2_000_003,), ""), ((1000, 11), "LR"),
+                  ((7, 5), "R"), ((1001,), "view"), ((1001,), "skew")]
+
+
+def _chain_array(card, a, how="", which=""):
+    """``a`` on the card; one element past a 16-byte boundary where ``how``
+    puts array ``which`` there."""
+    t = torch.as_tensor(a, dtype=torch.float32, device=card)
+    if how == "view" or (how == "skew" and which == "p"):
+        base = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+        base[1:] = t.reshape(-1)
+        t = base[1:].view(t.shape)
+    return t
+
+
+def _chain_lists(card, sgd):
+    rng = np.random.default_rng(6)
+    out = dict(p=[], m=[], v=[], l2=[], coef=[])
+    for shape, how in _CHAIN_TENSORS:
+        out["p"].append(_chain_array(card, 0.05 * rng.standard_normal(shape), how, "p"))
+        out["m"].append(None if sgd else _chain_array(card, 0.01 * rng.standard_normal(shape), how))
+        out["v"].append(None if sgd else _chain_array(card, np.abs(1e-4 * rng.standard_normal(shape)), how))
+        out["l2"].append(3e-3 if "L" in how else None)
+        out["coef"].append(
+            _chain_array(card, np.abs(1e-2 * rng.standard_normal((shape[0], 1)))) if "R" in how else None
+        )
+    return out
+
+
+def _chain_grads(card, rng, step):
+    return [_chain_array(card, (1.0 + step) * rng.standard_normal(shape), how, "g")
+            for shape, how in _CHAIN_TENSORS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["adam", "adamw", "sgd"])
+@pytest.mark.parametrize("clip", ["off", "keep", "scale"])
+@pytest.mark.parametrize("terms", [False, True])
+def test_adam_update_kernel_matches_the_foreach_chain(card, name, clip, terms):
+    """Three steps of the chain's kernel against its plain twin (PyTorch's
+    foreach ops) on the card from the same state and gradients: every
+    element of the parameters and both moments within 4 fp32 ulps (the
+    kernel rounds each operation as the foreach chain does). The clip off,
+    on with norm < clip (kept) and with norm ≥ clip (scaled); with
+    ``terms`` the coupled L2 and the row coefficients. One launch a step."""
+    from tpurec_torch.ops import kernels
+
+    sgd = name == "sgd"
+    rng = np.random.default_rng(5)
+    sides = [_chain_lists(card, sgd) for _ in range(3)]  # kernel, plain, the state before
+    before = kernels.adam_update_fused.launches
+    for step in range(1, 4):
+        grads = _chain_grads(card, rng, step)
+        norm, limit = None, 0.0
+        if clip != "off":
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            limit = float(norm) * (2.0 if clip == "keep" else 0.5)
+        hp = dict(lr=1e-3 * step, bc1=1.0 - 0.9**step, bc2=1.0 - 0.999**step, b1=0.9, b2=0.999,
+                  eps=1e-7, weight_decay=1e-2 if name == "adamw" else 0.0, norm=norm, clip=limit)
+        for fn, s in zip((kernels.adam_update_fused, kernels.adam_update_plain), sides[:2]):
+            fn(s["p"], grads, None if sgd else s["m"], None if sgd else s["v"],
+               l2=s["l2"] if terms else None, row_coef=s["coef"] if terms else None, **hp)
+    torch.cuda.synchronize()
+    assert kernels.adam_update_fused.launches - before == 3
+    for key in ("p",) if sgd else ("p", "m", "v"):
+        for i, (got, want, was) in enumerate(zip(*(side[key] for side in sides))):
+            assert not torch.equal(got, was)
+            worst = int(_ulps(got, want).max())
+            assert worst <= 4, f"{key}[{i}] {_CHAIN_TENSORS[i]}: {worst} ulps"
+
+
+@pytest.mark.cuda
+def test_adam_update_kernel_cuts_a_long_list_into_launches(card):
+    """A list longer than one launch takes (``adam_update_max_tensors()``)
+    runs in launches of that many, and every tensor is updated as the plain
+    twin updates it."""
+    from tpurec_torch.ops import kernels
+
+    per_launch = kernels._library("adam_update").adam_update_max_tensors()
+    n = 2 * per_launch + 3
+    rng = np.random.default_rng(7)
+    state = [torch.as_tensor(rng.standard_normal((n, 33)), dtype=torch.float32, device=card)
+             for _ in range(4)]
+    state[3] = state[3].abs()
+    sides = [[list(t.clone().unbind(0)) for t in state] for _ in range(2)]
+    hp = dict(lr=1e-3, bc1=0.1, bc2=1.0 - 0.999, b1=0.9, b2=0.999, eps=1e-7)
+    before = kernels.adam_update_fused.launches
+    kernels.adam_update_fused(sides[0][0], sides[0][1], sides[0][2], sides[0][3], **hp)
+    kernels.adam_update_plain(sides[1][0], sides[1][1], sides[1][2], sides[1][3], **hp)
+    torch.cuda.synchronize()
+    assert kernels.adam_update_fused.launches - before == 3
+    for k in (0, 2, 3):
+        for got, want in zip(sides[0][k], sides[1][k]):
+            assert int(_ulps(got, want).max()) <= 4
+
+
+@pytest.mark.cuda
+def test_adam_update_kernel_launches_from_its_kept_table(card):
+    """With a ``cache`` the wrapper builds its descriptor table once and
+    launches from it while every address is the same, gives the bits of a
+    call without one, rebuilds the table when a gradient moves, and checks
+    a tensor it has not seen at that address."""
+    from tpurec_torch.ops import kernels
+
+    rng = np.random.default_rng(10)
+    lists = _chain_lists(card, False)
+    sides = [{k: [t.clone() for t in lists[k]] for k in ("p", "m", "v")} for _ in range(2)]
+    grads = _chain_grads(card, rng, 1)
+    hp = dict(lr=1e-3, bc1=0.1, bc2=1.0 - 0.999, b1=0.9, b2=0.999, eps=1e-7, l2=lists["l2"],
+              row_coef=lists["coef"])
+    cache = {}
+    for step in range(3):
+        kernels.adam_update_fused(sides[0]["p"], grads, sides[0]["m"], sides[0]["v"], **hp, cache=cache)
+        kernels.adam_update_fused(sides[1]["p"], grads, sides[1]["m"], sides[1]["v"], **hp)
+        if step == 0:
+            tables = cache["tables"]
+        assert cache["tables"] is tables
+    moved = [g.clone() for g in grads]
+    kernels.adam_update_fused(sides[0]["p"], moved, sides[0]["m"], sides[0]["v"], **hp, cache=cache)
+    kernels.adam_update_fused(sides[1]["p"], moved, sides[1]["m"], sides[1]["v"], **hp)
+    assert cache["tables"] is not tables
+    torch.cuda.synchronize()
+    for k in ("p", "m", "v"):
+        assert all(torch.equal(a, b) for a, b in zip(sides[0][k], sides[1][k]))
+    moved[2] = moved[2].to(torch.bfloat16)
+    with pytest.raises(TypeError, match="grads\\[2\\] must be float32"):
+        kernels.adam_update_fused(sides[0]["p"], moved, sides[0]["m"], sides[0]["v"], **hp, cache=cache)
+
+
+@pytest.mark.cuda
+def test_adam_update_on_a_table_matches_its_plain_math(card):
+    """The fused engine's ``adam_update_`` (the chain's kernel with one
+    tensor, fp32 bias corrections) against the plain twin on the same table
+    over three steps: within 4 ulps, one launch a step."""
+    from tpurec_torch.embedding.sparse import bias_correction
+    from tpurec_torch.ops import embedding_update as eu
+    from tpurec_torch.ops import kernels
+
+    rng = np.random.default_rng(8)
+    state = [torch.as_tensor(a, dtype=torch.float32, device=card) for a in (
+        0.05 * rng.standard_normal((4099, 10)), 0.01 * rng.standard_normal((4099, 10)),
+        np.abs(1e-4 * rng.standard_normal((4099, 10))))]
+    sides = [[t.clone() for t in state] for _ in range(2)]
+    before = kernels.adam_update_fused.launches
+    for step in range(1, 4):
+        g = torch.as_tensor(rng.standard_normal((4099, 10)), dtype=torch.float32, device=card)
+        eu.adam_update_(sides[0][0], sides[0][1], sides[0][2], g, step, 1e-3)
+        kernels.adam_update_plain([sides[1][0]], [g], [sides[1][1]], [sides[1][2]], lr=1e-3,
+                                  bc1=bias_correction(0.9, step), bc2=bias_correction(0.999, step),
+                                  b1=0.9, b2=0.999, eps=1e-7)
+    torch.cuda.synchronize()
+    assert kernels.adam_update_fused.launches - before == 3
+    for got, want in zip(*sides):
+        assert int(_ulps(got, want).max()) <= 4
+
+
+@pytest.mark.cuda
+def test_chain_optimizer_on_card_launches_the_kernel_once_a_step(card):
+    """``ChainOptimizer`` over a small MLP's parameters on the card, fed the
+    same gradients as the same optimizer on the CPU (the foreach chain
+    there): one launch a step, and the parameters and moments alike to fp32
+    rounding."""
+    from tpurec_torch.config import OptimizerConfig
+    from tpurec_torch.ops import kernels
+    from tpurec_torch.train.trainer import ChainOptimizer
+
+    torch.manual_seed(0)
+    nets = [torch.nn.Sequential(torch.nn.Linear(37, 64), torch.nn.ReLU(), torch.nn.Linear(64, 1))]
+    nets.append(torch.nn.Sequential(torch.nn.Linear(37, 64), torch.nn.ReLU(), torch.nn.Linear(64, 1)))
+    nets[1].load_state_dict(nets[0].state_dict())
+    nets[0].to(card)
+    config = OptimizerConfig(name="adamw", learning_rate=1e-2, weight_decay=1e-3, grad_clip_norm=0.5)
+    opts = [ChainOptimizer(list(n.named_parameters()), config, {}, {}) for n in nets]
+    rng = np.random.default_rng(9)
+    before = kernels.adam_update_fused.launches
+    for _ in range(3):
+        grads = [rng.standard_normal(tuple(p.shape)) for p in nets[1].parameters()]
+        for net, opt in zip(nets, opts):
+            for p, g in zip(net.parameters(), grads):
+                p.grad = torch.as_tensor(g, dtype=torch.float32, device=p.device)
+            opt.step()
+    torch.cuda.synchronize()
+    assert kernels.adam_update_fused.launches - before == 3
+    for (name, got), want in zip(nets[0].named_parameters(), nets[1].parameters()):
+        torch.testing.assert_close(got.detach().cpu(), want.detach(), atol=1e-6, rtol=1e-5, msg=name)
+        for key in ("mu", "nu"):
+            torch.testing.assert_close(opts[0].state[got][key].cpu(), opts[1].state[want][key],
+                                       atol=1e-7, rtol=1e-5, msg=name)

@@ -208,6 +208,99 @@ def test_wrappers_refuse_grad_off_the_cpu():
         tk.din_attention_fused(*args[:3], w1, *args[4:])
 
 
+def _adam_lists(device, n=2, shape=(4, 3)):
+    return [[torch.zeros(shape, device=device) for _ in range(n)] for _ in range(4)]
+
+
+_ADAM_HP = dict(lr=1e-3, bc1=0.1, bc2=1e-3, b1=0.9, b2=0.999, eps=1e-7)
+
+
+@pytest.mark.parametrize("fault,error,match", [
+    ("cpu_grad", ValueError, "grads\\[1\\] is on cpu"),
+    ("bf16_moment", TypeError, "mus\\[0\\] must be float32"),
+    ("fp16_param", TypeError, "params\\[1\\] must be float32"),
+    ("strided", ValueError, "params\\[0\\] must be contiguous"),
+    ("shape", ValueError, "nus\\[1\\] has shape"),
+    ("short_list", ValueError, "1 grads for 2 params"),
+    ("row_coef", ValueError, "row_coef\\[0\\] must be one contiguous value a row"),
+    ("norm", ValueError, "norm must be one value"),
+    ("none", ValueError, "neither CPU nor CUDA"),
+])
+def test_adam_update_wrapper_refuses_what_the_kernel_does_not_take(fault, error, match):
+    """The chain kernel's wrapper checks every tensor before it reaches the
+    device (here on the ``meta`` device, so the checks run without a card):
+    a tensor on another device, fp16/bf16 state, a strided tensor, a shape
+    that is not its parameter's, lists of other lengths, row coefficients
+    that are not one a row, a norm of more than one value; a list that
+    passes them all then meets the device check."""
+    params, grads, mus, nus = _adam_lists("meta")
+    extra = {}
+    if fault == "cpu_grad":
+        grads[1] = torch.zeros(4, 3)
+    elif fault == "bf16_moment":
+        mus[0] = mus[0].to(torch.bfloat16)
+    elif fault == "fp16_param":
+        params[1] = params[1].to(torch.float16)
+    elif fault == "strided":
+        params[0] = torch.zeros(3, 4, device="meta").t()
+    elif fault == "shape":
+        nus[1] = torch.zeros(12, device="meta")
+    elif fault == "short_list":
+        grads = grads[:1]
+    elif fault == "row_coef":
+        extra["row_coef"] = [torch.zeros(3, 1, device="meta"), None]
+    elif fault == "norm":
+        extra.update(norm=torch.zeros(2, device="meta"), clip=1.0)
+    before = tk.adam_update_fused.launches
+    with torch.no_grad(), pytest.raises(error, match=match):
+        tk.adam_update_fused(params, grads, mus, nus, **_ADAM_HP, **extra)
+    assert tk.adam_update_fused.launches == before
+
+
+@pytest.mark.parametrize("fault", ["bf16_moment", "shape", "none"])
+def test_adam_update_wrapper_checks_before_it_keeps_a_table(fault):
+    """With a caller's ``cache`` the wrapper checks a list it has not seen
+    as it checks one without, and keeps nothing of a list it refused."""
+    params, grads, mus, nus = _adam_lists("meta")
+    if fault == "bf16_moment":
+        mus[0] = mus[0].to(torch.bfloat16)
+    elif fault == "shape":
+        nus[1] = torch.zeros(12, device="meta")
+    cache = {}
+    with torch.no_grad(), pytest.raises((TypeError, ValueError)):
+        tk.adam_update_fused(params, grads, mus, nus, **_ADAM_HP, cache=cache)
+    assert cache == {}
+
+
+def test_adam_update_wrapper_refuses_params_that_require_grad_under_grad():
+    params, grads, mus, nus = _adam_lists("meta")
+    params = [p.requires_grad_() for p in params]
+    with pytest.raises(RuntimeError, match="requires grad"):
+        tk.adam_update_fused(params, grads, mus, nus, **_ADAM_HP)
+
+
+def test_adam_update_wrapper_takes_plain_on_cpu():
+    """On the CPU the wrapper is its plain twin, bit for bit, and launches
+    nothing."""
+    rng = np.random.default_rng(12)
+    state = [[torch.from_numpy(rng.standard_normal((5, 7)).astype(np.float32)) for _ in range(3)]
+             for _ in range(4)]
+    state[3] = [v.abs() for v in state[3]]
+    sides = [[[t.clone() for t in ts] for ts in state] for _ in range(2)]
+    hp = dict(_ADAM_HP, weight_decay=0.01, l2=[0.1, None, None],
+              row_coef=[None, torch.full((5, 1), 0.2), None], norm=torch.tensor(3.0), clip=1.0)
+    before = tk.adam_update_fused.launches
+    tk.adam_update_fused(*sides[0], **hp)
+    tk.adam_update_plain(*sides[1], **hp)
+    assert tk.adam_update_fused.launches == before
+    for got, want in zip(sides[0], sides[1]):
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert not torch.equal(sides[0][0][0], state[0][0])
+    tk.adam_update_fused.launches = 4
+    tk.reset_launch_counts()
+    assert tk.adam_update_fused.launches == 0
+
+
 def test_bwd_wrapper_takes_plain_on_cpu():
     args = _torch(_din_inputs(10, b=5, l=7, d=16, h=9))
     gp, gs = _torch(_cotangents(11, 5, 7, 16))

@@ -219,6 +219,37 @@ _CHAIN = {
 }
 
 
+@pytest.mark.parametrize("name", ["adam", "adamw", "sgd"])
+def test_chain_optimizer_on_cpu_launches_nothing(name):
+    """On CPU parameters ``ChainOptimizer`` takes the chain's plain twin (the
+    foreach ops) and launches no kernel: the counter stays where it was, and
+    the step is the twin's, bit for bit."""
+    from tpurec_torch.config import OptimizerConfig
+    from tpurec_torch.ops import kernels
+    from tpurec_torch.train.trainer import ChainOptimizer
+
+    torch.manual_seed(3)
+    net = torch.nn.Linear(6, 4)
+    want = [p.detach().clone() for p in net.parameters()]
+    grads = [torch.randn_like(p) for p in want]
+    for p, g in zip(net.parameters(), grads):
+        p.grad = g.clone()
+    oc = OptimizerConfig(name=name, weight_decay=0.01, grad_clip_norm=0.1)
+    opt = ChainOptimizer(list(net.named_parameters()), oc, {"weight": 0.5}, {})
+    before = kernels.adam_update_fused.launches
+    opt.step()
+    assert kernels.adam_update_fused.launches == before
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    moments = None if name == "sgd" else [[torch.zeros_like(p) for p in want] for _ in range(2)]
+    kernels.adam_update_plain(
+        want, grads, *(moments or (None, None)), lr=oc.learning_rate, bc1=1.0 - oc.b1,
+        bc2=1.0 - oc.b2, b1=oc.b1, b2=oc.b2, eps=oc.eps,
+        weight_decay=0.01 if name == "adamw" else 0.0, l2=[0.5, None], norm=norm, clip=0.1,
+    )
+    for p, w in zip(net.parameters(), want):
+        assert torch.equal(p.detach(), w)
+
+
 @pytest.mark.parametrize("variant", list(_CHAIN))
 def test_optimizer_chain_matches_jax(variant):
     """Three steps of each variant: the parameters after every step, the loss

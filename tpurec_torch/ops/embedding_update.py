@@ -91,12 +91,13 @@ def adam_update_(
     """optax Adam on whole tensors (``adam_update``), IN PLACE: ``m`` and
     ``v`` take the new moments and ``table`` the new weights; returns the
     three. ``step`` counts from 1; the bias corrections are fp32, as JAX
-    computes them."""
+    computes them. The one Adam of the port, ``ChainOptimizer``'s, on a list
+    of one: ``kernels.adam_update_fused`` (its kernel on CUDA tensors)."""
     with torch.no_grad():
-        m.mul_(b1).add_(g, alpha=1.0 - b1)
-        v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
-        denom = (v / bias_correction(b2, step)).sqrt_().add_(eps)
-        table.addcdiv_(m, denom, value=-lr / bias_correction(b1, step))
+        kernels.adam_update_fused(
+            [table], [g], [m], [v], lr=lr, bc1=bias_correction(b1, step),
+            bc2=bias_correction(b2, step), b1=b1, b2=b2, eps=eps,
+        )
     return table, m, v
 
 

@@ -51,6 +51,13 @@ training mode takes the plain version (``tpurec_torch.ops.interactions``).
   routing module takes them outside training mode, its own math in
   training (``tpurec_torch.ops.capsule``), as the JAX package does.
 
+- ``adam_update_fused``: CUDA C++ for ``sm_90a``
+  (``tpurec_torch/csrc/adam_update.cu``), the ``ctypes`` route. Replaces no
+  TPU kernel: the optimizer chain (clip, coupled L2, adam | adamw | sgd) over
+  a whole list of tensors in one pass and one launch, where PyTorch's
+  foreach ops (``adam_update_plain``) make ~24 passes. ``ChainOptimizer`` and
+  the fused engine's ``adam_update_`` call it.
+
 The sorted-stream embedding kernels (``fused_scatter_add``,
 ``gather_rows_sorted``, CUDA C++ in ``tpurec_torch/csrc/embedding_update.cu``)
 have their wrappers in ``tpurec_torch.ops.embedding_update`` and are built and
@@ -73,6 +80,7 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 _PACKAGE = Path(__file__).resolve().parents[1]
@@ -88,8 +96,10 @@ CUDA_SOURCES = {
     "capsule_routing": "capsule_routing.cu",
     "fm_second_order": "fm_second_order.cu",
     "cross_network": "cross_network.cu",
+    "adam_update": "adam_update.cu",
 }
 _I, _I64, _P, _SIZE = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p, ctypes.c_size_t
+_F = ctypes.c_float
 # the C functions each source exports and ``_library`` binds: name →
 # (argument types, result type); every pointer and the stream are c_void_p
 _COMMON_FUNCTIONS = {"tpurec_cuda_error_string": ([_I], ctypes.c_char_p)}
@@ -139,6 +149,10 @@ C_FUNCTIONS = {
         "cross_network_route": ([_I] * 2, _I),
         "cross_network_resident": ([_I] * 3, _I),
         "cross_network_forward": ([_P] * 4 + [_I] * 5 + [_P], _I),
+    },
+    "adam_update": {
+        "adam_update_max_tensors": ([], _I),
+        "adam_update_launch": ([_P, _I, _I] + [_F] * 9 + [_P, _F, _P], _I),
     },
 }
 NVCC_FLAGS = [
@@ -1364,6 +1378,209 @@ class CapsuleRouting(torch.autograd.Function):
         return db, None, ds, dl0, None
 
 
+# --------------------------------------------------------------------------
+# the optimizer chain: clip, coupled L2, adam | adamw | sgd over a list
+def adam_update_plain(
+    params: Sequence[torch.Tensor],
+    grads: Sequence[torch.Tensor],
+    mus: Optional[Sequence[torch.Tensor]],
+    nus: Optional[Sequence[torch.Tensor]],
+    *,
+    lr: float,
+    bc1: float,
+    bc2: float,
+    b1: float,
+    b2: float,
+    eps: float,
+    weight_decay: float = 0.0,
+    l2: Optional[Sequence[Optional[float]]] = None,
+    row_coef: Optional[Sequence[Optional[torch.Tensor]]] = None,
+    norm: Optional[torch.Tensor] = None,
+    clip: float = 0.0,
+) -> None:
+    """One step of ``tpurec/train/trainer.py:167-286``'s chain over the
+    lists, IN PLACE, as PyTorch foreach ops: with ``norm`` (the gradients'
+    global norm, a 0-dim tensor) each gradient takes optax's clip,
+    ``g·clip/norm`` unless norm < clip; then ``g += l2[i]·p`` and
+    ``g += row_coef[i]·p`` (a coefficient a row, broadcast over the row)
+    where given; then optax's Adam, ``p -= lr·(m/bc1)/(sqrt(v/bc2) + eps)``
+    (plus ``weight_decay·p`` inside the step: adamw), on the moments ``mus``
+    and ``nus``, or SGD, ``p -= lr·g``, where ``mus`` is None. ``bc1`` and
+    ``bc2`` are the bias corrections ``1 - b**count``, each as its caller
+    computes it. The CPU path of ``adam_update_fused`` and its yardstick on
+    the card."""
+    if norm is not None:
+        keep = norm < clip
+        grads = [torch.where(keep, g, g / norm * clip) for g in grads]
+    grads = list(grads)
+    for i, p in enumerate(params):
+        if l2 is not None and l2[i] is not None:
+            grads[i] = grads[i] + l2[i] * p
+        if row_coef is not None and row_coef[i] is not None:
+            grads[i] = grads[i] + row_coef[i] * p
+    if mus is None:
+        torch._foreach_add_(params, grads, alpha=-lr)
+        return
+    torch._foreach_mul_(mus, b1)
+    torch._foreach_add_(mus, grads, alpha=1.0 - b1)
+    torch._foreach_mul_(nus, b2)
+    torch._foreach_addcmul_(nus, grads, grads, value=1.0 - b2)
+    # optax scale_by_adam: mu_hat / (sqrt(nu_hat) + eps), eps_root = 0
+    denom = torch._foreach_div(nus, bc2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, eps)
+    updates = torch._foreach_div(mus, bc1)
+    torch._foreach_div_(updates, denom)
+    if weight_decay:
+        torch._foreach_add_(updates, params, alpha=weight_decay)
+    torch._foreach_add_(params, updates, alpha=-lr)
+
+
+# one tensor of a launch, field by field as ``struct AdamTensor`` in
+# csrc/adam_update.cu: the four arrays, the row coefficients (0 for none),
+# elements, elements a row, the L2 coefficient and whether it applies
+_ADAM_TENSOR = np.dtype([
+    ("p", np.uint64), ("g", np.uint64), ("m", np.uint64), ("v", np.uint64), ("coef", np.uint64),
+    ("n", np.int64), ("width", np.int64), ("l2", np.float32), ("has_l2", np.int32),
+])
+
+
+def _refuse_adam_tensor(what: str, t: torch.Tensor, device: torch.device, shape) -> None:
+    if t.device != device:
+        raise ValueError(f"{what} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{what} must be float32, got {t.dtype}")
+    if t.shape != shape:
+        raise ValueError(f"{what} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    raise ValueError(f"{what} must be contiguous")
+
+
+def _adam_tables(what, params, grads, mus, nus, l2, row_coef, device) -> list:
+    """Checks every tensor of ``adam_update_fused``'s lists and returns the
+    kernel's descriptor tables, one a launch."""
+    lists = {"params": params, "grads": grads}
+    if mus is not None:
+        lists.update(mus=mus, nus=nus)
+    for name, ts in lists.items():
+        if len(ts) != len(params):
+            raise ValueError(f"{what}: {len(ts)} {name} for {len(params)} params")
+    rows = []
+    f32 = torch.float32
+    for i, p in enumerate(params):
+        shape = p.shape
+        for name, ts in lists.items():
+            t = ts[i]
+            if t.device != device or t.dtype != f32 or t.shape != shape or not t.is_contiguous():
+                _refuse_adam_tensor(f"{what}: {name}[{i}]", t, device, shape)
+        coef = None if row_coef is None else row_coef[i]
+        if coef is not None:
+            _require_cuda_f32(what, device, row_coef=coef)
+            if p.dim() == 0 or coef.numel() != p.shape[0] or not coef.is_contiguous():
+                raise ValueError(
+                    f"{what}: row_coef[{i}] must be one contiguous value a row of params[{i}] "
+                    f"{tuple(p.shape)}, got {tuple(coef.shape)}"
+                )
+        lam = None if l2 is None else l2[i]
+        n = p.numel()
+        if n:
+            rows.append((
+                p.data_ptr(), grads[i].data_ptr(),
+                0 if mus is None else mus[i].data_ptr(), 0 if nus is None else nus[i].data_ptr(),
+                0 if coef is None else coef.data_ptr(), n, 1 if coef is None else n // coef.numel(),
+                0.0 if lam is None else lam, lam is not None,
+            ))
+    _require_cuda(what, params[0])
+    if not rows:
+        return []
+    per_launch = _library("adam_update").adam_update_max_tensors()
+    return [np.array(rows[s:s + per_launch], dtype=_ADAM_TENSOR) for s in range(0, len(rows), per_launch)]
+
+
+def adam_update_fused(
+    params: Sequence[torch.Tensor],
+    grads: Sequence[torch.Tensor],
+    mus: Optional[Sequence[torch.Tensor]],
+    nus: Optional[Sequence[torch.Tensor]],
+    *,
+    lr: float,
+    bc1: float,
+    bc2: float,
+    b1: float,
+    b2: float,
+    eps: float,
+    weight_decay: float = 0.0,
+    l2: Optional[Sequence[Optional[float]]] = None,
+    row_coef: Optional[Sequence[Optional[torch.Tensor]]] = None,
+    norm: Optional[torch.Tensor] = None,
+    clip: float = 0.0,
+    cache: Optional[dict] = None,
+) -> None:
+    """``adam_update_plain``'s step, IN PLACE. CPU tensors take
+    ``adam_update_plain``. CUDA tensors launch the kernel of
+    ``csrc/adam_update.cu``: every element read once and written once, the
+    whole list in one launch (a launch a ``adam_update_max_tensors()``
+    tensors), the same bits as the plain version's foreach ops; ``norm`` is
+    read on the device, so the host never waits. Every tensor must be a
+    contiguous fp32 array on the params' device, each gradient and moment of
+    its parameter's shape, and each row coefficient one a row of its
+    parameter (``norm`` one fp32 value); anything else raises. It records no
+    backward.
+
+    ``cache`` is a dict the caller keeps for lists whose tensors keep their
+    shape, dtype and layout at each position, as an optimizer's parameters,
+    moments and gradients do (autograd gives a gradient its parameter's
+    shape and strides). It holds the checked descriptor tables: a later call
+    whose tensors all sit at the same addresses, with the same L2 terms,
+    launches from them without checking the tensors again, and any other
+    call checks and rebuilds them."""
+    if not params:
+        return
+    device = params[0].device
+    if device.type == "cpu":
+        adam_update_plain(params, grads, mus, nus, lr=lr, bc1=bc1, bc2=bc2, b1=b1, b2=b2, eps=eps,
+                          weight_decay=weight_decay, l2=l2, row_coef=row_coef, norm=norm, clip=clip)
+        return
+    what = "adam_update"
+    _refuse_grad(what, *params)
+    if norm is not None:
+        _require_cuda_f32(what, device, norm=norm)
+        if norm.numel() != 1:
+            raise ValueError(f"{what}: norm must be one value, got {tuple(norm.shape)}")
+    tables = key = None
+    if cache is not None:
+        moments = () if mus is None else (mus, nus)
+        key = (
+            device, len(params), tuple(map(len, (grads, *moments))), None if l2 is None else tuple(l2),
+            None if row_coef is None else tuple(0 if c is None else c.data_ptr() for c in row_coef),
+            tuple(t.data_ptr() for ts in (params, grads, *moments) for t in ts),
+        )
+        if cache.get("key") == key:
+            tables = cache["tables"]
+    if tables is None:
+        tables = _adam_tables(what, params, grads, mus, nus, l2, row_coef, device)
+        if cache is not None:
+            cache.update(key=key, tables=tables)
+    if not tables:
+        return
+    mode = 2 if mus is None else 1 if weight_decay else 0
+    lib = _library("adam_update")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for table in tables:
+            err = lib.adam_update_launch(
+                table.ctypes.data, len(table), mode, lr, b1, b2, 1.0 - b1, 1.0 - b2,
+                # PyTorch's foreach ops on CUDA divide by a scalar as a product
+                # with its reciprocal, taken in double and rounded to fp32
+                1.0 / bc1, 1.0 / bc2, eps,
+                weight_decay, None if norm is None else norm.data_ptr(), clip, stream,
+            )
+            _check_launch(lib, err, what)
+            adam_update_fused.launches += 1
+
+
+adam_update_fused.launches = 0
+
+
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0 (those of
     ``tpurec_torch.ops.embedding_update`` too)."""
@@ -1377,5 +1594,6 @@ def reset_launch_counts() -> None:
     senet_bilinear_fused.launches = 0
     capsule_routing_fused.launches = 0
     capsule_routing_bwd_fused.launches = 0
+    adam_update_fused.launches = 0
     embedding_update.fused_scatter_add.launches = 0
     embedding_update.gather_rows_sorted.launches = 0

@@ -95,6 +95,7 @@ from tpurec_torch.models.registry import replicated_batch, sharded_weights
 from tpurec_torch.models.mind import sampling_generator
 from tpurec_torch.ops.mlp import dropout_generator
 from tpurec_torch.ops import embedding_update as eu
+from tpurec_torch.ops import kernels
 from tpurec_torch.train import checkpoint as ckpt_lib
 from tpurec_torch.train.losses import add_auxiliary, get_loss, tower_logits
 
@@ -249,6 +250,9 @@ class ChainOptimizer(torch.optim.Optimizer):
     State per parameter: ``mu``, ``nu`` (Adam moments); ``count`` (updates
     applied) is kept in every group. The learning rate is computed on the
     host from ``count``, so a step never waits for the device.
+    A step is ``ops.kernels.adam_update_fused`` over the whole list: on CUDA
+    tensors one pass of the hand-written kernel, reading the clip's norm on
+    the device; on the CPU its plain twin, PyTorch's foreach ops.
     On a mesh the parameters named in ``sharded`` (tables and
     tensor-parallel weights split over 'model') enter the clip's global norm
     with every model rank's share (``model_group``); every other parameter,
@@ -276,6 +280,8 @@ class ChainOptimizer(torch.optim.Optimizer):
         self.row_decay = row_decay
         self.sharded = {n for n, _ in named_params if n in sharded and model_group is not None}
         self.model_group = model_group
+        # the kernel's checked descriptor tables, rebuilt when an address moves
+        self.launch_cache: dict = {}
 
     def learning_rate(self, count: int) -> float:
         """The learning rate of the update after ``count`` updates."""
@@ -294,6 +300,7 @@ class ChainOptimizer(torch.optim.Optimizer):
         names = [g["name"] for g in self.param_groups]
         params = [g["params"][0] for g in self.param_groups]
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        norm = None
         if oc.grad_clip_norm > 0:
             norms = torch._foreach_norm(grads)
             if self.sharded:
@@ -304,41 +311,27 @@ class ChainOptimizer(torch.optim.Optimizer):
                 norm = (whole + (torch.stack(rest).square().sum() if rest else 0.0)).sqrt()
             else:
                 norm = torch.linalg.vector_norm(torch.stack(norms))
-            keep = norm < oc.grad_clip_norm
-            grads = [torch.where(keep, g, g / norm * oc.grad_clip_norm) for g in grads]
-        for i, (name, p) in enumerate(zip(names, params)):
-            if name in self.decay:
-                grads[i] = grads[i] + self.decay[name] * p
-            if name in self.row_decay:
-                grads[i] = grads[i] + self.row_decay[name] * p
         count = self.param_groups[0]["count"]
         lr = self.learning_rate(count)
         count += 1
         for g in self.param_groups:
             g["count"] = count
-        if oc.name == "sgd":
-            torch._foreach_add_(params, grads, alpha=-lr)
-            return None
-        for p in params:
-            st = self.state[p]
-            if "mu" not in st:
-                st["mu"] = torch.zeros_like(p)
-                st["nu"] = torch.zeros_like(p)
-        mus = [self.state[p]["mu"] for p in params]
-        nus = [self.state[p]["nu"] for p in params]
-        torch._foreach_mul_(mus, oc.b1)
-        torch._foreach_add_(mus, grads, alpha=1.0 - oc.b1)
-        torch._foreach_mul_(nus, oc.b2)
-        torch._foreach_addcmul_(nus, grads, grads, value=1.0 - oc.b2)
-        # optax scale_by_adam: mu_hat / (sqrt(nu_hat) + eps), eps_root = 0
-        denom = torch._foreach_div(nus, 1.0 - oc.b2**count)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, oc.eps)
-        updates = torch._foreach_div(mus, 1.0 - oc.b1**count)
-        torch._foreach_div_(updates, denom)
-        if oc.name == "adamw" and oc.weight_decay:
-            torch._foreach_add_(updates, params, alpha=oc.weight_decay)
-        torch._foreach_add_(params, updates, alpha=-lr)
+        mus = nus = None
+        if oc.name != "sgd":
+            for p in params:
+                st = self.state[p]
+                if "mu" not in st:
+                    st["mu"] = torch.zeros_like(p)
+                    st["nu"] = torch.zeros_like(p)
+            mus = [self.state[p]["mu"] for p in params]
+            nus = [self.state[p]["nu"] for p in params]
+        kernels.adam_update_fused(
+            params, grads, mus, nus, lr=lr, bc1=1.0 - oc.b1**count, bc2=1.0 - oc.b2**count,
+            b1=oc.b1, b2=oc.b2, eps=oc.eps,
+            weight_decay=oc.weight_decay if oc.name == "adamw" else 0.0,
+            l2=[self.decay.get(n) for n in names], row_coef=[self.row_decay.get(n) for n in names],
+            norm=norm, clip=oc.grad_clip_norm, cache=self.launch_cache,
+        )
         return None
 
 
