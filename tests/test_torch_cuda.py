@@ -2233,3 +2233,109 @@ def test_chain_optimizer_on_card_launches_the_kernel_once_a_step(card):
         for key in ("mu", "nu"):
             torch.testing.assert_close(opts[0].state[got][key].cpu(), opts[1].state[want][key],
                                        atol=1e-7, rtol=1e-5, msg=name)
+
+
+@pytest.mark.cuda
+def test_padded_lookup_on_card_gives_the_embedding_gradient(card):
+    """``padded_lookup`` on the card at the benchmark's size of one series
+    (8192 × 1,024 ids, a fifth of them padding, D = 32): the lookup is
+    ``F.embedding``'s, and its gradient is ``F.embedding``'s, summed in
+    another order, row by row within 2^-20 of the sum of the row's
+    cotangents' magnitudes plus 1e-7 (the padding row's cotangent is not
+    zero here)."""
+    import torch.nn.functional as F
+
+    from tpurec_torch.embedding.ops import padded_lookup
+
+    gen = torch.Generator(device=card).manual_seed(11)
+    table = torch.randn(100_000, 32, device=card, generator=gen)
+    ids = torch.randint(1, 100_000, (8192, 1024), device=card, generator=gen)
+    ids[:, 820:] = 0
+    cot = torch.randn(8192, 1024, 32, device=card, generator=gen)
+    grads = []
+    for lookup in (F.embedding, lambda i, t: padded_lookup(t, i, 0)):
+        x = table.clone().requires_grad_()
+        out = lookup(ids, x)
+        assert torch.equal(out, table[ids])
+        out.backward(cot)
+        grads.append(x.grad)
+        del out, x
+    scale = torch.zeros_like(table).index_add_(0, ids.reshape(-1), cot.reshape(-1, 32).abs())
+    assert (grads[1] - grads[0]).abs().le(scale * 2.0**-20 + 1e-7).all()
+
+
+@pytest.mark.cuda
+def test_trace_device_ms_agrees_with_the_profiler(card, tmp_path):
+    """A span opened with device events around ten fp32 products of 4096 ×
+    4096 reads, by its CUDA event pair, the device time the profiler's
+    trace gives its kernels, within 5 % and 0.05 ms (the events also hold
+    the gaps between the launches, a few µs each)."""
+    import json
+
+    from tpurec_torch.core import trace
+
+    a = torch.randn(4096, 4096, device=card)
+    torch.mm(a, a)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        rec = trace.start(count_syncs=False, device_events=True)
+        try:
+            with trace.span("mm"):
+                for _ in range(10):
+                    torch.mm(a, a)
+        finally:
+            trace.stop()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    with open(tmp_path / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    assert len(kernels) == 10
+    kernel_ms = sum(float(e["dur"]) for e in kernels) * 1e-3
+    span_ms = rec.named("mm")[0].device_ms
+    assert abs(span_ms - kernel_ms) <= 0.05 * kernel_ms + 0.05, (span_ms, kernel_ms)
+
+
+@pytest.mark.cuda
+def test_eta_at_1024_steps_on_card_matches_the_plain_reference(card):
+    """ETA at the benchmark's configuration (``eta_taobao``: Taobao
+    UserBehavior's 5.16M ids, L = 1,024, key width 64, topk 16, 16 bits)
+    on B = 512 of the cell's traffic, fp32 on the card in eval mode, against
+    the benchmark's plain reference (``portbench/reference/eta.py``) on the
+    CPU with the same weights and projection: each SimHash bit of the card
+    equal to the CPU's on the same inputs unless its product lies within
+    ``SIGN_MARGIN`` of 0; on the rows without such a flip the picks equal
+    and both heads' logits to ``TOL``."""
+    import dataclasses
+
+    from portbench.lib import spec, traffic
+    from portbench.reference import eta
+    from portbench.reference.common import make_weights
+
+    cell = spec.load_cell("eta_taobao.train_long")
+    cfg = dict(cell.config, compute_dtype="float32")
+    mix = dict(cell.traffic, batch=512, pool=1)
+    cell = dataclasses.replace(cell, config=cfg, traffic=mix)
+    seed = 2**31 + 28
+    batch = traffic.make_pool(cfg, mix, seed)[0]
+    batch.pop("label")
+    driver = spec.load_module("drivers", "train_two_stage")
+    model = driver.trainer(cfg, mix, card).init_state(seed=1).model.eval()
+    weights = make_weights(eta.layout(cfg), seed, torch.device("cpu"))
+    proj = eta.projection(cfg, seed, torch.device("cpu"))
+    model.load_state_dict({k: v.to(card) for k, v in dict(weights, hash_proj=proj).items()})
+    with torch.inference_mode():
+        got, card_bits = _recorded_bits(
+            lambda: model({k: torch.as_tensor(v, device=card) for k, v in batch.items()}))
+        torch.cuda.synchronize()
+        want = eta.forward(weights, {k: torch.as_tensor(v) for k, v in batch.items()}, cfg,
+                           lambda x: x, proj)
+    assert len(card_bits) == 2 and card_bits[1][0].shape == (512, 1024, 64)
+    cpu_bits = [(x, p, eta.simhash(x, p).to(torch.int32)) for x, p, _ in card_bits]
+    flipped, flips = _flipped_rows(card_bits, cpu_bits)
+    keep = torch.tensor([r not in flipped for r in range(512)])
+    assert keep.sum() >= 512 - 8, sorted(flipped)
+    assert torch.equal(got["topk_indices"].cpu().long()[keep], want[2][keep])
+    for key, ref in (("gsu_logits", want[0]), ("esu_logits", want[1])):
+        torch.testing.assert_close(got[key].cpu()[keep], ref[keep], **TOL,
+                                   msg=lambda m, k=key: f"{k}: {m}")

@@ -142,6 +142,34 @@ def test_contiguous_take_backward_writes_each_run_once():
     np.testing.assert_array_equal(x.grad.numpy(), np.asarray(vjp(jnp.asarray(cot))[0]))
 
 
+
+@pytest.mark.parametrize("pad, padded_cotangent", [(0, 0.0), (0, 1.0), (7, 1.0)])
+def test_padded_lookup_gives_the_embedding_gradient(pad, padded_cotangent):
+    """``padded_lookup`` looks up as ``F.embedding`` and gives its gradient:
+    more padded positions than ``PADDING_SPREAD`` (so scratch rows take
+    several), live ids beside them, and the padding row's own cotangent
+    (zero, as a model's mask leaves it, or not) summed back into it."""
+    import torch.nn.functional as F
+
+    from tpurec_torch.embedding.ops import PADDING_SPREAD, padded_lookup
+
+    gen = torch.Generator().manual_seed(5)
+    table = torch.randn(50, 4, dtype=torch.float64, generator=gen)
+    ids = torch.randint(0, 50, (3, PADDING_SPREAD), generator=gen)
+    ids[:, 1000:] = pad
+    cot = torch.randn(3, PADDING_SPREAD, 4, dtype=torch.float64, generator=gen)
+    cot[ids == pad] *= padded_cotangent
+    grads = []
+    for lookup in (F.embedding, lambda i, t: padded_lookup(t, i, pad)):
+        x = table.clone().requires_grad_()
+        out = lookup(ids, x)
+        np.testing.assert_array_equal(out.detach().numpy(), table[ids].numpy())
+        out.backward(cot)
+        grads.append(x.grad)
+    np.testing.assert_allclose(grads[1].numpy(), grads[0].numpy(), rtol=1e-12, atol=1e-12)
+    assert grads[1].shape == table.shape
+
+
 # --------------------------------------------------------------------------
 # the lazy-sparse engine against JAX
 @pytest.mark.parametrize("model", ["fm", "din"])

@@ -176,3 +176,82 @@ def test_a_step_that_raises_inside_the_profile_leaves_tracing_off(tmp_path):
         trainer.train_epoch(state, [batch, batch, broken, batch])
     assert trace.recording() is None
     assert (tmp_path / "trace.json").exists()
+
+
+def tiny_eta_trainer():
+    names = ["user_id", "item_id", "item_cate"]
+    info = DataInfo.from_dims(names, [20, 30, 10], sequence_names=["hist_item", "hist_cate"],
+                              sequence_query_features=["item_id", "item_cate"], max_seq_length=12,
+                              user_features=["user_id"])
+    cfg = ExperimentConfig(
+        model=ModelConfig(name="eta", params={"topk": 4, "short_len": 3},
+                          embedding=EmbeddingConfig(dim=4)),
+        train=TrainConfig(compute_dtype="float32", log_every_steps=0, loss="gsu_esu"),
+    )
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(1, 13, size=(16,))
+    live = np.arange(12)[None, :] < lengths[:, None]
+    batch = {"user_id": rng.integers(0, 20, size=(16,)), "item_id": rng.integers(20, 50, size=(16,)),
+             "item_cate": rng.integers(50, 60, size=(16,)),
+             "hist_item": np.where(live, rng.integers(20, 50, size=(16, 12)), 0),
+             "hist_cate": np.where(live, rng.integers(50, 60, size=(16, 12)), 0),
+             "label": rng.integers(0, 2, size=(16,)).astype(np.float32)}
+    return Trainer(cfg, info, device="cpu"), batch
+
+
+def test_eta_opens_its_search_and_attention_once_a_forward_under_step_forward():
+    trainer, batch = tiny_eta_trainer()
+    state = trainer.init_state()
+    metric_state = trainer.metrics.init()
+    rec = trace.start()
+    for _ in range(2):
+        state, metric_state, _ = trainer.train_step(state, trainer.device_batch(batch), metric_state)
+    trace.stop()
+    for k in range(2):
+        spans = [(s.name, s.parent.name) for s in rec.spans if s.step == k and s.name.startswith("eta.")]
+        assert spans == [("eta.search", "step.forward"), ("eta.attend", "step.forward")]
+        search, attend = [s for s in rec.spans if s.step == k and s.name.startswith("eta.")]
+        assert search.end_ns <= attend.start_ns
+        assert search.device_ms is None and attend.device_ms is None
+
+
+class _Event:
+    """A stand-in for ``torch.cuda.Event``: counts what is made and
+    recorded, and reads 1 ms a pair."""
+
+    made = recorded = 0
+
+    def __init__(self, enable_timing=False):
+        assert enable_timing
+        type(self).made += 1
+
+    def record(self, stream=None):
+        type(self).recorded += 1
+
+    def elapsed_time(self, other):
+        return 1.0
+
+
+@pytest.mark.parametrize("device_events", [False, True])
+def test_device_events_only_when_asked(device_events, monkeypatch):
+    """With device events off (the default, and always without a CUDA
+    device) a span records no CUDA event; with them on, one pair a span,
+    the first at its open and the second at its close."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    _Event.made = _Event.recorded = 0
+    rec = trace.start(count_syncs=False, device_events=device_events)
+    with trace.span("step", ends_step=True):
+        assert _Event.recorded == (1 if device_events else 0)
+        trace.phase("step.forward")
+        with trace.span("eta.search"):
+            pass
+    trace.stop()
+    assert _Event.made == _Event.recorded == (6 if device_events else 0)
+    assert [s.device_ms for s in rec.spans] == ([1.0] * 3 if device_events else [None] * 3)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rec = trace.start(count_syncs=False, device_events=True)
+    with trace.span("step"):
+        pass
+    trace.stop()
+    assert rec.spans[0].device_ms is None

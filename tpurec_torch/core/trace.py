@@ -25,6 +25,10 @@ While it is on:
 - With ``start(record_function=True)`` each span is also a
   ``torch.profiler.record_function`` range, so a running profiler's trace
   shows it under the same name.
+- With ``start(device_events=True)`` on a CUDA machine each span also
+  records a CUDA event on the current stream when it opens and another when
+  it closes; after a synchronise ``Span.device_ms`` is the device time
+  between them (None without the events).
 
 The kernel wrappers' ``.launches`` stay the launch counts of the
 hand-written kernels; a profiler's trace counts every launch.
@@ -46,7 +50,7 @@ class Span:
     """One timed range; the context manager that opens and closes it."""
 
     __slots__ = ("name", "parent", "step", "start_ns", "end_ns", "syncs", "_rec", "_phase",
-                 "_ends_step", "_rf")
+                 "_ends_step", "_rf", "_events")
 
     def __init__(self, rec: "Recording", name: str, phase: bool = False, ends_step: bool = False):
         self.name = name
@@ -56,6 +60,7 @@ class Span:
         self.end_ns: Optional[int] = None
         self.syncs = 0
         self._rec, self._phase, self._ends_step, self._rf = rec, phase, ends_step, None
+        self._events = None
 
     def __enter__(self) -> "Span":
         self._rec._open(self)
@@ -69,16 +74,25 @@ class Span:
     def ms(self) -> float:
         return (self.end_ns - self.start_ns) * 1e-6
 
+    @property
+    def device_ms(self) -> Optional[float]:
+        """The device time from the span's open to its close, read after a
+        synchronise; None without device events."""
+        if self._events is None:
+            return None
+        return self._events[0].elapsed_time(self._events[1])
+
 
 class Recording:
     """The spans and sync counts of one stretch of tracing, in the order the
     spans opened."""
 
-    def __init__(self, record_function: bool = False):
+    def __init__(self, record_function: bool = False, device_events: bool = False):
         self.spans: List[Span] = []
         self.step = 0
         self.loose_syncs = 0
         self.record_function = record_function
+        self.device_events = device_events
         self._stack: List[Span] = []
         self._debug_mode = None
         self._warnings = None
@@ -94,6 +108,9 @@ class Recording:
             s._rf.__enter__()
         self.spans.append(s)
         self._stack.append(s)
+        if self.device_events:
+            s._events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            s._events[0].record()
         s.start_ns = time.time_ns()
 
     def _close(self, s: Span) -> None:
@@ -103,6 +120,8 @@ class Recording:
         while True:  # the phases left open inside s end with it
             top = self._stack.pop()
             top.end_ns = t
+            if top._events is not None:
+                top._events[1].record()
             if top._rf is not None:
                 top._rf.__exit__(None, None, None)
             if top is s:
@@ -148,13 +167,16 @@ def recording() -> Optional[Recording]:
     return _REC
 
 
-def start(record_function: bool = False, count_syncs: bool = True) -> Recording:
+def start(record_function: bool = False, count_syncs: bool = True,
+          device_events: bool = False) -> Recording:
     """Turn tracing on; raises if it is on already. ``count_syncs=False``
-    leaves torch's sync debug mode and the warnings alone."""
+    leaves torch's sync debug mode and the warnings alone;
+    ``device_events=True`` times each span on the device too, where there is
+    a CUDA device."""
     global _REC
     if _REC is not None:
         raise RuntimeError("tracing is on already")
-    rec = Recording(record_function)
+    rec = Recording(record_function, device_events and torch.cuda.is_available())
     if count_syncs:
         _count_syncs(rec)
     _REC = rec

@@ -54,6 +54,7 @@ from tpurec_torch.embedding.ops import (
     data_used_id_l2,
     local_rows,
     pad_vocab,
+    padded_lookup,
     row_sharded_lookup,
     sharded_used_id_l2,
     used_id_l2,
@@ -154,7 +155,10 @@ class EmbeddingTable(nn.Module):
             out[: hi - lo] = whole[lo:hi].to(out)
         return out
 
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, ids: torch.Tensor, padding_index: Optional[int] = None) -> torch.Tensor:
+        """The rows of ``ids``; ``padding_index`` names the padding id of a
+        padded series, whose many repeats the dense backward then spreads
+        (``padded_lookup``)."""
         rows = self.sparse_rows
         if rows is not None and self.sparse_layout == "direct":
             out = contiguous_take(rows, ids)
@@ -167,7 +171,12 @@ class EmbeddingTable(nn.Module):
                 # a (V, F, D) table is indexed: on the H100 its backward
                 # (``index_put_``) took less device time than
                 # ``embedding_dense_backward`` over the (V, F·D) view (PERF.md §5)
-                out = F.embedding(ids, table) if table.dim() == 2 else table[ids]
+                if table.dim() != 2:
+                    out = table[ids]
+                elif padding_index is not None and table.requires_grad and torch.is_grad_enabled():
+                    out = padded_lookup(table, ids, padding_index)
+                else:
+                    out = F.embedding(ids, table)
             if self.used_id_l2_terms is not None and self.training:
                 if mesh is not None:
                     term = sharded_used_id_l2(table, ids, mesh)

@@ -62,7 +62,7 @@ class _SeqBase(nn.Module):
     def _keys(self, inputs: Inputs):
         """(B, L, Fs·D) behavior embeddings + (B, L) mask."""
         mask = series_mask(inputs, self.sequence_features[0], self.padding_index)
-        embs = [self.emb(inputs[n]) for n in self.sequence_features]
+        embs = [self.emb(inputs[n], padding_index=self.padding_index) for n in self.sequence_features]
         keys = torch.cat(embs, dim=-1) if len(embs) > 1 else embs[0]
         return keys, mask
 

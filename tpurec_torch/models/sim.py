@@ -29,6 +29,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from tpurec_torch.core import trace
 from tpurec_torch.embedding.modules import SharedEmbedding
 from tpurec_torch.models.base import Inputs, Outputs, stack_ids
 from tpurec_torch.models.din import DIEN, _SeqBase
@@ -243,7 +244,10 @@ class ETA(_LongSeqBase):
     ``long_mha`` of the query over them (``gsu_logits``), and ``short_mha``
     over the ``short_len`` most recent valid steps (``esu_logits``). With
     ``lsh_self_attention`` the keys first get a residual of bucketed LSH
-    self-attention under ``lsh_self_proj`` (masked steps get none)."""
+    self-attention under ``lsh_self_proj`` (masked steps get none). Spans
+    (``core.trace``): ``eta.search`` (the codes, their similarity, the
+    top-k and the gather of the picks) and ``eta.attend`` (both
+    attentions)."""
 
     def __init__(self, *args, topk: int = 16, short_len: int = 8, n_hash_bits: int = 16,
                  num_heads: int = 2, lsh_self_attention: bool = False, lsh_self_bits: int = 4, **kw):
@@ -268,15 +272,17 @@ class ETA(_LongSeqBase):
             ctx = lsh_attention(keys.to(f32), keys.to(f32), self.lsh_self_proj, mask).to(keys.dtype)
             keys = keys + ctx * mask[..., None].to(keys.dtype)
         # long term: Hamming top-k retrieval against the candidate's code
-        sim = hamming_similarity(simhash_bits(query.to(f32), self.hash_proj),
-                                 simhash_bits(keys.to(f32), self.hash_proj)).to(f32)
-        top_idx, top_mask = topk_select(sim, mask, min(self.topk, keys.shape[1]))
-        sub = gather_steps(keys, top_idx)
-        long_att = self.long_mha(query[:, None, :], kv=sub, mask=top_mask)[:, 0]
+        with trace.span("eta.search"):
+            sim = hamming_similarity(simhash_bits(query.to(f32), self.hash_proj),
+                                     simhash_bits(keys.to(f32), self.hash_proj)).to(f32)
+            top_idx, top_mask = topk_select(sim, mask, min(self.topk, keys.shape[1]))
+            sub = gather_steps(keys, top_idx)
+        with trace.span("eta.attend"):
+            long_att = self.long_mha(query[:, None, :], kv=sub, mask=top_mask)[:, 0]
+            # short term: attention over the most recent valid steps
+            short_att = self.short_mha(query[:, None, :], kv=keys,
+                                       mask=_short_mask(mask, self.short_len))[:, 0]
         gsu_logits = self._two_class_head(torch.cat([profile, query, long_att], dim=-1), "gsu")
-        # short term: attention over the most recent valid steps
-        short_att = self.short_mha(query[:, None, :], kv=keys,
-                                   mask=_short_mask(mask, self.short_len))[:, 0]
         esu_logits = self._two_class_head(
             torch.cat([profile, query, long_att, short_att], dim=-1), "esu")
         return {
